@@ -1,0 +1,11 @@
+"""3-hop deep-GCN workload, fanouts (15, 10, 5), tiered cache (copy of
+``repro/configs/graphgen_gcn_deep.py``; its tiered probe waits for a later
+slice of the port)."""
+from ..core.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="graphgen-gcn-deep", family="gcn",
+    gcn_in_dim=128, gcn_hidden=256, n_classes=64, fanouts=(15, 10, 5),
+    cache_rows=4096, cache_admit=2, cache_assoc=4, cache_mode="tiered",
+    cache_l1_rows=512, cache_l1_promote=3, feature_store="device",
+)

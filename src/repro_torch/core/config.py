@@ -1,0 +1,99 @@
+"""The GCN and cache fields of ``repro.core.config.ModelConfig``.
+
+Only what the graph-serving slice reads is carried over: the model dims,
+the fanouts and the cache policy, with the same construction-time
+validation (``cache_rows`` is rounded UP to a power of two).  The LM-zoo
+fields, the shape/mesh configs and the hardware constants wait for the
+slices that need them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+#: cache associativities the probe/insert paths implement, the cache
+#: placement modes, the shard-probe wire formats and the feature stores
+VALID_CACHE_ASSOC = (1, 2, 4)
+VALID_CACHE_MODES = ("replicated", "sharded", "tiered")
+VALID_CACHE_WIRES = ("dense", "compact")
+VALID_FEATURE_STORES = ("device", "host")
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing ``cuda`` on a machine without a
+    card (the port never drops to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False — pass device='cpu' to run the plain-torch path")
+    return dev
+
+
+def _round_up_pow2(n: int) -> int:
+    """``n`` itself when it is 0 or a power of two, else the next one."""
+    if n and n & (n - 1):
+        return 1 << n.bit_length()
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """A GCN architecture plus its distributed feature-fetch policy.
+
+    Field meanings match ``repro.core.config.ModelConfig``; see the
+    reference for the long-form comments on each cache knob."""
+    name: str
+    family: str                 # "gcn" for every config of this slice
+    gcn_hidden: int = 0
+    gcn_in_dim: int = 0
+    n_classes: int = 0
+    fanouts: Tuple[int, ...] = ()
+    cache_rows: int = 0         # slots per worker, rounded up to 2^k
+    cache_admit: int = 2        # misses before an id is admitted
+    cache_assoc: int = 1        # ways per set
+    cache_mode: str = "replicated"
+    cache_l1_rows: int = 0      # tiered mode: L1 slots (0 = auto)
+    cache_l1_promote: int = 3   # tiered mode: observations before promotion
+    cache_wire: str = "compact"
+    cache_hit_cap: int = 0      # compact wire payload rows (0 = auto)
+    feature_store: str = "device"
+
+    def __post_init__(self):
+        if self.cache_rows < 0:
+            raise ValueError(f"cache_rows must be >= 0, got {self.cache_rows}")
+        object.__setattr__(self, "cache_rows", _round_up_pow2(self.cache_rows))
+        if self.cache_assoc not in VALID_CACHE_ASSOC:
+            raise ValueError(
+                f"cache_assoc must be one of {VALID_CACHE_ASSOC}, "
+                f"got {self.cache_assoc}")
+        if self.cache_rows and self.cache_assoc > self.cache_rows:
+            raise ValueError(
+                f"cache_assoc {self.cache_assoc} exceeds cache_rows "
+                f"{self.cache_rows}")
+        if self.cache_mode not in VALID_CACHE_MODES:
+            raise ValueError(
+                f"cache_mode must be one of {VALID_CACHE_MODES}, "
+                f"got {self.cache_mode!r}")
+        if self.cache_l1_rows < 0:
+            raise ValueError(
+                f"cache_l1_rows must be >= 0, got {self.cache_l1_rows}")
+        object.__setattr__(self, "cache_l1_rows",
+                           _round_up_pow2(self.cache_l1_rows))
+        if self.cache_l1_promote < 1:
+            raise ValueError(
+                f"cache_l1_promote must be >= 1, got {self.cache_l1_promote}")
+        if self.cache_wire not in VALID_CACHE_WIRES:
+            raise ValueError(
+                f"cache_wire must be one of {VALID_CACHE_WIRES}, "
+                f"got {self.cache_wire!r}")
+        if self.cache_hit_cap < 0:
+            raise ValueError(
+                f"cache_hit_cap must be >= 0 (0 = auto), "
+                f"got {self.cache_hit_cap}")
+        if self.feature_store not in VALID_FEATURE_STORES:
+            raise ValueError(
+                f"feature_store must be one of {VALID_FEATURE_STORES}, "
+                f"got {self.feature_store!r}")

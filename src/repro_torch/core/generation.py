@@ -1,0 +1,728 @@
+"""Distributed subgraph generation (paper §2 step 3) on a stacked worker
+axis — the port of ``repro/core/generation.py`` (device store, flat cache
+modes, butterfly merge).
+
+``repro`` runs one ``shard_map`` instance per worker.  Here every
+per-worker array carries a leading ``[W, ...]`` axis and the ``lax``
+collectives become re-indexings of it (``core/collectives.py``), so a
+``W``-worker round runs in one process, on one CPU or one GPU.  The
+per-worker primitives (``local_candidates``, ``merge_topk``,
+``dedup_requests``, ``_route_plan``, the wire codec) take arbitrary
+leading axes; the cache state is per worker, so its probe and insert run
+per worker — except the shard holders' compact probe, which is one
+kernel launch over every holder.
+
+Flow per round, per hop: broadcast the frontier (``all_gather``), sample
+``k`` weighted candidates per frontier node from each worker's local
+edges (``local_candidates``), merge them over the butterfly
+(``tree_allreduce`` of ``merge_topk``), slice this worker's rows.  Then
+one request-deduplicated feature fetch (``fetch_rows``): distinct ids
+probe the hot-node cache (locally at W = 1, through the shard-probe round
+to their cache-shard holders at W > 1), and only misses take the routed
+owner fetch.
+
+**Random draws.** ``repro`` draws the sampler's offsets and Exp(1)
+variates from threefry inside the worker; torch cannot reproduce those
+bits.  So the draws are an INPUT here: ``draws[l] = (offs, e)`` with
+``offs [W, F_l, k_l]`` int32 in ``[0, 2^31 - 1)`` and ``e [W, F_l, k_l]``
+float32 ``= -log(u)``.  Production makes them with ``sample_draws`` from
+a seeded ``torch.Generator``; the parity tests feed ``repro``'s own
+draws, and the keys ``e / max(deg / k, 1e-30)`` then agree bit for bit.
+
+Waiting for later slices: the reduce-scatter merge, the tiered cache, the
+host (L3) store and the ``collect_stats`` trace seam.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..graph.subgraph import SubgraphBatch
+from ..kernels import ops
+from .collectives import all_gather, all_to_all, axis_index
+from .config import resolve_device
+from .feature_cache import (CacheConfig, CacheStats, FeatureCache,
+                            cache_insert, cache_probe, expand_hit_rows,
+                            hit_bitmap_words, init_cache_state, shard_of,
+                            unpack_hit_bitmap)
+from .partition import PartitionedGraph
+from .tree_reduce import tree_allreduce
+
+#: smallest positive float32 — the floor ``repro`` draws ``u`` from
+_F32_TINY = float(np.finfo(np.float32).tiny)
+_I32_MAX = 2**31 - 1
+
+
+class Candidates(NamedTuple):
+    """Sampled neighbors and their reservoir keys (``+inf`` = invalid)."""
+    ids: torch.Tensor    # [..., F, k] int32
+    keys: torch.Tensor   # [..., F, k] float32
+
+
+class FetchStats(NamedTuple):
+    """Per-worker telemetry of one ``fetch_rows`` (``[W]`` int32 each);
+    fields match ``repro.core.generation.FetchStats`` (the host-store
+    ``host_gather_bytes`` is always zero in this slice)."""
+    n_requests: torch.Tensor
+    n_unique: torch.Tensor
+    n_dropped: torch.Tensor
+    probe_round_bytes: torch.Tensor
+    host_gather_bytes: torch.Tensor
+
+
+def sample_draws(generator: torch.Generator, n_workers: int, batch: int,
+                 fanouts: Sequence[int], device) -> tuple:
+    """The sampler's random inputs for one round, from ``generator``:
+    per hop ``(offs [W, F, k] int32, e [W, F, k] float32)`` where ``F`` is
+    the global frontier size (``W * batch * k_1 * ... * k_{l-1}``), ``offs``
+    is uniform in ``[0, 2^31 - 1)`` and ``e = -log(u)`` is Exp(1) with
+    ``u`` uniform in ``[tiny, 1)``."""
+    f = n_workers * batch
+    draws = []
+    for k in fanouts:
+        shape = (n_workers, f, k)
+        offs = torch.randint(0, _I32_MAX, shape, generator=generator,
+                             dtype=torch.int32, device=device)
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        draws.append((offs, -torch.log(torch.clamp(u, min=_F32_TINY))))
+        f *= k
+    return tuple(draws)
+
+
+class SeededDraws:
+    """Per-round draws from a ``torch.Generator`` seeded with
+    ``(seed, round index)`` — the port's ``fold_in(PRNGKey(seed), n)``:
+    rounds are reproducible and independent of each other and of global
+    RNG state.  ``draws(n, n_workers, batch)`` returns round ``n``'s
+    draws (see ``sample_draws``)."""
+
+    def __init__(self, fanouts: Sequence[int], seed: int, device):
+        self.fanouts = tuple(fanouts)
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def __call__(self, index: int, n_workers: int, batch: int) -> tuple:
+        """Draws of round ``index`` for ``n_workers`` x ``batch`` seeds."""
+        state = np.random.SeedSequence([self.seed, int(index)]).generate_state(1)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(state[0]))
+        return sample_draws(gen, n_workers, batch, self.fanouts, self.device)
+
+
+def local_candidates(indptr: torch.Tensor, indices: torch.Tensor,
+                     frontier: torch.Tensor, k: int, offs: torch.Tensor,
+                     e: torch.Tensor) -> Candidates:
+    """Sample ``k`` neighbors-with-replacement of each frontier node from a
+    local CSR partition, tagged with weighted reservoir keys.
+
+    ``indptr [..., N+1]``, ``indices [..., E]``, ``frontier [..., F]`` and
+    the draws ``offs``/``e [..., F, k]`` (see the module docstring).  Each
+    draw represents ``deg_local / k`` edges, so its key is ``e`` over that
+    rate; nodes with no local edge get ``+inf`` keys."""
+    n = indptr.shape[-1] - 2
+    node = torch.clamp(frontier, 0, n).to(torch.int64)
+    start = torch.gather(indptr, -1, node)
+    deg = torch.gather(indptr, -1, node + 1) - start
+    o = offs % torch.clamp(deg, min=1)[..., None]
+    idx = torch.clamp(start[..., None] + o, 0, indices.shape[-1] - 1)
+    lead = idx.shape[:-2]
+    ids = torch.gather(indices, -1,
+                       idx.reshape(lead + (-1,)).to(torch.int64))
+    # the reference writes deg / k; XLA compiles a division by the
+    # constant k as a multiplication by float32(1 / k), so that product
+    # is what the keys must be built from to agree bit for bit
+    weight = (deg.to(torch.float32) * float(np.float32(1.0 / k)))[..., None]
+    keys = e / torch.clamp(weight, min=1e-30)
+    keys = torch.where((deg > 0)[..., None], keys, float("inf"))
+    return Candidates(ids=ids.reshape(idx.shape).to(torch.int32), keys=keys)
+
+
+def merge_topk(a: Candidates, b: Candidates) -> Candidates:
+    """Associative merge: keep the ``k`` smallest keys of the union, ties to
+    the lower index (``lax.top_k``'s rule, hence the stable sort)."""
+    k = a.keys.shape[-1]
+    keys = torch.cat([a.keys, b.keys], dim=-1)
+    ids = torch.cat([a.ids, b.ids], dim=-1)
+    idx = torch.sort(keys, dim=-1, stable=True).indices[..., :k]
+    return Candidates(ids=torch.gather(ids, -1, idx),
+                      keys=torch.gather(keys, -1, idx))
+
+
+def dedup_requests(ids: torch.Tensor):
+    """Static-shape sort+segment unique over the last axis.
+
+    Returns ``(uniq, inverse, valid, n_unique)``: ``uniq [..., R]`` holds
+    the distinct ids in its first ``n_unique`` slots (zeros after),
+    ``uniq[inverse] == ids``, and ``valid[i] = i < n_unique``."""
+    r = ids.shape[-1]
+    dev = ids.device
+    if r == 0:
+        return (ids, torch.zeros(ids.shape, dtype=torch.int32, device=dev),
+                torch.zeros(ids.shape, dtype=torch.bool, device=dev),
+                torch.zeros(ids.shape[:-1], dtype=torch.int32, device=dev))
+    s, order = torch.sort(ids, dim=-1, stable=True)
+    is_first = torch.cat([torch.ones(ids.shape[:-1] + (1,), dtype=torch.bool,
+                                     device=dev),
+                          s[..., 1:] != s[..., :-1]], dim=-1)
+    group = torch.cumsum(is_first.to(torch.int32), dim=-1) - 1
+    n_unique = (group[..., -1] + 1).to(torch.int32)
+    uniq = torch.zeros_like(ids).scatter(-1, group.to(torch.int64), s)
+    inverse = torch.empty_like(group).scatter(-1, order, group)
+    valid = torch.arange(r, device=dev) < n_unique[..., None]
+    return uniq, inverse.to(torch.int32), valid, n_unique
+
+
+def probe_round_capacity(n_requests: int, n_workers: int,
+                         capacity_slack: float = 2.0) -> int:
+    """Per-destination slot count of the slack-sized exchange rounds:
+    ``min(R, ceil(R / W) * slack + 8)``."""
+    return int(min(n_requests,
+                   -(-n_requests // n_workers) * capacity_slack + 8))
+
+
+class _RoutePlan(NamedTuple):
+    """Per-destination slot assignment of one routed all_to_all round; a
+    pure function of ``(dest, cap)``, so the probe and admission rounds
+    share one plan."""
+    order: torch.Tensor        # [..., R] stable argsort of dest
+    sorted_dest: torch.Tensor  # [..., R] dest[order] (w = "nowhere")
+    slot_c: torch.Tensor       # [..., R] per-destination slot, cap = dropped
+    ok: torch.Tensor           # [..., R] request got a wire slot (sorted)
+
+
+def _route_plan(dest: torch.Tensor, cap: int, w: int) -> _RoutePlan:
+    """Assign each request a (destination, slot) wire position; requests
+    beyond ``cap`` per destination, and ``dest == w``, get no slot."""
+    r = dest.shape[-1]
+    sorted_dest, order = torch.sort(dest, dim=-1, stable=True)
+    first = torch.searchsorted(sorted_dest.contiguous(),
+                               sorted_dest.contiguous(), side="left")
+    slot = torch.arange(r, device=dest.device) - first
+    ok = (slot < cap) & (sorted_dest < w)
+    slot_c = torch.where(ok, slot, torch.full_like(slot, cap))
+    return _RoutePlan(order, sorted_dest, slot_c, ok)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, *tail]`` along the request axis (``idx [..., R]``)."""
+    nd = idx.dim()
+    full = idx.reshape(idx.shape + (1,) * (x.dim() - nd)).expand(
+        idx.shape + x.shape[nd:])
+    return torch.gather(x, nd - 1, full.to(torch.int64))
+
+
+def _unsort(vals: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Scatter ``vals`` (in ``order``'s sorted order) back to request
+    order: ``out[..., order[i]] = vals[..., i]``."""
+    nd = order.dim()
+    full = order.reshape(order.shape + (1,) * (vals.dim() - nd)).expand(
+        vals.shape)
+    return torch.empty_like(vals).scatter(nd - 1, full.to(torch.int64), vals)
+
+
+def _to_wire(plan: _RoutePlan, vals: torch.Tensor, w: int, cap: int,
+             fill) -> torch.Tensor:
+    """Send buffer ``[..., w, cap, *tail]`` of a round: sorted-order
+    ``vals [..., R, *tail]`` land at their (dest, slot), ``fill`` elsewhere;
+    requests without a slot are dropped (they scatter to a pad row)."""
+    nd = plan.sorted_dest.dim()
+    lead, tail = vals.shape[:nd - 1], vals.shape[nd:]
+    flat = plan.sorted_dest.to(torch.int64) * (cap + 1) + plan.slot_c
+    index = flat.reshape(flat.shape + (1,) * len(tail)).expand(vals.shape)
+    buf = torch.full(lead + ((w + 1) * (cap + 1),) + tail, fill,
+                     dtype=vals.dtype, device=vals.device)
+    buf.scatter_(nd - 1, index, vals)
+    buf = buf.reshape(lead + (w + 1, cap + 1) + tail)
+    return buf.narrow(nd - 1, 0, w).narrow(nd, 0, cap)
+
+
+def _from_wire(buf: torch.Tensor, plan: _RoutePlan) -> torch.Tensor:
+    """Read a response buffer ``[..., w, cap, *tail]`` at every request's
+    (clipped) wire position, in sorted order."""
+    nd = plan.sorted_dest.dim()
+    w, cap = buf.shape[nd - 1], buf.shape[nd]
+    flat = (torch.clamp(plan.sorted_dest, 0, w - 1).to(torch.int64) * cap
+            + torch.clamp(plan.slot_c, 0, cap - 1))
+    merged = buf.reshape(buf.shape[:nd - 1] + (w * cap,) + buf.shape[nd + 1:])
+    return _take(merged, flat)
+
+
+def _routed_fetch(table: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                  cap: int, w: int, rows: int):
+    """One routed all_to_all round trip serving ``ids[valid]`` from the
+    row-sharded ``table [W, rows, D]`` (global row ``i`` on worker
+    ``i // rows``).  Returns ``(rows [W, R, D], served [W, R])``; invalid
+    slots and slots beyond ``cap`` per destination get zero rows and
+    ``served=False``."""
+    owner = torch.clamp(torch.div(ids, rows, rounding_mode="floor"), 0, w - 1)
+    owner = torch.where(valid, owner, torch.full_like(owner, w))
+    plan = _route_plan(owner, cap, w)
+    send = _to_wire(plan, _take(ids, plan.order), w, cap, 0)
+    recv = all_to_all(send)                                # [W, w, cap]
+    me = axis_index(w, device=ids.device)[:, None, None]
+    local = torch.clamp(recv - me * rows, 0, rows - 1).to(torch.int64)
+    served = table[torch.arange(w, device=ids.device)[:, None, None], local]
+    resp = all_to_all(served)                              # [W, w, cap, D]
+    got = torch.where(plan.ok[..., None], _from_wire(resp, plan), 0)
+    return _unsort(got, plan.order), _unsort(plan.ok, plan.order)
+
+
+class _WireStats(NamedTuple):
+    """Holder-side probe-round telemetry: ``n_demoted``/``hit_peak`` are
+    ``[W]`` int32, ``probe_bytes`` the static per-worker bytes shipped."""
+    n_demoted: torch.Tensor
+    hit_peak: torch.Tensor
+    probe_bytes: int
+
+
+def probe_hit_cap(cfg: CacheConfig, cap: int) -> int:
+    """Resolved compact-wire payload bound for a probe capacity ``cap``:
+    ``cfg.hit_cap`` (0 = half the capacity), clamped into ``[1, cap]``."""
+    return max(min(cfg.hit_cap or max(cap // 2, 1), cap), 1)
+
+
+def probe_send(ids: torch.Tensor, valid: torch.Tensor, cap: int, w: int):
+    """Routing half of the shard-probe round: each valid id rides to its
+    cache-shard holder.  Returns ``(plan, recv [W_holder, W_src, cap])``,
+    empty probe slots carrying -1."""
+    dest = torch.where(valid, shard_of(ids, w),
+                       torch.full_like(ids, w))
+    plan = _route_plan(dest, cap, w)
+    send = _to_wire(plan, _take(ids, plan.order), w, cap, -1)
+    return plan, all_to_all(send)
+
+
+def _shard_probe(cache: FeatureCache, cfg: CacheConfig, ids: torch.Tensor,
+                 valid: torch.Tensor, cap: int, w: int):
+    """Stage-1 routing: probe each id against its CACHE-SHARD worker.
+
+    The response rides the wire ``cfg.wire`` selects: ``dense`` ships a
+    hit flag and a row for every probe slot; ``compact`` ships the packed
+    kept bitmap plus at most ``probe_hit_cap`` rows per destination,
+    encoded on the holders by one ``cache_probe_compact`` launch and
+    re-expanded by the requesters.  Returns ``(hit [W, R],
+    rows [W, R, D], plan, recv, wire)``."""
+    plan, recv = probe_send(ids, valid, cap, w)
+    d = cache.rows.shape[-1]
+    item = cache.rows.element_size()
+    probe_bytes = w * cap * 4                    # ids up, int32
+    if cfg.wire == "compact":
+        hc = probe_hit_cap(cfg, cap)
+        n_words = hit_bitmap_words(cap)
+        words, raw_words, payload = ops.cache_probe_compact(
+            cache.keys, cache.rows, recv, assoc=cfg.assoc, hit_cap=hc)
+        kept = unpack_hit_bitmap(words, cap)
+        raw_hit = unpack_hit_bitmap(raw_words, cap)
+        wire = _WireStats(
+            n_demoted=(raw_hit & ~kept).sum((1, 2)).to(torch.int32),
+            hit_peak=raw_hit.sum(2).amax(1).to(torch.int32),
+            probe_bytes=probe_bytes + w * n_words * 4 + w * hc * d * item)
+        hit_b = unpack_hit_bitmap(all_to_all(words), cap)
+        rows_b = expand_hit_rows(hit_b, all_to_all(payload))
+    else:
+        hits, rows = [], []
+        for h in range(w):
+            flat = recv[h].reshape(-1)
+            hit_f, rows_f = cache_probe(cache.worker(h), flat,
+                                        valid=flat >= 0, cfg=cfg)
+            hits.append(hit_f.reshape(w, cap))
+            rows.append(rows_f.reshape(w, cap, d))
+        hit2 = torch.stack(hits)
+        wire = _WireStats(
+            n_demoted=torch.zeros(w, dtype=torch.int32, device=ids.device),
+            hit_peak=hit2.sum(2).amax(1).to(torch.int32),
+            probe_bytes=probe_bytes + w * cap * 1 + w * cap * d * item)
+        hit_b = all_to_all(hit2)
+        rows_b = all_to_all(torch.stack(rows))
+    got_hit = _from_wire(hit_b, plan) & plan.ok
+    got_rows = torch.where(got_hit[..., None], _from_wire(rows_b, plan), 0)
+    return (_unsort(got_hit, plan.order), _unsort(got_rows, plan.order),
+            plan, recv, wire)
+
+
+def _shard_admit(cache: FeatureCache, cfg: CacheConfig, plan: _RoutePlan,
+                 recv_ids: torch.Tensor, fetched: torch.Tensor,
+                 should: torch.Tensor, w: int):
+    """Stage-2 write-back: offer owner-fetched rows to their shard holders
+    over the probe round's slot assignment, so each holder pairs a row
+    with the id it probed there.  Returns ``(new_cache, n_inserted [W])``."""
+    cap = recv_ids.shape[-1]
+    d = fetched.shape[-1]
+    recv_rows = all_to_all(_to_wire(plan, _take(fetched, plan.order), w, cap,
+                                    0))
+    recv_should = all_to_all(_to_wire(plan, _take(should, plan.order), w, cap,
+                                      False))
+    states, counts = [], []
+    for h in range(w):
+        ids_f = recv_ids[h].reshape(-1)
+        offer = recv_should[h].reshape(-1) & (ids_f >= 0)
+        new, n = cache_insert(cache.worker(h), ids_f,
+                              recv_rows[h].reshape(-1, d), offer, cfg)
+        states.append(new)
+        counts.append(n)
+    return FeatureCache.stack(states), torch.stack(counts)
+
+
+class _TierProbe(NamedTuple):
+    """What a cache-mode strategy's probe stage hands back to ``fetch_rows``
+    (stacked ``[W, ...]``); ``ctx`` is private to the matching admit."""
+    hit: torch.Tensor
+    rows: torch.Tensor
+    l1_hit: torch.Tensor
+    local: torch.Tensor
+    wire: _WireStats
+    ctx: tuple
+
+
+def _no_wire(w: int, device) -> _WireStats:
+    z = torch.zeros(w, dtype=torch.int32, device=device)
+    return _WireStats(z, z, 0)
+
+
+class _ReplicatedTier:
+    """mode="replicated": local probe, local admission."""
+
+    @staticmethod
+    def probe(cache, cfg, ids, valid, cap, w):
+        """Each worker probes its own cache."""
+        hits, rows = zip(*(cache_probe(cache.worker(i), ids[i], valid[i],
+                                       cfg=cfg) for i in range(w)))
+        hit = torch.stack(hits)
+        return _TierProbe(hit, torch.stack(rows), torch.zeros_like(hit), hit,
+                          _no_wire(w, ids.device), ())
+
+    @staticmethod
+    def admit(cache, cfg, probe, ids, fetched, should, w):
+        """Each worker offers its served misses to its own cache."""
+        out = [cache_insert(cache.worker(i), ids[i], fetched[i], should[i],
+                            cfg) for i in range(w)]
+        return (FeatureCache.stack([s for s, _ in out]),
+                torch.stack([n for _, n in out]))
+
+
+class _ShardedTier:
+    """mode="sharded": one probe round to the shard holders, admission
+    routed back on the same plan; W == 1 degenerates to replicated."""
+
+    @staticmethod
+    def probe(cache, cfg, ids, valid, cap, w):
+        """Local probe at W == 1, else the shard-probe round."""
+        if w == 1:
+            return _ReplicatedTier.probe(cache, cfg, ids, valid, cap, w)
+        hit, rows, plan, recv, wire = _shard_probe(cache, cfg, ids, valid,
+                                                   cap, w)
+        local = hit & (shard_of(ids, w)
+                       == axis_index(w, device=ids.device)[:, None])
+        return _TierProbe(hit, rows, torch.zeros_like(hit), local, wire,
+                          (plan, recv))
+
+    @staticmethod
+    def admit(cache, cfg, probe, ids, fetched, should, w):
+        """Local admission at W == 1, else routed to the shard holders."""
+        if w == 1:
+            return _ReplicatedTier.admit(cache, cfg, probe, ids, fetched,
+                                         should, w)
+        plan, recv = probe.ctx
+        return _shard_admit(cache, cfg, plan, recv, fetched, should, w)
+
+
+_CACHE_TIERS = {"replicated": _ReplicatedTier, "sharded": _ShardedTier}
+
+
+class _FrozenTier:
+    """Read-mostly serve view of a base strategy (``cfg.frozen``): the probe
+    delegates verbatim, the admit stage is the identity — a warm state is
+    bit-stable across requests."""
+
+    def __init__(self, base):
+        self._base = base
+
+    def probe(self, cache, cfg, ids, valid, cap, w):
+        """Delegate to the base mode's probe stage unchanged."""
+        return self._base.probe(cache, cfg, ids, valid, cap, w)
+
+    def admit(self, cache, cfg, probe, ids, fetched, should, w):
+        """Identity: the cache state passes through untouched."""
+        return cache, torch.zeros(w, dtype=torch.int32, device=ids.device)
+
+
+def _cache_tier(cfg: CacheConfig):
+    """The (probe, admit) strategy for ``cfg``, frozen when ``cfg.frozen``."""
+    if cfg.mode == "tiered":
+        raise NotImplementedError(
+            "the tiered cache mode is not ported yet (graphgen-gcn-deep)")
+    if cfg.mode not in _CACHE_TIERS:
+        raise ValueError(f"unknown cache mode {cfg.mode!r}; "
+                         f"expected one of {sorted(_CACHE_TIERS)}")
+    base = _CACHE_TIERS[cfg.mode]
+    return _FrozenTier(base) if cfg.frozen else base
+
+
+def fetch_rows(table: torch.Tensor, ids: torch.Tensor, *,
+               capacity_slack: float = 2.0, dedup: bool = True,
+               capacity: Optional[int] = None,
+               cache: Optional[FeatureCache] = None,
+               cache_cfg: Optional[CacheConfig] = None):
+    """Routed row fetch (the MapReduce shuffle) for every worker at once.
+
+    ``table [W, rows, D]`` is the row-sharded table (global row ``i`` on
+    worker ``i // rows``); ``ids [W, R]`` are each worker's requests.
+    Returns ``(out [W, R, D], FetchStats)``, or with a ``cache`` (the
+    stacked state, and its ``cache_cfg``, which is required)
+    ``(out, new_cache, FetchStats, CacheStats)``.
+
+    With ``dedup`` each distinct id takes one wire slot and its row is
+    scattered back to every slot that asked for it.  Cached, distinct ids
+    probe the cache tier first and only misses route to their owners;
+    served misses are offered for admission unless ``cache_cfg.frozen``.
+    Requests beyond the per-destination capacity (``ceil(R/W) * slack``,
+    clamped to ``rows`` under dedup, or ``capacity``) return zero rows and
+    count as dropped.  Rows are bit-identical to ``repro``'s."""
+    if cache is not None and not dedup:
+        raise ValueError("the cache front end requires dedup=True")
+    if cache is not None and cache_cfg is None:
+        raise ValueError("fetch_rows(cache=...) requires cache_cfg "
+                         "(the CacheConfig the state was populated under)")
+    w, rows, d = table.shape
+    r = ids.shape[-1]
+    dev = table.device
+    z = torch.zeros(w, dtype=torch.int32, device=dev)
+    n_req = torch.full((w,), r, dtype=torch.int32, device=dev)
+    if r == 0:
+        out = table.new_zeros((w, 0, d))
+        stats = FetchStats(z, z, z, z, z)
+        if cache is not None:
+            return out, cache, stats, CacheStats(*(z,) * 10)
+        return out, stats
+    if w == 1 and cache is None:
+        out = table[0][torch.clamp(ids[0], 0, rows - 1).to(torch.int64)][None]
+        n_unique = dedup_requests(ids)[3] if dedup else n_req
+        return out, FetchStats(n_req, n_unique, z, z, z)
+    slack_cap = probe_round_capacity(r, w, capacity_slack)
+    cap = capacity
+    if cap is None:
+        cap = slack_cap
+        if dedup:
+            cap = min(cap, rows)
+    if dedup:
+        req_ids, inverse, req_valid, n_unique = dedup_requests(ids)
+    else:
+        req_ids, inverse = ids, None
+        req_valid = torch.ones(ids.shape, dtype=torch.bool, device=dev)
+        n_unique = n_req
+    tier = _cache_tier(cache_cfg) if cache is not None else None
+    if tier is not None:
+        probe = tier.probe(cache, cache_cfg, req_ids, req_valid, slack_cap, w)
+        route_valid = req_valid & ~probe.hit
+    else:
+        probe = None
+        route_valid = req_valid
+    if w == 1:
+        fetched = table[0][torch.clamp(req_ids[0], 0, rows - 1)
+                           .to(torch.int64)][None]
+        fetched = torch.where(route_valid[..., None], fetched, 0)
+        served_r = route_valid
+    else:
+        fetched, served_r = _routed_fetch(table, req_ids, route_valid, cap,
+                                          w, rows)
+    n_routed = route_valid.sum(-1).to(torch.int32)
+    new_cache = cstats = None
+    probe_bytes = 0
+    if tier is not None:
+        out_u = torch.where(probe.hit[..., None], probe.rows, fetched)
+        served_u = probe.hit | served_r
+        should = route_valid & served_r
+        new_cache, n_ins = tier.admit(cache, cache_cfg, probe, req_ids,
+                                      fetched, should, w)
+        n_hits = probe.hit.sum(-1).to(torch.int32)
+        n_l1 = probe.l1_hit.sum(-1).to(torch.int32)
+        n_local = probe.local.sum(-1).to(torch.int32)
+        row_bytes = d * table.element_size()
+        cstats = CacheStats(
+            n_hits=n_hits, n_misses=n_routed, n_inserted=n_ins,
+            bytes_saved=(n_l1 + n_local) * row_bytes, n_local_hits=n_local,
+            n_shard_hits=n_hits - n_l1 - n_local, n_l1_hits=n_l1,
+            n_probe_demoted=probe.wire.n_demoted,
+            probe_hit_peak=probe.wire.hit_peak, n_l3_hits=z)
+        n_unique = n_routed
+        probe_bytes = probe.wire.probe_bytes
+    else:
+        out_u, served_u = fetched, served_r
+    if dedup:
+        out = _take(out_u, inverse)
+        dropped = (~_take(served_u, inverse)).sum(-1)
+    else:
+        out = out_u
+        dropped = (~served_u).sum(-1)
+    stats = FetchStats(n_req, n_unique.to(torch.int32),
+                       dropped.to(torch.int32),
+                       torch.full((w,), probe_bytes, dtype=torch.int32,
+                                  device=dev), z)
+    if cache is not None:
+        return out, new_cache, stats, cstats
+    return out, stats
+
+
+def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
+                     x: torch.Tensor, y: torch.Tensor, seeds: torch.Tensor,
+                     draws, cache: Optional[FeatureCache] = None, *,
+                     fanouts: Tuple[int, ...], capacity_slack: float = 2.0,
+                     cache_cfg: Optional[CacheConfig] = None,
+                     fetch_capacity: Optional[int] = None):
+    """One L-hop generation round of every worker (the butterfly merge).
+
+    ``indptr [W, N+1]``, ``indices [W, E]``, ``x [W, rows, D]``,
+    ``y [W, rows, 1]``, ``seeds [W, b]`` and the round's ``draws``.  Per
+    hop: broadcast the frontier, sample local candidates, merge them over
+    the butterfly, slice this worker's rows; masks chain so a padded
+    parent's subtree stays padded.  Then one deduplicated feature fetch
+    (cache-probed first when a cache is threaded in) and the label fetch.
+    Returns the ``SubgraphBatch`` (global leading axis), and the new cache
+    state when a cache is given."""
+    w, b = seeds.shape
+    dev = seeds.device
+    frontier = all_gather(seeds)                           # [W, W*b]
+    parent_mask = torch.ones(frontier.shape, dtype=torch.bool, device=dev)
+    me = axis_index(w, device=dev).to(torch.int64)
+    hops, masks = [], []
+    shape = (b,)
+    local_rows = b
+    for level, k in enumerate(fanouts):
+        offs, e = draws[level]
+        cand = local_candidates(indptr, indices, frontier, k, offs, e)
+        cand = Candidates(ids=cand.ids, keys=torch.where(
+            parent_mask[..., None], cand.keys, float("inf")))
+        merged = tree_allreduce(cand, merge_topk)          # [W, F, k]
+        m_all = torch.isfinite(merged.keys)
+        h_all = torch.where(m_all, merged.ids, 0)
+        mine = me[:, None] * local_rows + torch.arange(local_rows, device=dev)
+        h = _take(h_all, mine)
+        m = _take(m_all, mine)
+        shape = shape + (k,)
+        hops.append(h.reshape((w,) + shape))
+        masks.append(m.reshape((w,) + shape))
+        frontier = h_all.reshape(w, -1)
+        parent_mask = m_all.reshape(w, -1)
+        local_rows *= k
+    for level in range(1, len(masks)):
+        masks[level] = masks[level] & masks[level - 1][..., None]
+
+    need = torch.cat([seeds] + [h.reshape(w, -1) for h in hops], dim=1)
+    z = torch.zeros(w, dtype=torch.int32, device=dev)
+    if cache is not None:
+        feats, cache, fstats, cstats = fetch_rows(
+            x, need, capacity_slack=capacity_slack, capacity=fetch_capacity,
+            cache=cache, cache_cfg=cache_cfg)
+        n_hits, n_misses = cstats.n_hits, cstats.n_misses
+        n_demoted = cstats.n_probe_demoted
+    else:
+        feats, fstats = fetch_rows(x, need, capacity_slack=capacity_slack,
+                                   capacity=fetch_capacity)
+        n_hits, n_misses, n_demoted = z, fstats.n_unique, z
+    d = x.shape[-1]
+    x_seed = feats[:, :b]
+    x_hops = []
+    off = n = b
+    for level, k in enumerate(fanouts):
+        n *= k
+        xh = feats[:, off:off + n].reshape(masks[level].shape + (d,))
+        x_hops.append(xh * masks[level][..., None])
+        off += n
+    ys, ystats = fetch_rows(y, seeds, capacity_slack=capacity_slack,
+                            dedup=False)
+    labels = ys[..., 0].to(torch.int32)
+
+    def glob(t):
+        return t.reshape((w * b,) + tuple(t.shape[2:]))
+
+    batch = SubgraphBatch(
+        seeds=glob(seeds), hops=tuple(map(glob, hops)),
+        masks=tuple(map(glob, masks)), x_seed=glob(x_seed),
+        x_hops=tuple(map(glob, x_hops)), labels=glob(labels),
+        n_dropped=fstats.n_dropped + ystats.n_dropped,
+        n_cache_hits=n_hits, n_cache_misses=n_misses,
+        n_probe_demoted=n_demoted)
+    if cache is not None:
+        return batch, cache
+    return batch
+
+
+def shard_rows(table: np.ndarray, n_workers: int) -> np.ndarray:
+    """Pad a ``[N, D]`` host table to ``[W, ceil(N/W), D]`` row blocks."""
+    n = table.shape[0]
+    rows = -(-n // n_workers)
+    pad = n_workers * rows - n
+    if pad:
+        table = np.concatenate(
+            [table, np.zeros((pad,) + table.shape[1:], table.dtype)])
+    return table.reshape((n_workers, rows) + table.shape[1:])
+
+
+def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
+                      capacity_slack: float = 2.0,
+                      cache_cfg: Optional[CacheConfig] = None,
+                      fetch_capacity: Optional[int] = None):
+    """The generator function, without data.
+
+    ``gen_fn(device_args, seeds [W, b], draws) -> SubgraphBatch`` where
+    ``device_args = (indptr [W, N+1], indices [W, E], x [W, rows, D],
+    y [W, rows, 1])``.  With a ``cache_cfg`` it threads the stacked cache
+    state: ``gen_fn(device_args, seeds, draws, cache) -> (batch, cache)``;
+    with a FROZEN ``cache_cfg`` (``serve_view()``) the cache is a
+    read-only input and only the batch comes back."""
+    if not fanouts:
+        raise ValueError("fanouts must name at least one hop, got ()")
+    cached = cache_cfg is not None and cache_cfg.n_rows > 0
+    frozen = cached and cache_cfg.frozen
+    if cached:
+        cache_cfg = cache_cfg.validated()
+        if cache_cfg.store != "device":
+            raise NotImplementedError(
+                "the host (L3) feature store is not ported yet")
+    worker_gen = functools.partial(
+        _worker_generate, fanouts=tuple(fanouts),
+        capacity_slack=capacity_slack,
+        cache_cfg=cache_cfg if cached else None,
+        fetch_capacity=fetch_capacity)
+
+    if cached and frozen:
+        def gen_fn(device_args, seeds, draws, cache):
+            batch, _ = worker_gen(*device_args, seeds, draws, cache)
+            return batch
+    elif cached:
+        def gen_fn(device_args, seeds, draws, cache):
+            return worker_gen(*device_args, seeds, draws, cache)
+    else:
+        def gen_fn(device_args, seeds, draws):
+            return worker_gen(*device_args, seeds, draws)
+    return gen_fn
+
+
+def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
+                               labels: np.ndarray, *,
+                               fanouts: Tuple[int, ...] = (40, 20),
+                               capacity_slack: float = 2.0,
+                               cache_cfg: Optional[CacheConfig] = None,
+                               fetch_capacity: Optional[int] = None,
+                               device="cuda"):
+    """Place the graph, features and labels on ``device`` and build the
+    generator: ``(gen_fn, device_args)``, or with a ``cache_cfg``
+    ``(gen_fn, device_args, cache0)`` with an empty stacked cache state."""
+    dev = resolve_device(device)
+    w = part.n_workers
+    x = shard_rows(features.astype(np.float32), w)
+    y = shard_rows(labels.reshape(-1, 1).astype(np.float32), w)
+    device_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in (part.indptr, part.indices, x, y))
+    gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=capacity_slack,
+                               cache_cfg=cache_cfg,
+                               fetch_capacity=fetch_capacity)
+    if cache_cfg is not None and cache_cfg.n_rows > 0:
+        cache0 = init_cache_state(cache_cfg.validated(), x.shape[-1], w,
+                                  device=dev)
+        return gen_fn, device_args, cache0
+    return gen_fn, device_args

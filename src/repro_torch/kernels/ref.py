@@ -1,0 +1,63 @@
+"""Plain-torch twins of the port's CUDA kernels (the ``ref.py`` contract).
+
+Each function has the semantics of the jnp oracle of the same name in
+``repro/kernels/ref.py``.  ``ops`` sends CPU tensors here, the CPU tests
+hold these against ``repro``, and ``chip_smoke.py`` holds each CUDA
+kernel against its twin on the card.  Nothing on the main path calls
+them when the tensors are on a card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def fanout_mean_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the fanout axis: ``x [M, K, D]``, ``mask [M, K]``
+    -> ``[M, D]``, accumulated in float32 and rounded once to ``x``'s
+    dtype (the GCN aggregation step)."""
+    m = mask.to(torch.float32)
+    num = torch.einsum("mkd,mk->md", x.to(torch.float32), m)
+    den = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
+    return (num / den).to(x.dtype)
+
+
+def cache_probe_gather_ref(keys: torch.Tensor, rows: torch.Tensor,
+                           ids: torch.Tensor, assoc: int = 1):
+    """Set-associative probe: ``keys [C]``, ``rows [C, D]``, ``ids [R]`` ->
+    ``(hit [R] bool, out [R, D])``, out the FIRST matching way's row where
+    hit, zeros where missed.  Set ``s = hash(id) mod (C / assoc)`` owns
+    slots ``s * assoc + j``."""
+    from ..core.feature_cache import hash_slots
+    sets = hash_slots(ids, keys.shape[0] // assoc).to(torch.int64)
+    slots = sets[:, None] * assoc + torch.arange(assoc, device=ids.device)
+    match = keys[slots] == ids[:, None]                  # [R, A]
+    hit = match.any(dim=-1)
+    way = torch.argmax(match.to(torch.int32), dim=-1)    # first match
+    out = torch.where(hit[:, None], rows[sets * assoc + way], 0)
+    return hit, out
+
+
+def cache_probe_compact_ref(keys: torch.Tensor, rows: torch.Tensor,
+                            ids: torch.Tensor, assoc: int = 1,
+                            hit_cap: int = 1):
+    """Fused probe + compact-wire encode over a stack of holders: ``keys
+    [H, C]``, ``rows [H, C, D]``, ``ids [H, W, R]`` -> ``(words
+    [H, W, ceil(R/32)], raw_words [H, W, ceil(R/32)], payload
+    [H, W, min(hit_cap, R), D])``; holder ``h``'s cache answers ``ids[h]``
+    (the stacked shard-probe round).
+
+    Ids ``< 0`` never hit (the empty-probe-slot sentinel).  ``words``
+    packs the first ``hit_cap`` hits per destination row, ``raw_words``
+    every hit before that demotion, and payload slot ``p`` holds the
+    ``p``-th kept row, zeros beyond.  Words are int32 bit patterns of the
+    reference's uint32 words."""
+    from ..core.feature_cache import compact_hit_rows, pack_hit_bitmap
+    h, w, r = ids.shape
+    hits, outs = zip(*(cache_probe_gather_ref(keys[i], rows[i],
+                                              ids[i].reshape(-1), assoc)
+                       for i in range(h)))
+    hit = torch.stack(hits).reshape(h, w, r) & (ids >= 0)
+    out = torch.where(hit[..., None], torch.stack(outs).reshape(h, w, r, -1),
+                      0)
+    kept, payload = compact_hit_rows(hit, out, hit_cap)
+    return pack_hit_bitmap(kept), pack_hit_bitmap(hit), payload

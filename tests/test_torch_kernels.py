@@ -1,0 +1,206 @@
+"""The port's kernels against the reference.
+
+On the CPU: each plain-torch twin (``repro_torch.kernels.ref``, which
+``ops`` dispatches CPU tensors to) against both ``repro``'s jnp oracle and
+its Pallas kernel run in interpret mode — probes exact, fanout_mean within
+rtol 1e-5 / atol 1e-6 in float32 (the sum is taken in another order).
+
+On a card (marked ``cuda``, skipped elsewhere): each CUDA kernel against
+its twin on the same CUDA inputs.  ``chip_smoke.py`` repeats that check at
+the serving shapes.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_parity import as_u32  # noqa: E402
+from repro.core.feature_cache import hash_slots as jhash  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+
+
+def _cache(c, d, assoc, seed):
+    """A populated ``assoc``-way cache (keys unique per set) and its pool."""
+    rng = np.random.default_rng(seed)
+    n_sets = c // assoc
+    pool = rng.choice(10 * c, size=c, replace=False).astype(np.int32)
+    sets = np.asarray(jhash(jnp.asarray(pool), n_sets))
+    keys = np.full(c, -1, np.int32)
+    fill = np.zeros(n_sets, np.int64)
+    for pid, s in zip(pool, sets):
+        if fill[s] < assoc:
+            keys[s * assoc + fill[s]] = pid
+            fill[s] += 1
+    rows = rng.standard_normal((c, d)).astype(np.float32)
+    return keys, rows, pool, rng
+
+
+@pytest.mark.parametrize("m,k,d", [(8, 4, 16), (37, 9, 130), (5, 40, 64)])
+def test_fanout_mean_twin(m, k, d):
+    """float32 fanout_mean twin vs the jnp oracle and the Pallas kernel."""
+    rng = np.random.default_rng(m * k)
+    x = rng.standard_normal((m, k, d)).astype(np.float32)
+    mask = rng.random((m, k)) < 0.6
+    mask[0] = False                      # an all-padding row divides by 1
+    got = ops.fanout_mean(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    for want in (jref.fanout_mean_ref(jnp.asarray(x), jnp.asarray(mask)),
+                 jops.fanout_mean(jnp.asarray(x), jnp.asarray(mask),
+                                  use_kernel=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("c,d,r,assoc", [(64, 16, 17, 1), (256, 32, 300, 2),
+                                          (256, 32, 300, 4)])
+def test_cache_probe_gather_twin(c, d, r, assoc):
+    """Probe twin vs the oracle and the Pallas kernel, exactly — resident
+    ids, misses, and -1 ids (which the oracle lets match empty slots)."""
+    keys, rows, pool, rng = _cache(c, d, assoc, c + r + assoc)
+    ids = np.where(rng.random(r) < 0.5, rng.choice(pool, size=r),
+                   rng.integers(0, 10 * c, r)).astype(np.int32)
+    ids[rng.random(r) < 0.1] = -1
+    hit, out = ops.cache_probe_gather(torch.from_numpy(keys),
+                                      torch.from_numpy(rows),
+                                      torch.from_numpy(ids), assoc=assoc)
+    args = (jnp.asarray(keys), jnp.asarray(rows), jnp.asarray(ids))
+    for use_kernel in (False, True):
+        wh, wo = jops.cache_probe_gather(*args, assoc=assoc,
+                                         use_kernel=use_kernel)
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(wh))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(wo))
+
+
+def test_cache_probe_gather_single_set():
+    """c == assoc -> one set: every id hashes to set 0."""
+    keys = np.asarray([11, 22, -1, 33], np.int32)
+    rows = np.arange(8, dtype=np.float32).reshape(4, 2)
+    ids = np.asarray([22, 5, 33, 11, -7], np.int32)
+    hit, out = ops.cache_probe_gather(torch.from_numpy(keys),
+                                      torch.from_numpy(rows),
+                                      torch.from_numpy(ids), assoc=4)
+    wh, wo = jref.cache_probe_gather_ref(jnp.asarray(keys), jnp.asarray(rows),
+                                         jnp.asarray(ids), assoc=4)
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(wh))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(wo))
+
+
+@pytest.mark.parametrize("c,d,w,r,assoc", [(64, 16, 4, 33, 1),
+                                            (256, 8, 2, 300, 4)])
+@pytest.mark.parametrize("hit_cap", [1, 16, 4096])
+def test_cache_probe_compact_twin(c, d, w, r, assoc, hit_cap):
+    """Compact probe twin (one holder on the stacked axis) vs the oracle
+    and the Pallas kernel: identical bitmap words (as uint32) and payload,
+    with heavy demotion (hit_cap 1) and none (4096, clamped to R)."""
+    keys, rows, pool, rng = _cache(c, d, assoc, c + r + assoc)
+    ids = np.where(rng.random((w, r)) < 0.5, rng.choice(pool, size=(w, r)),
+                   rng.integers(0, 10 * c, (w, r))).astype(np.int32)
+    ids[rng.random((w, r)) < 0.15] = -1
+    got = [t[0] for t in ops.cache_probe_compact(
+        torch.from_numpy(keys[None]), torch.from_numpy(rows[None]),
+        torch.from_numpy(ids[None]), assoc=assoc, hit_cap=hit_cap)]
+    args = (jnp.asarray(keys), jnp.asarray(rows), jnp.asarray(ids))
+    for use_kernel in (False, True):
+        want = jops.cache_probe_compact(*args, assoc=assoc, hit_cap=hit_cap,
+                                        use_kernel=use_kernel)
+        np.testing.assert_array_equal(as_u32(got[0]), as_u32(want[0]))
+        np.testing.assert_array_equal(as_u32(got[1]), as_u32(want[1]))
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def test_cache_probe_compact_stacked_holders():
+    """The holder axis probes each holder's cache with its own ids — the
+    same as one call per holder."""
+    c, d, w, r = 64, 4, 3, 40
+    parts = [_cache(c, d, 2, s) for s in (1, 2)]
+    keys = torch.from_numpy(np.stack([p[0] for p in parts]))
+    rows = torch.from_numpy(np.stack([p[1] for p in parts]))
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(np.stack([
+        rng.choice(np.concatenate([p[2], [-1, 5]]), size=(w, r))
+        for p in parts]).astype(np.int32))
+    stacked = ops.cache_probe_compact(keys, rows, ids, assoc=2, hit_cap=9)
+    for h in range(2):
+        single = ops.cache_probe_compact(keys[h:h + 1], rows[h:h + 1],
+                                         ids[h:h + 1], assoc=2, hit_cap=9)
+        for a, b in zip(stacked, single):
+            assert torch.equal(a[h], b[0])
+
+
+def test_dispatch_refuses_mixed_or_unknown_devices():
+    """ops never guesses a device: CPU with meta (or any non-CPU,
+    non-CUDA device) raises."""
+    x = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        ops.fanout_mean(x, torch.zeros(2, 3, dtype=torch.bool, device="meta"))
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    """With no CUDA toolkit the build raises; nothing falls back."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "_absent")
+    if _build.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("a CUDA toolkit is installed here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_launch_counters_reset():
+    """The launch counters read and reset through ops."""
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+# ------------------------------------------------------------------ on a card
+
+@pytest.fixture
+def cuda():
+    """The CUDA device, or a skip where there is no card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_fanout_mean_kernel_on_card(cuda, dtype, tol):
+    """CUDA fanout_mean vs its twin on the card."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(300, 20, 130, generator=g, device=cuda).to(dtype)
+    mask = torch.rand(300, 20, generator=g, device=cuda) < 0.7
+    ops.reset_launch_counts()
+    got = ops.fanout_mean(x, mask)
+    assert ops.launch_counts()["fanout_mean"] == 1
+    want = ref.fanout_mean_ref(x, mask)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol / 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("assoc", [1, 2, 4])
+def test_probe_kernels_on_card(cuda, assoc):
+    """CUDA probe kernels vs their twins on the card, exactly."""
+    keys, rows, pool, rng = _cache(256, 40, assoc, assoc)
+    ids = np.where(rng.random((3, 333)) < 0.5,
+                   rng.choice(pool, size=(3, 333)),
+                   rng.integers(-1, 2560, (3, 333))).astype(np.int32)
+    k, r, i = (torch.from_numpy(a).to(cuda) for a in (keys, rows, ids))
+    ops.reset_launch_counts()
+    for a, b in zip(ops.cache_probe_gather(k, r, i[0], assoc=assoc),
+                    ref.cache_probe_gather_ref(k, r, i[0], assoc=assoc)):
+        assert torch.equal(a, b)
+    k, r, i = k[None], r[None], i[None]
+    for hit_cap in (1, 50, 4096):
+        for a, b in zip(ops.cache_probe_compact(k, r, i, assoc=assoc,
+                                                hit_cap=hit_cap),
+                        ref.cache_probe_compact_ref(k, r, i, assoc=assoc,
+                                                    hit_cap=hit_cap)):
+            assert torch.equal(a, b)
+    assert ops.launch_counts()["cache_probe_gather"] == 1
+    assert ops.launch_counts()["cache_probe_compact"] == 3
