@@ -5,27 +5,46 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device   — a CUDA card must be present; print ``nvidia-smi``'s name and
               power limit.
-2. build    — compile the CUDA kernels (``nvcc``, sm_90a) from the sources
-              in this checkout.
+2. build    — compile the CUDA kernels (``nvcc``, sm_90a, one process per
+              source, all started together) from the sources in this
+              checkout.
 3. kernels  — each kernel against its plain-torch twin on the card, at the
-              serving shapes and at edge cases (assoc 1/2/4, a single-set
-              cache, probe counts off a multiple of 32, -1 ids, hit_cap 1):
-              probes exact, fanout_mean within rtol 1e-5 / atol 1e-6 in
-              float32 and 2e-2 in bfloat16.
-4. serve    — ``serve_gcn`` on graphgen-gcn at full width (128 -> 256 -> 64,
-              fanouts (40, 20), 4096-row 4-way sharded compact cache), 20 000
-              nodes, 8 warmup sweeps, buckets (8, 16, 32), 64 Zipf requests,
-              at W = 1 and at W = 4 on the stacked worker axis.  Launch
-              counters are zeroed before each run and read after it: every
-              kernel of the path must have launched.  No request may add a
-              step shape outside the ladder; every prediction lies in
-              [0, 64).
-5. agree    — the port on the card against the port on the CPU (the plain
-              twins) at a small size, same draws: warm cache states and
-              batches exact, logits within rtol/atol 1e-5.
-6. timing   — per bucket-32 request: kernel launches, and device busy time
-              against wall time from a torch.profiler trace; then each
-              kernel at the serve path's own inputs (bucket 32): kernel,
+              main paths' shapes and at edge cases (assoc 1/2/4, single-set
+              tiers, probe counts off a multiple of 32, -1 ids, double hits,
+              hit_cap 1): probes exact, fanout_mean within rtol 1e-5 /
+              atol 1e-6 in float32 and 2e-2 in bfloat16, fanout_mean_bwd
+              exact (one division and one rounding in both).
+4. serve    — ``serve_gcn`` at full width, 20 000 nodes, 8 warmup sweeps,
+              buckets (8, 16, 32), Zipf requests: graphgen-gcn (128 -> 256 ->
+              64, fanouts (40, 20), 4096-row 4-way sharded compact cache) at
+              W = 1 and at W = 4 on the stacked worker axis, and
+              graphgen-gcn-deep (fanouts (15, 10, 5), a 512-row L1 in front
+              of the 4096-row 4-way L2) at W = 1.  Launch counters are zeroed
+              before each run and read after it: every kernel of the path
+              must have launched.  No request may add a step shape outside
+              the ladder; every prediction lies in [0, 64).
+5. train    — ``train_gcn`` for 20 steps, 20 000 nodes, batch 32 per worker:
+              graphgen-gcn-deep at W = 1 (must launch cache_probe_tiered)
+              and graphgen-gcn at W = 4 (must run both calibration ladders
+              and launch cache_probe_compact).  Per train step fanout_mean
+              launches L(L+1)/2 times and fanout_mean_bwd L(L-1)/2 times;
+              every loss is finite, no trained batch dropped a request, and
+              the padded nodes per iteration equal batch x slots_per_seed.
+              Rates: padded nodes/s over all 20 steps and over the untraced
+              warm steps, the two start-up steps' seconds, the median step.
+              Then, at the train runs' own inputs: fanout_mean at every
+              layer call of the trained model on each run's last batch
+              (rtol 1e-5 / atol 1e-6), and cache_probe_compact on the W = 4
+              run's own probe round with its calibrated hit cap (exact).
+6. agree    — the port on the card against the port on the CPU (the plain
+              twins) at a small size, same draws: serving graphgen-gcn (warm
+              cache states and batches exact, logits within rtol/atol 1e-5)
+              and three train steps of each train run's config (cache states
+              and batches exact, losses and every parameter gradient within
+              rtol 1e-4).
+7. timing   — per bucket-32 request and per train step: kernel launches,
+              and device busy time against wall time from a torch.profiler
+              trace; then each kernel at its path's own inputs: kernel,
               plain-twin and library-call times (CUDA events, median of 30),
               and the bound (bytes over 3.35 TB/s or operations over the
               peak rate, whichever is larger).
@@ -38,6 +57,7 @@ Usage: ``python3 chip_smoke.py`` from the repository root.
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,15 +68,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 N_NODES, N_REQUESTS = 20_000, 64
+TRAIN_STEPS, TRAIN_BATCH = 20, 32
+DEVICE = "cuda"                # the device every phase drives
 
 KERNEL_META = {
     "fanout_mean": ("src/repro_torch/kernels/csrc/fanout_mean.cu",
                     "src/repro/kernels/gather_reduce.py:38"),
+    "fanout_mean_bwd": ("src/repro_torch/kernels/csrc/fanout_mean_bwd.cu",
+                        "src/repro/kernels/ref.py:13 (no TPU kernel: "
+                        "jax.grad of fanout_mean_ref)"),
     "cache_probe_gather": ("src/repro_torch/kernels/csrc/cache_probe_gather.cu",
                            "src/repro/kernels/cache_gather.py:79"),
     "cache_probe_compact": ("src/repro_torch/kernels/csrc/cache_probe_compact.cu",
                             "src/repro/kernels/cache_gather.py:170"),
+    "cache_probe_tiered": ("src/repro_torch/kernels/csrc/cache_probe_tiered.cu",
+                           "src/repro/kernels/cache_gather.py:282"),
 }
+#: train runs of the main path: arch -> workers, and the probe it must launch
+TRAIN_RUNS = {"graphgen-gcn-deep": (1, "cache_probe_tiered"),
+              "graphgen-gcn": (4, "cache_probe_compact")}
 
 
 def fail(msg):
@@ -90,6 +120,33 @@ def populated_cache(torch, c, d, assoc, seed, dev, dtype=None):
     rows = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32))
     return (torch.from_numpy(keys).to(dev),
             rows.to(dev, dtype or torch.float32), pool, rng)
+
+
+def tiered_cache(torch, c1, a1, c2, a2, d, seed, dev):
+    """An L1 and an L2 with unique keys per set, half the L1's ids also L2
+    residents (double hits), a few empty slots with zero rows as in a real
+    state; returns the four blocks, the id pool and a numpy rng."""
+    import numpy as np
+    from repro_torch.core.feature_cache import hash_slots
+    k2, r2, pool, rng = populated_cache(torch, c2, d, a2, seed, dev)
+    k2 = k2.cpu().numpy()
+    resident = k2[k2 >= 0]
+    cand = np.concatenate([rng.choice(resident, c1 // 2, replace=False),
+                           rng.choice(10 * c2, c1, replace=False)
+                           .astype(np.int32) + 10 * c2])
+    sets = hash_slots(torch.from_numpy(cand), c1 // a1).numpy()
+    k1 = np.full(c1, -1, np.int32)
+    fill = np.zeros(c1 // a1, np.int64)
+    for pid, s in zip(cand, sets):
+        if fill[s] < a1 and pid not in k1 and fill.sum() < c1 - c1 // 8 - 1:
+            k1[s * a1 + fill[s]] = pid
+            fill[s] += 1
+    r1 = rng.standard_normal((c1, d)).astype(np.float32) + 100
+    r1[k1 < 0] = 0
+    r2 = r2.cpu().numpy()
+    r2[k2 < 0] = 0
+    blocks = [torch.from_numpy(a).to(dev) for a in (k1, r1, k2, r2)]
+    return blocks, np.concatenate([pool, cand]), rng
 
 
 def probe_ids(rng, pool, shape, c):
@@ -188,55 +245,320 @@ def phase_kernels(torch, dev):
                       f"w={w} r={r} assoc={assoc} hit_cap={hit_cap} "
                       f"disagrees with its twin")
             n += 1
+    for c1, a1, c2, a2, d, r in ((512, 2, 4096, 4, 128, 26912),
+                                 (16, 1, 64, 1, 40, 77),
+                                 (16, 2, 64, 2, 130, 96),
+                                 (2, 2, 64, 4, 8, 50),
+                                 (8, 1, 4, 4, 8, 41)):
+        blocks, pool, rng = tiered_cache(torch, c1, a1, c2, a2, d,
+                                         c1 + c2 + r, dev)
+        ids = torch.from_numpy(probe_ids(rng, pool, (r,), c2)).to(dev)
+        for a, b in zip(ops.cache_probe_tiered(*blocks, ids, l1_assoc=a1,
+                                               l2_assoc=a2),
+                        ref.cache_probe_tiered_ref(*blocks, ids, l1_assoc=a1,
+                                                   l2_assoc=a2)):
+            check(torch.equal(a, b), f"cache_probe_tiered c1={c1}/{a1} "
+                  f"c2={c2}/{a2} r={r} disagrees with its twin")
+        n += 1
+    for (m, k, d), dtype in (((128, 40, 256), torch.float32),
+                             ((480, 10, 256), torch.float32),
+                             ((37, 9, 130), torch.float32),
+                             ((5, 1100, 3), torch.float32),
+                             ((480, 10, 256), torch.bfloat16),
+                             ((37, 9, 130), torch.bfloat16)):
+        g = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+        mask = torch.rand((m, k), generator=gen, device=dev) < 0.7
+        mask[:3] = False
+        got = ops.fanout_mean_bwd(g, mask)
+        want = ref.fanout_mean_bwd_ref(g, mask)
+        check(got.dtype == dtype and torch.equal(got, want),
+              f"fanout_mean_bwd {m, k, d} {dtype} disagrees with its twin: "
+              f"max err {(got.float() - want.float()).abs().max().item()}")
+        n += 1
     torch.cuda.synchronize()
     print(f"[kernels] {n} kernel-vs-twin checks passed on the card")
 
 
-def serve_args(w):
-    """graphgen-gcn serving flags of the main path: 20 000 nodes (the
-    reference serve driver's default), 8 warmup sweeps, buckets (8, 16, 32),
-    64 requests."""
+def serve_args(arch, w):
+    """Serving flags of the main path: 20 000 nodes (the reference serve
+    driver's default), 8 warmup sweeps, buckets (8, 16, 32), 64
+    requests."""
     from repro_torch.launch import serve
     return serve.parse_args([
-        "--arch", "graphgen-gcn", "--workers", str(w), "--device", "cuda",
+        "--arch", arch, "--workers", str(w), "--device", DEVICE,
         "--nodes", str(N_NODES), "--warmup-sweeps", "8",
         "--buckets", "8,16,32", "--requests", str(N_REQUESTS)])
 
 
+#: served cells: (arch, W) -> the kernels that must launch on the path
+SERVE_RUNS = {("graphgen-gcn", 1): ("cache_probe_gather", "fanout_mean"),
+              ("graphgen-gcn", 4): ("cache_probe_compact", "fanout_mean"),
+              ("graphgen-gcn-deep", 1): ("cache_probe_tiered",
+                                         "fanout_mean")}
+
+
 def phase_serve(torch):
-    """build_server + serve_gcn at W = 1 and W = 4 (the warmup sweeps, the
-    ladder and the requests all count); returns per-W results, launches
-    and the ``(server, head_order)`` each run built and warmed."""
+    """build_server + serve_gcn for every served cell (the warmup sweeps,
+    the ladder and the requests all count); returns per-cell results,
+    launches and the ``(server, head_order)`` each run built and warmed."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    path_kernels = {1: ("cache_probe_gather", "fanout_mean"),
-                    4: ("cache_probe_compact", "fanout_mean")}
     results = {}
-    for w, kernels in path_kernels.items():
+    for (arch, w), kernels in SERVE_RUNS.items():
         ops.reset_launch_counts()
-        args = serve_args(w)
+        args = serve_args(arch, w)
         built = serve.build_server(args)
         res = serve.serve_gcn(args, built)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         res["launches"] = counts
         res["built"] = built
-        results[w] = res
-        print(f"[serve W={w}] p50 {res['p50_ms']:.3f} ms  p99 "
+        results[arch, w] = res
+        print(f"[serve {arch} W={w}] p50 {res['p50_ms']:.3f} ms  p99 "
               f"{res['p99_ms']:.3f} ms  QPS {res['qps']:.2f}  "
               f"({res['n_requests']} requests, {res['wall_s']:.2f} s)  "
               f"launches {counts}")
         for name in kernels:
-            check(counts[name] > 0, f"W={w}: kernel {name} never launched "
-                  f"on its path")
-        check(res["request_path_compiles"] == 0,
-              f"W={w}: requests added step shapes outside the ladder")
-        check(res["startup_compiles"] == 3, f"W={w}: ladder ran "
+            check(counts[name] > 0, f"{arch} W={w}: kernel {name} never "
+                  f"launched on its path")
+        check(counts["fanout_mean_bwd"] == 0, f"{arch} W={w}: serving ran "
+              f"a backward kernel")
+        check(res["request_path_compiles"] == 0, f"{arch} W={w}: requests "
+              f"added step shapes outside the ladder")
+        check(res["startup_compiles"] == 3, f"{arch} W={w}: ladder ran "
               f"{res['startup_compiles']} step shapes, expected 3")
-        check(res["n_classes"] == 64, "graphgen-gcn predicts 64 classes")
-        check(res["n_requests"] == N_REQUESTS, f"W={w}: served "
+        check(res["n_classes"] == 64, f"{arch} predicts 64 classes")
+        check(res["n_requests"] == N_REQUESTS, f"{arch} W={w}: served "
               f"{res['n_requests']} of {N_REQUESTS} requests")
     return results
+
+
+def train_args(arch, w):
+    """Training flags of the main path: 20 000 nodes, batch 32 per worker,
+    20 steps, full width, the calibration ladders left on."""
+    from repro_torch.launch import train
+    return train.parse_args([
+        "--arch", arch, "--workers", str(w), "--device", DEVICE,
+        "--nodes", str(N_NODES), "--batch-per-worker", str(TRAIN_BATCH),
+        "--steps", str(TRAIN_STEPS), "--log-every", "5"])
+
+
+class StepClock:
+    """``train_gcn``'s step hook: the host-clock time of every step (each
+    step ends with its loss on the host) and a ``torch.profiler`` trace of
+    steps ``first .. first + n - 1``."""
+
+    def __init__(self, torch, first, n):
+        from torch.profiler import ProfilerActivity, profile, schedule
+        self.first, self.n = first, n
+        self.times = []
+        self.prof = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=first - 1, warmup=1, active=n, repeat=1))
+        self.prof.__enter__()
+        self.t = time.perf_counter()
+
+    def __call__(self, step):
+        now = time.perf_counter()
+        self.times.append(now - self.t)
+        self.prof.step()
+        self.t = time.perf_counter()
+
+    def close(self):
+        """Stop the profiler."""
+        self.prof.__exit__(None, None, None)
+
+    def warm_window(self):
+        """Host-clock times (s) of the untraced warm steps: steps 2 ..
+        first - 2, past the two start-up steps and before the profiler's
+        warm-up and traced steps (its overhead inflates those)."""
+        return self.times[2:self.first - 1]
+
+    def traced_ms(self):
+        """Mean step time over the traced window."""
+        win = self.times[self.first:self.first + self.n]
+        return sum(win) / len(win) * 1e3
+
+
+def summarize_profile(torch, prof, n, wall_ms, label):
+    """Device busy time per step against ``wall_ms`` from a profiler's
+    device-side rows, and the kernels that take it; returns the busy ms
+    (None when the profiler saw no device activity)."""
+    from torch.autograd import DeviceType
+    # device-side rows only (kernels, copies, sets): a CPU op's row repeats
+    # the device time of the kernels it launched, and a scheduled trace's
+    # ProfilerStep annotation spans the whole step
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    if dev_ms <= 0:
+        print(f"[profile {label}] device time not measured (the profiler "
+              f"saw no device activity); wall {wall_ms:.3f} ms")
+        return None
+    print(f"[profile {label}] wall {wall_ms:.3f} ms, device busy "
+          f"{dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - dev_ms / wall_ms):.1f}%")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        print(f"[profile {label}]   {e.self_device_time_total / 1e3 / n:8.4f} "
+              f"ms  x{e.count / n:5.1f}  {e.key[:90]}")
+    return dev_ms
+
+
+def phase_train(torch):
+    """train_gcn for both train runs with zeroed launch counters; the
+    gates of phase 5.  Returns per-arch results (launches, step times, a
+    profiler summary) and the trained state."""
+    from repro_torch.graph.subgraph import slots_per_seed
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    results = {}
+    for arch, (w, probe) in TRAIN_RUNS.items():
+        args = train_args(arch, w)
+        depth = len(train._model_config(args).fanouts)
+        ops.reset_launch_counts()
+        clock = StepClock(torch, first=TRAIN_STEPS - 6, n=4)
+        res = train.train_gcn(args, step_hook=clock)
+        clock.close()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        res["launches"] = counts
+        steps = TRAIN_STEPS
+        nodes = res["nodes_per_iter"]
+        warm = clock.warm_window()
+        # rates over whole windows, so a stall inside one shows: all the
+        # steps (train_gcn's own clock, from batch 0 to the last loss on
+        # the host, the two start-up steps and the traced ones included)
+        # and the untraced warm steps; the median is a per-step statistic
+        res["window_nodes_per_s"] = steps * nodes / res["wall_s"]
+        res["warm_nodes_per_s"] = len(warm) * nodes / sum(warm)
+        res["startup_s"] = res["wall_s"] - sum(clock.times[2:])
+        res["median_step_ms"] = statistics.median(warm) * 1e3
+        res["step_times_ms"] = [1e3 * t for t in clock.times[1:]]
+        res["busy_ms"] = summarize_profile(
+            torch, clock.prof, clock.n, clock.traced_ms(),
+            f"train {arch} W={w}, per traced pipelined step")
+        res["traced_ms"] = clock.traced_ms()
+        if res["busy_ms"] is not None:
+            print(f"[profile train {arch} W={w}] against the median untraced "
+                  f"step ({res['median_step_ms']:.3f} ms): device busy "
+                  f"{100 * res['busy_ms'] / res['median_step_ms']:.1f}%, "
+                  f"idle "
+                  f"{100 * (1 - res['busy_ms'] / res['median_step_ms']):.1f}%")
+        results[arch] = res
+        print(f"[train {arch} W={w}] {steps} steps in {res['wall_s']:.3f} s "
+              f"({res['window_nodes_per_s']:,.0f} padded nodes/s over all "
+              f"of them; steps 0-1 took {res['startup_s']:.3f} s); warm "
+              f"steps 2-{clock.first - 2}: {res['warm_nodes_per_s']:,.0f} "
+              f"padded nodes/s, median step {res['median_step_ms']:.3f} ms; "
+              f"slack {res['capacity_slack']}, ladders {res['ladders']}, "
+              f"cache {tuple(res['cache_cfg'])}; hit rate "
+              f"{res.get('cache_hit_rate', 0):.3f}; launches {counts}")
+        print(f"[train {arch} W={w}] step times (ms, steps 1-{steps - 1}; "
+              f"{clock.first}-{clock.first + clock.n - 1} traced) "
+              f"{[round(t, 3) for t in res['step_times_ms']]}")
+        print(f"[train {arch} W={w}] losses {res['losses']}")
+        check(counts[probe] > 0, f"{arch}: {probe} never launched")
+        check(counts["fanout_mean"] == steps * depth * (depth + 1) // 2,
+              f"{arch}: fanout_mean launched {counts['fanout_mean']} times, "
+              f"expected {depth * (depth + 1) // 2} per step")
+        check(counts["fanout_mean_bwd"] == steps * depth * (depth - 1) // 2,
+              f"{arch}: fanout_mean_bwd launched "
+              f"{counts['fanout_mean_bwd']} times, expected "
+              f"{depth * (depth - 1) // 2} per step")
+        check(all(map(math.isfinite, res["losses"])),
+              f"{arch}: a loss is not finite")
+        check(res["n_dropped"] == 0, f"{arch}: trained batches dropped "
+              f"{res['n_dropped']} requests")
+        fanouts = train._model_config(args).fanouts
+        check(res["nodes_per_iter"] == TRAIN_BATCH * w
+              * slots_per_seed(fanouts),
+              f"{arch}: {res['nodes_per_iter']} padded nodes/iter")
+        if w > 1:
+            check(res["ladders"] == ["slack", "hit_cap"],
+                  f"{arch}: calibration ladders {res['ladders']}")
+    return results
+
+
+def fanout_mean_calls(torch, model, batch):
+    """The ``(x, mask)`` of every ``fanout_mean`` call of one forward of
+    ``model`` on ``batch``, in call order (hidden levels hold the model's
+    own activations)."""
+    from repro_torch.kernels import ops
+    real, calls = ops.fanout_mean, []
+
+    def record(x, mask):
+        calls.append((x.detach().clone(), mask.clone()))
+        return real(x, mask)
+    ops.fanout_mean = record
+    try:
+        with torch.no_grad():
+            model(batch)
+    finally:
+        ops.fanout_mean = real
+    return calls
+
+
+def train_probe_round(torch, res, w):
+    """The compact probe's inputs on a W > 1 train run's own probe round:
+    its last batch's deduplicated requests routed to their shard holders
+    at the run's calibrated slack, against its warm cache; returns
+    ``(keys, rows, recv, hit_cap)`` with the calibrated hit cap."""
+    from repro_torch.core.generation import (dedup_requests, probe_hit_cap,
+                                             probe_round_capacity, probe_send)
+    batch, cache, cfg = res["batch"], res["cache"], res["cache_cfg"]
+    need = torch.cat([batch.seeds.reshape(w, -1)] + [
+        h.reshape(w, -1) for h in batch.hops], dim=1)
+    uniq, _, valid, _ = dedup_requests(need)
+    cap = probe_round_capacity(need.shape[1], w, res["capacity_slack"])
+    recv = probe_send(uniq, valid, cap, w)[1]
+    return cache.keys, cache.rows, recv, probe_hit_cap(cfg, cap)
+
+
+def phase_train_kernels(torch, train_res):
+    """The forward and compact-probe kernels against their twins at the
+    train runs' own inputs: ``fanout_mean`` at every layer's call of the
+    trained model on each run's last batch (rtol 1e-5 / atol 1e-6, f32
+    summation order), and ``cache_probe_compact`` on the W = 4 run's own
+    probe round with its calibrated hit cap (exact).  The tiered probe and
+    the backward are held at the train inputs in the timing phase."""
+    from repro_torch.kernels import ops, ref
+    for arch, (w, _) in TRAIN_RUNS.items():
+        res = train_res[arch]
+        calls = fanout_mean_calls(torch, res["model"], res["batch"])
+        depth = len(res["batch"].masks)
+        check(len(calls) == depth * (depth + 1) // 2,
+              f"{arch}: one forward made {len(calls)} fanout_mean calls")
+        worst = 0.0
+        for x, mask in calls:
+            got, want = ops.fanout_mean(x, mask), ref.fanout_mean_ref(x, mask)
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                  f"{arch}: fanout_mean {tuple(x.shape)} disagrees with its "
+                  f"twin at the train inputs: max err {err}")
+            worst = max(worst, err)
+        print(f"[train kernels {arch} W={w}] fanout_mean == twin at every "
+              f"layer call {[tuple(x.shape) for x, _ in calls]} (max abs "
+              f"err {worst})")
+        if w == 1:
+            continue
+        keys, rows, recv, hc = train_probe_round(torch, res, w)
+        check(hc == res["cache_cfg"].hit_cap,
+              f"{arch}: hit cap {hc} is not the calibrated "
+              f"{res['cache_cfg'].hit_cap}")
+        assoc = res["cache_cfg"].assoc
+        got = ops.cache_probe_compact(keys, rows, recv, assoc=assoc,
+                                      hit_cap=hc)
+        want = ref.cache_probe_compact_ref(keys, rows, recv, assoc=assoc,
+                                           hit_cap=hc)
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"{arch}: cache_probe_compact disagrees "
+                  f"with its twin on the train run's probe round")
+        print(f"[train kernels {arch} W={w}] cache_probe_compact == twin on "
+              f"the train probe round: ids {tuple(recv.shape)}, hit_cap "
+              f"{hc}")
+    torch.cuda.synchronize()
 
 
 def phase_agree(torch, dev):
@@ -309,11 +631,10 @@ def phase_agree(torch, dev):
               f"logits within 1e-5 (probe demotions {demoted})")
 
 
-def profile_requests(torch, server, next_ids, w, n=8):
+def profile_requests(torch, server, next_ids, label, n=8):
     """Device busy time against wall time over ``n`` bucket-32 requests,
     from a ``torch.profiler`` trace (the profiler's own overhead inflates
     the wall time a little), and the kernels that take the device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -322,31 +643,120 @@ def profile_requests(torch, server, next_ids, w, n=8):
         for _ in range(n):
             server.serve(next_ids())
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # device-side rows only (kernels, copies, sets): a CPU op's row repeats
-    # the device time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
-    if dev_ms <= 0:
-        print(f"[profile W={w}] device time not measured (the profiler saw "
-              f"no device activity); wall {wall_ms:.3f} ms/request")
-        return
-    print(f"[profile W={w}] per bucket-32 request: wall {wall_ms:.3f} ms, "
-          f"device busy {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%), "
-          f"idle {100 * (1 - dev_ms / wall_ms):.1f}%")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    for e in top:
-        print(f"[profile W={w}]   {e.self_device_time_total / 1e3 / n:8.4f} "
-              f"ms/request  x{e.count / n:5.1f}  {e.key[:90]}")
+    summarize_profile(torch, prof, n, wall_ms,
+                      f"{label}, per bucket-32 request")
 
 
-def phase_timing(torch, serve_res, launches):
+def phase_agree_train(torch, dev):
+    """Three train steps of each train run's config on the card against
+    the same three on the CPU (the twins) at a small size: same draws,
+    seeds and initial weights; cache states and batches exact, losses and
+    every parameter gradient within rtol 1e-4 (float32 reduction order,
+    compounded over the Adam steps), atol 1e-6 for entries near zero."""
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.balance import balance_table
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.core.feature_cache import CacheConfig
+    from repro_torch.core.generation import (SeededDraws,
+                                             make_distributed_generator)
+    from repro_torch.core.partition import partition_edges
+    from repro_torch.graph.synthetic import (node_features, node_labels,
+                                             powerlaw_graph)
+    from repro_torch.kernels import ops
+    from repro_torch.models.gcn import gcn_loss, init_gcn
+    from repro_torch.train.optimizer import adam_update, init_adam
+
+    n, b = 2000, 8
+    overrides = {"graphgen-gcn-deep": dict(cache_rows=64, cache_l1_rows=16,
+                                           cache_l1_promote=2),
+                 "graphgen-gcn": dict(cache_rows=64, cache_hit_cap=24)}
+    g = powerlaw_graph(n, n_hot=2, seed=3)
+    tcfg = TrainConfig(learning_rate=5e-3, total_steps=3, warmup_steps=0)
+    for arch, (w, _) in TRAIN_RUNS.items():
+        cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                                  **overrides[arch])
+        cpu_draws = SeededDraws(cfg.fanouts, 3, "cpu")
+        table = balance_table(np.arange(n), w, 3).per_worker
+        feats = node_features(n, cfg.gcn_in_dim, 3)
+        labels = node_labels(n, cfg.n_classes, 3)
+        part = partition_edges(g, w)
+        sides = {}
+        for where in ("cpu", dev):
+            gen_fn, args, cache = make_distributed_generator(
+                part, feats, labels, fanouts=cfg.fanouts,
+                cache_cfg=CacheConfig.from_model(cfg), device=where)
+            model = init_gcn(cfg, 3, device=where)
+            opt = init_adam(model.leaves())
+            ops.reset_launch_counts()
+            rec = []
+            for t in range(3):
+                seeds = torch.from_numpy(np.ascontiguousarray(
+                    table[:, t * b:(t + 1) * b])).to(where)
+                draws = tuple((o.to(where), e.to(where))
+                              for o, e in cpu_draws(t, w, b))
+                with torch.no_grad():
+                    batch, cache = gen_fn(args, seeds, draws, cache)
+                params = model.leaves()
+                loss = gcn_loss(model, batch)
+                grads = torch.autograd.grad(loss, params)
+                new, opt, _ = adam_update(tcfg, params, grads, opt)
+                with torch.no_grad():
+                    for p, q in zip(params, new):
+                        p.copy_(q)
+                rec.append((batch, cache, loss.detach(), grads))
+            sides[where] = (rec, ops.launch_counts())
+        (cpu_rec, _), (dev_rec, counts) = sides["cpu"], sides[dev]
+        check(counts["fanout_mean_bwd"] > 0, f"{arch}: the card's train "
+              f"steps never launched fanout_mean_bwd")
+        worst = 0.0
+        for t, ((bc, cc, lc, gc), (bg, cg, lg, gg)) in enumerate(
+                zip(cpu_rec, dev_rec)):
+            for name in ("seeds", "x_seed", "labels", "n_dropped",
+                         "n_cache_hits", "n_cache_misses", "n_probe_demoted"):
+                check(torch.equal(getattr(bc, name), getattr(bg, name).cpu()),
+                      f"{arch} step {t}: batch field {name} differs card vs "
+                      f"CPU")
+            for name in ("hops", "masks", "x_hops"):
+                for x, y in zip(getattr(bc, name), getattr(bg, name)):
+                    check(torch.equal(x, y.cpu()), f"{arch} step {t}: batch "
+                          f"{name} differs card vs CPU")
+            for x, y in zip(tree_leaves(cc), tree_leaves(cg)):
+                check(torch.equal(x, y.cpu()), f"{arch} step {t}: cache "
+                      f"state differs card vs CPU")
+            check(torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-6),
+                  f"{arch} step {t}: loss {lg.item()} on the card, "
+                  f"{lc.item()} on the CPU")
+            for i, (x, y) in enumerate(zip(gc, gg)):
+                y = y.cpu()
+                check(torch.isfinite(y).all() and torch.allclose(
+                    y, x, rtol=1e-4, atol=1e-6), f"{arch} step {t}: gradient "
+                      f"{i} differs card vs CPU by {(y - x).abs().max()}")
+                worst = max(worst, ((y - x).abs().max()
+                                    / x.abs().max().clamp(min=1e-30)).item())
+        print(f"[agree train {arch} W={w}] card == CPU over 3 steps: cache "
+              f"states and batches exact, losses and gradients within rtol "
+              f"1e-4 (largest gradient gap {worst:.2e} of its tensor's "
+              f"largest entry)")
+
+
+def tree_leaves(state):
+    """The tensors of a flat or tiered cache state."""
+    if hasattr(state, "l1"):
+        return list(state.l1) + list(state.l2)
+    return list(state)
+
+
+def phase_timing(torch, serve_res, train_res, launches):
     """Per bucket-32 request, on the servers the serve phase built and
-    warmed: kernel launches and a profiler trace; then kernel, twin and
-    library-call times at the serve path's own inputs — a bucket-32
-    request's batch, its deduplicated probe ids and the warm cache.  W = 1 times the gather probe; W = 4 (global batch 128) times
-    fanout_mean at its three layer shapes and the compact probe.  Returns
-    one JSON entry per kernel (fanout_mean at its largest shape)."""
+    warmed: kernel launches and a profiler trace.  Then kernel, twin and
+    library-call times at each kernel's path's own inputs: at a bucket-32
+    request of the graphgen-gcn servers, the gather probe (W = 1) and, at
+    W = 4 (global batch 128), fanout_mean at its three layer shapes and
+    the compact probe; at the last batch and the warm cache of the train
+    runs, the tiered probe (graphgen-gcn-deep) and fanout_mean_bwd at the
+    hidden-level shapes of both runs (real masks, a random gradient).
+    Returns one JSON entry per kernel (its first, largest shape)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.feature_cache import CacheConfig
@@ -356,8 +766,8 @@ def phase_timing(torch, serve_res, launches):
 
     cfg = get_config("graphgen-gcn")
     entries = {}
-    for w in (1, 4):
-        server, head_order = serve_res[w]["built"]
+    for (arch, w), res in serve_res.items():
+        server, head_order = res["built"]
         rng = np.random.default_rng(11)
 
         def bucket32():
@@ -366,9 +776,11 @@ def phase_timing(torch, serve_res, launches):
 
         ops.reset_launch_counts()
         server.serve(bucket32())
-        print(f"[per-request W={w}] launches of one bucket-32 request: "
-              f"{ops.launch_counts()}")
-        profile_requests(torch, server, bucket32, w)
+        print(f"[per-request {arch} W={w}] launches of one bucket-32 "
+              f"request: {ops.launch_counts()}")
+        profile_requests(torch, server, bucket32, f"{arch} {w}")
+        if arch != "graphgen-gcn":
+            continue
         batch = server.generate(bucket32())
         need = torch.cat([batch.seeds.reshape(w, -1)] + [
             h.reshape(w, -1) for h in batch.hops], dim=1)
@@ -394,12 +806,45 @@ def phase_timing(torch, serve_res, launches):
                 ("cache_probe_compact", (server.cache.keys,
                                          server.cache.rows, recv),
                  {"assoc": cfg.cache_assoc, "hit_cap": hc})]
-        for name, inputs, kw in items:
-            inputs = tuple(t.contiguous() for t in inputs)
-            entry = time_kernel(torch, name, inputs, kw)
-            entry["launches"] = launches[name]
-            entries.setdefault(name, entry)
+        items_timed(torch, items, launches, entries)
+
+    # the train runs' own inputs
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    items = []
+    for arch in ("graphgen-gcn", "graphgen-gcn-deep"):
+        batch = train_res[arch]["batch"]
+        hidden = get_config(arch).gcn_hidden
+        # the hidden levels whose mean the backward reaches: children of
+        # levels 0 .. L-2 (level L-1's children are raw features)
+        for lvl in range(len(batch.masks) - 1):
+            mask = batch.masks[lvl]
+            k = mask.shape[-1]
+            mask = mask.reshape(-1, k)
+            g = torch.randn((mask.shape[0], hidden), generator=gen,
+                            device=DEVICE)
+            items.append(("fanout_mean_bwd", (g, mask), {}))
+    deep = train_res["graphgen-gcn-deep"]
+    dcfg = CacheConfig.from_model(get_config("graphgen-gcn-deep"))
+    batch, cache = deep["batch"], deep["cache"]
+    need = torch.cat([batch.seeds.reshape(1, -1)] + [
+        h.reshape(1, -1) for h in batch.hops], dim=1)
+    uniq = dedup_requests(need)[0]
+    items.append(("cache_probe_tiered", (
+        cache.l1.keys[0], cache.l1.rows[0], cache.l2.keys[0],
+        cache.l2.rows[0], uniq[0]),
+        {"l1_assoc": dcfg.l1_assoc, "l2_assoc": dcfg.assoc}))
+    items_timed(torch, items, launches, entries)
     return [entries[name] for name in KERNEL_META]
+
+
+def items_timed(torch, items, launches, entries):
+    """Time each ``(name, inputs, kw)``; the first entry of a name is the
+    one the JSON line reports."""
+    for name, inputs, kw in items:
+        inputs = tuple(t.contiguous() for t in inputs)
+        entry = time_kernel(torch, name, inputs, kw)
+        entry["launches"] = launches[name]
+        entries.setdefault(name, entry)
 
 
 def time_kernel(torch, name, inputs, kw):
@@ -435,6 +880,34 @@ def time_kernel(torch, name, inputs, kw):
         n_bytes = (r * 4 + keys.numel() * 4 + n_hit_rows * d * 4
                    + r + r * d * 4)
         n_ops = r * (2 + kw["assoc"])
+    elif name == "fanout_mean_bwd":
+        g, mask = inputs
+        (m, d), k = g.shape, mask.shape[1]
+        check(torch.equal(got, want), f"fanout_mean_bwd differs from its "
+              f"twin at the train inputs {m, k, d}")
+        err = (got.float() - want.float()).abs().max().item()
+        # the one-call yardstick: a batched matmul of the normalised mask
+        # [M, K, 1] with g [M, 1, D] (the normalisation is precomputed)
+        wts = mask.float() / mask.float().sum(1, keepdim=True).clamp(min=1)
+        wts = wts[:, :, None].contiguous()
+        g3 = g[:, None, :]
+        library_ms = gpu_ms(torch, lambda: torch.bmm(wts, g3))
+        item = g.element_size()
+        n_bytes = m * d * item + m * k + m * k * d * item
+        n_ops = m * k + m * d + m * k * d
+    elif name == "cache_probe_tiered":
+        k1, r1, k2, r2, ids = inputs
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), "tiered probe differs from its twin at "
+                  "the train inputs")
+        err = (got[1] - want[1]).abs().max().item()
+        r, d = ids.shape[0], r2.shape[1]
+        src = got[0]
+        n_hit_rows = sum(int(torch.unique(ids[src == tier]).numel())
+                         for tier in (1, 2))
+        n_bytes = (r * 4 + (k1.numel() + k2.numel()) * 4
+                   + n_hit_rows * d * 4 + r * 4 + r * d * 4)
+        n_ops = r * (4 + kw["l1_assoc"] + kw["l2_assoc"])
     else:
         keys, rows, ids = inputs
         for a, b in zip(got, want):
@@ -481,7 +954,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -502,14 +975,29 @@ def main():
         print("[kernels-only] stopping after the kernel checks")
         return
     serve_res = phase_serve(torch)
-    launches = {name: serve_res[1]["launches"][name]
-                + serve_res[4]["launches"][name]
+    train_res = phase_train(torch)
+    phase_train_kernels(torch, train_res)
+    runs = list(serve_res.values()) + list(train_res.values())
+    launches = {name: sum(r["launches"][name] for r in runs)
                 for name in KERNEL_META}
     phase_agree(torch, dev)
-    kernels = phase_timing(torch, serve_res, launches)
-    print(json.dumps({"serve": {f"W={w}": {k: r[k] for k in (
+    phase_agree_train(torch, dev)
+    kernels = phase_timing(torch, serve_res, train_res, launches)
+    print(json.dumps({"serve": {f"{arch} W={w}": {k: r[k] for k in (
         "p50_ms", "p99_ms", "qps", "n_requests", "wall_s", "launches")}
-        for w, r in serve_res.items()}}))
+        for (arch, w), r in serve_res.items()}}))
+    print(json.dumps({"train": {arch: {
+        "workers": TRAIN_RUNS[arch][0], "nodes_per_iter": r["nodes_per_iter"],
+        "window_nodes_per_s": r["window_nodes_per_s"],
+        "startup_s": r["startup_s"],
+        "warm_nodes_per_s": r["warm_nodes_per_s"],
+        "median_step_ms": r["median_step_ms"],
+        "step_times_ms": r["step_times_ms"], "traced_step_ms": r["traced_ms"],
+        "busy_ms": r["busy_ms"], "wall_s": r["wall_s"],
+        "losses": r["losses"], "capacity_slack": r["capacity_slack"],
+        "hit_cap": r["cache_cfg"].hit_cap, "wire": r["cache_cfg"].wire,
+        "cache_hit_rate": r.get("cache_hit_rate"),
+        "launches": r["launches"]} for arch, r in train_res.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

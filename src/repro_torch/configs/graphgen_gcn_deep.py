@@ -1,6 +1,6 @@
-"""3-hop deep-GCN workload, fanouts (15, 10, 5), tiered cache (copy of
-``repro/configs/graphgen_gcn_deep.py``; its tiered probe waits for a later
-slice of the port)."""
+"""3-hop deep-GCN workload, fanouts (15, 10, 5), tiered cache: a 512-row
+replicated L1 in front of the 4096-row 4-way sharded L2 (copy of
+``repro/configs/graphgen_gcn_deep.py``)."""
 from ..core.config import ModelConfig
 
 CONFIG = ModelConfig(

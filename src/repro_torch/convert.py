@@ -1,9 +1,13 @@
-"""Carry GCN weights from ``repro`` to the port.
+"""Carry GCN weights, optimizer state and cache state from ``repro`` to
+the port.
 
-``gcn_params_from_numpy`` takes the reference's ``GCNParams`` pytree as
-numpy arrays (``jax.tree.map(np.asarray, params)`` on the caller's side —
-this module never imports jax) and returns the port's ``GCN`` holding
-the same weights, so both packages compute the same function.
+Each function takes the reference's pytree as numpy arrays
+(``jax.tree.map(np.asarray, tree)`` on the caller's side — this module
+never imports jax): ``gcn_params_from_numpy`` returns the port's ``GCN``
+holding the same weights, ``adam_state_from_numpy`` the port's
+``AdamState`` (moments in ``GCN.leaves()`` order), and
+``cache_state_from_numpy`` a flat ``FeatureCache`` or a ``TieredCache``,
+so a run of the port can start from the reference's state mid-run.
 """
 from __future__ import annotations
 
@@ -11,7 +15,20 @@ import numpy as np
 import torch
 
 from .core.config import resolve_device
+from .core.feature_cache import FeatureCache, TieredCache
 from .models.gcn import GCN
+from .train.optimizer import AdamState
+
+
+def _gcn_leaves(tree_np):
+    """``GCNParams``-shaped numpy tree -> its leaves in ``GCN.leaves()``
+    order: each layer's ``w_self, w_nbr, b``, then ``w_out, b_out``."""
+    layers, w_out, b_out = tree_np
+    return [a for layer in layers for a in layer] + [w_out, b_out]
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a)).to(device)
 
 
 def gcn_params_from_numpy(params_np, device="cuda") -> GCN:
@@ -32,3 +49,25 @@ def gcn_params_from_numpy(params_np, device="cuda") -> GCN:
         model.w_out.copy_(torch.tensor(np.asarray(w_out, np.float32)))
         model.b_out.copy_(torch.tensor(np.asarray(b_out, np.float32)))
     return model.to(device)
+
+
+def adam_state_from_numpy(state_np, device="cuda") -> AdamState:
+    """``AdamState(step, m, v)`` with ``m``/``v`` ``GCNParams``-shaped trees
+    of numpy arrays -> the port's ``AdamState`` on ``device``."""
+    device = resolve_device(device)
+    step, m, v = state_np
+    return AdamState(
+        step=torch.tensor(np.asarray(step), dtype=torch.int32).to(device),
+        m=[_tensor(a, device) for a in _gcn_leaves(m)],
+        v=[_tensor(a, device) for a in _gcn_leaves(v)])
+
+
+def cache_state_from_numpy(state_np, device="cuda"):
+    """A cache state of numpy arrays -> the port's: ``(keys, rows, tags,
+    counts)`` becomes a ``FeatureCache``, ``(l1, l2)`` of two such tuples a
+    ``TieredCache``; per-worker or stacked ``[W, ...]`` alike."""
+    device = resolve_device(device)
+    if len(state_np) == 2:
+        return TieredCache(*(cache_state_from_numpy(t, device)
+                             for t in state_np))
+    return FeatureCache(*(_tensor(a, device) for a in state_np))

@@ -1,10 +1,12 @@
-"""The GCN and cache fields of ``repro.core.config.ModelConfig``.
+"""The GCN and cache fields of ``repro.core.config.ModelConfig``, and
+``TrainConfig``.
 
-Only what the graph-serving slice reads is carried over: the model dims,
-the fanouts and the cache policy, with the same construction-time
-validation (``cache_rows`` is rounded UP to a power of two).  The LM-zoo
-fields, the shape/mesh configs and the hardware constants wait for the
-slices that need them.
+Only what the serving and training slices read is carried over: the
+model dims, the fanouts and the cache policy, with the same
+construction-time validation (``cache_rows`` is rounded UP to a power of
+two), and the optimizer's schedule.  The LM-zoo fields, the
+shape/mesh configs and the hardware constants wait for the slices that
+need them.
 """
 from __future__ import annotations
 
@@ -97,3 +99,18 @@ class ModelConfig:
             raise ValueError(
                 f"feature_store must be one of {VALID_FEATURE_STORES}, "
                 f"got {self.feature_store!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """AdamW with linear warmup, cosine decay and a global-norm clip (the
+    fields of ``repro.core.config.TrainConfig`` that the GCN trainer
+    reads, with the same defaults)."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000

@@ -1,5 +1,5 @@
 """Device-resident hot-node feature cache (port of
-``repro/core/feature_cache.py``, flat modes).
+``repro/core/feature_cache.py``, device store).
 
 Set-associative by multiplicative hash, with frequency admission and a
 counter-based victim policy; the sharded placement routes each id to
@@ -17,8 +17,10 @@ Two representation choices differ from the reference:
 * ``.at[...].set(..., mode="drop")`` with an out-of-range sentinel becomes
   a scatter into a buffer one row larger, sliced afterwards.
 
-The tiered ``(l1, l2)`` state and ``tiered_probe`` wait for the slice of
-the port that serves ``graphgen-gcn-deep``.
+The tiered mode keeps a ``TieredCache(l1, l2)`` of two flat states: a
+small replicated L1 (``CacheConfig.l1_config()``) in front of the sharded
+L2 (``l2_config()``).  ``tiered_probe`` probes both tiers of one worker
+in one ``cache_probe_tiered`` launch on a card.
 """
 from __future__ import annotations
 
@@ -69,6 +71,22 @@ class CacheConfig(NamedTuple):
     def l1_assoc(self) -> int:
         """L1 ways per set (1 when the L2 is direct-mapped, else 2)."""
         return 1 if self.assoc == 1 else 2
+
+    def l1_config(self) -> "CacheConfig":
+        """The L1 tier as a standalone replicated policy: ``l1_rows`` slots,
+        ``l1_assoc`` ways, and ``l1_promote`` observations as its
+        admission threshold."""
+        return CacheConfig(n_rows=self.l1_rows, admit=self.l1_promote,
+                           assoc=self.l1_assoc, mode="replicated",
+                           frozen=self.frozen)
+
+    def l2_config(self) -> "CacheConfig":
+        """The L2 tier as a standalone sharded policy; the probe wire
+        travels with it."""
+        return CacheConfig(n_rows=self.n_rows, admit=self.admit,
+                           assoc=self.assoc, mode="sharded",
+                           wire=self.wire, hit_cap=self.hit_cap,
+                           store=self.store, frozen=self.frozen)
 
     def serve_view(self) -> "CacheConfig":
         """The read-mostly serve view: same slot layout, ``frozen=True``
@@ -173,6 +191,19 @@ class FeatureCache(NamedTuple):
     def stack(states) -> "FeatureCache":
         """Stack per-worker states into the ``[W, ...]`` form."""
         return FeatureCache(*(torch.stack(leaves) for leaves in zip(*states)))
+
+
+class TieredCache(NamedTuple):
+    """Tiered-mode state: the small replicated L1 (``CacheConfig.l1_rows``
+    slots, layout ``l1_config()``) and the authoritative sharded L2
+    (``n_rows`` slots, layout ``l2_config()``), each a ``FeatureCache`` in
+    the per-worker or the stacked ``[W, ...]`` form."""
+    l1: FeatureCache
+    l2: FeatureCache
+
+    def worker(self, w: int) -> "TieredCache":
+        """Worker ``w``'s tiers out of a stacked state."""
+        return TieredCache(self.l1.worker(w), self.l2.worker(w))
 
 
 class CacheStats(NamedTuple):
@@ -301,14 +332,19 @@ def expand_hit_rows(kept: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache_state(cfg: CacheConfig, dim: int, n_workers: int,
-                     dtype=torch.float32, device="cuda") -> FeatureCache:
-    """Empty ``[W, ...]`` cache state on ``device`` for a flat-mode
-    ``CacheConfig``."""
+                     dtype=torch.float32, device="cuda"):
+    """Empty ``[W, ...]`` cache state on ``device`` for ``cfg``: a
+    ``FeatureCache`` in the flat modes, a ``TieredCache`` in tiered mode."""
     device = resolve_device(device)
     if cfg.mode == "tiered":
-        raise NotImplementedError(
-            "the tiered (l1, l2) cache state is not ported yet")
-    c = cfg.n_rows
+        return TieredCache(
+            l1=_empty_state(cfg.l1_rows, dim, n_workers, dtype, device),
+            l2=_empty_state(cfg.n_rows, dim, n_workers, dtype, device))
+    return _empty_state(cfg.n_rows, dim, n_workers, dtype, device)
+
+
+def _empty_state(c: int, dim: int, n_workers: int, dtype,
+                 device) -> FeatureCache:
     return FeatureCache(
         keys=torch.full((n_workers, c), -1, dtype=torch.int32, device=device),
         rows=torch.zeros((n_workers, c, dim), dtype=dtype, device=device),
@@ -334,6 +370,35 @@ def cache_probe(cache: FeatureCache, ids: torch.Tensor,
         hit = hit & valid
         rows = torch.where(hit[:, None], rows, 0)
     return hit, rows
+
+
+def tiered_probe(state: TieredCache, ids: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None, *,
+                 cfg: CacheConfig) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Probe both tiers of one worker's state for ``[R]`` ids: ``(l1_hit,
+    l2_hit, rows [R, D])`` — disjoint hits (the L1 wins a double hit) and
+    the serving tier's rows, zeros where both miss.  One
+    ``cache_probe_tiered`` launch on a CUDA state, its plain twin on a CPU
+    state."""
+    if cfg.mode != "tiered":
+        raise ValueError(f"tiered_probe requires mode='tiered', "
+                         f"got {cfg.mode!r}")
+    if cfg.l1_rows != state.l1.n_rows or cfg.n_rows != state.l2.n_rows:
+        raise ValueError(
+            f"cfg tiers ({cfg.l1_rows}, {cfg.n_rows}) != state tiers "
+            f"({state.l1.n_rows}, {state.l2.n_rows}): probing under a "
+            f"mismatched layout silently loses residents")
+    src, rows = ops.cache_probe_tiered(
+        state.l1.keys, state.l1.rows, state.l2.keys, state.l2.rows, ids,
+        l1_assoc=cfg.l1_assoc, l2_assoc=cfg.assoc)
+    l1_hit = src == 1
+    l2_hit = src == 2
+    if valid is not None:
+        l1_hit = l1_hit & valid
+        l2_hit = l2_hit & valid
+        rows = torch.where((l1_hit | l2_hit)[:, None], rows, 0)
+    return l1_hit, l2_hit, rows
 
 
 def _set_drop(buf: torch.Tensor, idx: torch.Tensor,

@@ -29,8 +29,8 @@ float32 ``= -log(u)``.  Production makes them with ``sample_draws`` from
 a seeded ``torch.Generator``; the parity tests feed ``repro``'s own
 draws, and the keys ``e / max(deg / k, 1e-30)`` then agree bit for bit.
 
-Waiting for later slices: the reduce-scatter merge, the tiered cache, the
-host (L3) store and the ``collect_stats`` trace seam.
+Waiting for later slices: the reduce-scatter merge, the host (L3) store
+and the ``collect_stats`` trace seam.
 """
 from __future__ import annotations
 
@@ -45,8 +45,9 @@ from ..kernels import ops
 from .collectives import all_gather, all_to_all, axis_index
 from .config import resolve_device
 from .feature_cache import (CacheConfig, CacheStats, FeatureCache,
-                            cache_insert, cache_probe, expand_hit_rows,
-                            hit_bitmap_words, init_cache_state, shard_of,
+                            TieredCache, cache_insert, cache_probe,
+                            expand_hit_rows, hit_bitmap_words,
+                            init_cache_state, shard_of, tiered_probe,
                             unpack_hit_bitmap)
 from .partition import PartitionedGraph
 from .tree_reduce import tree_allreduce
@@ -430,7 +431,60 @@ class _ShardedTier:
         return _shard_admit(cache, cfg, plan, recv, fetched, should, w)
 
 
-_CACHE_TIERS = {"replicated": _ReplicatedTier, "sharded": _ShardedTier}
+class _TieredTier:
+    """mode="tiered": the local L1 probe, the shard probe (L2) for the L1
+    misses, the owner fetch for the rest; admission updates the
+    authoritative L2 shard, then offers the L2-served rows to the
+    requester's L1 (installed after ``l1_promote`` observations)."""
+
+    @staticmethod
+    def probe(cache, cfg, ids, valid, cap, w):
+        """The fused two-tier probe at W == 1; else each worker's L1
+        probe, then the shard-probe round for the L1 misses."""
+        if w == 1:
+            l1_hit, l2_hit, rows = tiered_probe(cache.worker(0), ids[0],
+                                                valid[0], cfg=cfg)
+            l1_hit, l2_hit, rows = l1_hit[None], l2_hit[None], rows[None]
+            return _TierProbe(l1_hit | l2_hit, rows, l1_hit, l2_hit,
+                              _no_wire(w, ids.device), (None, None, l2_hit))
+        l1_cfg = cfg.l1_config()
+        l1_hit, l1_rows = (torch.stack(t) for t in zip(*(
+            cache_probe(cache.l1.worker(i), ids[i], valid[i], cfg=l1_cfg)
+            for i in range(w))))
+        # only L1 misses enter the probe round
+        l2_valid = valid & ~l1_hit
+        l2_hit, l2_rows, plan, recv, wire = _shard_probe(
+            cache.l2, cfg.l2_config(), ids, l2_valid, cap, w)
+        rows = torch.where(l1_hit[..., None], l1_rows, l2_rows)
+        local = l2_hit & (shard_of(ids, w)
+                          == axis_index(w, device=ids.device)[:, None])
+        return _TierProbe(l1_hit | l2_hit, rows, l1_hit, local, wire,
+                          (plan, recv, l2_hit))
+
+    @staticmethod
+    def admit(cache, cfg, probe, ids, fetched, should, w):
+        """The L2 insert (local at W == 1, routed to the shard holders
+        otherwise), then the L1 offered the probe's rows under ``l2_hit``;
+        returns ``(TieredCache, n_l2 + n_l1 [W])``."""
+        plan, recv, l2_hit = probe.ctx
+        l2_cfg = cfg.l2_config()
+        if w == 1:
+            new_l2, n_l2 = cache_insert(cache.l2.worker(0), ids[0],
+                                        fetched[0], should[0], l2_cfg)
+            new_l2, n_l2 = FeatureCache.stack([new_l2]), n_l2[None]
+        else:
+            new_l2, n_l2 = _shard_admit(cache.l2, l2_cfg, plan, recv,
+                                        fetched, should, w)
+        l1_cfg = cfg.l1_config()
+        out = [cache_insert(cache.l1.worker(i), ids[i], probe.rows[i],
+                            l2_hit[i], l1_cfg) for i in range(w)]
+        new_l1 = FeatureCache.stack([s for s, _ in out])
+        n_l1 = torch.stack([n for _, n in out])
+        return TieredCache(l1=new_l1, l2=new_l2), n_l2 + n_l1
+
+
+_CACHE_TIERS = {"replicated": _ReplicatedTier, "sharded": _ShardedTier,
+                "tiered": _TieredTier}
 
 
 class _FrozenTier:
@@ -452,9 +506,6 @@ class _FrozenTier:
 
 def _cache_tier(cfg: CacheConfig):
     """The (probe, admit) strategy for ``cfg``, frozen when ``cfg.frozen``."""
-    if cfg.mode == "tiered":
-        raise NotImplementedError(
-            "the tiered cache mode is not ported yet (graphgen-gcn-deep)")
     if cfg.mode not in _CACHE_TIERS:
         raise ValueError(f"unknown cache mode {cfg.mode!r}; "
                          f"expected one of {sorted(_CACHE_TIERS)}")

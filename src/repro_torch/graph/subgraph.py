@@ -35,7 +35,39 @@ class SubgraphBatch(NamedTuple):
     n_cache_misses: Optional[torch.Tensor] = None
     n_probe_demoted: Optional[torch.Tensor] = None
 
+    def cache_hit_rate(self) -> float:
+        """Fraction of unique feature requests served by the cache."""
+        if self.n_cache_hits is None or self.n_cache_misses is None:
+            return 0.0
+        hits = float(self.n_cache_hits.sum())
+        total = hits + float(self.n_cache_misses.sum())
+        return hits / total if total else 0.0
+
+    @property
+    def batch_size(self) -> int:
+        """Seeds in the batch (``B``, the leading axis of every field)."""
+        return self.seeds.shape[0]
+
     @property
     def depth(self) -> int:
         """Sampled hop count ``L``."""
         return len(self.hops)
+
+    @property
+    def fanouts(self) -> Tuple[int, ...]:
+        """Per-hop fanouts ``(k_1, ..., k_L)`` recovered from the shapes."""
+        return tuple(h.shape[-1] for h in self.hops)
+
+    def nodes_per_iteration(self) -> int:
+        """Padded node slots materialized per iteration (the paper's
+        nodes-per-iteration count)."""
+        return self.batch_size * slots_per_seed(self.fanouts)
+
+
+def slots_per_seed(fanouts: Tuple[int, ...]) -> int:
+    """Padded node slots per seed: ``1 + k1 + k1*k2 + ...``."""
+    total, level = 1, 1
+    for k in fanouts:
+        level *= k
+        total += level
+    return total

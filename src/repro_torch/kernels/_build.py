@@ -33,9 +33,12 @@ _LL = ctypes.c_longlong
 #: are ``c_void_p``; each returns the ``cudaGetLastError()`` code)
 _SIGNATURES = {
     "repro_fanout_mean": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "repro_fanout_mean_bwd": (_P, _P, _P, _LL, _I, _I, _I, _P),
     "repro_cache_probe_gather": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
     "repro_cache_probe_compact": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _P),
+    "repro_cache_probe_tiered": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                 _I, _I, _I, _P),
 }
 
 

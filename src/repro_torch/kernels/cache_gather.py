@@ -1,7 +1,8 @@
 """ctypes wrappers of the cache-probe CUDA kernels
-(``csrc/cache_probe_gather.cu`` and ``csrc/cache_probe_compact.cu``, the
-ports of ``repro/kernels/cache_gather.py``'s ``cache_probe_gather_pallas``
-and ``cache_probe_compact_pallas``).
+(``csrc/cache_probe_gather.cu``, ``csrc/cache_probe_compact.cu`` and
+``csrc/cache_probe_tiered.cu``, the ports of
+``repro/kernels/cache_gather.py``'s ``cache_probe_gather_pallas``,
+``cache_probe_compact_pallas`` and ``cache_probe_tiered_pallas``).
 
 Each wrapper validates its operands, allocates the outputs, launches on
 PyTorch's current stream, raises on a launch error, and counts its
@@ -127,3 +128,47 @@ def cache_probe_compact_cuda(keys: torch.Tensor, rows: torch.Tensor,
 
 
 cache_probe_compact_cuda.launches = 0
+
+
+def cache_probe_tiered_cuda(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
+                            l2_keys: torch.Tensor, l2_rows: torch.Tensor,
+                            ids: torch.Tensor, l1_assoc: int = 1,
+                            l2_assoc: int = 1):
+    """Probe ``ids [R]`` against the L1 (``l1_keys [C1]``, ``l1_rows
+    [C1, D]``) and the L2 (``l2_keys [C2]``, ``l2_rows [C2, D]``) on the
+    card: ``(src [R] int32, out [R, D])`` — 0 miss, 1 L1 (it wins a double
+    hit), 2 L2 — and the serving tier's row, zeros on a miss."""
+    _check_device(l1_keys, l1_rows, l2_keys, l2_rows, ids)
+    if (l1_keys.dim() != 1 or l2_keys.dim() != 1 or l1_rows.dim() != 2
+            or l2_rows.dim() != 2 or ids.dim() != 1):
+        raise ValueError(f"need keys [C], rows [C, D] per tier and ids [R]; "
+                         f"got {tuple(l1_keys.shape)}, {tuple(l1_rows.shape)}, "
+                         f"{tuple(l2_keys.shape)}, {tuple(l2_rows.shape)}, "
+                         f"{tuple(ids.shape)}")
+    shift1 = _check_cache(l1_keys, l1_rows, l1_assoc)
+    shift2 = _check_cache(l2_keys, l2_rows, l2_assoc)
+    if l1_rows.shape[1] != l2_rows.shape[1] or l1_rows.dtype != l2_rows.dtype:
+        raise ValueError(f"tier rows differ: {tuple(l1_rows.shape)} "
+                         f"{l1_rows.dtype} vs {tuple(l2_rows.shape)} "
+                         f"{l2_rows.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    code = _build.dtype_code(l2_rows)
+    r, d = ids.shape[0], l2_rows.shape[1]
+    src = torch.empty((r,), dtype=torch.int32, device=ids.device)
+    out = torch.empty((r, d), dtype=l2_rows.dtype, device=ids.device)
+    if r == 0:
+        return src, out
+    lib = _build.library()
+    with torch.cuda.device(ids.device):
+        status = lib.repro_cache_probe_tiered(
+            l1_keys.data_ptr(), l1_rows.data_ptr(), l2_keys.data_ptr(),
+            l2_rows.data_ptr(), ids.data_ptr(), src.data_ptr(),
+            out.data_ptr(), r, d, l1_assoc, shift1, l2_assoc, shift2, code,
+            _build.stream_of(ids))
+    _build.check(status, "cache_probe_tiered")
+    cache_probe_tiered_cuda.launches += 1
+    return src, out
+
+
+cache_probe_tiered_cuda.launches = 0

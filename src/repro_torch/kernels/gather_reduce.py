@@ -1,7 +1,10 @@
-"""ctypes wrapper of the ``fanout_mean`` CUDA kernel (``csrc/fanout_mean.cu``,
-the port of ``repro/kernels/gather_reduce.py::fanout_mean_pallas``).
+"""ctypes wrappers of the ``fanout_mean`` CUDA kernels.
 
-``fanout_mean_cuda.launches`` counts the kernel's launches.
+``fanout_mean_cuda`` wraps ``csrc/fanout_mean.cu`` (the port of
+``repro/kernels/gather_reduce.py::fanout_mean_pallas``) and
+``fanout_mean_bwd_cuda`` wraps ``csrc/fanout_mean_bwd.cu``, its gradient
+with respect to ``x``; ``<wrapper>.launches`` counts each kernel's
+launches.  ``ops.FanoutMean`` ties the two together for autograd.
 """
 from __future__ import annotations
 
@@ -10,21 +13,26 @@ import torch
 from . import _build
 
 
+def _check(x: torch.Tensor, mask: torch.Tensor, name: str) -> None:
+    """Validate an ``x``/``g`` tensor against its ``[M, K]`` mask."""
+    if x.device.type != "cuda" or mask.device != x.device:
+        raise ValueError(f"{name} needs its operands on one CUDA device, "
+                         f"got {x.device} and {mask.device}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be bool, got {mask.dtype}")
+    if not (x.is_contiguous() and mask.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
 def fanout_mean_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over the fanout axis on the card: ``x [M, K, D]``
     (float32 or bfloat16, contiguous CUDA), ``mask [M, K]`` bool ->
     ``[M, D]`` in ``x``'s dtype, accumulated in float32."""
-    if x.device.type != "cuda" or mask.device != x.device:
-        raise ValueError(f"fanout_mean_cuda needs x and mask on one CUDA "
-                         f"device, got {x.device} and {mask.device}")
+    _check(x, mask, "fanout_mean_cuda")
     if x.dim() != 3 or mask.shape != x.shape[:2]:
         raise ValueError(f"fanout_mean_cuda needs x [M, K, D] and mask "
                          f"[M, K], got {tuple(x.shape)} and "
                          f"{tuple(mask.shape)}")
-    if mask.dtype != torch.bool:
-        raise TypeError(f"mask must be bool, got {mask.dtype}")
-    if not (x.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("fanout_mean_cuda needs contiguous x and mask")
     code = _build.dtype_code(x)
     m, k, d = x.shape
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
@@ -41,3 +49,31 @@ def fanout_mean_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 fanout_mean_cuda.launches = 0
+
+
+def fanout_mean_bwd_cuda(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Gradient of the masked mean on the card: ``g [M, D]`` (float32 or
+    bfloat16, contiguous CUDA), ``mask [M, K]`` bool -> ``dx [M, K, D]`` in
+    ``g``'s dtype, ``g / max(count, 1) * mask`` (see
+    ``ref.fanout_mean_bwd_ref``)."""
+    _check(g, mask, "fanout_mean_bwd_cuda")
+    if g.dim() != 2 or mask.dim() != 2 or mask.shape[0] != g.shape[0]:
+        raise ValueError(f"fanout_mean_bwd_cuda needs g [M, D] and mask "
+                         f"[M, K], got {tuple(g.shape)} and "
+                         f"{tuple(mask.shape)}")
+    code = _build.dtype_code(g)
+    (m, d), k = g.shape, mask.shape[1]
+    dx = torch.empty((m, k, d), dtype=g.dtype, device=g.device)
+    if dx.numel() == 0:
+        return dx
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        status = lib.repro_fanout_mean_bwd(
+            g.data_ptr(), mask.data_ptr(), dx.data_ptr(), m, k, d, code,
+            _build.stream_of(g))
+    _build.check(status, "fanout_mean_bwd")
+    fanout_mean_bwd_cuda.launches += 1
+    return dx
+
+
+fanout_mean_bwd_cuda.launches = 0

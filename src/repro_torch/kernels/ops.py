@@ -13,14 +13,17 @@ from typing import Dict
 import torch
 
 from . import ref
-from .cache_gather import cache_probe_compact_cuda, cache_probe_gather_cuda
-from .gather_reduce import fanout_mean_cuda
+from .cache_gather import (cache_probe_compact_cuda, cache_probe_gather_cuda,
+                           cache_probe_tiered_cuda)
+from .gather_reduce import fanout_mean_bwd_cuda, fanout_mean_cuda
 
 #: kernel name -> its CUDA wrapper (each carries a ``launches`` counter)
 KERNELS = {
     "fanout_mean": fanout_mean_cuda,
+    "fanout_mean_bwd": fanout_mean_bwd_cuda,
     "cache_probe_gather": cache_probe_gather_cuda,
     "cache_probe_compact": cache_probe_compact_cuda,
+    "cache_probe_tiered": cache_probe_tiered_cuda,
 }
 
 
@@ -36,12 +39,38 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
                      f"{sorted(kinds)}")
 
 
+class FanoutMean(torch.autograd.Function):
+    """``fanout_mean`` with its gradient; each direction dispatches like
+    every other op here.  The bool mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """``[M, K, D]``, ``[M, K]`` -> ``[M, D]``."""
+        ctx.save_for_backward(mask)
+        if _on_cuda(x, mask):
+            return fanout_mean_cuda(x, mask)
+        return ref.fanout_mean_ref(x, mask)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        """``dx = g / max(count, 1) * mask``; ``None`` for the mask."""
+        (mask,) = ctx.saved_tensors
+        return fanout_mean_bwd(g, mask), None
+
+
 def fanout_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over the fanout axis: ``x [M, K, D]``, ``mask [M, K]``
-    -> ``[M, D]`` (the GCN aggregation step on a padded fanout tree)."""
-    if _on_cuda(x, mask):
-        return fanout_mean_cuda(x.contiguous(), mask.contiguous())
-    return ref.fanout_mean_ref(x, mask)
+    -> ``[M, D]`` (the GCN aggregation step on a padded fanout tree),
+    differentiable in ``x`` through ``FanoutMean`` on both devices."""
+    return FanoutMean.apply(x.contiguous(), mask.contiguous())
+
+
+def fanout_mean_bwd(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``fanout_mean`` with respect to ``x``: ``g [M, D]``,
+    ``mask [M, K]`` -> ``dx [M, K, D]``."""
+    if _on_cuda(g, mask):
+        return fanout_mean_bwd_cuda(g.contiguous(), mask.contiguous())
+    return ref.fanout_mean_bwd_ref(g, mask)
 
 
 def cache_probe_gather(keys: torch.Tensor, rows: torch.Tensor,
@@ -65,6 +94,20 @@ def cache_probe_compact(keys: torch.Tensor, rows: torch.Tensor,
                                         hit_cap=hit_cap)
     return ref.cache_probe_compact_ref(keys, rows, ids, assoc=assoc,
                                        hit_cap=hit_cap)
+
+
+def cache_probe_tiered(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
+                       l2_keys: torch.Tensor, l2_rows: torch.Tensor,
+                       ids: torch.Tensor, l1_assoc: int = 1, l2_assoc: int = 1):
+    """Fused two-tier L1/L2 probe + gather: ``(src [R] int32, rows
+    [R, D])``, src 0 miss / 1 L1 / 2 L2 (the L1 wins a double hit)."""
+    if _on_cuda(l1_keys, l1_rows, l2_keys, l2_rows, ids):
+        return cache_probe_tiered_cuda(
+            l1_keys.contiguous(), l1_rows.contiguous(), l2_keys.contiguous(),
+            l2_rows.contiguous(), ids.contiguous(), l1_assoc=l1_assoc,
+            l2_assoc=l2_assoc)
+    return ref.cache_probe_tiered_ref(l1_keys, l1_rows, l2_keys, l2_rows, ids,
+                                      l1_assoc=l1_assoc, l2_assoc=l2_assoc)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -21,6 +21,20 @@ def fanout_mean_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (num / den).to(x.dtype)
 
 
+def fanout_mean_bwd_ref(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``fanout_mean_ref`` with respect to ``x``: ``g [M, D]``
+    (the output's gradient), ``mask [M, K]`` -> ``dx [M, K, D]`` in ``g``'s
+    dtype, ``dx[m, k] = g[m] / max(sum_k mask[m, k], 1) * mask[m, k]``.
+
+    The steps of JAX's autodiff of the oracle: the cast's transpose lifts
+    ``g`` to float32, the division's gives ``g / den``, the einsum's
+    multiplies by the float mask, and the input cast rounds once."""
+    m = mask.to(torch.float32)
+    den = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
+    dnum = g.to(torch.float32) / den
+    return (dnum[:, None, :] * m[:, :, None]).to(g.dtype)
+
+
 def cache_probe_gather_ref(keys: torch.Tensor, rows: torch.Tensor,
                            ids: torch.Tensor, assoc: int = 1):
     """Set-associative probe: ``keys [C]``, ``rows [C, D]``, ``ids [R]`` ->
@@ -61,3 +75,22 @@ def cache_probe_compact_ref(keys: torch.Tensor, rows: torch.Tensor,
                       0)
     kept, payload = compact_hit_rows(hit, out, hit_cap)
     return pack_hit_bitmap(kept), pack_hit_bitmap(hit), payload
+
+
+def cache_probe_tiered_ref(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
+                           l2_keys: torch.Tensor, l2_rows: torch.Tensor,
+                           ids: torch.Tensor, l1_assoc: int = 1,
+                           l2_assoc: int = 1):
+    """Two-tier probe: ``(src [R] int32, out [R, D])``.  ``src`` is 0 where
+    both tiers miss, 1 where the L1 serves the id (it wins a double hit)
+    and 2 where only the L2 does; ``out`` is the serving tier's row, zeros
+    on a miss.  Like the gather probe, an id of -1 matches an empty slot;
+    the caller's ``valid`` mask removes those hits."""
+    l1_hit, l1_out = cache_probe_gather_ref(l1_keys, l1_rows, ids,
+                                            assoc=l1_assoc)
+    l2_hit, l2_out = cache_probe_gather_ref(l2_keys, l2_rows, ids,
+                                            assoc=l2_assoc)
+    src = torch.where(l1_hit, 1, torch.where(l2_hit, 2, 0)).to(torch.int32)
+    out = torch.where(l1_hit[:, None], l1_out,
+                      torch.where(l2_hit[:, None], l2_out, 0))
+    return src, out

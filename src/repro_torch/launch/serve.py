@@ -6,7 +6,9 @@ a small shape ladder; subgraph generation runs against the hot-node
 cache in its frozen serve view (warmed beforehand by sweeps of the
 mutable generator over the degree-ranked Zipf head), then the GCN
 forward and an argmax.  On a card the cache probes and the GCN
-aggregation run the port's CUDA kernels.
+aggregation run the port's CUDA kernels; ``graphgen-gcn-deep``'s tiered
+cache (an L1 in front of the sharded L2) is warmed and frozen the same
+way, and at W = 1 its probe is the fused two-tier kernel.
 
 ``compile_count()`` counts the distinct step shapes the server has run:
 the ladder is run once at startup, and the request path must add none
@@ -16,6 +18,7 @@ and ``--warm-from`` checkpoints wait for later slices.
 Examples::
 
     python -m repro_torch.launch.serve --arch graphgen-gcn --workers 4
+    python -m repro_torch.launch.serve --arch graphgen-gcn-deep
     python -m repro_torch.launch.serve --arch graphgen-gcn --smoke \\
         --device cpu --nodes 2000 --requests 16
 """

@@ -1,0 +1,406 @@
+"""GCN training driver of the port (``repro/launch/train.py``'s
+``train_gcn``, device store).
+
+Synthetic power-law graph -> edge partition -> balance table ->
+synchronized subgraph generation + in-memory GCN training (the GraphGen+
+pipeline) on the stacked worker axis.  Before the loop the drop-aware
+capacity ladder and the compact-wire hit-cap ladder calibrate the
+exchange buffers (each rung from a cold cache), and ``--warm-recalibrate
+N`` shrinks the owner exchange to the warm miss peak after ``N`` steps,
+rolling back to the calibrated width if a shrunken batch drops requests.
+On a card the cache probes, the GCN aggregation and its gradient run the
+port's CUDA kernels.
+
+Waiting for later slices, and not accepted by this parser: the profile
+autotuner (``--autotune``), the host (L3) feature store
+(``--feature-store host``), checkpoints (``--resume``, ``--ckpt-*``),
+``--export-serve`` and the LM archs.  ``--device`` is the one flag the
+reference lacks.
+
+Examples::
+
+    python -m repro_torch.launch.train --arch graphgen-gcn-deep
+    python -m repro_torch.launch.train --arch graphgen-gcn --workers 4
+    python -m repro_torch.launch.train --arch graphgen-gcn-deep --smoke \\
+        --device cpu --nodes 2000 --steps 4
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config, smoke_config
+from ..core.balance import balance_table
+from ..core.config import TrainConfig, resolve_device
+from ..core.feature_cache import CacheConfig, init_cache_state
+from ..core.generation import (SeededDraws, make_distributed_generator,
+                               make_generator_fn, probe_round_capacity)
+from ..core.partition import partition_edges
+from ..core.pipeline import pipelined_loop
+from ..graph.subgraph import slots_per_seed
+from ..graph.synthetic import node_features, node_labels, powerlaw_graph
+from ..models.gcn import gcn_loss, init_gcn
+from ..train.optimizer import adam_update, init_adam
+
+#: ascending slack ladder probed by the drop-aware capacity calibration
+SLACK_LADDER = (0.25, 0.5, 1.0, 1.5, 2.0)
+#: calibration batches per rung
+CALIBRATION_PROBES = 3
+#: ascending hit-cap ladder (fractions of the probe-round capacity)
+HIT_CAP_LADDER = (0.125, 0.25, 0.5)
+
+
+def make_gcn_train_fn(tcfg: TrainConfig):
+    """``train_fn(model, opt_state, batch) -> (model, opt_state, loss)``:
+    the GCN loss, its gradient with respect to every parameter (in
+    ``GCN.leaves()`` order, the optimizer state's), and one
+    ``adam_update``, written back into the model's parameters in place."""
+    def train_fn(model, opt_state, batch):
+        params = model.leaves()
+        loss = gcn_loss(model, batch)
+        grads = torch.autograd.grad(loss, params)
+        new, opt_state, _ = adam_update(tcfg, params, grads, opt_state)
+        with torch.no_grad():
+            for p, n in zip(params, new):
+                p.copy_(n)
+        return model, opt_state, loss.detach()
+    return train_fn
+
+
+def calibrate_capacity_slack(device_args, fanouts, probes,
+                             ladder=SLACK_LADDER, cache_cfg=None) -> float:
+    """Drop-aware capacity calibration: the smallest slack of ``ladder``
+    whose batches drop no request over every probe ``(seeds, draws)``.
+    With ``cache_cfg`` the ladder probes the cached generator, each rung
+    from a cold cache (the cold-start miss burst is the heaviest owner
+    traffic), the cache threading across a rung's probes."""
+    w = device_args[0].shape[0]
+    feat_dim = device_args[2].shape[-1]
+    dev = device_args[0].device
+    cached = cache_cfg is not None and cache_cfg.n_rows > 0
+    with torch.no_grad():
+        for slack in ladder:
+            gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
+                                       cache_cfg=cache_cfg if cached else None)
+            if cached:
+                cache = init_cache_state(cache_cfg, feat_dim, w, device=dev)
+            dropped = 0
+            for seeds, draws in probes:
+                if cached:
+                    batch, cache = gen_fn(device_args, seeds, draws, cache)
+                else:
+                    batch = gen_fn(device_args, seeds, draws)
+                dropped += int(batch.n_dropped.sum())
+            if dropped == 0:
+                return slack
+            print(f"calibration: slack={slack} dropped {dropped} requests "
+                  f"over {len(probes)} probes")
+    print(f"calibration: even slack={ladder[-1]} drops requests; keeping it")
+    return ladder[-1]
+
+
+def calibrate_probe_hit_cap(device_args, fanouts, probes, slack, cache_cfg,
+                            ladder=HIT_CAP_LADDER) -> CacheConfig:
+    """Compact-wire hit-cap calibration: the ``CacheConfig`` of the
+    smallest rung (a fraction of the probe-round capacity) whose probes
+    demote no hit, each rung from a cold cache; the dense wire when every
+    rung demotes."""
+    w = device_args[0].shape[0]
+    feat_dim = device_args[2].shape[-1]
+    dev = device_args[0].device
+    b = probes[0][0].shape[1]
+    cap = probe_round_capacity(b * slots_per_seed(fanouts), w, slack)
+    with torch.no_grad():
+        for frac in ladder:
+            hc = max(int(cap * frac), 1)
+            cfg = cache_cfg._replace(wire="compact", hit_cap=hc)
+            gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
+                                       cache_cfg=cfg)
+            cache = init_cache_state(cfg, feat_dim, w, device=dev)
+            demoted = 0
+            for seeds, draws in probes:
+                batch, cache = gen_fn(device_args, seeds, draws, cache)
+                demoted += int(batch.n_probe_demoted.sum())
+            if demoted == 0:
+                print(f"probe hit-cap auto-sized to {hc} rows/destination "
+                      f"({frac:.0%} of the {cap}-slot probe round; override "
+                      f"with --probe-hit-cap)")
+                return cfg
+            print(f"hit-cap calibration: hit_cap={hc} demoted {demoted} "
+                  f"hits over {len(probes)} probes")
+    print(f"hit-cap calibration: even {ladder[-1]:.0%} of the probe round "
+          f"demotes hits; falling back to the dense wire")
+    return cache_cfg._replace(wire="dense", hit_cap=0)
+
+
+def warm_capacity(miss_peak: int, w: int, slack: float, rows: int,
+                  margin: int = 8) -> int:
+    """Steady-state owner-exchange capacity from the warm per-worker miss
+    peak: ``ceil(peak / w) * max(slack, 2) + margin``, clamped to
+    ``[1, rows]``."""
+    cap = int(-(-miss_peak // max(w, 1)) * max(slack, 2.0)) + margin
+    return max(min(cap, rows), 1)
+
+
+def _model_config(args):
+    """The arch's config with the command line's overrides applied."""
+    cfg = get_config(args.arch)
+    if args.fanouts:
+        try:
+            fo = tuple(int(k) for k in args.fanouts.split(","))
+        except ValueError:
+            raise SystemExit(
+                f"--fanouts expects comma-separated ints (e.g. 15,10,5), "
+                f"got {args.fanouts!r}")
+        if not fo or any(k < 1 for k in fo):
+            raise SystemExit(f"--fanouts entries must be >= 1, got {fo}")
+        cfg = dataclasses.replace(cfg, fanouts=fo)
+    for flag, field in (("cache_rows", "cache_rows"),
+                        ("cache_admit", "cache_admit"),
+                        ("cache_assoc", "cache_assoc"),
+                        ("cache_mode", "cache_mode"),
+                        ("l1_rows", "cache_l1_rows"),
+                        ("l1_promote", "cache_l1_promote"),
+                        ("probe_wire", "cache_wire"),
+                        ("probe_hit_cap", "cache_hit_cap")):
+        if getattr(args, flag) is not None:
+            cfg = dataclasses.replace(cfg, **{field: getattr(args, flag)})
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    return cfg
+
+
+def train_gcn(args, step_hook=None) -> dict:
+    """Train a GCN arch for ``args.steps`` pipelined steps; returns the
+    losses, the padded nodes per iteration, the wall time, the slack, the
+    calibration ladders that ran, the requests dropped by the trained
+    batches, the final cache hit rate, and the trained model, the cache
+    state and the last batch.  ``step_hook(t)``, when given, runs after
+    step ``t``'s loss has reached the host (a profiler's step marker)."""
+    dev = resolve_device(args.device)
+    w = args.workers
+    cfg = _model_config(args)
+    fanouts = cfg.fanouts
+    cache_cfg = CacheConfig.from_model(cfg)
+    cached = cache_cfg is not None
+
+    graph = powerlaw_graph(args.nodes, avg_degree=args.avg_degree,
+                           n_hot=max(args.nodes // 1000, 1), seed=args.seed)
+    part = partition_edges(graph, w)
+    feats = node_features(graph.n_nodes, cfg.gcn_in_dim, args.seed)
+    labels = node_labels(graph.n_nodes, cfg.n_classes, args.seed)
+    table = balance_table(np.arange(graph.n_nodes), w, args.seed)
+
+    b = args.batch_per_worker
+    draws = SeededDraws(fanouts, args.seed + 1, dev)
+
+    def seeds_np(t):
+        sw = table.per_worker
+        return sw[:, (np.arange(b) + t * b) % sw.shape[1]]
+
+    def seeds_for(t):
+        return torch.from_numpy(np.ascontiguousarray(seeds_np(t))).to(dev)
+
+    # the compact probe wire needs a hit_cap: calibrate one unless the
+    # config pins it or --probe-hit-cap was given (replicated mode and
+    # W == 1 run no probe round)
+    need_hit_cap = (cached and w > 1 and cache_cfg.mode != "replicated"
+                    and cache_cfg.wire == "compact"
+                    and cache_cfg.hit_cap == 0
+                    and args.probe_hit_cap is None)
+    # the graph and the tables are placed once; every rung of both
+    # ladders runs against the same placement
+    _, device_args = make_distributed_generator(part, feats, labels,
+                                                fanouts=fanouts, device=dev)
+    probes = [(seeds_for(t), draws(t, w, b))
+              for t in range(CALIBRATION_PROBES)]
+    ladders = []
+    if args.capacity_slack is not None:
+        slack = args.capacity_slack
+    elif w == 1:
+        slack = 2.0      # the W = 1 fetch is a local gather
+    else:
+        # the cached generator, a cold cache per rung
+        slack = calibrate_capacity_slack(device_args, fanouts, probes,
+                                         cache_cfg=cache_cfg)
+        ladders.append("slack")
+        print(f"capacity_slack auto-sized to {slack} "
+              f"(override with --capacity-slack)")
+    if need_hit_cap:
+        cache_cfg = calibrate_probe_hit_cap(device_args, fanouts, probes,
+                                            slack, cache_cfg)
+        ladders.append("hit_cap")
+    del probes
+
+    gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
+                               cache_cfg=cache_cfg)
+    cache = None
+    if cached:
+        cache = init_cache_state(cache_cfg, cfg.gcn_in_dim, w, device=dev)
+        line = (f"hot-node cache: {cache_cfg.n_rows} rows/worker "
+                f"({cache_cfg.assoc}-way, {cache_cfg.mode}), "
+                f"admit-after-{cache_cfg.admit}")
+        if cache_cfg.mode == "tiered":
+            line += (f" + {cache_cfg.l1_rows}-row replicated L1 "
+                     f"(promote-after-{cache_cfg.l1_promote})")
+        if cache_cfg.mode != "replicated" and w > 1:
+            line += f", {cache_cfg.wire} probe wire"
+            if cache_cfg.wire == "compact" and cache_cfg.hit_cap:
+                line += f" (hit_cap {cache_cfg.hit_cap})"
+        print(line)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
+    model = init_gcn(cfg, args.seed, device=dev)
+    train_fn = make_gcn_train_fn(tcfg)
+
+    losses = []
+    final = {}        # the last trained batch
+    n_dropped = 0
+    miss_peak = 0
+    wide_gen = None   # pre-recalibration generator, kept for rollback
+    # only the second half of the warm window counts toward the miss peak
+    warm_from = max(args.warm_recalibrate // 2, 1)
+    t0 = None
+
+    def before_step(t, carry, gen_fn):
+        nonlocal miss_peak, wide_gen, n_dropped, t0
+        if t == 0:
+            t0 = time.perf_counter()   # batch 0 is generated: steps begin
+        if cached and args.warm_recalibrate and t >= warm_from:
+            miss_peak = max(miss_peak, int(carry[2].n_cache_misses.max()))
+        # rollback check first: carry[2] was generated by the shrunken
+        # generator only once the shrink below has been installed
+        if wide_gen is not None and int(carry[2].n_dropped.sum()) > 0:
+            gen_fn, wide_gen = wide_gen, None
+            with torch.no_grad():
+                batch, cache_now = gen_fn(device_args, seeds_for(t),
+                                          draws(t, w, b), carry[3])
+            carry = (carry[0], carry[1], batch, cache_now)
+            print(f"step {t}: shrunken capacity dropped requests — "
+                  f"regenerated the batch and rolled back to the "
+                  f"calibrated width")
+        if (args.warm_recalibrate and cached and w > 1
+                and t == args.warm_recalibrate and t + 1 < args.steps):
+            rows_pw = device_args[2].shape[1]
+            new_cap = warm_capacity(miss_peak, w, slack, rows_pw)
+            wide_gen = gen_fn
+            gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
+                                       cache_cfg=cache_cfg,
+                                       fetch_capacity=new_cap)
+            print(f"warm re-calibration at step {t}: owner-exchange "
+                  f"capacity -> {new_cap} slots/destination "
+                  f"(peak warm per-worker misses {miss_peak})")
+        n_dropped += int(carry[2].n_dropped.sum())
+        return carry, gen_fn
+
+    def after_step(t, carry, loss):
+        losses.append(float(loss))
+        if step_hook is not None:
+            step_hook(t)
+        if (t + 1) % args.log_every == 0:
+            line = f"step {t + 1}: loss={losses[-1]:.4f}"
+            nb = carry[2]
+            if cached:
+                line += f" cache_hit_rate={nb.cache_hit_rate():.3f}"
+            dropped = int(nb.n_dropped.sum())
+            if dropped:
+                line += f" DROPPED={dropped}"
+            if cached:
+                demoted = int(nb.n_probe_demoted.sum())
+                if demoted:
+                    line += f" demoted={demoted}"
+            print(line)
+        final["batch"] = carry[2]
+
+    schedule = np.stack([seeds_np(t) for t in range(args.steps)])
+    model, _, _, *rest = pipelined_loop(
+        gen_fn, train_fn, device_args, schedule, model,
+        init_adam(model.leaves()), draws, cache=cache,
+        before_step=before_step, after_step=after_step)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    batch = final["batch"]
+    nodes_per_iter = batch.nodes_per_iteration()
+    out = {"losses": losses, "nodes_per_iter": nodes_per_iter, "wall_s": dt,
+           "capacity_slack": slack, "ladders": ladders,
+           "n_dropped": n_dropped, "cache_cfg": cache_cfg, "model": model,
+           "cache": rest[0] if cached else None, "batch": batch}
+    print(f"trained {args.steps} steps in {dt:.1f}s "
+          f"({nodes_per_iter} padded nodes/iter, "
+          f"{args.steps * nodes_per_iter / dt:,.0f} nodes/s)")
+    if cached:
+        out["cache_hit_rate"] = batch.cache_hit_rate()
+        print(f"steady-state cache hit rate: {out['cache_hit_rate']:.3f}")
+    return out
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The GCN training flags (``repro``'s, minus those of the parts still
+    to be ported, plus ``--device``)."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="graphgen-gcn")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    ap.add_argument("--fanouts", default=None,
+                    help="comma-separated per-hop fanouts override, e.g. "
+                         "15,10,5")
+    ap.add_argument("--capacity-slack", type=float, default=None,
+                    help="feature-shuffle capacity slack; omit to auto-size "
+                         "from a drop-aware calibration step")
+    ap.add_argument("--cache-rows", type=int, default=None,
+                    help="hot-node feature cache rows/worker (rounded UP to "
+                         "a power of two; 0 disables; default from config)")
+    ap.add_argument("--cache-admit", type=int, default=None,
+                    help="misses before a node id is admitted to the cache")
+    ap.add_argument("--cache-assoc", type=int, default=None,
+                    choices=[1, 2, 4],
+                    help="cache ways per set (1 = direct-mapped)")
+    ap.add_argument("--cache-mode", default=None,
+                    choices=["replicated", "sharded", "tiered"],
+                    help="cache placement: per-worker replicas, id-space "
+                         "shards, or a replicated L1 in front of the "
+                         "sharded L2")
+    ap.add_argument("--l1-rows", type=int, default=None,
+                    help="tiered mode: replicated L1 rows/worker (0 "
+                         "auto-sizes to cache_rows/8)")
+    ap.add_argument("--l1-promote", type=int, default=None,
+                    help="tiered mode: observations of a row before it is "
+                         "promoted into the local L1")
+    ap.add_argument("--probe-wire", default=None,
+                    choices=["dense", "compact"],
+                    help="shard-probe response wire format")
+    ap.add_argument("--probe-hit-cap", type=int, default=None,
+                    help="compact wire: pin the probe-response payload rows "
+                         "per destination (skips the hit-cap calibration; "
+                         "0 = half the probe capacity)")
+    ap.add_argument("--warm-recalibrate", type=int, default=0,
+                    help="after N warm steps, shrink the owner-exchange "
+                         "capacity to the observed steady-state miss peak "
+                         "(0 disables; needs the cache and W > 1)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--workers", type=int, default=1,
+                    help="simulated workers on the stacked worker axis")
+    ap.add_argument("--nodes", type=int, default=20_000)
+    ap.add_argument("--avg-degree", type=float, default=10.0)
+    ap.add_argument("--batch-per-worker", type=int, default=32)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=5)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    """CLI entry: train a GCN arch."""
+    args = parse_args(argv)
+    if get_config(args.arch).family != "gcn":
+        raise SystemExit(f"{args.arch}: only GCN archs are ported")
+    train_gcn(args)
+
+
+if __name__ == "__main__":
+    main()

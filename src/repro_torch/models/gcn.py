@@ -49,6 +49,15 @@ class GCN(nn.Module):
         self.w_out = nn.Parameter(torch.zeros(hidden, n_classes, device=device))
         self.b_out = nn.Parameter(torch.zeros(n_classes, device=device))
 
+    def leaves(self) -> list:
+        """The parameters in the reference's pytree order (each layer's
+        ``w_self, w_nbr, b``, then ``w_out, b_out``) — the order the
+        optimizer state and ``convert`` use; ``parameters()`` lists the
+        read-out first."""
+        return [p for layer in self.layers
+                for p in (layer.w_self, layer.w_nbr, layer.b)] + [
+                    self.w_out, self.b_out]
+
     def forward(self, batch: SubgraphBatch) -> torch.Tensor:
         """Bottom-up tree aggregation, hop L -> ... -> seed: logits
         ``[B, n_classes]``."""

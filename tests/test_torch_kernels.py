@@ -3,7 +3,8 @@
 On the CPU: each plain-torch twin (``repro_torch.kernels.ref``, which
 ``ops`` dispatches CPU tensors to) against both ``repro``'s jnp oracle and
 its Pallas kernel run in interpret mode — probes exact, fanout_mean within
-rtol 1e-5 / atol 1e-6 in float32 (the sum is taken in another order).
+rtol 1e-5 / atol 1e-6 in float32 (the sum is taken in another order) —
+and fanout_mean's backward against ``jax.grad`` of the oracle.
 
 On a card (marked ``cuda``, skipped elsewhere): each CUDA kernel against
 its twin on the same CUDA inputs.  ``chip_smoke.py`` repeats that check at
@@ -132,6 +133,100 @@ def test_cache_probe_compact_stacked_holders():
             assert torch.equal(a[h], b[0])
 
 
+def _tiered_cache(c1, c2, d, a1, a2, seed):
+    """An L1 and an L2 with unique keys per set; half the L1's ids are
+    also L2 residents (double hits), and a few slots stay empty with zero
+    rows, as in a real state (the Pallas kernel lets the last matching
+    way win, so an id of -1 in a set of several empty ways must find the
+    same zeros whichever way serves it)."""
+    k2, r2, pool2, rng = _cache(c2, d, a2, seed)
+    k1, r1, pool1, _ = _cache(c1, d, a1, seed + 1)
+    shared = rng.choice(k2[k2 >= 0], c1 // 2, replace=False)
+    sets = np.asarray(jhash(jnp.asarray(shared), c1 // a1))
+    k1[:] = -1
+    fill = np.zeros(c1 // a1, np.int64)
+    for pid, s in zip(np.concatenate([shared, pool1]),
+                      np.concatenate([sets, np.asarray(
+                          jhash(jnp.asarray(pool1), c1 // a1))])):
+        if fill[s] < a1 and pid not in k1 and fill.sum() < c1 - c1 // 8 - 1:
+            k1[s * a1 + fill[s]] = pid
+            fill[s] += 1
+    r1 = np.where((k1 >= 0)[:, None], r1 + 100.0, 0).astype(np.float32)
+    r2 = np.where((k2 >= 0)[:, None], r2, 0).astype(np.float32)
+    return k1, r1, k2, r2, np.concatenate([pool2, pool1]), rng
+
+
+@pytest.mark.parametrize("c1,a1,c2,a2,r", [
+    (16, 1, 64, 1, 77), (16, 2, 64, 2, 96), (16, 2, 64, 4, 33),
+    (2, 2, 64, 4, 50),      # single-set L1
+    (8, 1, 4, 4, 41)])      # single-set L2
+def test_cache_probe_tiered_twin(c1, a1, c2, a2, r):
+    """Two-tier probe twin vs the oracle and the Pallas kernel, exactly:
+    L1 assoc 1/2, L2 assoc 1/2/4, single-set tiers, double hits (the L1
+    wins), misses, -1 ids (which match empty slots, as in the oracle) and
+    probe counts off a multiple of 32."""
+    k1, r1, k2, r2, pool, rng = _tiered_cache(c1, c2, 8, a1, a2, c1 + c2 + r)
+    ids = np.where(rng.random(r) < 0.7, rng.choice(pool, size=r),
+                   rng.integers(0, 10 * c2, r)).astype(np.int32)
+    ids[rng.random(r) < 0.1] = -1
+    args = (k1, r1, k2, r2, ids)
+    src, out = ops.cache_probe_tiered(*map(torch.from_numpy, args),
+                                      l1_assoc=a1, l2_assoc=a2)
+    assert src.dtype == torch.int32
+    for use_kernel in (False, True):
+        ws, wo = jops.cache_probe_tiered(*map(jnp.asarray, args),
+                                         l1_assoc=a1, l2_assoc=a2,
+                                         use_kernel=use_kernel)
+        np.testing.assert_array_equal(src.numpy(), np.asarray(ws))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(wo))
+    both = np.isin(ids, k1) & np.isin(ids, k2) & (ids >= 0)
+    if both.any():
+        assert (src.numpy()[both] == 1).all()
+    assert set(np.unique(src.numpy())) <= {0, 1, 2}
+
+
+@pytest.mark.parametrize("m,k,d", [(8, 4, 16), (37, 9, 130), (5, 40, 64)])
+def test_fanout_mean_backward_matches_jax_grad(m, k, d):
+    """``fanout_mean_bwd_ref`` and ``FanoutMean``'s CPU backward (what
+    ``ops.fanout_mean`` records for autograd) vs ``jax.grad`` of the
+    oracle: exact, since both divide the same float32 gradient by the
+    same count and multiply by 0 or 1."""
+    rng = np.random.default_rng(m + k + d)
+    x = rng.standard_normal((m, k, d)).astype(np.float32)
+    mask = rng.random((m, k)) < 0.6
+    mask[0] = False
+    g = rng.standard_normal((m, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda xx: jref.fanout_mean_ref(xx, jnp.asarray(mask)),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = ref.fanout_mean_bwd_ref(torch.from_numpy(g), torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ops.fanout_mean_bwd(torch.from_numpy(g),
+                            torch.from_numpy(mask)).numpy(), want)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ops.fanout_mean(xt, torch.from_numpy(mask)).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(xt.grad.numpy(), want)
+
+
+def test_fanout_mean_backward_bf16_matches_jax_grad():
+    """bfloat16: the gradient is lifted to float32, divided, multiplied by
+    the mask and rounded once — equal to ``jax.grad`` of the oracle."""
+    rng = np.random.default_rng(9)
+    m, k, d = 33, 7, 40
+    mask = rng.random((m, k)) < 0.5
+    g = rng.standard_normal((m, d)).astype(np.float32)
+    gj = jnp.asarray(g, jnp.bfloat16)
+    x0 = jnp.zeros((m, k, d), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda xx: jref.fanout_mean_ref(xx, jnp.asarray(mask)),
+                     x0)
+    want = np.asarray(vjp(gj)[0].astype(jnp.float32))
+    got = ref.fanout_mean_bwd_ref(torch.from_numpy(g).to(torch.bfloat16),
+                                  torch.from_numpy(mask))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 def test_dispatch_refuses_mixed_or_unknown_devices():
     """ops never guesses a device: CPU with meta (or any non-CPU,
     non-CUDA device) raises."""
@@ -204,3 +299,45 @@ def test_probe_kernels_on_card(cuda, assoc):
             assert torch.equal(a, b)
     assert ops.launch_counts()["cache_probe_gather"] == 1
     assert ops.launch_counts()["cache_probe_compact"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c1,a1,c2,a2,r", [(16, 1, 64, 1, 77),
+                                            (16, 2, 64, 4, 33),
+                                            (2, 2, 64, 4, 50),
+                                            (512, 2, 4096, 4, 26912)])
+def test_cache_probe_tiered_kernel_on_card(cuda, c1, a1, c2, a2, r):
+    """CUDA two-tier probe vs its twin on the card, exactly (-1 ids and
+    double hits included)."""
+    k1, r1, k2, r2, pool, rng = _tiered_cache(c1, c2, 40, a1, a2, r)
+    ids = np.where(rng.random(r) < 0.7, rng.choice(pool, size=r),
+                   rng.integers(0, 10 * c2, r)).astype(np.int32)
+    ids[rng.random(r) < 0.1] = -1
+    args = [torch.from_numpy(a).to(cuda) for a in (k1, r1, k2, r2, ids)]
+    ops.reset_launch_counts()
+    for a, b in zip(ops.cache_probe_tiered(*args, l1_assoc=a1, l2_assoc=a2),
+                    ref.cache_probe_tiered_ref(*args, l1_assoc=a1,
+                                               l2_assoc=a2)):
+        assert torch.equal(a, b)
+    assert ops.launch_counts()["cache_probe_tiered"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fanout_mean_bwd_kernel_on_card(cuda, dtype):
+    """CUDA backward vs its twin on the card (exact: one division and one
+    rounding in both), and through autograd: ``FanoutMean`` on a CUDA
+    tensor launches the forward and the backward kernel once each."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(300, 20, 130, generator=g, device=cuda).to(dtype)
+    mask = torch.rand(300, 20, generator=g, device=cuda) < 0.7
+    mask[:2] = False
+    dy = torch.randn(300, 130, generator=g, device=cuda).to(dtype)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.fanout_mean_bwd(dy, mask),
+                       ref.fanout_mean_bwd_ref(dy, mask))
+    xg = x.clone().requires_grad_(True)
+    ops.fanout_mean(xg, mask).backward(dy)
+    assert torch.equal(xg.grad, ref.fanout_mean_bwd_ref(dy, mask))
+    counts = ops.launch_counts()
+    assert counts["fanout_mean"] == 1 and counts["fanout_mean_bwd"] == 2
