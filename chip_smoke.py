@@ -36,18 +36,52 @@ Phases, each of which fails the run (nonzero exit, no result line):
               layer call of the trained model on each run's last batch
               (rtol 1e-5 / atol 1e-6), and cache_probe_compact on the W = 4
               run's own probe round with its calibrated hit cap (exact).
-6. agree    — the port on the card against the port on the CPU (the plain
+6. LM       — the dense LM (smollm-135m, full width: 30 layers, d_model
+              576, 9 query heads over 3 KV heads, head_dim 64, vocab
+              49 152, random weights from a seed):
+              flash     ``flash_attention`` against its twin at the prefill
+                        shape (B 8, Hq 9, Hkv 3, L 2048, Dh 64, causal,
+                        bf16; within one bf16 ulp, rtol 2^-7 / atol 1e-5)
+                        and at f32 shapes with Lq < Lk, causal (rtol/atol
+                        1e-5), Dh 64 and 128;
+              prefill   ``forward_logits`` with flash attention on 8 x 2048
+                        seeded tokens: 30 flash launches per forward, finite
+                        logits, the first forward's seconds apart from the
+                        median warm forward, prefill tokens/s; the kernel
+                        against its twin at layer 0's own q/k/v; and the
+                        card's logits against the CPU port's (plain twin) on
+                        a 2-layer cut of the same weights at 2 x 512 tokens
+                        (atol 2e-2 on logits of scale ~1.5: bf16 rounds at
+                        other places in cuBLAS and on the CPU);
+              serve     ``serve_lm``, batch 8, prompt 128, gen 128: tokens in
+                        [0, V_pad), decode tok/s over the timed loop of a
+                        run with nothing else in it; a second run with CUDA
+                        events between steps and a profiler over 4 steps
+                        gives the median untraced step and the busy share.
+                        Then float32 compute on the card against the CPU
+                        port in float32 on the same weights, over the 128
+                        prompt-fill steps and 8 generated steps: tokens
+                        equal, every step's logits within LM_DECODE_ATOL
+                        (1e-2) and the final bf16 KV cache within
+                        LM_CACHE_ATOL (6.25e-2), beside the floor of the
+                        CPU against itself with every weight one float32
+                        ulp off (bf16 greedy tokens flip on near-ties, so
+                        that gate is float32; random weights soon repeat
+                        one token, so the logits carry the check).
+7. agree    — the port on the card against the port on the CPU (the plain
               twins) at a small size, same draws: serving graphgen-gcn (warm
               cache states and batches exact, logits within rtol/atol 1e-5)
               and three train steps of each train run's config (cache states
               and batches exact, losses and every parameter gradient within
               rtol 1e-4).
-7. timing   — per bucket-32 request and per train step: kernel launches,
+8. timing   — per bucket-32 request and per train step: kernel launches,
               and device busy time against wall time from a torch.profiler
               trace; then each kernel at its path's own inputs: kernel,
               plain-twin and library-call times (CUDA events, median of 30),
               and the bound (bytes over 3.35 TB/s or operations over the
-              peak rate, whichever is larger).
+              peak rate of the inputs' type, whichever is larger);
+              flash_attention at layer 0's q/k/v of the prefill, with
+              ``scaled_dot_product_attention`` as its library yardstick.
 
 The second-to-last lines are the kernel JSON and ``nvidia-smi``'s line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -67,8 +101,21 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 N_NODES, N_REQUESTS = 20_000, 64
 TRAIN_STEPS, TRAIN_BATCH = 20, 32
+LM_ARCH, LM_SEED = "smollm-135m", 0
+PREFILL_B, PREFILL_S, PREFILL_WARM = 8, 2048, 5
+LM_BATCH, LM_PROMPT, LM_GEN, LM_AGREE_GEN = 8, 128, 128, 8
+# float32 decode, card vs CPU over the 136 steps: the random init's
+# residual stream is small, so a k/v entry that rounds to the neighbouring
+# bf16 value in the cache moves the normalised state by a few tenths of a
+# percent; the phase prints this floor (the CPU against itself with every
+# weight one float32 ulp off).  A misplaced rope position, an off-by-one
+# valid length or a dropped mask moves the logits by tenths and the cache
+# by units, far past both bounds.
+LM_DECODE_ATOL = 1e-2          # logits, every step
+LM_CACHE_ATOL = 6.25e-2        # final bf16 k/v cache (entries up to ~2.4)
 DEVICE = "cuda"                # the device every phase drives
 
 KERNEL_META = {
@@ -83,6 +130,8 @@ KERNEL_META = {
                             "src/repro/kernels/cache_gather.py:170"),
     "cache_probe_tiered": ("src/repro_torch/kernels/csrc/cache_probe_tiered.cu",
                            "src/repro/kernels/cache_gather.py:282"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:72"),
 }
 #: train runs of the main path: arch -> workers, and the probe it must launch
 TRAIN_RUNS = {"graphgen-gcn-deep": (1, "cache_probe_tiered"),
@@ -180,10 +229,11 @@ def gpu_ms(torch, fn, reps=30):
                              for i in range(reps))
 
 
-def bound(n_bytes, n_ops):
-    """Least time (ms) for the work, and which term sets it."""
+def bound(n_bytes, n_ops, flops=F32_FLOPS):
+    """Least time (ms) for the work, and which term sets it; ``flops`` is
+    the peak rate for the inputs' type."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -561,6 +611,333 @@ def phase_train_kernels(torch, train_res):
     torch.cuda.synchronize()
 
 
+#: flash_attention checks on the card: (B, Hq, Hkv, Lq, Lk, Dh, causal,
+#: dtype); the prefill's own shape first, then f32 shapes with Lq < Lk
+FLASH_CHECKS = ((8, 9, 3, 2048, 2048, 64, True, "bfloat16"),
+                (2, 9, 3, 256, 1024, 64, True, "float32"),
+                (1, 4, 2, 128, 384, 128, True, "float32"),
+                (2, 6, 2, 256, 256, 128, False, "bfloat16"))
+
+
+def flash_close(torch, got, want):
+    """Kernel against twin: float32 within rtol/atol 1e-5 (summation
+    order), bfloat16 within one output ulp (rtol 2^-7, atol 1e-5: both
+    round one float32 value once).  Returns ``(ok, max abs err)``."""
+    tol = (1e-5, 1e-5) if got.dtype == torch.float32 else (2 ** -7, 1e-5)
+    err = (got.float() - want.float()).abs().max().item()
+    return torch.allclose(got.float(), want.float(), rtol=tol[0],
+                          atol=tol[1]), err
+
+
+def phase_flash(torch, dev):
+    """``flash_attention`` against its twin on the card at the prefill's
+    shape and at the shapes of ``FLASH_CHECKS``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for b, hq, hkv, lq, lk, dh, causal, dtype in FLASH_CHECKS:
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, hq, lq, dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, hkv, lk, dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, hkv, lk, dh), generator=gen, device=dev).to(dt)
+        ok, err = flash_close(torch, ops.flash_attention(q, k, v, causal),
+                              ref.flash_attention_ref(q, k, v, causal))
+        check(ok, f"flash_attention {b, hq, hkv, lq, lk, dh} causal={causal} "
+              f"{dtype} disagrees with its twin: max err {err}")
+        print(f"[flash] {(b, hq, hkv, lq, lk, dh)} causal={causal} {dtype} "
+              f"== twin (max abs err {err})")
+    torch.cuda.synchronize()
+
+
+def lm_config(n_layers=None):
+    """smollm-135m at full width with flash attention on (``n_layers``
+    cuts the depth)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_flash_attention=True)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def flash_inputs(torch, cfg, model, batch):
+    """The ``(q, k, v)`` of layer 0's ``flash_attention`` call in one
+    prefill forward of ``model`` (the path's own inputs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+    real, calls = ops.flash_attention, []
+
+    def record(q, k, v, causal=True):
+        if not calls:
+            calls.append((q.contiguous().clone(), k.contiguous().clone(),
+                          v.contiguous().clone()))
+        return real(q, k, v, causal)
+    ops.flash_attention = record
+    try:
+        zoo.forward_logits(cfg, model, batch)
+    finally:
+        ops.flash_attention = real
+    return calls[0]
+
+
+def phase_lm_prefill(torch):
+    """``forward_logits`` of smollm-135m at full width, flash on, over
+    ``PREFILL_B x PREFILL_S`` seeded tokens, with zeroed launch counters;
+    then the kernel at layer 0's inputs and the card against the CPU on a
+    2-layer cut.  Returns the results, launches and layer 0's q/k/v."""
+    import copy
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.transformer import DenseLM
+    cfg = lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = zoo.build(cfg, DEVICE).init(LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(DEVICE)}
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(1 + PREFILL_WARM):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = zoo.forward_logits(cfg, model, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    n_fwd = len(times)
+    check(counts["flash_attention"] == cfg.n_layers * n_fwd,
+          f"prefill launched flash_attention {counts['flash_attention']} "
+          f"times over {n_fwd} forwards, expected {cfg.n_layers} per forward")
+    check(all(n == 0 for name, n in counts.items()
+              if name != "flash_attention"),
+          f"prefill launched another kernel: {counts}")
+    v_pad = padded_vocab(cfg)
+    check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, v_pad)
+          and logits.dtype == torch.float32, f"prefill logits "
+          f"{tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    # the rate over the whole warm window (all warm forwards' tokens over
+    # their summed wall); the median is a per-forward statistic only
+    warm_ms = statistics.median(times[1:]) * 1e3
+    res = {"init_s": init_s, "first_forward_s": times[0],
+           "warm_forward_ms": warm_ms,
+           "forward_ms": [t * 1e3 for t in times],
+           "prefill_tok_s": PREFILL_B * PREFILL_S * PREFILL_WARM
+           / sum(times[1:]),
+           "launches": counts, "max_memory_gb":
+           torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"[lm prefill {LM_ARCH}] B={PREFILL_B} S={PREFILL_S}: first "
+          f"forward {times[0]:.3f} s; {PREFILL_WARM} warm forwards at "
+          f"{res['prefill_tok_s']:,.0f} tokens/s, median warm forward "
+          f"{warm_ms:.3f} ms; forwards (ms) "
+          f"{[round(t, 3) for t in res['forward_ms']]}; init {init_s:.2f} s; "
+          f"launches {counts}; peak memory {res['max_memory_gb']:.2f} GiB")
+    del logits
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        zoo.forward_logits(cfg, model, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    res["busy_ms"] = summarize_profile(torch, prof, 1, traced_ms,
+                                       "lm prefill, one traced forward")
+
+    # the kernel at the path's own inputs (layer 0 of a forward)
+    qkv = flash_inputs(torch, cfg, model, batch)
+    ok, err = flash_close(torch, ops.flash_attention(*qkv),
+                          ref.flash_attention_ref(*qkv))
+    check(ok, f"flash_attention disagrees with its twin at layer 0's "
+          f"inputs: max err {err}")
+    print(f"[lm prefill] flash_attention == twin at layer 0's q/k/v "
+          f"{[tuple(t.shape) for t in qkv]} (max abs err {err})")
+    res["qkv"] = qkv
+
+    # card against CPU on a 2-layer cut of the same weights
+    cut = lm_config(n_layers=2)
+    cpu_model = DenseLM(cut)
+    cpu_model.load_state_dict({
+        k: v for k, v in model.state_dict().items()
+        if not k.startswith("layers.") or int(k.split(".")[1]) < 2})
+    card_model = copy.deepcopy(cpu_model).to(DEVICE)
+    small = torch.from_numpy(np.ascontiguousarray(tokens[:2, :512]))
+    lc = zoo.forward_logits(cut, cpu_model, {"tokens": small})
+    lg = zoo.forward_logits(cut, card_model,
+                            {"tokens": small.to(DEVICE)}).cpu()
+    err = (lg - lc).abs().max().item()
+    agree = (lg.argmax(-1) == lc.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(lg).all()) and err <= 2e-2,
+          f"2-layer cut: card logits differ from the CPU port's by {err}")
+    print(f"[lm prefill] 2-layer cut, 2 x 512 tokens: card logits within "
+          f"{err:.3e} of the CPU port's (scale {lc.abs().max().item():.3f}); "
+          f"argmax agrees at {100 * agree:.2f}% of positions")
+    res["cut_max_abs_err"], res["cut_argmax_agree"] = err, agree
+    return res
+
+
+def lm_serve_args(gen, device):
+    """``serve_lm`` flags: smollm-135m, batch 8, prompt 128."""
+    from repro_torch.launch import serve
+    return serve.parse_args([
+        "--arch", LM_ARCH, "--device", device, "--seed", str(LM_SEED),
+        "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+        "--gen-len", str(gen)])
+
+
+def record_decode(torch, args, nudge=False):
+    """``serve_lm(args)`` with every decode step's float32 logits copied
+    to the host (prompt fill and generation); returns the tokens, the
+    stacked logits ``[steps, B, V_pad]`` and the final KV cache on the
+    host.  ``nudge`` moves every weight by one float32 ulp (a seeded
+    random sign) before serving, for the floor of the comparison."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    real_init = transformer.init_dense_lm
+    real = transformer.DenseLM.forward_decode
+    logits, last = [], {}
+
+    def init(cfg, seed=0, device="cuda"):
+        model = real_init(cfg, seed, device)
+        gen = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for p in model.parameters():
+                sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
+                p.mul_(1 + sign.to(p) * 2.0 ** -23)
+        return model
+
+    def record(self, cache, tokens, pos):
+        out, cache = real(self, cache, tokens, pos)
+        logits.append(out.float().cpu())
+        last.update(cache)
+        return out, cache
+    transformer.DenseLM.forward_decode = record
+    if nudge:
+        transformer.init_dense_lm = init
+    try:
+        toks = serve.serve_lm(args)["tokens"]
+    finally:
+        transformer.DenseLM.forward_decode = real
+        transformer.init_dense_lm = real_init
+    return toks, torch.stack(logits), {k: v.cpu() for k, v in last.items()}
+
+
+def decode_gap(torch, a, b):
+    """Per-step max abs logit gap ``[steps]`` and the final k/v caches'
+    max abs gap and share of entries more than one bf16 ulp apart."""
+    (_, la, ka), (_, lb, kb) = a, b
+    per_step = (la - lb).abs().amax(dim=(1, 2))
+    kv = {}
+    for name in ("k", "v"):
+        x, y = ka[name].float(), kb[name].float()
+        d = (x - y).abs()
+        kv[name] = (d.max().item(),
+                    (d > 2 ** -7 * y.abs()).float().mean().item())
+    return per_step, kv
+
+
+def phase_lm_serve(torch):
+    """``serve_lm`` at full width with zeroed launch counters (decode runs
+    plain torch: no kernel of the port is on this path) and nothing else
+    in the loop, for its tok/s; a second, instrumented run (CUDA events
+    between steps, a profiler over 4 steps) for the median step and the
+    device's busy share; then the float32 card-vs-CPU gate on tokens,
+    per-step logits and the final KV cache."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models.layers import padded_vocab
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.serve_lm(lm_serve_args(LM_GEN, DEVICE))
+    res["total_s"] = time.perf_counter() - t0
+    res["launches"] = ops.launch_counts()
+    toks = res["tokens"]
+    v_pad = padded_vocab(lm_config())
+    check(toks.shape == (LM_BATCH, LM_GEN) and toks.min() >= 0
+          and toks.max() < v_pad, f"served tokens {toks.shape} outside "
+          f"[0, {v_pad})")
+
+    events = []
+    clock = StepClock(torch, first=LM_GEN - 8, n=4)
+
+    def hook(step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        clock(step)
+    try:
+        timed = serve.serve_lm(lm_serve_args(LM_GEN, DEVICE), step_hook=hook)
+    finally:
+        clock.close()
+    torch.cuda.synchronize()
+    check((timed["tokens"] == toks).all(),
+          "the instrumented serve_lm run generated other tokens")
+    steps = [events[i].elapsed_time(events[i + 1])
+             for i in range(len(events) - 1)]
+    # steps[i] is decode step i + 1; the median is over steps 1 ..
+    # first - 2, before the profiler's warm-up step and its traced steps
+    res["median_step_ms"] = statistics.median(steps[:clock.first - 2])
+    res["instrumented_wall_s"] = timed["wall_s"]
+    traced = steps[clock.first - 1:clock.first - 1 + clock.n]
+    res["busy_ms"] = summarize_profile(
+        torch, clock.prof, clock.n, sum(traced) / len(traced),
+        "lm serve, per traced decode step")
+    print(f"[lm serve {LM_ARCH}] batch {LM_BATCH}, prompt {LM_PROMPT}, gen "
+          f"{LM_GEN}: {res['tok_s']:,.1f} tok/s over the uninstrumented "
+          f"timed loop ({res['wall_s']:.3f} s; whole call "
+          f"{res['total_s']:.2f} s), launches {res['launches']}; "
+          f"instrumented run: median untraced step "
+          f"{res['median_step_ms']:.3f} ms (events between steps), timed "
+          f"loop {timed['wall_s']:.3f} s")
+
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        card = record_decode(torch, lm_serve_args(LM_AGREE_GEN, DEVICE))
+        cpu = record_decode(torch, lm_serve_args(LM_AGREE_GEN, "cpu"))
+        floor = record_decode(torch, lm_serve_args(LM_AGREE_GEN, "cpu"),
+                              nudge=True)
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    check((card[0] == cpu[0]).all(), f"float32 decode tokens differ card "
+          f"vs CPU:\n{card[0]}\n{cpu[0]}")
+    lg, lc = card[1], cpu[1]
+    check(lg.shape == lc.shape == (LM_PROMPT + LM_AGREE_GEN, LM_BATCH, v_pad),
+          f"decode logits {tuple(lg.shape)} vs {tuple(lc.shape)}")
+    per_step, kv = decode_gap(torch, card, cpu)
+    floor_step, floor_kv = decode_gap(torch, floor, cpu)
+    err = per_step.max().item()
+    print(f"[lm serve] float32, {LM_PROMPT} prompt + {LM_AGREE_GEN} "
+          f"generated steps, card vs CPU: logits within {err:.3e} (scale "
+          f"{lc.abs().max().item():.3f}; worst step {int(per_step.argmax())}, "
+          f"median step {per_step.median().item():.3e}); final k/v caches "
+          f"within {kv['k'][0]:.3e} / {kv['v'][0]:.3e}, "
+          f"{100 * kv['k'][1]:.2f}% / {100 * kv['v'][1]:.2f}% of entries "
+          f"more than one bf16 ulp apart. Floor, CPU with every weight one "
+          f"float32 ulp off: logits {floor_step.max().item():.3e} (median "
+          f"step {floor_step.median().item():.3e}), caches "
+          f"{floor_kv['k'][0]:.3e} / {floor_kv['v'][0]:.3e}, "
+          f"{100 * floor_kv['k'][1]:.2f}% / {100 * floor_kv['v'][1]:.2f}% "
+          f"beyond one ulp")
+    check(bool(torch.isfinite(lg).all()) and err <= LM_DECODE_ATOL,
+          f"float32 decode logits differ card vs CPU by {err} (step "
+          f"{int(per_step.argmax())}), over {LM_DECODE_ATOL}")
+    check(max(kv["k"][0], kv["v"][0]) <= LM_CACHE_ATOL,
+          f"float32 decode: the card's final k/v cache differs from the "
+          f"CPU's by {kv}, over {LM_CACHE_ATOL}")
+    same_bf16 = float((toks[:, :LM_AGREE_GEN] == card[0]).mean())
+    print(f"[lm serve] float32 tokens card == CPU ({card[0][0].tolist()} "
+          f"...); the bf16 run's tokens agree with them at "
+          f"{100 * same_bf16:.1f}% of positions")
+    res["bf16_vs_f32_agree"] = same_bf16
+    res["f32_decode_max_abs_err"] = err
+    res["f32_decode_cache_max_abs_err"] = max(kv["k"][0], kv["v"][0])
+    res["f32_decode_floor"] = floor_step.max().item()
+    return res
+
+
 def phase_agree(torch, dev):
     """The port on the card vs on the CPU at a small size, same draws."""
     import numpy as np
@@ -747,7 +1124,7 @@ def tree_leaves(state):
     return list(state)
 
 
-def phase_timing(torch, serve_res, train_res, launches):
+def phase_timing(torch, serve_res, train_res, launches, qkv):
     """Per bucket-32 request, on the servers the serve phase built and
     warmed: kernel launches and a profiler trace.  Then kernel, twin and
     library-call times at each kernel's path's own inputs: at a bucket-32
@@ -755,7 +1132,8 @@ def phase_timing(torch, serve_res, train_res, launches):
     W = 4 (global batch 128), fanout_mean at its three layer shapes and
     the compact probe; at the last batch and the warm cache of the train
     runs, the tiered probe (graphgen-gcn-deep) and fanout_mean_bwd at the
-    hidden-level shapes of both runs (real masks, a random gradient).
+    hidden-level shapes of both runs (real masks, a random gradient); and
+    flash_attention at ``qkv``, layer 0's inputs of the LM prefill.
     Returns one JSON entry per kernel (its first, largest shape)."""
     import numpy as np
     from repro_torch.configs import get_config
@@ -833,6 +1211,7 @@ def phase_timing(torch, serve_res, train_res, launches):
         cache.l1.keys[0], cache.l1.rows[0], cache.l2.keys[0],
         cache.l2.rows[0], uniq[0]),
         {"l1_assoc": dcfg.l1_assoc, "l2_assoc": dcfg.assoc}))
+    items.append(("flash_attention", qkv, {"causal": True}))
     items_timed(torch, items, launches, entries)
     return [entries[name] for name in KERNEL_META]
 
@@ -858,6 +1237,7 @@ def time_kernel(torch, name, inputs, kw):
     plain = lambda: plain_fn(*inputs, **kw)            # noqa: E731
     got, want = kern(), plain()
     library_ms = None
+    flops = F32_FLOPS
     if name == "fanout_mean":
         x, mask = inputs
         m, k, d = x.shape
@@ -908,6 +1288,30 @@ def time_kernel(torch, name, inputs, kw):
         n_bytes = (r * 4 + (k1.numel() + k2.numel()) * 4
                    + n_hit_rows * d * 4 + r * 4 + r * d * 4)
         n_ops = r * (4 + kw["l1_assoc"] + kw["l2_assoc"])
+    elif name == "flash_attention":
+        q, k, v = inputs
+        ok, err = flash_close(torch, got, want)
+        check(ok, f"flash_attention differs from its twin at the prefill "
+              f"inputs: max err {err}")
+        (b, hq, lq, dh), hkv, lk = q.shape, k.shape[1], k.shape[2]
+        # visible (row, column) pairs of this run's mask; 2 Dh FLOP for
+        # q.k and 2 Dh for p.v on each, at the peak rate of the inputs' type
+        rows = torch.arange(lq, dtype=torch.int64)
+        pairs = (int(torch.clamp(rows + (lk - lq) + 1, 0, lk).sum())
+                 if kw["causal"] else lq * lk)
+        n_ops = 4 * b * hq * dh * pairs
+        n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        flops = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        try:
+            sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            library = lambda: sdpa(q, k, v, is_causal=kw["causal"],  # noqa: E731
+                                   enable_gqa=True)
+        except TypeError:       # a torch without enable_gqa: expand once
+            kr = k.repeat_interleave(hq // hkv, dim=1)
+            vr = v.repeat_interleave(hq // hkv, dim=1)
+            library = lambda: sdpa(q, kr, vr, is_causal=kw["causal"])  # noqa: E731
+        library_ms = gpu_ms(torch, library)
     else:
         keys, rows, ids = inputs
         for a, b in zip(got, want):
@@ -924,7 +1328,7 @@ def time_kernel(torch, name, inputs, kw):
         n_ops = ids.numel() * (2 + kw["assoc"])
     ms = gpu_ms(torch, kern)
     plain_ms = gpu_ms(torch, plain, reps=20)
-    b_ms, b_by = bound(n_bytes, n_ops)
+    b_ms, b_by = bound(n_bytes, n_ops, flops)
     print(f"[timing {name}] shapes {[list(t.shape) for t in inputs]} kernel "
           f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
           f"({b_by}: {n_bytes} B, {n_ops} ops)  library "
@@ -972,17 +1376,23 @@ def main():
 
     phase_kernels(torch, dev)
     if opts.kernels_only:
+        phase_flash(torch, dev)
         print("[kernels-only] stopping after the kernel checks")
         return
     serve_res = phase_serve(torch)
     train_res = phase_train(torch)
     phase_train_kernels(torch, train_res)
-    runs = list(serve_res.values()) + list(train_res.values())
+    phase_flash(torch, dev)
+    prefill = phase_lm_prefill(torch)
+    lm_serve = phase_lm_serve(torch)
+    runs = (list(serve_res.values()) + list(train_res.values())
+            + [prefill, lm_serve])
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in KERNEL_META}
     phase_agree(torch, dev)
     phase_agree_train(torch, dev)
-    kernels = phase_timing(torch, serve_res, train_res, launches)
+    kernels = phase_timing(torch, serve_res, train_res, launches,
+                           prefill["qkv"])
     print(json.dumps({"serve": {f"{arch} W={w}": {k: r[k] for k in (
         "p50_ms", "p99_ms", "qps", "n_requests", "wall_s", "launches")}
         for (arch, w), r in serve_res.items()}}))
@@ -998,6 +1408,19 @@ def main():
         "hit_cap": r["cache_cfg"].hit_cap, "wire": r["cache_cfg"].wire,
         "cache_hit_rate": r.get("cache_hit_rate"),
         "launches": r["launches"]} for arch, r in train_res.items()}}))
+    print(json.dumps({"lm": {"arch": LM_ARCH, "prefill": {
+        "batch": PREFILL_B, "seq": PREFILL_S, **{k: prefill[k] for k in (
+            "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",
+            "prefill_tok_s", "max_memory_gb", "busy_ms", "cut_max_abs_err",
+            "cut_argmax_agree", "launches")}}, "serve": {
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+        **{k: lm_serve[k] for k in ("tok_s", "wall_s", "median_step_ms",
+                                     "instrumented_wall_s", "busy_ms",
+                                     "total_s", "bf16_vs_f32_agree",
+                                     "f32_decode_max_abs_err",
+                                     "f32_decode_cache_max_abs_err",
+                                     "f32_decode_floor",
+                                     "launches")}}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

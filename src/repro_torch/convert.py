@@ -1,22 +1,25 @@
-"""Carry GCN weights, optimizer state and cache state from ``repro`` to
-the port.
+"""Carry GCN and dense-LM weights, optimizer state, cache state and KV
+caches from ``repro`` to the port.
 
 Each function takes the reference's pytree as numpy arrays
 (``jax.tree.map(np.asarray, tree)`` on the caller's side — this module
 never imports jax): ``gcn_params_from_numpy`` returns the port's ``GCN``
 holding the same weights, ``adam_state_from_numpy`` the port's
-``AdamState`` (moments in ``GCN.leaves()`` order), and
+``AdamState`` (moments in ``GCN.leaves()`` order),
 ``cache_state_from_numpy`` a flat ``FeatureCache`` or a ``TieredCache``,
-so a run of the port can start from the reference's state mid-run.
+``lm_params_from_numpy`` a ``DenseLM`` and ``lm_cache_from_numpy`` its
+KV cache, so a run of the port can start from the reference's state
+mid-run.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.config import resolve_device
+from .core.config import ModelConfig, resolve_device
 from .core.feature_cache import FeatureCache, TieredCache
 from .models.gcn import GCN
+from .models.transformer import DenseLM
 from .train.optimizer import AdamState
 
 
@@ -71,3 +74,42 @@ def cache_state_from_numpy(state_np, device="cuda"):
         return TieredCache(*(cache_state_from_numpy(t, device)
                              for t in state_np))
     return FeatureCache(*(_tensor(a, device) for a in state_np))
+
+
+def lm_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
+                         ) -> DenseLM:
+    """``transformer.init_lm``'s pytree of numpy arrays (``embed/tok``,
+    ``embed/norm_f``, and ``layers/attn|mlp|ln1|ln2`` stacked on a leading
+    ``[L]`` axis) -> a ``DenseLM`` for ``cfg`` on ``device`` holding the
+    same weights (``[d_in, d_out]`` layout in both packages)."""
+    device = resolve_device(device)
+    model = DenseLM(cfg)
+    stack = params_np["layers"]
+
+    def put(dst, a):
+        a = np.array(a, np.float32)       # a writable copy
+        if dst.shape != a.shape:
+            raise ValueError(f"weight of shape {a.shape} does not fit "
+                             f"{tuple(dst.shape)} of {cfg.name!r}")
+        dst.copy_(torch.from_numpy(a))
+
+    with torch.no_grad():
+        put(model.tok, params_np["embed"]["tok"])
+        put(model.norm_f, params_np["embed"]["norm_f"])
+        for i, block in enumerate(model.layers):
+            for name in ("wq", "wk", "wv", "wo"):
+                put(getattr(block.attn, name), stack["attn"][name][i])
+            for name in ("wg", "wu", "wd"):
+                put(getattr(block.mlp, name), stack["mlp"][name][i])
+            put(block.ln1, stack["ln1"][i])
+            put(block.ln2, stack["ln2"][i])
+    return model.to(device)
+
+
+def lm_cache_from_numpy(cache_np, device="cuda") -> dict:
+    """``transformer.init_cache``-shaped ``{"k", "v"}`` of numpy arrays
+    (``[L, B, S, Hkv Dh]``, bfloat16 or float32) -> the port's bfloat16 KV
+    cache on ``device`` (bfloat16 values pass through float32 exactly)."""
+    device = resolve_device(device)
+    return {name: torch.from_numpy(np.asarray(cache_np[name], np.float32))
+            .to(device, torch.bfloat16) for name in ("k", "v")}

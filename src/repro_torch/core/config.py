@@ -1,12 +1,13 @@
-"""The GCN and cache fields of ``repro.core.config.ModelConfig``, and
-``TrainConfig``.
+"""The GCN, cache and dense-LM fields of ``repro.core.config.ModelConfig``,
+and ``TrainConfig``.
 
-Only what the serving and training slices read is carried over: the
-model dims, the fanouts and the cache policy, with the same
-construction-time validation (``cache_rows`` is rounded UP to a power of
-two), and the optimizer's schedule.  The LM-zoo fields, the
+Only what the ported slices read is carried over: the GCN dims, the
+fanouts and the cache policy, with the same construction-time validation
+(``cache_rows`` is rounded UP to a power of two); the dense LM's dims,
+rope and norm constants and its flash switch, with the reference's
+defaults; and the optimizer's schedule.  The MoE/MLA/SSM/VLM/audio fields, the
 shape/mesh configs and the hardware constants wait for the slices that
-need them.
+need them (ROADMAP Queue 1 items 6-7).
 """
 from __future__ import annotations
 
@@ -43,12 +44,26 @@ def _round_up_pow2(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A GCN architecture plus its distributed feature-fetch policy.
+    """A GCN architecture plus its distributed feature-fetch policy, or a
+    dense decoder-only LM.
 
-    Field meanings match ``repro.core.config.ModelConfig``; see the
-    reference for the long-form comments on each cache knob."""
+    Field meanings and defaults match ``repro.core.config.ModelConfig``;
+    see the reference for the long-form comments on each cache knob.
+    The reference's ``scan_layers`` and ``remat`` are XLA knobs with no
+    counterpart here: ``DenseLM`` holds one module per layer and keeps
+    its activations (ROADMAP Queue 1 item 6)."""
     name: str
-    family: str                 # "gcn" for every config of this slice
+    family: str                 # "gcn" or "dense"
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
     gcn_hidden: int = 0
     gcn_in_dim: int = 0
     n_classes: int = 0
@@ -62,6 +77,7 @@ class ModelConfig:
     cache_wire: str = "compact"
     cache_hit_cap: int = 0      # compact wire payload rows (0 = auto)
     feature_store: str = "device"
+    use_flash_attention: bool = False
 
     def __post_init__(self):
         if self.cache_rows < 0:
@@ -99,6 +115,14 @@ class ModelConfig:
             raise ValueError(
                 f"feature_store must be one of {VALID_FEATURE_STORES}, "
                 f"got {self.feature_store!r}")
+
+    @property
+    def resolved_head_dim(self) -> int:
+        """Per-head attention dim: ``head_dim`` when set explicitly,
+        else ``d_model // n_heads``."""
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,9 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C entry points and their argument types (every pointer and the stream
-#: are ``c_void_p``; each returns the ``cudaGetLastError()`` code)
+#: are ``c_void_p``, a float scalar ``c_float``; each returns the
+#: ``cudaGetLastError()`` code)
 _SIGNATURES = {
     "repro_fanout_mean": (_P, _P, _P, _LL, _I, _I, _I, _P),
     "repro_fanout_mean_bwd": (_P, _P, _P, _LL, _I, _I, _I, _P),
@@ -39,6 +41,8 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P),
     "repro_cache_probe_tiered": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                                  _I, _I, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _P),
 }
 
 

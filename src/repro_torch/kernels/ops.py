@@ -15,6 +15,7 @@ import torch
 from . import ref
 from .cache_gather import (cache_probe_compact_cuda, cache_probe_gather_cuda,
                            cache_probe_tiered_cuda)
+from .flash_attention import flash_attention_cuda
 from .gather_reduce import fanout_mean_bwd_cuda, fanout_mean_cuda
 
 #: kernel name -> its CUDA wrapper (each carries a ``launches`` counter)
@@ -24,6 +25,7 @@ KERNELS = {
     "cache_probe_gather": cache_probe_gather_cuda,
     "cache_probe_compact": cache_probe_compact_cuda,
     "cache_probe_tiered": cache_probe_tiered_cuda,
+    "flash_attention": flash_attention_cuda,
 }
 
 
@@ -108,6 +110,27 @@ def cache_probe_tiered(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
             l2_assoc=l2_assoc)
     return ref.cache_probe_tiered_ref(l1_keys, l1_rows, l2_keys, l2_rows, ids,
                                       l1_assoc=l1_assoc, l2_assoc=l2_assoc)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention with GQA head grouping: ``q [B, Hq, Lq,
+    Dh]``, ``k``/``v [B, Hkv, Lk, Dh]`` -> ``[B, Hq, Lq, Dh]`` in ``q``'s
+    dtype (the dense LM's full-sequence attention).
+
+    Forward only, as in the reference (``jax.grad`` cannot pass through
+    ``flash_attention_pallas``): an operand that requires grad under
+    autograd raises on both devices rather than leave the card's output
+    without a ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward yet: run it under "
+            "torch.no_grad() (an LM training slice needs its own backward "
+            "kernel, ROADMAP Queue 3)")
+    if _on_cuda(q, k, v):
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal)
 
 
 def launch_counts() -> Dict[str, int]:

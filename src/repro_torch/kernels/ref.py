@@ -94,3 +94,31 @@ def cache_probe_tiered_ref(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
     out = torch.where(l1_hit[:, None], l1_out,
                       torch.where(l2_hit[:, None], l2_out, 0))
     return src, out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Softmax attention with GQA head grouping, in the arithmetic of
+    ``repro/kernels/flash_attention.py::flash_attention_pallas`` (not of
+    the jnp oracle, which forms bf16 logits): ``q [B, Hq, Lq, Dh]``,
+    ``k``/``v [B, Hkv, Lk, Dh]`` -> ``[B, Hq, Lq, Dh]`` in ``q``'s dtype.
+
+    q, k and v are upcast to float32; the logits are scaled by the float
+    ``1 / sqrt(Dh)`` in float32; the causal mask (row ``i`` sees column
+    ``j`` iff ``i + Lk - Lq >= j``) writes -1e30; the softmax numerator
+    and denominator are float32 and the denominator is clamped at 1e-30
+    before the one division and the one rounding.  Query head ``h`` reads
+    KV head ``h // (Hq / Hkv)``."""
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, hkv, hq // hkv, lq, dh)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32))
+    s = s * (1.0 / dh ** 0.5)
+    if causal:
+        rows = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        cols = torch.arange(lk, device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32)) / den
+    return out.reshape(b, hq, lq, dh).to(q.dtype)

@@ -1,4 +1,5 @@
-"""Graph-serving driver of the port (``repro/launch/serve.py``'s GCN half).
+"""Serving entry points of the port (``repro/launch/serve.py``): the
+graph tier for GCN archs and the LM decode loop for dense LMs.
 
 A frozen GCN answers seed-node requests: a producer thread fills a
 bounded request queue; each request is padded to the smallest bucket of
@@ -12,15 +13,23 @@ way, and at W = 1 its probe is the fused two-tier kernel.
 
 ``compile_count()`` counts the distinct step shapes the server has run:
 the ladder is run once at startup, and the request path must add none
-(capturing a CUDA graph per bucket is later work).  The LM decode driver
-and ``--warm-from`` checkpoints wait for later slices.
+(capturing a CUDA graph per bucket is later work).  ``--warm-from``
+checkpoints wait for a later slice.
+
+``serve_lm`` runs batched greedy decode of a dense LM (``smollm-135m``,
+``smollm-360m``) with a bfloat16 KV cache, prompt filled token by token
+through the decode path, as the reference's ``serve_lm`` does.
 
 Examples::
 
     python -m repro_torch.launch.serve --arch graphgen-gcn --workers 4
     python -m repro_torch.launch.serve --arch graphgen-gcn-deep
+    python -m repro_torch.launch.serve --arch smollm-135m --batch 8 \\
+        --prompt-len 128 --gen-len 128
     python -m repro_torch.launch.serve --arch graphgen-gcn --smoke \\
         --device cpu --nodes 2000 --requests 16
+    python -m repro_torch.launch.serve --arch smollm-135m --smoke \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from ..core.generation import (SeededDraws, make_distributed_generator,
                                make_generator_fn)
 from ..core.partition import partition_edges
 from ..graph.synthetic import node_features, node_labels, powerlaw_graph
+from ..models import zoo
 from ..models.gcn import init_gcn
 
 #: default request-shape ladder: per-worker seed slots per bucket
@@ -287,15 +297,82 @@ def serve_gcn(args, built=None) -> dict:
             "startup_compiles": int(startup_shapes), "n_classes": n_classes}
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_lm(args, step_hook=None) -> dict:
+    """LM serving: batched greedy decode with a bfloat16 KV cache.
+
+    The prompt (``--prompt-len`` tokens drawn with numpy from ``--seed``)
+    is filled token by token through the decode path; with
+    ``--prompt-len 0`` generation starts from token 0.  Then
+    ``--gen-len`` decode steps are timed, each taking the argmax over the
+    padded vocab.  Tokens stay on the device until one sync after the
+    timed loop, so tok/s measures decode, not a host sync per token.
+    ``step_hook(i)``, if given, runs after the ``i``-th timed step is
+    enqueued.  Returns ``tok_s``, the timed loop's ``wall_s`` and the
+    generated ``tokens [B, gen_len]`` (int32 numpy)."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    api = zoo.build(cfg, dev)
+    if api.decode is None:
+        raise SystemExit(f"{args.arch} has no decode path")
+    model = api.init(args.seed)
+    cache = api.init_cache(model, args.batch, args.prompt_len + args.gen_len)
+    rng = np.random.default_rng(args.seed)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len),
+        dtype=np.int32)).to(dev)
+    out = []
+    with torch.no_grad():
+        logits = None
+        for p in range(args.prompt_len):
+            logits, cache = api.decode(model, cache, prompt[:, p:p + 1], p)
+        pos = args.prompt_len
+        if logits is None:
+            # zero-trip prefill: nothing to argmax, start from a fixed token
+            tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=dev)
+        else:
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        _sync(dev)                      # the clock starts on settled inputs
+        t0 = time.perf_counter()
+        for i in range(args.gen_len):
+            out.append(tok)             # device tensor: no host sync here
+            logits, cache = api.decode(model, cache, tok, pos)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            pos += 1
+            if step_hook is not None:
+                step_hook(i)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    toks = args.gen_len * args.batch
+    tok_s = toks / dt if dt > 0 else 0.0
+    print(f"generated {toks} tokens in {dt:.2f}s ({tok_s:.1f} tok/s batched)")
+    gen = (torch.cat(out, dim=1).cpu().numpy() if out
+           else np.zeros((args.batch, 0), np.int32))
+    if gen.size:
+        print("sample token ids:", gen[0][:16])
+    return {"tok_s": tok_s, "tokens": gen, "wall_s": dt}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
-    """The serving flags (``repro``'s graph-serving flags plus
-    ``--device``)."""
+    """The serving flags (``repro``'s LM decode and graph-serving flags,
+    plus ``--device``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="graphgen-gcn")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
+    # --- LM decode flags
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    # --- graph-serving flags
     ap.add_argument("--workers", type=int, default=1,
                     help="simulated workers on the stacked worker axis")
     ap.add_argument("--nodes", type=int, default=20_000)
@@ -312,11 +389,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> None:
-    """CLI entry: serve a GCN arch."""
+    """CLI entry: dispatch on the arch family — ``gcn`` archs get the
+    graph-serving tier, LM archs the decode loop."""
     args = parse_args(argv)
-    if get_config(args.arch).family != "gcn":
-        raise SystemExit(f"{args.arch}: only GCN archs are ported")
-    serve_gcn(args)
+    if get_config(args.arch).family == "gcn":
+        serve_gcn(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Models of the port (the paper's GCN)."""
+"""Models of the port (the paper's GCN and the dense LM)."""

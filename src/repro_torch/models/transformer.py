@@ -1,0 +1,138 @@
+"""Dense decoder-only LM, llama family (port of
+``repro/models/transformer.py``): smollm-135m and smollm-360m.
+
+The reference stacks every layer's weights on a leading ``[L]`` axis and
+scans over them; ``scan_layers`` is an XLA knob, so here each layer is
+its own ``Block`` in an ``nn.ModuleList`` and the forward is a Python
+loop.  Weights are float32 in the reference's ``[d_in, d_out]`` layout,
+so ``repro_torch.convert.lm_params_from_numpy`` copies them across.
+Embeddings are tied (every dense config of the port ties them).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..core.config import ModelConfig, resolve_device
+from . import layers as L
+
+
+def _matrix(d_in: int, d_out: int, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(d_in, d_out, device=device))
+
+
+class Attention(nn.Module):
+    """``wq [D, Hq Dh]``, ``wk``/``wv [D, Hkv Dh]``, ``wo [Hq Dh, D]``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        hd, d = cfg.resolved_head_dim, cfg.d_model
+        self.wq = _matrix(d, cfg.n_heads * hd, device)
+        self.wk = _matrix(d, cfg.n_kv_heads * hd, device)
+        self.wv = _matrix(d, cfg.n_kv_heads * hd, device)
+        self.wo = _matrix(cfg.n_heads * hd, d, device)
+
+
+class MLP(nn.Module):
+    """SwiGLU weights ``wg``/``wu [D, F]``, ``wd [F, D]``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.wg = _matrix(cfg.d_model, cfg.d_ff, device)
+        self.wu = _matrix(cfg.d_model, cfg.d_ff, device)
+        self.wd = _matrix(cfg.d_ff, cfg.d_model, device)
+
+
+class Block(nn.Module):
+    """Pre-norm block: ``x + attn(norm(x))``, then ``x + mlp(norm(x))``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.attn = Attention(cfg, device)
+        self.mlp = MLP(cfg, device)
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
+                cache=None, cache_pos=None):
+        """``(x', new_cache)`` for activations ``x [B, L, D]``."""
+        h, new_cache = L.attn_forward(
+            self.attn, L.rmsnorm(self.ln1, x, cfg.norm_eps), cfg, pos=pos,
+            cache=cache, cache_pos=cache_pos)
+        x = x + h
+        x = x + L.mlp_forward(self.mlp, L.rmsnorm(self.ln2, x, cfg.norm_eps))
+        return x, new_cache
+
+
+class DenseLM(nn.Module):
+    """Token embedding ``tok [V_pad, D]`` (tied read-out), ``n_layers``
+    blocks and the final norm ``norm_f``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.family != "dense" or not cfg.tie_embeddings:
+            raise ValueError(f"DenseLM needs a dense config with tied "
+                             f"embeddings, got {cfg.name!r}")
+        self.cfg = cfg
+        self.tok = nn.Parameter(torch.zeros(L.padded_vocab(cfg), cfg.d_model,
+                                            device=device))
+        self.norm_f = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        self.layers = nn.ModuleList(Block(cfg, device)
+                                    for _ in range(cfg.n_layers))
+
+    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward: ``tokens [B, S]`` -> float32 logits
+        ``[B, S, V_pad]``."""
+        b, s = tokens.shape
+        x = L.embed_tokens(self.tok, tokens)
+        pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        for block in self.layers:
+            x, _ = block(x, self.cfg, pos)
+        return L.lm_head(self.tok, self.norm_f, x, self.cfg)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``.
+        Forward only where the flash path runs: ``ops.flash_attention``
+        has no backward yet and raises under autograd."""
+        return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
+
+    def init_cache(self, batch: int, seq: int) -> dict:
+        """Zeroed bfloat16 KV cache: ``k``/``v [L, B, S, Hkv Dh]``."""
+        kvd = self.cfg.n_kv_heads * self.cfg.resolved_head_dim
+        shape = (self.cfg.n_layers, batch, seq, kvd)
+        dev = self.tok.device
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+
+    def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int):
+        """One decode step: ``tokens [B, 1]`` at position ``pos`` (the
+        current length) -> ``(logits [B, V_pad], cache)``; the cache is
+        written in place."""
+        b = tokens.shape[0]
+        x = L.embed_tokens(self.tok, tokens)
+        qpos = torch.full((b, 1), pos, dtype=torch.int64, device=tokens.device)
+        for i, block in enumerate(self.layers):
+            x, _ = block(x, self.cfg, qpos, cache=(cache["k"][i],
+                                                   cache["v"][i]),
+                         cache_pos=pos)
+        return L.lm_head(self.tok, self.norm_f, x, self.cfg)[:, 0], cache
+
+
+def init_dense_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> DenseLM:
+    """A ``DenseLM`` on ``device`` with the reference's init scales: normal
+    x 0.02 for every layer matrix, x 0.01 for ``tok``, ones for the norms,
+    drawn from a CPU ``torch.Generator`` seeded with ``seed`` (so one seed
+    gives the same weights on every device; the draws differ from
+    ``repro.models.transformer.init_lm``'s — use ``convert`` to share
+    weights)."""
+    device = resolve_device(device)
+    model = DenseLM(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        model.tok.copy_(torch.randn(model.tok.shape, generator=gen) * 0.01)
+        for block in model.layers:
+            for w in (block.attn.wq, block.attn.wk, block.attn.wv,
+                      block.attn.wo, block.mlp.wg, block.mlp.wu,
+                      block.mlp.wd):
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.02)
+    return model.to(device)
