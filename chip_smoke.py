@@ -11,9 +11,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
 3. kernels  — each kernel against its plain-torch twin on the card, at the
               main paths' shapes and at edge cases (assoc 1/2/4, single-set
               tiers, probe counts off a multiple of 32, -1 ids, double hits,
-              hit_cap 1): probes exact, fanout_mean within rtol 1e-5 /
-              atol 1e-6 in float32 and 2e-2 in bfloat16, fanout_mean_bwd
-              exact (one division and one rounding in both).
+              hit_cap 1): probes exact, fanout_mean and gather_reduce
+              (ids off both ends of the table, all-masked rows) within rtol
+              1e-5 / atol 1e-6 in float32 and 2e-2 in bfloat16,
+              fanout_mean_bwd exact (one division and one rounding in
+              both); ssd_scan within rtol 1e-5 plus 1e-5 of the output's
+              largest magnitude at mamba2-1.3b's prefill shape (B 8, L
+              2048, H 64, P 64, N 128, chunk 128) with the reference
+              test's dt (softplus(N(0, 1))) and with small dt (U[0.005,
+              0.05], where the carry across chunks must hold over 1e-2 of
+              the output), at L = chunk and at smaller widths and chunks;
+              each check prints its error and the carry's share.
 4. serve    — ``serve_gcn`` at full width, 20 000 nodes, 8 warmup sweeps,
               buckets (8, 16, 32), Zipf requests: graphgen-gcn (128 -> 256 ->
               64, fanouts (40, 20), 4096-row 4-way sharded compact cache) at
@@ -68,6 +76,43 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         ulp off (bf16 greedy tokens flip on near-ties, so
                         that gate is float32; random weights soon repeat
                         one token, so the logits carry the check).
+   SSM      — mamba2-1.3b at full width and depth (48 layers, d_model
+              2048, 64 SSM heads of 64 over a state of 128, chunk 128,
+              vocab 50 280, untied, random weights from a seed):
+              prefill   ``forward_logits`` on 8 x 2048 tokens, bf16 compute:
+                        exactly 48 ssd_scan launches per forward and no
+                        other kernel, finite logits, tokens/s over the five
+                        warm forwards' summed wall (the first forward
+                        apart), one profiled forward's busy share and
+                        ssd_scan's share, peak memory; the kernel against
+                        its twin at layer 0's own operands at the seeded
+                        init (where the carry vanishes: dt ~0.79, a = -1)
+                        and at a carry init (dt_bias -4, a_log ~ N(0,
+                        0.5)), where the carry must hold over 1e-2; the card
+                        against the CPU port on a 2-layer cut at 2 x 256
+                        tokens (two chunks), both inits, float32 (atol
+                        1e-3) and bfloat16 (atol 5e-2);
+              serve     ``serve_lm``, batch 8, prompt 128, gen 128 (no
+                        kernel: the O(1) recurrence is plain torch), tok/s
+                        of an uninstrumented loop, then the median step and
+                        busy share of an instrumented one; on a 2-layer cut
+                        in float32 at both inits, card vs CPU over a 248-
+                        token prompt and 8 generated tokens (256 steps):
+                        tokens equal but at greedy near-ties (top-two gap
+                        within 2e-2; at least half the rows equal
+                        throughout), logits within 2e-2 up to each row's
+                        first difference, the final state of the equal rows
+                        within 1e-2 of its largest entry and their bf16 conv
+                        history within 6.25e-2, beside a printed one-ulp
+                        floor; and the card's prefill of the same 256 tokens
+                        against its decode at every position (within 1e-1:
+                        decode keeps the conv history in bf16).
+   gather   — ``gather_reduce`` (no model path) over 8 bucket-32 requests
+              of the graphgen-gcn W = 1 server: the hop-2 level's mean from
+              the 20 000 x 128 feature table, [1280, 20] ids and mask, 8
+              launches; each result against its twin and against
+              fanout_mean of the generator's own gathered features, and a
+              copy with clamped ids and all-masked rows against the twin.
 7. agree    — the port on the card against the port on the CPU (the plain
               twins) at a small size, same draws: serving graphgen-gcn (warm
               cache states and batches exact, logits within rtol/atol 1e-5)
@@ -81,7 +126,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
               and the bound (bytes over 3.35 TB/s or operations over the
               peak rate of the inputs' type, whichever is larger);
               flash_attention at layer 0's q/k/v of the prefill, with
-              ``scaled_dot_product_attention`` as its library yardstick.
+              ``scaled_dot_product_attention`` as its library yardstick;
+              ssd_scan at layer 0's operands of the SSM prefill (no
+              library call computes it); gather_reduce at a W = 1
+              request's hop-2 level, with ``embedding_bag`` (sum, mask
+              weights) and the division as its yardstick.
 
 The second-to-last lines are the kernel JSON and ``nvidia-smi``'s line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -116,6 +165,26 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_AGREE_GEN = 8, 128, 128, 8
 # by units, far past both bounds.
 LM_DECODE_ATOL = 1e-2          # logits, every step
 LM_CACHE_ATOL = 6.25e-2        # final bf16 k/v cache (entries up to ~2.4)
+SSM_ARCH, SSM_SEED = "mamba2-1.3b", 0
+SSM_CUT, SSM_CUT_S = 2, 256
+SSM_AGREE_PROMPT, SSM_AGREE_GEN = 248, 8    # 256 decode steps, two chunks
+GATHER_REQUESTS = 8
+# the SSM's card-vs-CPU bounds (2-layer cut, logits up to ~2.5): float32
+# prefill differs only in the order of float32 sums; bfloat16 rounds at
+# other places in cuBLAS and on the CPU, ~10 intermediates per block.
+# Float32 decode over 256 steps carries a bf16 conv history, so a value
+# that rounds to the neighbouring bf16 number moves the next steps; the
+# phase prints the floor (the CPU against itself with every weight one
+# float32 ulp off).  The card's prefill against its own decode: the
+# decode keeps the conv history in bf16, the prefill in float32.  A
+# dropped carry, a misplaced conv tap or a wrong decay moves the logits
+# by tenths to units.
+SSM_CUT_ATOL_F32 = 1e-3
+SSM_CUT_ATOL_BF16 = 5e-2
+SSM_DECODE_ATOL = 2e-2         # logits, every step
+SSM_STATE_RTOL = 1e-2          # final float32 state, of its largest entry
+SSM_CONV_ATOL = 6.25e-2        # final bf16 conv history (entries up to ~4)
+SSM_PREFILL_DECODE_ATOL = 1e-1
 DEVICE = "cuda"                # the device every phase drives
 
 KERNEL_META = {
@@ -132,6 +201,10 @@ KERNEL_META = {
                            "src/repro/kernels/cache_gather.py:282"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:72"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:59"),
+    "gather_reduce": ("src/repro_torch/kernels/csrc/gather_reduce.cu",
+                      "src/repro/kernels/gather_reduce.py:86"),
 }
 #: train runs of the main path: arch -> workers, and the probe it must launch
 TRAIN_RUNS = {"graphgen-gcn-deep": (1, "cache_probe_tiered"),
@@ -325,8 +398,114 @@ def phase_kernels(torch, dev):
               f"fanout_mean_bwd {m, k, d} {dtype} disagrees with its twin: "
               f"max err {(got.float() - want.float()).abs().max().item()}")
         n += 1
+    for n_rows, d, m, k, dtype in ((N_NODES, 128, 1280, 20, torch.float32),
+                                   (100, 64, 13, 5, torch.float32),
+                                   (257, 96, 8, 40, torch.float32),
+                                   (N_NODES, 128, 1280, 20, torch.bfloat16),
+                                   (37, 130, 50, 9, torch.bfloat16)):
+        table = torch.randn((n_rows, d), generator=gen, device=dev).to(dtype)
+        idx = torch.randint(-5, n_rows + 5, (m, k), generator=gen,
+                            device=dev, dtype=torch.int32)
+        mask = torch.rand((m, k), generator=gen, device=dev) < 0.7
+        mask[:3] = False
+        ok, err = gather_close(torch, ops.gather_reduce(table, idx, mask),
+                               ref.gather_reduce_ref(table, idx, mask))
+        check(ok, f"gather_reduce {n_rows, d, m, k} {dtype} disagrees with "
+              f"its twin: max err {err}")
+        n += 1
     torch.cuda.synchronize()
     print(f"[kernels] {n} kernel-vs-twin checks passed on the card")
+
+
+def gather_close(torch, got, want):
+    """``gather_reduce`` against its twin: float32 within rtol 1e-5 / atol
+    1e-6 (summation order), bfloat16 within 2e-2 (both round one float32
+    mean once; fanout_mean's bounds).  Returns ``(ok, max abs err)``."""
+    tol = (1e-5, 1e-6) if got.dtype == torch.float32 else (2e-2, 2e-2)
+    err = (got.float() - want.float()).abs().max().item()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.allclose(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])), err
+
+
+def ssd_inputs(torch, dev, shape, dt_kind, seed):
+    """Seeded SSD operands ``(x, dt, a, b, c)`` on ``dev`` for ``shape =
+    (B, L, H, P, N)``: x, b, c standard normal, ``a = -exp(N(0, 1))`` (the
+    reference test's), dt ``softplus(N(0, 1))`` (``"ref"``, the reference
+    test's: mean ~0.8, so the carry dies within a 128-row chunk where
+    ``a`` is near -1) or uniform in [0.005, 0.05] (``"small"``: the carry
+    across chunks matters)."""
+    b, l, h, p, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, l, h, p), generator=gen, device=dev)
+    if dt_kind == "ref":
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, l, h), generator=gen, device=dev))
+    else:
+        dt = 0.005 + 0.045 * torch.rand((b, l, h), generator=gen, device=dev)
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    bm = torch.randn((b, l, n), generator=gen, device=dev)
+    cm = torch.randn((b, l, n), generator=gen, device=dev)
+    return x, dt, a, bm, cm
+
+
+def ssd_close(torch, got, want):
+    """``ssd_scan`` against its twin: within rtol 1e-5 plus atol 1e-5 of
+    the output's largest magnitude (float32 sums of up to N and Q terms in
+    another order; cum is the same float64 running sum in both).  Returns
+    ``(ok, max abs err, max abs err / largest |y|)``."""
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=1e-5, atol=1e-5 * max(scale, 1e-30))
+    return ok, err, err / max(scale, 1e-30)
+
+
+def carry_share(torch, x, dt, a, bm, cm, chunk):
+    """How much of the scan's output the carry across chunks holds: the
+    twin's ``y`` against the same scan with every chunk started from a
+    zero state (the sequence cut into chunk-long ones), as a share of the
+    largest ``|y|``."""
+    from repro_torch.kernels import ref
+    b, l, h, p = x.shape
+    q = min(chunk, l)
+    y = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=q)
+    cut = ref.ssd_scan_ref(x.reshape(-1, q, h, p), dt.reshape(-1, q, h), a,
+                           bm.reshape(-1, q, bm.shape[-1]),
+                           cm.reshape(-1, q, cm.shape[-1]), chunk=q)
+    return ((y - cut.reshape(y.shape)).abs().max()
+            / y.abs().max().clamp(min=1e-30)).item()
+
+
+#: ssd_scan checks on the card: (B, L, H, P, N), chunk, dt kind; the
+#: prefill's shape with both dt kinds, L = chunk, and the smoke config's
+#: widths with a chunk of 8 and of 64
+SSD_CHECKS = (((8, 2048, 64, 64, 128), 128, "ref"),
+              ((8, 2048, 64, 64, 128), 128, "small"),
+              ((2, 128, 64, 64, 128), 128, "small"),
+              ((2, 64, 8, 16, 16), 8, "small"),
+              ((3, 256, 5, 40, 72), 64, "ref"))
+
+
+def phase_ssd_kernels(torch, dev):
+    """``ssd_scan`` against its twin on the card at ``SSD_CHECKS``, with
+    the carry's share of the output printed (and required to matter for
+    the small-dt inputs over more than one chunk)."""
+    from repro_torch.kernels import ops, ref
+    for i, (shape, chunk, kind) in enumerate(SSD_CHECKS):
+        ins = ssd_inputs(torch, dev, shape, kind, seed=20 + i)
+        ok, err, rel = ssd_close(torch, ops.ssd_scan(*ins, chunk=chunk),
+                                 ref.ssd_scan_ref(*ins, chunk=chunk))
+        check(ok, f"ssd_scan {shape} chunk {chunk} dt {kind} disagrees with "
+              f"its twin: max err {err} ({rel:.2e} of the largest |y|)")
+        share = carry_share(torch, *ins, chunk)
+        if kind == "small" and shape[1] > chunk:
+            check(share > 1e-2, f"ssd_scan {shape} small dt: the carry "
+                  f"holds only {share:.2e} of y, the check cannot see it")
+        print(f"[ssd] {shape} chunk {chunk} dt {kind} == twin (max abs err "
+              f"{err:.3e}, {rel:.2e} of the largest |y|; carry share "
+              f"{share:.3e})")
+    torch.cuda.synchronize()
 
 
 def serve_args(arch, w):
@@ -657,44 +836,46 @@ def lm_config(n_layers=None):
         cfg, n_layers=n_layers)
 
 
-def flash_inputs(torch, cfg, model, batch):
-    """The ``(q, k, v)`` of layer 0's ``flash_attention`` call in one
-    prefill forward of ``model`` (the path's own inputs)."""
+def first_call_operands(torch, name, forward):
+    """The operands of the first ``ops.<name>`` call that ``forward()``
+    makes (a layer's own inputs on the path), cloned and contiguous."""
     from repro_torch.kernels import ops
-    from repro_torch.models import zoo
-    real, calls = ops.flash_attention, []
+    real, calls = getattr(ops, name), []
 
-    def record(q, k, v, causal=True):
+    def record(*operands, **kw):
         if not calls:
-            calls.append((q.contiguous().clone(), k.contiguous().clone(),
-                          v.contiguous().clone()))
-        return real(q, k, v, causal)
-    ops.flash_attention = record
+            calls.append(tuple(t.contiguous().clone() for t in operands))
+        return real(*operands, **kw)
+    setattr(ops, name, record)
     try:
-        zoo.forward_logits(cfg, model, batch)
+        forward()
     finally:
-        ops.flash_attention = real
+        setattr(ops, name, real)
     return calls[0]
 
 
-def phase_lm_prefill(torch):
-    """``forward_logits`` of smollm-135m at full width, flash on, over
-    ``PREFILL_B x PREFILL_S`` seeded tokens, with zeroed launch counters;
-    then the kernel at layer 0's inputs and the card against the CPU on a
-    2-layer cut.  Returns the results, launches and layer 0's q/k/v."""
-    import copy
+def run_prefill(torch, cfg, seed, kernel, label):
+    """``forward_logits`` of ``cfg`` (random weights from ``seed``) over
+    ``PREFILL_B x PREFILL_S`` seeded tokens, ``1 + PREFILL_WARM`` times
+    with zeroed launch counters: exactly one ``kernel`` launch per layer
+    per forward and no other kernel, finite float32 logits over the padded
+    vocab; then one profiled forward.  Returns ``(model, batch, tokens,
+    res)``: ``res`` holds the init and first-forward seconds, the rate
+    over the whole warm window (all warm forwards' tokens over their summed
+    wall; the median is a per-forward statistic only), the launches, the
+    peak memory, and the device busy ms and ``kernel``'s ms of the traced
+    forward."""
     import numpy as np
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.models import zoo
     from repro_torch.models.layers import padded_vocab
-    from repro_torch.models.transformer import DenseLM
-    cfg = lm_config()
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = zoo.build(cfg, DEVICE).init(LM_SEED)
+    model = zoo.build(cfg, DEVICE).init(seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = np.random.default_rng(LM_SEED).integers(
+    tokens = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (PREFILL_B, PREFILL_S), dtype=np.int32)
     batch = {"tokens": torch.from_numpy(tokens).to(DEVICE)}
     ops.reset_launch_counts()
@@ -707,19 +888,17 @@ def phase_lm_prefill(torch):
         times.append(time.perf_counter() - t)
     counts = ops.launch_counts()
     n_fwd = len(times)
-    check(counts["flash_attention"] == cfg.n_layers * n_fwd,
-          f"prefill launched flash_attention {counts['flash_attention']} "
-          f"times over {n_fwd} forwards, expected {cfg.n_layers} per forward")
-    check(all(n == 0 for name, n in counts.items()
-              if name != "flash_attention"),
-          f"prefill launched another kernel: {counts}")
+    check(counts[kernel] == cfg.n_layers * n_fwd,
+          f"{label} launched {kernel} {counts[kernel]} times over {n_fwd} "
+          f"forwards, expected {cfg.n_layers} per forward")
+    check(all(n == 0 for name, n in counts.items() if name != kernel),
+          f"{label} launched another kernel: {counts}")
     v_pad = padded_vocab(cfg)
     check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, v_pad)
-          and logits.dtype == torch.float32, f"prefill logits "
+          and logits.dtype == torch.float32, f"{label} logits "
           f"{tuple(logits.shape)} {logits.dtype}")
-    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    # the rate over the whole warm window (all warm forwards' tokens over
-    # their summed wall); the median is a per-forward statistic only
+    check(bool(torch.isfinite(logits).all()), f"{label} logits not finite")
+    del logits
     warm_ms = statistics.median(times[1:]) * 1e3
     res = {"init_s": init_s, "first_forward_s": times[0],
            "warm_forward_ms": warm_ms,
@@ -728,14 +907,12 @@ def phase_lm_prefill(torch):
            / sum(times[1:]),
            "launches": counts, "max_memory_gb":
            torch.cuda.max_memory_allocated() / 2 ** 30}
-    print(f"[lm prefill {LM_ARCH}] B={PREFILL_B} S={PREFILL_S}: first "
-          f"forward {times[0]:.3f} s; {PREFILL_WARM} warm forwards at "
+    print(f"[{label}] B={PREFILL_B} S={PREFILL_S}: first forward "
+          f"{times[0]:.3f} s; {PREFILL_WARM} warm forwards at "
           f"{res['prefill_tok_s']:,.0f} tokens/s, median warm forward "
           f"{warm_ms:.3f} ms; forwards (ms) "
           f"{[round(t, 3) for t in res['forward_ms']]}; init {init_s:.2f} s; "
           f"launches {counts}; peak memory {res['max_memory_gb']:.2f} GiB")
-    del logits
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -743,10 +920,40 @@ def phase_lm_prefill(torch):
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t) * 1e3
     res["busy_ms"] = summarize_profile(torch, prof, 1, traced_ms,
-                                       "lm prefill, one traced forward")
+                                       f"{label}, one traced forward")
+    res["kernel_ms"] = kernel_device_ms(torch, prof, kernel)
+    if res["busy_ms"]:
+        print(f"[{label}] {kernel}: {res['kernel_ms']:.3f} ms of the traced "
+              f"forward's {res['busy_ms']:.3f} ms device time "
+              f"({100 * res['kernel_ms'] / res['busy_ms']:.1f}%)")
+    return model, batch, tokens, res
+
+
+def kernel_device_ms(torch, prof, name):
+    """Device time (ms) of the profiler rows whose kernel name holds
+    ``name``."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key) / 1e3
+
+
+def phase_lm_prefill(torch):
+    """``forward_logits`` of smollm-135m at full width, flash on, over
+    ``PREFILL_B x PREFILL_S`` seeded tokens, with zeroed launch counters;
+    then the kernel at layer 0's inputs and the card against the CPU on a
+    2-layer cut.  Returns the results, launches and layer 0's q/k/v."""
+    import copy
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import zoo
+    from repro_torch.models.transformer import DenseLM
+    cfg = lm_config()
+    model, batch, tokens, res = run_prefill(
+        torch, cfg, LM_SEED, "flash_attention", f"lm prefill {LM_ARCH}")
 
     # the kernel at the path's own inputs (layer 0 of a forward)
-    qkv = flash_inputs(torch, cfg, model, batch)
+    qkv = first_call_operands(torch, "flash_attention",
+                              lambda: zoo.forward_logits(cfg, model, batch))
     ok, err = flash_close(torch, ops.flash_attention(*qkv),
                           ref.flash_attention_ref(*qkv))
     check(ok, f"flash_attention disagrees with its twin at layer 0's "
@@ -786,25 +993,41 @@ def lm_serve_args(gen, device):
         "--gen-len", str(gen)])
 
 
-def record_decode(torch, args, nudge=False):
+def nudge_weights(torch, model, seed):
+    """Move every weight of ``model`` by one float32 ulp, with a seeded
+    random sign (the floor of a card-vs-CPU comparison)."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
+            p.mul_(1 + sign.to(p) * 2.0 ** -23)
+
+
+def record_decode(torch, args, nudge=False, cfg=None, prep=None):
     """``serve_lm(args)`` with every decode step's float32 logits copied
     to the host (prompt fill and generation); returns the tokens, the
-    stacked logits ``[steps, B, V_pad]`` and the final KV cache on the
-    host.  ``nudge`` moves every weight by one float32 ulp (a seeded
-    random sign) before serving, for the floor of the comparison."""
+    stacked logits ``[steps, B, V_pad]``, the final cache on the host and
+    the model served.  ``cfg`` replaces the arch's config (a depth cut),
+    ``prep(model)`` edits the freshly made model in place (the SSM's
+    carry init), and ``nudge`` moves every weight by one float32 ulp
+    after that, for the floor of the comparison."""
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
-    real_init = transformer.init_dense_lm
-    real = transformer.DenseLM.forward_decode
-    logits, last = [], {}
+    from repro_torch.models import ssm, transformer
+    family = serve.get_config(args.arch).family
+    mod, cls, init_name = {
+        "dense": (transformer, transformer.DenseLM, "init_dense_lm"),
+        "ssm": (ssm, ssm.Mamba2LM, "init_mamba2")}[family]
+    real_init, real_cfg = getattr(mod, init_name), serve.get_config
+    real = cls.forward_decode
+    logits, last, made = [], {}, []
 
     def init(cfg, seed=0, device="cuda"):
         model = real_init(cfg, seed, device)
-        gen = torch.Generator().manual_seed(seed + 1)
-        with torch.no_grad():
-            for p in model.parameters():
-                sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
-                p.mul_(1 + sign.to(p) * 2.0 ** -23)
+        if prep is not None:
+            prep(model)
+        if nudge:
+            nudge_weights(torch, model, seed)
+        made.append(model)
         return model
 
     def record(self, cache, tokens, pos):
@@ -812,21 +1035,24 @@ def record_decode(torch, args, nudge=False):
         logits.append(out.float().cpu())
         last.update(cache)
         return out, cache
-    transformer.DenseLM.forward_decode = record
-    if nudge:
-        transformer.init_dense_lm = init
+    cls.forward_decode = record
+    setattr(mod, init_name, init)
+    if cfg is not None:
+        serve.get_config = lambda name: cfg
     try:
         toks = serve.serve_lm(args)["tokens"]
     finally:
-        transformer.DenseLM.forward_decode = real
-        transformer.init_dense_lm = real_init
-    return toks, torch.stack(logits), {k: v.cpu() for k, v in last.items()}
+        cls.forward_decode = real
+        setattr(mod, init_name, real_init)
+        serve.get_config = real_cfg
+    return (toks, torch.stack(logits), {k: v.cpu() for k, v in last.items()},
+            made[0])
 
 
 def decode_gap(torch, a, b):
     """Per-step max abs logit gap ``[steps]`` and the final k/v caches'
     max abs gap and share of entries more than one bf16 ulp apart."""
-    (_, la, ka), (_, lb, kb) = a, b
+    (la, ka), (lb, kb) = a[1:3], b[1:3]
     per_step = (la - lb).abs().amax(dim=(1, 2))
     kv = {}
     for name in ("k", "v"):
@@ -844,53 +1070,12 @@ def phase_lm_serve(torch):
     between steps, a profiler over 4 steps) for the median step and the
     device's busy share; then the float32 card-vs-CPU gate on tokens,
     per-step logits and the final KV cache."""
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
     from repro_torch.models import layers
     from repro_torch.models.layers import padded_vocab
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = serve.serve_lm(lm_serve_args(LM_GEN, DEVICE))
-    res["total_s"] = time.perf_counter() - t0
-    res["launches"] = ops.launch_counts()
-    toks = res["tokens"]
     v_pad = padded_vocab(lm_config())
-    check(toks.shape == (LM_BATCH, LM_GEN) and toks.min() >= 0
-          and toks.max() < v_pad, f"served tokens {toks.shape} outside "
-          f"[0, {v_pad})")
-
-    events = []
-    clock = StepClock(torch, first=LM_GEN - 8, n=4)
-
-    def hook(step):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-        clock(step)
-    try:
-        timed = serve.serve_lm(lm_serve_args(LM_GEN, DEVICE), step_hook=hook)
-    finally:
-        clock.close()
-    torch.cuda.synchronize()
-    check((timed["tokens"] == toks).all(),
-          "the instrumented serve_lm run generated other tokens")
-    steps = [events[i].elapsed_time(events[i + 1])
-             for i in range(len(events) - 1)]
-    # steps[i] is decode step i + 1; the median is over steps 1 ..
-    # first - 2, before the profiler's warm-up step and its traced steps
-    res["median_step_ms"] = statistics.median(steps[:clock.first - 2])
-    res["instrumented_wall_s"] = timed["wall_s"]
-    traced = steps[clock.first - 1:clock.first - 1 + clock.n]
-    res["busy_ms"] = summarize_profile(
-        torch, clock.prof, clock.n, sum(traced) / len(traced),
-        "lm serve, per traced decode step")
-    print(f"[lm serve {LM_ARCH}] batch {LM_BATCH}, prompt {LM_PROMPT}, gen "
-          f"{LM_GEN}: {res['tok_s']:,.1f} tok/s over the uninstrumented "
-          f"timed loop ({res['wall_s']:.3f} s; whole call "
-          f"{res['total_s']:.2f} s), launches {res['launches']}; "
-          f"instrumented run: median untraced step "
-          f"{res['median_step_ms']:.3f} ms (events between steps), timed "
-          f"loop {timed['wall_s']:.3f} s")
+    res = serve_and_time(torch, lambda: lm_serve_args(LM_GEN, DEVICE),
+                         f"lm serve {LM_ARCH}", v_pad)
+    toks = res["tokens"]
 
     saved = layers.COMPUTE_DTYPE
     layers.COMPUTE_DTYPE = torch.float32
@@ -936,6 +1121,390 @@ def phase_lm_serve(torch):
     res["f32_decode_cache_max_abs_err"] = max(kv["k"][0], kv["v"][0])
     res["f32_decode_floor"] = floor_step.max().item()
     return res
+
+
+# ------------------------------------------------------------------ SSM LM
+
+def ssm_config(n_layers=None):
+    """mamba2-1.3b at full width (``n_layers`` cuts the depth)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def carry_init(torch, model):
+    """Set every block's ``dt_bias`` to -4 and draw ``a_log`` from N(0,
+    0.5) (a seeded CPU generator), in place: dt ~0.02, so the state keeps
+    a visible share across a 128-row chunk, where the reference's init
+    (dt ~0.79, a = -1) decays it by ~exp(-101)."""
+    gen = torch.Generator().manual_seed(SSM_SEED + 7)
+    with torch.no_grad():
+        for blk in model.layers:
+            blk.dt_bias.fill_(-4.0)
+            blk.a_log.copy_(torch.randn(blk.a_log.shape, generator=gen) * 0.5)
+    return model
+
+
+def cut_model(torch, model, n_layers, device):
+    """A ``Mamba2LM`` of the first ``n_layers`` blocks of ``model`` (and
+    its embedding, norm and head) on ``device``."""
+    from repro_torch.models.ssm import Mamba2LM
+    cut = Mamba2LM(ssm_config(n_layers), device)
+    cut.load_state_dict({
+        k: v for k, v in model.state_dict().items()
+        if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers})
+    return cut
+
+
+def check_layer0_ssd(torch, ins, chunk, label):
+    """``ssd_scan`` against its twin at a layer's own operands; returns
+    ``(max abs err, carry share)``."""
+    from repro_torch.kernels import ops, ref
+    ok, err, rel = ssd_close(torch, ops.ssd_scan(*ins, chunk=chunk),
+                             ref.ssd_scan_ref(*ins, chunk=chunk))
+    check(ok, f"ssd_scan disagrees with its twin at {label}: max err {err} "
+          f"({rel:.2e} of the largest |y|)")
+    share = carry_share(torch, *ins, chunk)
+    mean_dt = ins[1].mean().item()
+    print(f"[ssm prefill] ssd_scan == twin at {label} "
+          f"{[tuple(t.shape) for t in ins]} (max abs err {err:.3e}, "
+          f"{rel:.2e} of the largest |y|); mean dt {mean_dt:.4f}, carry "
+          f"share {share:.3e}")
+    return err, share
+
+
+def phase_ssm_prefill(torch):
+    """``forward_logits`` of mamba2-1.3b at full width and depth over
+    ``PREFILL_B x PREFILL_S`` seeded tokens, bf16 compute, with zeroed
+    launch counters (48 ``ssd_scan`` launches per forward, nothing else);
+    one profiled forward; the kernel at layer 0's own operands at the
+    reference's init and at the carry init; the card against the CPU on a
+    2-layer cut at 2 x ``SSM_CUT_S`` tokens (two chunks), both inits, in
+    float32 and bfloat16 compute."""
+    import copy
+    import numpy as np
+    from repro_torch.models import layers, zoo
+    cfg = ssm_config()
+    model, batch, tokens, res = run_prefill(
+        torch, cfg, SSM_SEED, "ssd_scan", f"ssm prefill {SSM_ARCH}")
+
+    # the kernel at layer 0's own operands: the reference's init (the
+    # state forgets a whole chunk, but each chunk's first rows still read
+    # the previous chunk's last rows through it), then the carry init
+    def layer0(m):
+        return first_call_operands(
+            torch, "ssd_scan", lambda: zoo.forward_logits(m.cfg, m, batch))
+    ins = layer0(model)
+    res["layer0_err"], res["layer0_carry_share"] = check_layer0_ssd(
+        torch, ins, cfg.ssm_chunk, "layer 0's operands (reference init)")
+    res["ssd_inputs"] = ins
+    one = carry_init(torch, cut_model(torch, model, 1, DEVICE))
+    res["carry_err"], share = check_layer0_ssd(
+        torch, layer0(one), cfg.ssm_chunk, "layer 0's operands (carry init)")
+    check(share > 1e-2, f"carry init: the carry holds only {share:.2e} of "
+          f"layer 0's scan output")
+    res["carry_share"] = share
+    del one
+
+    # card against CPU on a 2-layer cut, two chunks, both inits
+    small = torch.from_numpy(np.ascontiguousarray(tokens[:2, :SSM_CUT_S]))
+    saved = layers.COMPUTE_DTYPE
+    res["cut"] = {}
+    try:
+        for init in ("reference", "carry"):
+            cpu_model = cut_model(torch, model, SSM_CUT, "cpu")
+            if init == "carry":
+                carry_init(torch, cpu_model)
+            card_model = copy.deepcopy(cpu_model).to(DEVICE)
+            for dtype, atol in ((torch.float32, SSM_CUT_ATOL_F32),
+                                (torch.bfloat16, SSM_CUT_ATOL_BF16)):
+                layers.COMPUTE_DTYPE = dtype
+                lc = zoo.forward_logits(cpu_model.cfg, cpu_model,
+                                        {"tokens": small})
+                lg = zoo.forward_logits(card_model.cfg, card_model,
+                                        {"tokens": small.to(DEVICE)}).cpu()
+                err = (lg - lc).abs().max().item()
+                agree = (lg.argmax(-1) == lc.argmax(-1)).float().mean().item()
+                name = str(dtype).split(".")[1]
+                check(bool(torch.isfinite(lg).all()) and err <= atol,
+                      f"ssm 2-layer cut, {init} init, {name}: card logits "
+                      f"differ from the CPU port's by {err}, over {atol}")
+                print(f"[ssm prefill] 2-layer cut, 2 x {SSM_CUT_S} tokens, "
+                      f"{init} init, {name}: card logits within {err:.3e} "
+                      f"of the CPU port's (scale {lc.abs().max().item():.3f},"
+                      f" bound {atol}); argmax agrees at {100 * agree:.2f}%")
+                res["cut"][f"{init} {name}"] = err
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    return res
+
+
+def ssm_serve_args(gen, device, prompt=LM_PROMPT):
+    """``serve_lm`` flags: mamba2-1.3b, batch 8, prompt 128."""
+    from repro_torch.launch import serve
+    return serve.parse_args([
+        "--arch", SSM_ARCH, "--device", device, "--seed", str(SSM_SEED),
+        "--batch", str(LM_BATCH), "--prompt-len", str(prompt),
+        "--gen-len", str(gen)])
+
+
+def serve_and_time(torch, make_args, label, v_pad):
+    """``serve_lm(make_args())`` with zeroed launch counters (decode is
+    plain torch: no kernel of the port may launch) and nothing else in the
+    loop, for its tok/s, its tokens in ``[0, v_pad)``; then a second,
+    instrumented run (CUDA events between steps, a profiler over 4 steps)
+    that must generate the same tokens, for the median untraced step and
+    the device's busy share.  Returns the first run's result with those
+    added."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.serve_lm(make_args())
+    res["total_s"] = time.perf_counter() - t0
+    res["launches"] = ops.launch_counts()
+    check(all(n == 0 for n in res["launches"].values()),
+          f"{label}: decode launched a kernel: {res['launches']}")
+    toks = res["tokens"]
+    check(toks.shape == (LM_BATCH, LM_GEN) and toks.min() >= 0
+          and toks.max() < v_pad, f"{label}: served tokens {toks.shape} "
+          f"outside [0, {v_pad})")
+    events = []
+    clock = StepClock(torch, first=LM_GEN - 8, n=4)
+
+    def hook(step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        clock(step)
+    try:
+        timed = serve.serve_lm(make_args(), step_hook=hook)
+    finally:
+        clock.close()
+    torch.cuda.synchronize()
+    check((timed["tokens"] == toks).all(),
+          f"{label}: the instrumented serve_lm run generated other tokens")
+    steps = [events[i].elapsed_time(events[i + 1])
+             for i in range(len(events) - 1)]
+    # steps[i] is decode step i + 1; the median is over steps 1 ..
+    # first - 2, before the profiler's warm-up step and its traced steps
+    res["median_step_ms"] = statistics.median(steps[:clock.first - 2])
+    res["instrumented_wall_s"] = timed["wall_s"]
+    traced = steps[clock.first - 1:clock.first - 1 + clock.n]
+    res["busy_ms"] = summarize_profile(
+        torch, clock.prof, clock.n, sum(traced) / len(traced),
+        f"{label}, per traced decode step")
+    print(f"[{label}] batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}: "
+          f"{res['tok_s']:,.1f} tok/s over the uninstrumented timed loop "
+          f"({res['wall_s']:.3f} s; whole call {res['total_s']:.2f} s), "
+          f"launches {res['launches']}; instrumented run: median untraced "
+          f"step {res['median_step_ms']:.3f} ms (events between steps), "
+          f"timed loop {timed['wall_s']:.3f} s")
+    return res
+
+
+def phase_ssm_serve(torch):
+    """``serve_lm`` of mamba2-1.3b at full width with zeroed launch
+    counters (decode is plain torch: no kernel of the port runs) and
+    nothing else in the loop, for its tok/s; a second, instrumented run for
+    the median step and the busy share; then, on a 2-layer cut in float32
+    compute at both inits, the card against the CPU port at every step of
+    a 248-token prompt and 8 generated tokens (tokens equal but at
+    near-ties, logits up to each row's first differing token, the final
+    state of the rows that never differ), beside the floor of the CPU
+    against itself with every weight one float32 ulp off, and the card's
+    own prefill of the same 256 tokens (two chunks) against its decode at
+    every position."""
+    import numpy as np
+    from repro_torch.models import layers, zoo
+    from repro_torch.models.layers import padded_vocab
+    v_pad = padded_vocab(ssm_config())
+    res = serve_and_time(torch, lambda: ssm_serve_args(LM_GEN, DEVICE),
+                         f"ssm serve {SSM_ARCH}", v_pad)
+
+    cut = ssm_config(SSM_CUT)
+    prompt = np.random.default_rng(SSM_SEED).integers(
+        0, cut.vocab_size, (LM_BATCH, SSM_AGREE_PROMPT), dtype=np.int32)
+    steps = SSM_AGREE_PROMPT + SSM_AGREE_GEN
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    res["agree"] = {}
+    try:
+        for init in ("reference", "carry"):
+            prep = carry_init_fn(torch) if init == "carry" else None
+            runs = [record_decode(torch, ssm_serve_args(
+                SSM_AGREE_GEN, where, SSM_AGREE_PROMPT), cfg=cut, prep=prep,
+                nudge=nudge) for where, nudge in ((DEVICE, False),
+                                                  ("cpu", False),
+                                                  ("cpu", True))]
+            card, cpu, floor = runs
+            check(card[1].shape == cpu[1].shape == (steps, LM_BATCH, v_pad),
+                  f"ssm decode logits {tuple(card[1].shape)}")
+            gap = decode_state_gap(torch, card, cpu, SSM_AGREE_PROMPT)
+            floor_gap = decode_state_gap(torch, floor, cpu, SSM_AGREE_PROMPT)
+            # the card's own prefill of the same tokens (two chunks)
+            model = card[3]
+            seq = np.concatenate([prompt, card[0]], axis=1)
+            pre = zoo.forward_logits(cut, model, {
+                "tokens": torch.from_numpy(seq).to(DEVICE)}).cpu()
+            pd = (pre.transpose(0, 1) - card[1]).abs().amax(dim=(1, 2))
+            print(f"[ssm serve] float32, 2-layer cut, {init} init, "
+                  f"{SSM_AGREE_PROMPT} prompt + {SSM_AGREE_GEN} generated "
+                  f"steps, card vs CPU: {gap['n_same']} of {LM_BATCH} rows "
+                  f"generate the same tokens (first differing step per row "
+                  f"{gap['first']}, top-two logit gaps there "
+                  f"{[f'{t:.2e}' for t in gap['ties']]}); logits within "
+                  f"{gap['logits']:.3e} up to each row's first difference "
+                  f"(scale {cpu[1].abs().max().item():.3f}, worst step "
+                  f"{gap['worst_step']}); final state of those rows within "
+                  f"{gap['ssm']:.3e} (scale {gap['ssm_scale']:.3f}), conv "
+                  f"history within {gap['conv']:.3e}. Floor, CPU with every "
+                  f"weight one float32 ulp off: logits "
+                  f"{floor_gap['logits']:.3e}, ssm {floor_gap['ssm']:.3e}, "
+                  f"conv {floor_gap['conv']:.3e}, {floor_gap['n_same']} rows "
+                  f"the same. Card prefill of the {steps} tokens vs its "
+                  f"decode: last position {pd[-1].item():.3e}, median "
+                  f"{pd.median().item():.3e}, max {pd.max().item():.3e}")
+            check(gap["n_same"] >= LM_BATCH // 2 and all(
+                t <= SSM_DECODE_ATOL for t in gap["ties"]),
+                f"ssm float32 decode ({init}): tokens differ card vs CPU "
+                f"away from near-ties (rows the same {gap['n_same']}, gaps "
+                f"{gap['ties']}):\n{card[0]}\n{cpu[0]}")
+            check(bool(torch.isfinite(card[1]).all())
+                  and gap["logits"] <= SSM_DECODE_ATOL,
+                  f"ssm float32 decode ({init}): logits differ card vs CPU "
+                  f"by {gap['logits']}, over {SSM_DECODE_ATOL}")
+            check(gap["ssm"] <= SSM_STATE_RTOL * gap["ssm_scale"],
+                  f"ssm float32 decode ({init}): final state differs card vs "
+                  f"CPU by {gap['ssm']}, over {SSM_STATE_RTOL} of "
+                  f"{gap['ssm_scale']}")
+            check(gap["conv"] <= SSM_CONV_ATOL, f"ssm float32 decode "
+                  f"({init}): conv history differs card vs CPU by "
+                  f"{gap['conv']}, over {SSM_CONV_ATOL}")
+            check(pd.max().item() <= SSM_PREFILL_DECODE_ATOL,
+                  f"ssm ({init}): the card's prefill differs from its "
+                  f"decode by {pd.max().item()} (last position "
+                  f"{pd[-1].item()}), over {SSM_PREFILL_DECODE_ATOL}")
+            res["agree"][init] = {
+                "logits": gap["logits"], "ssm": gap["ssm"],
+                "conv": gap["conv"], "rows_same": gap["n_same"],
+                "floor_logits": floor_gap["logits"],
+                "prefill_vs_decode_last": pd[-1].item(),
+                "prefill_vs_decode_max": pd.max().item()}
+            del runs, card, cpu, floor, model
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    return res
+
+
+def carry_init_fn(torch):
+    """``carry_init`` as a ``record_decode`` ``prep``."""
+    return lambda model: carry_init(torch, model)
+
+
+def decode_state_gap(torch, a, b, prompt_len):
+    """Gaps of two ``record_decode`` runs of the SSM, row by row up to
+    the first generated token where the two differ (a greedy near-tie may
+    go either way; the rows then decode other tokens).  Returns each row's
+    first differing generated step (``G`` if none) and the top-two logit
+    gap on both sides there (``ties``); the max abs logit gap over the
+    steps before it (and its worst step); and over the rows that never
+    differ, the final float32 state's and bf16 conv history's max abs
+    gap (with the state's scale over every row)."""
+    ta, tb = a[0], b[0]
+    g = ta.shape[1]
+    first = [int(r.argmax()) if r.any() else g for r in (ta != tb)]
+    valid = torch.zeros(a[1].shape[:2], dtype=torch.bool)
+    ties = []
+    for row, f in enumerate(first):
+        valid[:prompt_len + f, row] = True
+        if f < g:
+            s, x, y = prompt_len + f - 1, int(ta[row, f]), int(tb[row, f])
+            ties.append(max((a[1][s, row, x] - a[1][s, row, y]).item(),
+                            (b[1][s, row, y] - b[1][s, row, x]).item()))
+    per_step = torch.where(valid[..., None], (a[1] - b[1]).abs(),
+                           0).amax(dim=(1, 2))
+    same = [row for row, f in enumerate(first) if f == g]
+
+    def state_gap(name):
+        if not same:
+            return float("inf")
+        return (a[2][name][:, same].float()
+                - b[2][name][:, same].float()).abs().max().item()
+    return {"first": first, "ties": ties, "n_same": len(same),
+            "logits": per_step.max().item(),
+            "worst_step": int(per_step.argmax()),
+            "ssm": state_gap("ssm"),
+            "ssm_scale": b[2]["ssm"].abs().max().item(),
+            "conv": state_gap("conv")}
+
+
+def phase_gather_reduce(torch, serve_res):
+    """``gather_reduce`` driven as edge-centric collection + aggregation
+    at a graphgen-gcn W = 1 server's own requests (no model calls it):
+    over ``GATHER_REQUESTS`` bucket-32 requests, the hop-2 level's mean
+    straight from the 20 000 x 128 feature table (``idx``/``mask`` the
+    request's hop-2 ids and mask as ``[32 * 40, 20]``), with zeroed launch
+    counters.  Then, apart: each result against the twin and against
+    ``fanout_mean`` of the features the generator gathered for that level
+    (where the request dropped nothing), and the kernel against its twin
+    on a copy with ids off both ends of the table and all-masked rows.
+    Returns the launches and the first request's operands."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.graph.synthetic import node_features
+    from repro_torch.kernels import ops, ref
+    cfg = get_config("graphgen-gcn")
+    server, head_order = serve_res["graphgen-gcn", 1]["built"]
+    k2 = cfg.fanouts[1]
+    table = torch.from_numpy(node_features(N_NODES, cfg.gcn_in_dim,
+                                           0)).to(DEVICE)
+    rng = np.random.default_rng(13)
+    batches = []
+    for _ in range(GATHER_REQUESTS):
+        ranks = np.minimum(rng.zipf(1.5, 32), head_order.size) - 1
+        batches.append(server.generate(head_order[ranks]))
+    levels = [(b.hops[1].reshape(-1, k2).contiguous(),
+               b.masks[1].reshape(-1, k2).contiguous()) for b in batches]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = [ops.gather_reduce(table, idx, mask) for idx, mask in levels]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["gather_reduce"] == GATHER_REQUESTS
+          and all(n == 0 for name, n in counts.items()
+                  if name != "gather_reduce"),
+          f"gather_reduce drive launched {counts}")
+    worst, n_same = 0.0, 0
+    for out, (idx, mask), b in zip(outs, levels, batches):
+        ok, err = gather_close(torch, out, ref.gather_reduce_ref(table, idx,
+                                                                 mask))
+        check(ok, f"gather_reduce disagrees with its twin at a request's "
+              f"hop-2 level: max err {err}")
+        worst = max(worst, err)
+        if int(b.n_dropped.sum()) == 0:
+            x = b.x_hops[1].reshape(-1, k2, cfg.gcn_in_dim)
+            want = ref.fanout_mean_ref(x, mask)
+            check(torch.allclose(out, want, rtol=1e-5, atol=1e-6),
+                  f"gather_reduce differs from fanout_mean of the gathered "
+                  f"features by {(out - want).abs().max().item()}")
+            n_same += 1
+    idx, mask = (t.clone() for t in levels[0])
+    idx[0, :5], idx[1, :5] = -3, N_NODES + 11
+    mask[0:2, :5] = True
+    mask[2:4] = False
+    ok, err = gather_close(torch, ops.gather_reduce(table, idx, mask),
+                           ref.gather_reduce_ref(table, idx, mask))
+    check(ok, f"gather_reduce disagrees with its twin with clamped ids and "
+          f"all-masked rows: max err {err}")
+    print(f"[gather_reduce] {GATHER_REQUESTS} bucket-32 requests' hop-2 "
+          f"levels {tuple(levels[0][0].shape)} from the "
+          f"{tuple(table.shape)} table: launches {counts['gather_reduce']}; "
+          f"== twin (max abs err {worst}); == fanout_mean of the gathered "
+          f"features on {n_same} requests that dropped nothing; clamped ids "
+          f"and all-masked rows == twin (max abs err {err})")
+    return {"launches": counts, "inputs": (table, *levels[0])}
 
 
 def phase_agree(torch, dev):
@@ -1124,7 +1693,8 @@ def tree_leaves(state):
     return list(state)
 
 
-def phase_timing(torch, serve_res, train_res, launches, qkv):
+def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
+                 gather_ins):
     """Per bucket-32 request, on the servers the serve phase built and
     warmed: kernel launches and a profiler trace.  Then kernel, twin and
     library-call times at each kernel's path's own inputs: at a bucket-32
@@ -1133,7 +1703,9 @@ def phase_timing(torch, serve_res, train_res, launches, qkv):
     the compact probe; at the last batch and the warm cache of the train
     runs, the tiered probe (graphgen-gcn-deep) and fanout_mean_bwd at the
     hidden-level shapes of both runs (real masks, a random gradient); and
-    flash_attention at ``qkv``, layer 0's inputs of the LM prefill.
+    flash_attention at ``qkv``, layer 0's inputs of the LM prefill;
+    ssd_scan at ``ssd_ins``, layer 0's operands of the SSM prefill; and
+    gather_reduce at ``gather_ins``, a W = 1 request's hop-2 level.
     Returns one JSON entry per kernel (its first, largest shape)."""
     import numpy as np
     from repro_torch.configs import get_config
@@ -1212,6 +1784,8 @@ def phase_timing(torch, serve_res, train_res, launches, qkv):
         cache.l2.rows[0], uniq[0]),
         {"l1_assoc": dcfg.l1_assoc, "l2_assoc": dcfg.assoc}))
     items.append(("flash_attention", qkv, {"causal": True}))
+    items.append(("ssd_scan", ssd_ins, {"chunk": ssm_config().ssm_chunk}))
+    items.append(("gather_reduce", gather_ins, {}))
     items_timed(torch, items, launches, entries)
     return [entries[name] for name in KERNEL_META]
 
@@ -1312,6 +1886,43 @@ def time_kernel(torch, name, inputs, kw):
             vr = v.repeat_interleave(hq // hkv, dim=1)
             library = lambda: sdpa(q, kr, vr, is_causal=kw["causal"])  # noqa: E731
         library_ms = gpu_ms(torch, library)
+    elif name == "ssd_scan":
+        x, dt, a, bm, cm = inputs
+        ok, err, rel = ssd_close(torch, got, want)
+        check(ok, f"ssd_scan differs from its twin at the prefill inputs: "
+              f"max err {err}")
+        (b, l, h, p), n = x.shape, bm.shape[-1]
+        q = min(kw["chunk"], l)
+        nc, pairs = l // q, q * (q + 1) // 2
+        # what the function needs: C B^T over the causal pairs once per
+        # (batch, chunk), shared by the heads; per head the decay (exp and
+        # two products) and scores x over the pairs; the inter-chunk
+        # read-out and the state update, 2 P N each per row, after the
+        # first chunk only (the state before it is zero)
+        n_ops = (2 * b * nc * pairs * n + b * h * nc * pairs * (2 * p + 3)
+                 + 2 * b * h * (l - q) * 2 * n * p)
+        n_bytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + bm.numel()
+                       + cm.numel())
+    elif name == "gather_reduce":
+        table, idx, mask = inputs
+        ok, err = gather_close(torch, got, want)
+        check(ok, f"gather_reduce differs from its twin at the request "
+              f"inputs: max err {err}")
+        (n_rows, d), (m, k) = table.shape, idx.shape
+        kept = idx.to(torch.int64).clamp(0, n_rows - 1)[mask]
+        item = table.element_size()
+        # the rows the kept slots need, once each; ids, mask, output
+        n_bytes = (int(torch.unique(kept).numel()) * d * item + m * k * 4
+                   + m * k + m * d * item)
+        n_ops = kept.numel() * d + m * d
+        # the one-call yardstick: embedding_bag's weighted sum, then the
+        # division (clamped ids, float mask and counts precomputed)
+        bag_idx = idx.to(torch.int64).clamp(0, n_rows - 1)
+        wts = mask.to(table.dtype)
+        den = mask.float().sum(1, keepdim=True).clamp(min=1).to(table.dtype)
+        emb = torch.nn.functional.embedding_bag
+        library_ms = gpu_ms(torch, lambda: emb(
+            bag_idx, table, mode="sum", per_sample_weights=wts) / den)
     else:
         keys, rows, ids = inputs
         for a, b in zip(got, want):
@@ -1377,22 +1988,28 @@ def main():
     phase_kernels(torch, dev)
     if opts.kernels_only:
         phase_flash(torch, dev)
+        phase_ssd_kernels(torch, dev)
         print("[kernels-only] stopping after the kernel checks")
         return
     serve_res = phase_serve(torch)
     train_res = phase_train(torch)
     phase_train_kernels(torch, train_res)
     phase_flash(torch, dev)
+    phase_ssd_kernels(torch, dev)
     prefill = phase_lm_prefill(torch)
     lm_serve = phase_lm_serve(torch)
+    ssm_prefill = phase_ssm_prefill(torch)
+    ssm_serve = phase_ssm_serve(torch)
+    gather = phase_gather_reduce(torch, serve_res)
     runs = (list(serve_res.values()) + list(train_res.values())
-            + [prefill, lm_serve])
+            + [prefill, lm_serve, ssm_prefill, ssm_serve, gather])
     launches = {name: sum(r["launches"][name] for r in runs)
                 for name in KERNEL_META}
     phase_agree(torch, dev)
     phase_agree_train(torch, dev)
     kernels = phase_timing(torch, serve_res, train_res, launches,
-                           prefill["qkv"])
+                           prefill["qkv"], ssm_prefill["ssd_inputs"],
+                           gather["inputs"])
     print(json.dumps({"serve": {f"{arch} W={w}": {k: r[k] for k in (
         "p50_ms", "p99_ms", "qps", "n_requests", "wall_s", "launches")}
         for (arch, w), r in serve_res.items()}}))
@@ -1421,6 +2038,18 @@ def main():
                                      "f32_decode_cache_max_abs_err",
                                      "f32_decode_floor",
                                      "launches")}}}}))
+    print(json.dumps({"ssm": {"arch": SSM_ARCH, "prefill": {
+        "batch": PREFILL_B, "seq": PREFILL_S, **{k: ssm_prefill[k] for k in (
+            "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",
+            "prefill_tok_s", "max_memory_gb", "busy_ms", "kernel_ms",
+            "layer0_err", "layer0_carry_share", "carry_err", "carry_share",
+            "cut", "launches")}}, "serve": {
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+        **{k: ssm_serve[k] for k in ("tok_s", "wall_s", "median_step_ms",
+                                     "instrumented_wall_s", "busy_ms",
+                                     "total_s", "agree", "launches")}},
+        "gather_reduce": {"requests": GATHER_REQUESTS,
+                          "launches": gather["launches"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

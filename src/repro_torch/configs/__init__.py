@@ -1,18 +1,19 @@
 """Config registry of the port: ``get_config(arch_id)`` and the reduced
-``smoke_config`` (the GCN archs and the dense LMs; the other LM families
-wait for ROADMAP Queue 1 item 6)."""
+``smoke_config`` (the GCN archs, the dense LMs and the Mamba-2 SSM; the
+other LM families, the hybrid ``zamba2-1.2b`` first, wait for ROADMAP
+Queue 1 item 6)."""
 from __future__ import annotations
 
 import dataclasses
 
 from ..core.config import ModelConfig
-from . import (graphgen_gcn, graphgen_gcn_deep, graphgen_sage, smollm_135m,
-               smollm_360m)
+from . import (graphgen_gcn, graphgen_gcn_deep, graphgen_sage, mamba2_1p3b,
+               smollm_135m, smollm_360m)
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (smollm_135m, smollm_360m, graphgen_gcn, graphgen_sage,
-              graphgen_gcn_deep)
+    for m in (smollm_135m, smollm_360m, mamba2_1p3b, graphgen_gcn,
+              graphgen_sage, graphgen_gcn_deep)
 }
 
 
@@ -22,11 +23,14 @@ def get_config(name: str) -> ModelConfig:
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family config for CPU smoke tests.  GCN: narrow
-    widths, fanouts (4, 3, 2, ...) at the configured depth, and the cache
-    kept on (tiny) when the full config enables it.  Dense LM: 4 layers,
-    d_model 64, head_dim 16, vocab 512, heads ``max(n // 4, 2)`` over
-    ``max(kv // 4, 1)`` (the reference's dense branch)."""
+    """Reduced same-family config for CPU smoke tests, the reference's
+    branches for the families the port has.  GCN: narrow widths, fanouts
+    (4, 3, 2, ...) at the configured depth, and the cache kept on (tiny)
+    when the full config enables it.  LM: 4 layers, d_model 64, vocab
+    512; with attention, heads ``max(n // 4, 2)`` over ``max(kv // 4,
+    1)`` and head_dim 16, without (ssm) heads, kv heads and head_dim 0;
+    d_ff 128 where the config has an FFN, else 0; ssm: state 16, head_dim
+    16, chunk 8."""
     if cfg.family == "gcn":
         depth = max(len(cfg.fanouts), 1)
         small = ((4, 3) + (2,) * depth)[:depth]
@@ -34,13 +38,17 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
                                    n_classes=5, fanouts=small,
                                    cache_rows=min(cfg.cache_rows, 256),
                                    cache_l1_rows=min(cfg.cache_l1_rows, 32))
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise ValueError(f"the port has no {cfg.family!r} family yet "
                          f"(ROADMAP Queue 1 item 6)")
-    heads = max(cfg.n_heads // 4, 2)
-    kv = min(max(cfg.n_kv_heads // 4, 1), heads)
-    if heads % kv:
+    heads = max(cfg.n_heads // 4, 2) if cfg.n_heads else 0
+    kv = max(cfg.n_kv_heads // 4, 1) if cfg.n_kv_heads else 0
+    kv = min(kv, heads) if heads else 0
+    if heads and kv and heads % kv:
         kv = 1
-    return dataclasses.replace(
-        cfg, n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=heads,
-        n_kv_heads=kv, head_dim=16, d_ff=128, vocab_size=512)
+    rep = dict(n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=heads,
+               n_kv_heads=kv, head_dim=16 if heads else 0,
+               d_ff=128 if cfg.d_ff else 0, vocab_size=512)
+    if cfg.family == "ssm":
+        rep.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    return dataclasses.replace(cfg, **rep)

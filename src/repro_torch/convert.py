@@ -1,5 +1,5 @@
-"""Carry GCN and dense-LM weights, optimizer state, cache state and KV
-caches from ``repro`` to the port.
+"""Carry GCN, dense-LM and Mamba-2 weights, optimizer state, cache state,
+KV caches and SSM states from ``repro`` to the port.
 
 Each function takes the reference's pytree as numpy arrays
 (``jax.tree.map(np.asarray, tree)`` on the caller's side — this module
@@ -8,8 +8,9 @@ holding the same weights, ``adam_state_from_numpy`` the port's
 ``AdamState`` (moments in ``GCN.leaves()`` order),
 ``cache_state_from_numpy`` a flat ``FeatureCache`` or a ``TieredCache``,
 ``lm_params_from_numpy`` a ``DenseLM`` and ``lm_cache_from_numpy`` its
-KV cache, so a run of the port can start from the reference's state
-mid-run.
+KV cache, ``mamba_params_from_numpy`` a ``Mamba2LM`` and
+``mamba_cache_from_numpy`` its recurrent state, so a run of the port can
+start from the reference's state mid-run.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from .core.config import ModelConfig, resolve_device
 from .core.feature_cache import FeatureCache, TieredCache
 from .models.gcn import GCN
+from .models.ssm import Mamba2LM
 from .models.transformer import DenseLM
 from .train.optimizer import AdamState
 
@@ -76,6 +78,16 @@ def cache_state_from_numpy(state_np, device="cuda"):
     return FeatureCache(*(_tensor(a, device) for a in state_np))
 
 
+def _put(dst: torch.Tensor, a, cfg: ModelConfig) -> None:
+    """Copy the numpy weight ``a`` (as float32) into ``dst``; raises if
+    the shapes differ."""
+    a = np.array(a, np.float32)       # a writable copy
+    if dst.shape != a.shape:
+        raise ValueError(f"weight of shape {a.shape} does not fit "
+                         f"{tuple(dst.shape)} of {cfg.name!r}")
+    dst.copy_(torch.from_numpy(a))
+
+
 def lm_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
                          ) -> DenseLM:
     """``transformer.init_lm``'s pytree of numpy arrays (``embed/tok``,
@@ -85,24 +97,16 @@ def lm_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
     device = resolve_device(device)
     model = DenseLM(cfg)
     stack = params_np["layers"]
-
-    def put(dst, a):
-        a = np.array(a, np.float32)       # a writable copy
-        if dst.shape != a.shape:
-            raise ValueError(f"weight of shape {a.shape} does not fit "
-                             f"{tuple(dst.shape)} of {cfg.name!r}")
-        dst.copy_(torch.from_numpy(a))
-
     with torch.no_grad():
-        put(model.tok, params_np["embed"]["tok"])
-        put(model.norm_f, params_np["embed"]["norm_f"])
+        _put(model.tok, params_np["embed"]["tok"], cfg)
+        _put(model.norm_f, params_np["embed"]["norm_f"], cfg)
         for i, block in enumerate(model.layers):
             for name in ("wq", "wk", "wv", "wo"):
-                put(getattr(block.attn, name), stack["attn"][name][i])
+                _put(getattr(block.attn, name), stack["attn"][name][i], cfg)
             for name in ("wg", "wu", "wd"):
-                put(getattr(block.mlp, name), stack["mlp"][name][i])
-            put(block.ln1, stack["ln1"][i])
-            put(block.ln2, stack["ln2"][i])
+                _put(getattr(block.mlp, name), stack["mlp"][name][i], cfg)
+            _put(block.ln1, stack["ln1"][i], cfg)
+            _put(block.ln2, stack["ln2"][i], cfg)
     return model.to(device)
 
 
@@ -113,3 +117,35 @@ def lm_cache_from_numpy(cache_np, device="cuda") -> dict:
     device = resolve_device(device)
     return {name: torch.from_numpy(np.asarray(cache_np[name], np.float32))
             .to(device, torch.bfloat16) for name in ("k", "v")}
+
+
+def mamba_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
+                            ) -> Mamba2LM:
+    """``ssm.init_mamba2``'s pytree of numpy arrays (``embed/tok``,
+    ``embed/norm_f``, ``embed/head`` and ``layers/w_in|conv_k|a_log|
+    d_skip|dt_bias|w_out|ln`` stacked on a leading ``[L]`` axis) -> a
+    ``Mamba2LM`` for ``cfg`` on ``device`` holding the same weights
+    (``[d_in, d_out]`` layout in both packages)."""
+    model = Mamba2LM(cfg, device)
+    embed, stack = params_np["embed"], params_np["layers"]
+    with torch.no_grad():
+        _put(model.tok, embed["tok"], cfg)
+        _put(model.norm_f, embed["norm_f"], cfg)
+        if model.head is not None:
+            _put(model.head, embed["head"], cfg)
+        for i, blk in enumerate(model.layers):
+            for name in ("w_in", "conv_k", "a_log", "d_skip", "dt_bias",
+                         "w_out", "ln"):
+                _put(getattr(blk, name), stack[name][i], cfg)
+    return model
+
+
+def mamba_cache_from_numpy(cache_np, device="cuda") -> dict:
+    """``ssm.init_cache``-shaped ``{"ssm" [L, B, H, P, N] float32, "conv"
+    [L, B, W - 1, C] bfloat16}`` of numpy arrays -> the port's recurrent
+    state on ``device`` (bfloat16 values pass through float32 exactly)."""
+    device = resolve_device(device)
+    return {"ssm": torch.from_numpy(np.array(cache_np["ssm"], np.float32))
+            .to(device),
+            "conv": torch.from_numpy(np.asarray(cache_np["conv"], np.float32))
+            .to(device, torch.bfloat16)}

@@ -1,13 +1,14 @@
-"""The GCN, cache and dense-LM fields of ``repro.core.config.ModelConfig``,
-and ``TrainConfig``.
+"""The GCN, cache, dense-LM and SSM fields of
+``repro.core.config.ModelConfig``, and ``TrainConfig``.
 
 Only what the ported slices read is carried over: the GCN dims, the
 fanouts and the cache policy, with the same construction-time validation
-(``cache_rows`` is rounded UP to a power of two); the dense LM's dims,
-rope and norm constants and its flash switch, with the reference's
-defaults; and the optimizer's schedule.  The MoE/MLA/SSM/VLM/audio fields, the
-shape/mesh configs and the hardware constants wait for the slices that
-need them (ROADMAP Queue 1 items 6-7).
+(``cache_rows`` is rounded UP to a power of two); the LM's dims, rope and
+norm constants and its flash switch; the Mamba-2 SSM dims (state, heads,
+head dim, expansion, chunk, conv width), each with the reference's
+defaults; and the optimizer's schedule.  The MoE/MLA/hybrid/VLM/audio
+fields, the shape/mesh configs and the hardware constants wait for the
+slices that need them (ROADMAP Queue 1 items 6-7).
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ def _round_up_pow2(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A GCN architecture plus its distributed feature-fetch policy, or a
-    dense decoder-only LM.
+    """A GCN architecture plus its distributed feature-fetch policy, a
+    dense decoder-only LM, or a Mamba-2 SSM LM.
 
     Field meanings and defaults match ``repro.core.config.ModelConfig``;
     see the reference for the long-form comments on each cache knob.
@@ -53,7 +54,7 @@ class ModelConfig:
     counterpart here: ``DenseLM`` holds one module per layer and keeps
     its activations (ROADMAP Queue 1 item 6)."""
     name: str
-    family: str                 # "gcn" or "dense"
+    family: str                 # "gcn", "dense" or "ssm"
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -64,6 +65,12 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    ssm_state: int = 0          # N, the state width per head
+    ssm_heads: int = 0          # 0 -> expand * d_model // ssm_head_dim
+    ssm_head_dim: int = 0       # P (0 -> 64)
+    ssm_expand: int = 2
+    ssm_chunk: int = 128        # SSD chunk length Q
+    conv_width: int = 4
     gcn_hidden: int = 0
     gcn_in_dim: int = 0
     n_classes: int = 0

@@ -43,6 +43,8 @@ _SIGNATURES = {
                                  _I, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                               _I, _P),
+    "repro_gather_reduce": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
+    "repro_ssd_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,10 +1,14 @@
-"""ctypes wrappers of the ``fanout_mean`` CUDA kernels.
+"""ctypes wrappers of the ``fanout_mean`` and ``gather_reduce`` CUDA
+kernels.
 
 ``fanout_mean_cuda`` wraps ``csrc/fanout_mean.cu`` (the port of
-``repro/kernels/gather_reduce.py::fanout_mean_pallas``) and
+``repro/kernels/gather_reduce.py::fanout_mean_pallas``),
 ``fanout_mean_bwd_cuda`` wraps ``csrc/fanout_mean_bwd.cu``, its gradient
-with respect to ``x``; ``<wrapper>.launches`` counts each kernel's
-launches.  ``ops.FanoutMean`` ties the two together for autograd.
+with respect to ``x``, and ``gather_reduce_cuda`` wraps
+``csrc/gather_reduce.cu`` (the port of ``gather_reduce_pallas``, the
+fused row gather and masked mean); ``<wrapper>.launches`` counts each
+kernel's launches.  ``ops.FanoutMean`` ties the first two together for
+autograd; ``gather_reduce`` is forward only, as in the reference.
 """
 from __future__ import annotations
 
@@ -77,3 +81,39 @@ def fanout_mean_bwd_cuda(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 fanout_mean_bwd_cuda.launches = 0
+
+
+def gather_reduce_cuda(table: torch.Tensor, idx: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Row gather and masked mean on the card: ``table [N, D]`` (float32 or
+    bfloat16), ``idx [M, K]`` int32, ``mask [M, K]`` bool (contiguous, one
+    CUDA device) -> ``[M, D]`` in ``table``'s dtype, ids clamped to
+    ``[0, N - 1]``, accumulated in float32 (see
+    ``ref.gather_reduce_ref``)."""
+    _check(idx, mask, "gather_reduce_cuda")
+    if table.device != idx.device or not table.is_contiguous():
+        raise ValueError(f"gather_reduce_cuda needs a contiguous table on "
+                         f"{idx.device}, got {table.device}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if table.dim() != 2 or idx.dim() != 2 or mask.shape != idx.shape \
+            or table.shape[0] == 0:
+        raise ValueError(f"gather_reduce_cuda needs table [N, D] (N > 0), "
+                         f"idx and mask [M, K], got {tuple(table.shape)}, "
+                         f"{tuple(idx.shape)} and {tuple(mask.shape)}")
+    code = _build.dtype_code(table)
+    (n, d), (m, k) = table.shape, idx.shape
+    out = torch.empty((m, d), dtype=table.dtype, device=table.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        status = lib.repro_gather_reduce(
+            table.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            n, m, k, d, code, _build.stream_of(table))
+    _build.check(status, "gather_reduce")
+    gather_reduce_cuda.launches += 1
+    return out
+
+
+gather_reduce_cuda.launches = 0

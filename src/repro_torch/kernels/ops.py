@@ -16,7 +16,9 @@ from . import ref
 from .cache_gather import (cache_probe_compact_cuda, cache_probe_gather_cuda,
                            cache_probe_tiered_cuda)
 from .flash_attention import flash_attention_cuda
-from .gather_reduce import fanout_mean_bwd_cuda, fanout_mean_cuda
+from .gather_reduce import (fanout_mean_bwd_cuda, fanout_mean_cuda,
+                            gather_reduce_cuda)
+from .ssd_scan import ssd_scan_cuda
 
 #: kernel name -> its CUDA wrapper (each carries a ``launches`` counter)
 KERNELS = {
@@ -26,6 +28,8 @@ KERNELS = {
     "cache_probe_compact": cache_probe_compact_cuda,
     "cache_probe_tiered": cache_probe_tiered_cuda,
     "flash_attention": flash_attention_cuda,
+    "ssd_scan": ssd_scan_cuda,
+    "gather_reduce": gather_reduce_cuda,
 }
 
 
@@ -131,6 +135,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_mat: torch.Tensor, c_mat: torch.Tensor,
+             chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD chunked scan: ``x [B, L, H, P]``, ``dt [B, L, H]``,
+    ``a [H]``, ``b_mat``/``c_mat [B, L, N]`` -> ``y [B, L, H, P]`` in
+    float32, the state carried across chunks of ``min(chunk, L)`` rows
+    (every layer of the SSM's full-sequence forward).
+
+    Forward only, as the reference's Pallas kernel: an operand that
+    requires grad under autograd raises on both devices rather than leave
+    the card's output without a ``grad_fn``.  ``L`` not a multiple of the
+    chunk raises ``ValueError`` (the Pallas kernel asserts it)."""
+    operands = (x, dt, a, b_mat, c_mat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise NotImplementedError(
+            "ssd_scan has no backward yet: run it under torch.no_grad() "
+            "(LM training needs its own SSD backward kernel, ROADMAP Queue "
+            "1 item 6)")
+    if _on_cuda(*operands):
+        return ssd_scan_cuda(*(t.contiguous() for t in operands),
+                             chunk=chunk)
+    return ref.ssd_scan_ref(*operands, chunk=chunk)
+
+
+def gather_reduce(table: torch.Tensor, idx: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Fused row gather and masked mean: ``table [N, D]``, ``idx [M, K]``
+    int32 (clamped to ``[0, N - 1]``), ``mask [M, K]`` bool -> ``[M, D]``
+    in ``table``'s dtype (edge-centric collection + aggregation).
+    Forward only, as in the reference."""
+    if _on_cuda(table, idx, mask):
+        return gather_reduce_cuda(table.contiguous(), idx.contiguous(),
+                                  mask.contiguous())
+    return ref.gather_reduce_ref(table, idx, mask)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .ssd_scan import chunk_len
+
 
 def fanout_mean_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over the fanout axis: ``x [M, K, D]``, ``mask [M, K]``
@@ -122,3 +124,62 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32)) / den
     return out.reshape(b, hq, lq, dh).to(q.dtype)
+
+
+def gather_reduce_ref(table: torch.Tensor, idx: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Row gather then masked mean: ``table [N, D]``, ``idx [M, K]``,
+    ``mask [M, K]`` -> ``[M, D]`` in ``table``'s dtype, ids clamped to
+    ``[0, N - 1]`` (edge-centric collection + aggregation fused)."""
+    rows = table[idx.to(torch.int64).clamp(0, table.shape[0] - 1)]
+    return fanout_mean_ref(rows, mask)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b_mat: torch.Tensor, c_mat: torch.Tensor,
+                 chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD chunked scan in float32 (the vectorised chunked form of
+    ``repro/models/ssm.py::ssd_chunked``, the function
+    ``repro/kernels/ssd_scan.py::ssd_scan_pallas`` computes): ``x [B, L,
+    H, P]``, ``dt [B, L, H]`` (> 0), ``a [H]`` (< 0), ``b_mat``/``c_mat
+    [B, L, N]`` (one group, broadcast over heads) -> ``y [B, L, H, P]``.
+
+    Chunks of ``Q = min(chunk, L)`` rows (``L % Q`` must be 0).  Within a
+    chunk ``cum = cumsum(a dt)`` (accumulated in float64 and rounded once
+    per entry, as torch's CPU cumsum does for float32), the masked decay
+    ``exp(cum_i - cum_j) dt_j`` for ``j <= i`` (the exponent of ``j > i``
+    is masked to ``-inf`` before ``exp``, so no ``inf`` ever meets a 0),
+    and ``y = ((C B^T) * decay) x``; across chunks the ``[H, P, N]`` state
+    is carried in order, ``state' = state exp(cum_{Q-1}) + (x w)^T B``
+    with ``w = dt exp(cum_{Q-1} - cum)``, and adds ``(C exp(cum))
+    state^T`` to the next chunk's rows."""
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    q = chunk_len(l, chunk)
+    nc = l // q
+    f32 = torch.float32
+    xr = x.to(f32).reshape(bsz, nc, q, h, p)
+    dtr = dt.to(f32).reshape(bsz, nc, q, h)
+    br = b_mat.to(f32).reshape(bsz, nc, q, n)
+    cr = c_mat.to(f32).reshape(bsz, nc, q, n)
+    adt = a.to(f32)[None, None, None, :] * dtr                 # [B,NC,Q,H]
+    cum = torch.cumsum(adt.to(torch.float64), dim=2).to(f32)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [B,NC,Q,Q,H]
+    ii = torch.arange(q, device=x.device)
+    tri = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    seg = torch.where(tri, seg, -torch.inf)
+    l_mat = torch.exp(seg) * dtr[:, :, None, :, :]
+    scores = torch.einsum("bnqc,bnkc->bnqk", cr, br)[..., None] * l_mat
+    y = torch.einsum("bnqkh,bnkhp->bnqhp", scores, xr)
+    w = dtr * torch.exp(cum[:, :, -1:, :] - cum)               # [B,NC,Q,H]
+    s_c = torch.einsum("bnqhp,bnqk->bnhpk", xr * w[..., None], br)
+    total = torch.exp(cum[:, :, -1, :])                        # [B,NC,H]
+    state = torch.zeros_like(s_c[:, 0])
+    prev = []
+    for c in range(nc):            # state BEFORE chunk c
+        prev.append(state)
+        state = state * total[:, c, :, None, None] + s_c[:, c]
+    st_prev = torch.stack(prev, dim=1)                         # [B,NC,H,P,N]
+    inter = torch.einsum("bnqk,bnhpk->bnqhp", cr, st_prev)
+    y = y + inter * torch.exp(cum)[..., None]
+    return y.reshape(bsz, l, h, p)

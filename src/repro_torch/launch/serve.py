@@ -1,5 +1,6 @@
 """Serving entry points of the port (``repro/launch/serve.py``): the
-graph tier for GCN archs and the LM decode loop for dense LMs.
+graph tier for GCN archs and the LM decode loop for the dense and SSM
+LMs.
 
 A frozen GCN answers seed-node requests: a producer thread fills a
 bounded request queue; each request is padded to the smallest bucket of
@@ -17,14 +18,18 @@ the ladder is run once at startup, and the request path must add none
 checkpoints wait for a later slice.
 
 ``serve_lm`` runs batched greedy decode of a dense LM (``smollm-135m``,
-``smollm-360m``) with a bfloat16 KV cache, prompt filled token by token
-through the decode path, as the reference's ``serve_lm`` does.
+``smollm-360m``, with a bfloat16 KV cache) or of the SSM LM
+(``mamba2-1.3b``, with its O(1) recurrent state: float32 SSM state and a
+bfloat16 conv history), the prompt filled token by token through the
+decode path, as the reference's ``serve_lm`` does.
 
 Examples::
 
     python -m repro_torch.launch.serve --arch graphgen-gcn --workers 4
     python -m repro_torch.launch.serve --arch graphgen-gcn-deep
     python -m repro_torch.launch.serve --arch smollm-135m --batch 8 \\
+        --prompt-len 128 --gen-len 128
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --batch 8 \\
         --prompt-len 128 --gen-len 128
     python -m repro_torch.launch.serve --arch graphgen-gcn --smoke \\
         --device cpu --nodes 2000 --requests 16
@@ -303,7 +308,8 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve_lm(args, step_hook=None) -> dict:
-    """LM serving: batched greedy decode with a bfloat16 KV cache.
+    """LM serving: batched greedy decode with the model's cache (the dense
+    LM's bfloat16 KV cache, the SSM's recurrent state).
 
     The prompt (``--prompt-len`` tokens drawn with numpy from ``--seed``)
     is filled token by token through the decode path; with
@@ -363,7 +369,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     """The serving flags (``repro``'s LM decode and graph-serving flags,
     plus ``--device``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="graphgen-gcn")
+    ap.add_argument("--arch", default="graphgen-gcn",
+                    help="a gcn arch (graphgen-gcn, graphgen-sage, "
+                         "graphgen-gcn-deep) is served by the graph tier; "
+                         "a dense (smollm-135m, smollm-360m) or ssm "
+                         "(mamba2-1.3b) LM by the decode loop")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",

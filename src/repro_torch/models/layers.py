@@ -1,4 +1,4 @@
-"""Building blocks of the dense LM (port of ``repro/models/layers.py``).
+"""Building blocks of the LMs (port of ``repro/models/layers.py``).
 
 Plain functions on tensors.  Weights keep the reference's ``x @ W``
 layout (``[d_in, d_out]``) and stay float32; activations run in
@@ -146,11 +146,18 @@ def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def lm_head(tok: torch.Tensor, norm_f: torch.Tensor, x: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
-    """Final norm and the tied read-out ``x @ tok.T``; float32 logits over
-    the padded vocab."""
+            cfg: ModelConfig, head: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Final norm and the read-out: tied ``x @ tok.T``, or with untied
+    embeddings ``x @ head`` (``head [D, V_pad]``); float32 logits over the
+    padded vocab."""
     x = rmsnorm(norm_f, x, cfg.norm_eps)
-    return (x @ tok.to(x.dtype).T).to(torch.float32)
+    if cfg.tie_embeddings:
+        return (x @ tok.to(x.dtype).T).to(torch.float32)
+    if head is None:
+        raise ValueError(f"{cfg.name!r} has untied embeddings: lm_head "
+                         f"needs its head [D, V_pad]")
+    return (x @ head.to(x.dtype)).to(torch.float32)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

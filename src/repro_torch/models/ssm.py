@@ -1,0 +1,233 @@
+"""Mamba-2 (SSD, state-space duality) LM (port of ``repro/models/ssm.py``):
+mamba2-1.3b.
+
+The reference stacks every layer's weights on a leading ``[L]`` axis and
+scans over them; here each layer is its own ``MambaBlock`` in an
+``nn.ModuleList`` and the forward is a Python loop.  Weights are float32
+in the reference's ``[d_in, d_out]`` layout, so
+``repro_torch.convert.mamba_params_from_numpy`` copies them across.
+
+The full-sequence forward runs the SSD recurrence through
+``kernels.ops.ssd_scan``: the hand-written CUDA kernel on the card, its
+plain twin (``ref.ssd_scan_ref``, the chunked form of the reference's
+``ssd_chunked``) on the CPU.  Decode is the O(1)-state recurrence in
+plain ops, as in the reference, with the cache ``{"ssm" [L, B, H, P, N]
+float32, "conv" [L, B, W - 1, C] bfloat16}`` written in place.  The
+casts follow the reference step by step: the input projection, the
+causal conv, ``silu`` and the skip in ``layers.COMPUTE_DTYPE``; ``dt``,
+the SSD operands and the state in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.config import ModelConfig, resolve_device
+from ..kernels import ops
+from . import layers as L
+
+
+def dims(cfg: ModelConfig):
+    """``(d_in, H, P, N)``: the expanded width, SSM heads, head dim and
+    state width of ``cfg`` (the reference's defaults: P 64, H = d_in /
+    P)."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    p = cfg.ssm_head_dim or 64
+    h = cfg.ssm_heads or d_in // p
+    return d_in, h, p, cfg.ssm_state
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``logaddexp(x, 0)``, as ``jax.nn.softplus`` computes it (torch's
+    ``F.softplus`` returns ``x`` itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` in two rounded steps, as ``jax.nn.silu``."""
+    return x * torch.sigmoid(x)
+
+
+def causal_conv(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of ``x [B, L, C]`` with taps ``k [W, C]`` in
+    ``x``'s dtype, accumulated in the reference's order: ``x k[-1]``, then
+    ``+ shift_i(x) k[-1-i]`` for i = 1 .. W-1 (``F.conv1d`` would sum in
+    another order)."""
+    w = k.shape[0]
+    out = x * k[-1]
+    for i in range(1, w):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :x.shape[1]]
+        out = out + shifted * k[-1 - i]
+    return out
+
+
+class MambaBlock(nn.Module):
+    """One mamba2 block: ``w_in [D, 2 d_in + 2N + H]``, ``conv_k [W,
+    d_in + 2N]``, ``a_log``/``d_skip``/``dt_bias [H]``, ``w_out [d_in,
+    D]`` and the pre-norm ``ln [D]``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d = cfg.d_model
+        d_in, h, _, n = dims(cfg)
+
+        def zeros(*shape):
+            return nn.Parameter(torch.zeros(shape, device=device))
+        self.w_in = zeros(d, 2 * d_in + 2 * n + h)
+        self.conv_k = zeros(cfg.conv_width, d_in + 2 * n)
+        self.a_log = zeros(h)
+        self.d_skip = nn.Parameter(torch.ones(h, device=device))
+        self.dt_bias = zeros(h)
+        self.w_out = zeros(d_in, d)
+        self.ln = nn.Parameter(torch.ones(d, device=device))
+
+    def _project(self, x: torch.Tensor, cfg: ModelConfig):
+        """``(z, conv_in, dt_raw)`` of the input projection of ``x [...,
+        D]``: the gate, the conv channels ``[xc | b | c]`` and the raw dt."""
+        d_in, h, _, n = dims(cfg)
+        z_all = x @ self.w_in.to(x.dtype)
+        z, xc, bmat, cmat, dt = torch.split(z_all, [d_in, d_in, n, n, h],
+                                            dim=-1)
+        return z, torch.cat([xc, bmat, cmat], dim=-1), dt
+
+    def _out(self, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+        """Skip, gate and output projection: ``(y + xh D) silu(z) W_out``
+        in the compute dtype (``y``, ``xh`` with heads split)."""
+        d_in = dims(cfg)[0]
+        y = y + xh * self.d_skip.to(xh.dtype)[:, None]
+        y = y.reshape(*y.shape[:-2], d_in) * silu(z)
+        return y @ self.w_out.to(y.dtype)
+
+    def mamba_train(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """The block over a full sequence: ``x [B, L, D]`` -> ``[B, L, D]``
+        (the SSD through ``ops.ssd_scan``)."""
+        bsz, l, _ = x.shape
+        d_in, h, pdim, n = dims(cfg)
+        z, conv_in, dt = self._project(x, cfg)
+        conv_out = silu(causal_conv(conv_in, self.conv_k.to(x.dtype)))
+        xc, bmat, cmat = torch.split(conv_out, [d_in, n, n], dim=-1)
+        dt = softplus(dt.to(torch.float32) + self.dt_bias)
+        a = -torch.exp(self.a_log)
+        xh = xc.reshape(bsz, l, h, pdim)
+        y = ops.ssd_scan(xh.to(torch.float32), dt, a,
+                         bmat.to(torch.float32), cmat.to(torch.float32),
+                         chunk=cfg.ssm_chunk).to(x.dtype)
+        return self._out(y, xh, z, cfg)
+
+    def mamba_decode(self, x: torch.Tensor, cfg: ModelConfig,
+                     ssm: torch.Tensor, conv: torch.Tensor):
+        """One recurrent step: ``x [B, 1, D]``, state ``ssm [B, H, P, N]``
+        float32 and conv history ``conv [B, W-1, C]`` in ``x``'s dtype ->
+        ``(out [B, 1, D], ssm', conv')``.  Cost independent of the
+        history's length."""
+        bsz = x.shape[0]
+        d_in, h, pdim, n = dims(cfg)
+        z, conv_in, dt = self._project(x[:, 0], cfg)
+        hist = torch.cat([conv, conv_in[:, None]], dim=1)        # [B, W, C]
+        # the reference's einsum: one float32 sum over the taps, one rounding
+        conv_out = silu(torch.einsum(
+            "bwc,wc->bc", hist.to(torch.float32),
+            self.conv_k.to(x.dtype).to(torch.float32)).to(x.dtype))
+        xc, bmat, cmat = torch.split(conv_out, [d_in, n, n], dim=-1)
+        dt = softplus(dt.to(torch.float32) + self.dt_bias)       # [B, H]
+        a = -torch.exp(self.a_log)
+        xh = xc.reshape(bsz, h, pdim).to(torch.float32)
+        decay = torch.exp(a[None] * dt)
+        upd = dt[..., None, None] * (
+            xh[..., None] * bmat.to(torch.float32)[:, None, None, :])
+        ssm = ssm * decay[..., None, None] + upd
+        y = torch.einsum("bhpn,bn->bhp", ssm,
+                         cmat.to(torch.float32)).to(x.dtype)
+        out = self._out(y, xh.to(x.dtype), z, cfg)
+        return out[:, None], ssm, hist[:, 1:]
+
+
+class Mamba2LM(nn.Module):
+    """Token embedding ``tok [V_pad, D]``, ``n_layers`` mamba2 blocks, the
+    final norm ``norm_f`` and, with untied embeddings (mamba2-1.3b), the
+    read-out ``head [D, V_pad]``; built on ``device`` (the card unless the
+    caller asks for the CPU)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        if cfg.family != "ssm":
+            raise ValueError(f"Mamba2LM needs an ssm config, got "
+                             f"{cfg.name!r} ({cfg.family})")
+        device = resolve_device(device)
+        self.cfg = cfg
+        v, d = L.padded_vocab(cfg), cfg.d_model
+        self.tok = nn.Parameter(torch.zeros(v, d, device=device))
+        self.norm_f = nn.Parameter(torch.ones(d, device=device))
+        self.head = (None if cfg.tie_embeddings
+                     else nn.Parameter(torch.zeros(d, v, device=device)))
+        self.layers = nn.ModuleList(MambaBlock(cfg, device)
+                                    for _ in range(cfg.n_layers))
+
+    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward: ``tokens [B, S]`` -> float32 logits
+        ``[B, S, V_pad]``; every layer runs ``ops.ssd_scan`` once."""
+        x = L.embed_tokens(self.tok, tokens)
+        for blk in self.layers:
+            x = x + blk.mamba_train(L.rmsnorm(blk.ln, x, self.cfg.norm_eps),
+                                    self.cfg)
+        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``.
+        Forward only: ``ops.ssd_scan`` has no backward yet and raises under
+        autograd."""
+        return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
+
+    def init_cache(self, batch: int, seq: int = 0) -> dict:
+        """Zeroed recurrent state: ``ssm [L, B, H, P, N]`` float32 and
+        ``conv [L, B, W - 1, d_in + 2N]`` bfloat16.  O(1) in the sequence:
+        ``seq`` is taken for the interface and ignored."""
+        d_in, h, p, n = dims(self.cfg)
+        nl, dev = self.cfg.n_layers, self.tok.device
+        return {"ssm": torch.zeros((nl, batch, h, p, n), dtype=torch.float32,
+                                   device=dev),
+                "conv": torch.zeros((nl, batch, self.cfg.conv_width - 1,
+                                     d_in + 2 * n), dtype=torch.bfloat16,
+                                    device=dev)}
+
+    def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int = 0):
+        """One decode step: ``tokens [B, 1]`` -> ``(logits [B, V_pad],
+        cache)``; the state is updated in place (``pos`` is taken for the
+        interface: the recurrence needs no position)."""
+        x = L.embed_tokens(self.tok, tokens)
+        for i, blk in enumerate(self.layers):
+            h, ssm, conv = blk.mamba_decode(
+                L.rmsnorm(blk.ln, x, self.cfg.norm_eps), self.cfg,
+                cache["ssm"][i], cache["conv"][i].to(x.dtype))
+            x = x + h
+            cache["ssm"][i].copy_(ssm)
+            cache["conv"][i].copy_(conv.to(torch.bfloat16))
+        logits = L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+        return logits[:, 0], cache
+
+
+def init_mamba2(cfg: ModelConfig, seed: int = 0, device="cuda") -> Mamba2LM:
+    """A ``Mamba2LM`` on ``device`` with the reference's init scales:
+    normal x 0.01 for ``tok`` and ``head``, x 0.02 for ``w_in`` and
+    ``w_out``, x 0.5 for ``conv_k``; ``a_log`` and ``dt_bias`` 0 (so a =
+    -1), ``d_skip`` and the norms 1.  Drawn from a CPU ``torch.Generator``
+    seeded with ``seed`` (one seed gives the same weights on every device;
+    the draws differ from ``repro.models.ssm.init_mamba2``'s — use
+    ``convert`` to share weights)."""
+    device = resolve_device(device)
+    model = Mamba2LM(cfg, device)
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(p, scale):
+        p.copy_(torch.randn(p.shape, generator=gen) * scale)
+    with torch.no_grad():
+        draw(model.tok, 0.01)
+        if model.head is not None:
+            draw(model.head, 0.01)
+        for blk in model.layers:
+            draw(blk.w_in, 0.02)
+            draw(blk.conv_k, 0.5)
+            draw(blk.w_out, 0.02)
+    return model

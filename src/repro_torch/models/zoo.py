@@ -1,7 +1,8 @@
 """Model zoo of the port (``repro/models/zoo.py``'s ``build`` and
-``forward_logits``) for the families ported so far: the paper's GCN and
-the dense LM.  The other LM families raise ``NotImplementedError``
-(ROADMAP Queue 1 item 6)."""
+``forward_logits``) for the families ported so far: the paper's GCN, the
+dense LM and the Mamba-2 SSM LM.  The other LM families (hybrid, moe,
+vlm, audio) raise ``NotImplementedError`` naming ROADMAP Queue 1 item
+6."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -9,9 +10,17 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..core.config import ModelConfig, resolve_device
-from . import gcn, transformer
+from . import gcn, ssm, transformer
 
 _LATER = "is not ported yet (ROADMAP Queue 1 item 6)"
+#: the LM families ported so far
+LM_FAMILIES = ("dense", "ssm")
+
+
+def _lm_init(family: str) -> Callable:
+    """The seeded initialiser ``(cfg, seed, device) -> model`` of an LM
+    family, looked up when the model is made."""
+    return transformer.init_dense_lm if family == "dense" else ssm.init_mamba2
 
 
 class ModelAPI(NamedTuple):
@@ -32,10 +41,10 @@ def build(cfg: ModelConfig, device="cuda") -> ModelAPI:
         return ModelAPI(cfg=cfg,
                         init=lambda seed: gcn.init_gcn(cfg, seed, device),
                         loss=gcn.gcn_loss, decode=None, init_cache=None)
-    if cfg.family == "dense":
+    if cfg.family in LM_FAMILIES:
         return ModelAPI(
             cfg=cfg,
-            init=lambda seed: transformer.init_dense_lm(cfg, seed, device),
+            init=lambda seed: _lm_init(cfg.family)(cfg, seed, device),
             loss=lambda m, batch: m.loss(batch),
             decode=lambda m, cache, tokens, pos: m.forward_decode(
                 cache, tokens, pos),
@@ -46,8 +55,9 @@ def build(cfg: ModelConfig, device="cuda") -> ModelAPI:
 def forward_logits(cfg: ModelConfig, model, batch: dict) -> torch.Tensor:
     """Full-sequence forward (prefill) without an autograd graph: float32
     logits ``[B, S, V_pad]`` of ``batch["tokens"]``.  ``cfg`` must be the
-    model's own config (the model reads its own, flash switch included)."""
-    if cfg.family != "dense":
+    model's own config (the model reads its own, flash switch included).
+    The SSM family runs ``ops.ssd_scan`` in every layer."""
+    if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(f"forward_logits of family "
                                   f"{cfg.family!r} {_LATER}")
     if cfg != model.cfg:

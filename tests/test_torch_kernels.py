@@ -4,7 +4,9 @@ On the CPU: each plain-torch twin (``repro_torch.kernels.ref``, which
 ``ops`` dispatches CPU tensors to) against both ``repro``'s jnp oracle and
 its Pallas kernel run in interpret mode — probes exact, fanout_mean within
 rtol 1e-5 / atol 1e-6 in float32 (the sum is taken in another order) —
-and fanout_mean's backward against ``jax.grad`` of the oracle.
+and fanout_mean's backward against ``jax.grad`` of the oracle.  The
+gather_reduce twin is held to the jnp oracle only: its Pallas kernel does
+not run under this jax (no ``pl.load``).
 
 On a card (marked ``cuda``, skipped elsewhere): each CUDA kernel against
 its twin on the same CUDA inputs.  ``chip_smoke.py`` repeats that check at
@@ -55,6 +57,36 @@ def test_fanout_mean_twin(m, k, d):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
                                    atol=1e-6)
     assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,m,k", [(100, 64, 13, 5), (257, 96, 8, 40),
+                                     (64, 128, 32, 20)])
+def test_gather_reduce_twin(n, d, m, k, dtype):
+    """gather_reduce twin vs the jnp oracle ``repro.kernels.ref.
+    gather_reduce_ref``: ids out of range on both sides (clamped), rows
+    with every slot masked off (mean 0), float32 within rtol 1e-5 / atol
+    1e-6 (summation order); bfloat16 within 2e-2 (the oracle sums and
+    divides in bf16, the twin rounds one float32 mean once)."""
+    rng = np.random.default_rng(n + m)
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    idx = rng.integers(-7, n + 7, (m, k)).astype(np.int32)
+    idx[0, 0], idx[0, 1] = -1, n            # clamp to the first/last row
+    mask = rng.random((m, k)) < 0.8
+    mask[1:3] = False                       # all-padding rows divide by 1
+    mask[0, :2] = True
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "float32"
+                else (torch.bfloat16, jnp.bfloat16))
+    got = ops.gather_reduce(torch.from_numpy(table).to(tdt),
+                            torch.from_numpy(idx), torch.from_numpy(mask))
+    want = jref.gather_reduce_ref(jnp.asarray(table).astype(jdt),
+                                  jnp.asarray(idx), jnp.asarray(mask))
+    assert got.dtype == tdt and got.shape == (m, d)
+    tol = (1e-5, 1e-6) if dtype == "float32" else (2e-2, 2e-2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol[0],
+                               atol=tol[1])
+    assert (got[1:3] == 0).all()
 
 
 @pytest.mark.parametrize("c,d,r,assoc", [(64, 16, 17, 1), (256, 32, 300, 2),
@@ -245,6 +277,20 @@ def test_build_without_nvcc_raises(monkeypatch):
         _build.build()
 
 
+def test_gather_reduce_dispatch_refuses():
+    """The CUDA wrapper refuses CPU operands, non-int32 ids and mismatched
+    shapes before it reaches the library; ops refuses a device mix."""
+    from repro_torch.kernels.gather_reduce import gather_reduce_cuda
+    table = torch.zeros(10, 4)
+    idx = torch.zeros(3, 2, dtype=torch.int32)
+    mask = torch.ones(3, 2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gather_reduce_cuda(table, idx, mask)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        ops.gather_reduce(table, idx.to("meta"), mask)
+    assert "gather_reduce" in ops.KERNELS
+
+
 def test_launch_counters_reset():
     """The launch counters read and reset through ops."""
     ops.reset_launch_counts()
@@ -341,3 +387,24 @@ def test_fanout_mean_bwd_kernel_on_card(cuda, dtype):
     assert torch.equal(xg.grad, ref.fanout_mean_bwd_ref(dy, mask))
     counts = ops.launch_counts()
     assert counts["fanout_mean"] == 1 and counts["fanout_mean_bwd"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 1e-6)),
+                                       (torch.bfloat16, (2e-2, 2e-2))])
+def test_gather_reduce_kernel_on_card(cuda, dtype, tol):
+    """CUDA gather_reduce vs its twin on the card at a graphgen-gcn hop-2
+    level's shape (20 000 x 128 table, 1280 x 20 slots), with clamped ids
+    and all-masked rows."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.randn(20_000, 128, generator=g, device=cuda).to(dtype)
+    idx = torch.randint(-5, 20_005, (1280, 20), generator=g, device=cuda,
+                        dtype=torch.int32)
+    mask = torch.rand(1280, 20, generator=g, device=cuda) < 0.7
+    mask[:3] = False
+    ops.reset_launch_counts()
+    got = ops.gather_reduce(table, idx, mask)
+    assert ops.launch_counts()["gather_reduce"] == 1
+    want = ref.gather_reduce_ref(table, idx, mask)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])

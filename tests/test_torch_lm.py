@@ -384,7 +384,7 @@ def test_zoo_refuses_unported_families():
     """build and forward_logits name the ROADMAP item of a family the port
     lacks; the GCN family builds without a decode path."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        zoo.build(ModelConfig(name="x", family="ssm"), device="cpu")
+        zoo.build(ModelConfig(name="x", family="hybrid"), device="cpu")
     gcn_cfg = get_config("graphgen-gcn")
     api = zoo.build(gcn_cfg, device="cpu")
     assert api.decode is None and api.init_cache is None
