@@ -7,7 +7,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
               power limit.
 2. build    — compile the CUDA kernels (``nvcc``, sm_90a, one process per
               source, all started together) from the sources in this
-              checkout.
+              checkout; print the tensor-core flash kernel's ptxas report
+              (registers, spills), its dynamic shared memory per CTA and
+              its HGMMA / UTMALDG / UTMASTG counts from ``cuobjdump
+              -sass`` of the built library (either of the first two at 0
+              fails).
 3. kernels  — each kernel against its plain-torch twin on the card, at the
               main paths' shapes and at edge cases (assoc 1/2/4, single-set
               tiers, probe counts off a multiple of 32, -1 ids, double hits,
@@ -49,14 +53,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
               49 152, random weights from a seed):
               flash     ``flash_attention`` against its twin at the prefill
                         shape (B 8, Hq 9, Hkv 3, L 2048, Dh 64, causal,
-                        bf16; within one bf16 ulp, rtol 2^-7 / atol 1e-5)
-                        and at f32 shapes with Lq < Lk, causal (rtol/atol
-                        1e-5), Dh 64 and 128;
+                        bf16), contiguous and as the model's strided
+                        [B, L, H, Dh] views, and at bf16 Lq < Lk causal,
+                        Dh 128 and tiles cut by Lq or Lk: bf16 (the
+                        tensor-core route) within 2^-8 * ref(q, k, |v|) +
+                        2^-7 * |twin| + 1e-5 (p rounded to bf16 before
+                        P V, as the reference's plain path does, plus one
+                        output rounding); f32 (the SIMT route) with
+                        Lq < Lk, Dh 64 and 128, within rtol/atol 1e-5;
+                        each prints its max and relative Frobenius error
+                        and its distance to SDPA;
               prefill   ``forward_logits`` with flash attention on 8 x 2048
-                        seeded tokens: 30 flash launches per forward, finite
-                        logits, the first forward's seconds apart from the
-                        median warm forward, prefill tokens/s; the kernel
-                        against its twin at layer 0's own q/k/v; and the
+                        seeded tokens: 30 flash launches per forward, all
+                        on the tensor-core route, finite logits, the first
+                        forward's seconds apart from the median warm
+                        forward, prefill tokens/s; in a profiled forward
+                        the kernel's profiler row (its device time and
+                        share) and the copy kernels' rows; the kernel
+                        against its twin at layer 0's own q/k/v, in the
+                        model's strided views; one layer's flash attention
+                        (its [B, L, H, Dh] tensors in, attn_forward's
+                        reshape out) dispatching views and one allocation
+                        and no copy, around one kernel launch; and the
                         card's logits against the CPU port's (plain twin) on
                         a 2-layer cut of the same weights at 2 x 512 tokens
                         (atol 2e-2 on logits of scale ~1.5: bf16 rounds at
@@ -125,8 +143,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
               plain-twin and library-call times (CUDA events, median of 30),
               and the bound (bytes over 3.35 TB/s or operations over the
               peak rate of the inputs' type, whichever is larger);
-              flash_attention at layer 0's q/k/v of the prefill, with
-              ``scaled_dot_product_attention`` as its library yardstick;
+              flash_attention at layer 0's q/k/v of the prefill (the
+              model's strided views), with ``scaled_dot_product_attention``
+              on the same views as its library yardstick;
               ssd_scan at layer 0's operands of the SSM prefill (no
               library call computes it); gather_reduce at a W = 1
               request's hop-2 level, with ``embedding_bag`` (sum, mask
@@ -199,7 +218,7 @@ KERNEL_META = {
                             "src/repro/kernels/cache_gather.py:170"),
     "cache_probe_tiered": ("src/repro_torch/kernels/csrc/cache_probe_tiered.cu",
                            "src/repro/kernels/cache_gather.py:282"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:72"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:59"),
@@ -311,6 +330,53 @@ def bound(n_bytes, n_ops, flops=F32_FLOPS):
 
 
 # ----------------------------------------------------------------- phases
+
+def phase_build_report(lib_path):
+    """The tensor-core flash kernel as built: ptxas's registers, spills
+    and static shared memory for each instantiation, its dynamic shared
+    memory per CTA, and its counts of ``HGMMA`` (wgmma) and ``UTMALDG``
+    (TMA load) instructions in the library's SASS (``cuobjdump -sass``).
+    Fails if the report or either instruction is missing."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    kernel = "flash_attention_sm90_kernel"
+    log = _build.build_log(lib_path).read_text().splitlines()
+    ptxas = {}
+    for i, line in enumerate(log):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m and kernel in m.group(1):
+            dh = re.search(r"kernelILi(\d+)E", m.group(1)).group(1)
+            ptxas[dh] = " ".join(x.strip() for x in log[i + 2:i + 4])
+    check(len(ptxas) == 2, f"no ptxas report for {kernel} in the build log")
+    lib = _build.library()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(cuobjdump), "cuobjdump not found: cannot read the "
+          "kernel's SASS")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    report = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        dh = re.search(r"kernelILi(\d+)E", name).group(1)
+        counts = {op: part.count(op) for op in ("HGMMA", "UTMALDG",
+                                                 "UTMASTG")}
+        smem = lib.repro_flash_attention_sm90_smem(int(dh))
+        report[dh] = {"ptxas": ptxas[dh], "dynamic_smem": smem, **counts}
+        print(f"[build] {kernel}<{dh}>: {ptxas[dh]}; {smem} bytes of "
+              f"dynamic shared memory per CTA; SASS: {counts['HGMMA']} "
+              f"HGMMA, {counts['UTMALDG']} UTMALDG, {counts['UTMASTG']} "
+              f"UTMASTG")
+        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+              f"{kernel}<{dh}> has no HGMMA or no UTMALDG in its SASS")
+    check(sorted(report) == ["128", "64"],
+          f"{kernel}: SASS found for head dims {sorted(report)}, expected "
+          f"64 and 128")
+    return report
+
 
 def phase_kernels(torch, dev):
     """Each kernel against its twin on the card, serve shapes + edge cases."""
@@ -791,39 +857,94 @@ def phase_train_kernels(torch, train_res):
 
 
 #: flash_attention checks on the card: (B, Hq, Hkv, Lq, Lk, Dh, causal,
-#: dtype); the prefill's own shape first, then f32 shapes with Lq < Lk
-FLASH_CHECKS = ((8, 9, 3, 2048, 2048, 64, True, "bfloat16"),
-                (2, 9, 3, 256, 1024, 64, True, "float32"),
-                (1, 4, 2, 128, 384, 128, True, "float32"),
-                (2, 6, 2, 256, 256, 128, False, "bfloat16"))
+#: dtype, layout); layout "bhld" is a contiguous [B, H, L, Dh] tensor,
+#: "blhd" the [B, H, L, Dh] view of a contiguous [B, L, H, Dh] tensor (the
+#: dense LM's own operands).  The prefill's shape first, in both layouts;
+#: then Lq < Lk causal, Dh 128, tiles cut by Lq or Lk (bf16, the
+#: tensor-core route), and float32 shapes (the SIMT route).
+FLASH_CHECKS = ((8, 9, 3, 2048, 2048, 64, True, "bfloat16", "bhld"),
+                (8, 9, 3, 2048, 2048, 64, True, "bfloat16", "blhd"),
+                (2, 9, 3, 256, 1024, 64, True, "bfloat16", "blhd"),
+                (1, 4, 2, 384, 384, 128, True, "bfloat16", "blhd"),
+                (1, 4, 2, 320, 448, 128, True, "bfloat16", "blhd"),
+                (2, 9, 3, 192, 320, 64, True, "bfloat16", "blhd"),
+                (2, 9, 3, 256, 1024, 64, True, "float32", "bhld"),
+                (2, 9, 3, 256, 1024, 64, True, "float32", "blhd"),
+                (1, 4, 2, 128, 384, 128, True, "float32", "bhld"),
+                (2, 6, 2, 256, 256, 128, False, "bfloat16", "bhld"))
 
 
-def flash_close(torch, got, want):
-    """Kernel against twin: float32 within rtol/atol 1e-5 (summation
-    order), bfloat16 within one output ulp (rtol 2^-7, atol 1e-5: both
-    round one float32 value once).  Returns ``(ok, max abs err)``."""
-    tol = (1e-5, 1e-5) if got.dtype == torch.float32 else (2 ** -7, 1e-5)
-    err = (got.float() - want.float()).abs().max().item()
-    return torch.allclose(got.float(), want.float(), rtol=tol[0],
-                          atol=tol[1]), err
+def flash_close(torch, q, k, v, got, want, causal=True):
+    """Kernel against twin.  Float32: within rtol/atol 1e-5 (summation
+    order).  Bfloat16: ``|got - want| <= 2^-8 * flash_attention_ref(q, k,
+    |v|) + 2^-7 * |want| + 1e-5`` (``bf16_error_bound``: the tensor-core
+    route rounds p to bf16 before P V, as the reference's plain path does,
+    whose worst case is the first term; the second covers the output's
+    rounding on both sides).  Returns ``(ok, max abs err, relative
+    Frobenius err)``."""
+    from repro_torch.kernels.flash_attention import bf16_error_bound
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / want.float().norm().clamp(min=1e-30)).item()
+    if got.dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        ok = bool((diff.abs() <= bf16_error_bound(q, k, v, want,
+                                                  causal)).all())
+    return ok, err, rel
+
+
+def flash_sdpa_gap(torch, q, k, v, got, causal=True):
+    """Max ``|kernel - scaled_dot_product_attention|`` on the same inputs
+    (a yardstick printed beside the gate, not a gate: SDPA rounds at other
+    places); the causal mask aligns the last query with the last key."""
+    lq, lk = q.shape[2], k.shape[2]
+    mask = None
+    if causal and lq != lk:
+        mask = (torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+                >= torch.arange(lk, device=q.device)[None, :])
+    want = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+    return (got.float() - want.float()).abs().max().item()
+
+
+def flash_operand(torch, shape, layout, dtype, gen, dev):
+    """A seeded normal ``[B, H, L, Dh]`` operand in ``layout``."""
+    b, h, l, dh = shape
+    if layout == "blhd":
+        return torch.randn((b, l, h, dh), generator=gen,
+                           device=dev).to(dtype).transpose(1, 2)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
 def phase_flash(torch, dev):
-    """``flash_attention`` against its twin on the card at the prefill's
-    shape and at the shapes of ``FLASH_CHECKS``."""
+    """``flash_attention`` against its twin on the card at the shapes and
+    layouts of ``FLASH_CHECKS``; each bf16 check must go through the
+    tensor-core route and each float32 one through the SIMT route."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(1)
-    for b, hq, hkv, lq, lk, dh, causal, dtype in FLASH_CHECKS:
+    for b, hq, hkv, lq, lk, dh, causal, dtype, layout in FLASH_CHECKS:
         dt = getattr(torch, dtype)
-        q = torch.randn((b, hq, lq, dh), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, hkv, lk, dh), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, hkv, lk, dh), generator=gen, device=dev).to(dt)
-        ok, err = flash_close(torch, ops.flash_attention(q, k, v, causal),
-                              ref.flash_attention_ref(q, k, v, causal))
-        check(ok, f"flash_attention {b, hq, hkv, lq, lk, dh} causal={causal} "
-              f"{dtype} disagrees with its twin: max err {err}")
-        print(f"[flash] {(b, hq, hkv, lq, lk, dh)} causal={causal} {dtype} "
-              f"== twin (max abs err {err})")
+        q = flash_operand(torch, (b, hq, lq, dh), layout, dt, gen, dev)
+        k = flash_operand(torch, (b, hkv, lk, dh), layout, dt, gen, dev)
+        v = flash_operand(torch, (b, hkv, lk, dh), layout, dt, gen, dev)
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal)
+        route = "tensor_core" if dt == torch.bfloat16 else "float32"
+        check(ops.flash_route_counts() == {
+            "tensor_core": int(route == "tensor_core"),
+            "float32": int(route == "float32")},
+            f"flash_attention {dtype} took the wrong route: "
+            f"{ops.flash_route_counts()}")
+        want = ref.flash_attention_ref(q, k, v, causal)
+        ok, err, rel = flash_close(torch, q, k, v, got, want, causal)
+        label = f"{(b, hq, hkv, lq, lk, dh)} causal={causal} {dtype} {layout}"
+        check(ok, f"flash_attention {label} disagrees with its twin: max "
+              f"err {err}, relative {rel}")
+        print(f"[flash] {label} == twin ({route} route; max abs err {err}, "
+              f"relative Frobenius {rel:.3e}; |kernel - SDPA| max "
+              f"{flash_sdpa_gap(torch, q, k, v, got, causal)})")
     torch.cuda.synchronize()
 
 
@@ -836,15 +957,17 @@ def lm_config(n_layers=None):
         cfg, n_layers=n_layers)
 
 
-def first_call_operands(torch, name, forward):
+def first_call_operands(torch, name, forward, keep_layout=False):
     """The operands of the first ``ops.<name>`` call that ``forward()``
-    makes (a layer's own inputs on the path), cloned and contiguous."""
+    makes (a layer's own inputs on the path), cloned: contiguous, or with
+    the caller's strides kept (``keep_layout``)."""
     from repro_torch.kernels import ops
     real, calls = getattr(ops, name), []
 
     def record(*operands, **kw):
         if not calls:
-            calls.append(tuple(t.contiguous().clone() for t in operands))
+            calls.append(tuple(t.clone() if keep_layout
+                               else t.contiguous().clone() for t in operands))
         return real(*operands, **kw)
     setattr(ops, name, record)
     try:
@@ -887,12 +1010,17 @@ def run_prefill(torch, cfg, seed, kernel, label):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     counts = ops.launch_counts()
+    routes = ops.flash_route_counts()
     n_fwd = len(times)
     check(counts[kernel] == cfg.n_layers * n_fwd,
           f"{label} launched {kernel} {counts[kernel]} times over {n_fwd} "
           f"forwards, expected {cfg.n_layers} per forward")
     check(all(n == 0 for name, n in counts.items() if name != kernel),
           f"{label} launched another kernel: {counts}")
+    if kernel == "flash_attention":
+        check(routes == {"tensor_core": cfg.n_layers * n_fwd, "float32": 0},
+              f"{label}: flash_attention routes {routes}, expected every "
+              f"launch on the tensor-core route")
     v_pad = padded_vocab(cfg)
     check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, v_pad)
           and logits.dtype == torch.float32, f"{label} logits "
@@ -905,7 +1033,7 @@ def run_prefill(torch, cfg, seed, kernel, label):
            "forward_ms": [t * 1e3 for t in times],
            "prefill_tok_s": PREFILL_B * PREFILL_S * PREFILL_WARM
            / sum(times[1:]),
-           "launches": counts, "max_memory_gb":
+           "launches": counts, "flash_routes": routes, "max_memory_gb":
            torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"[{label}] B={PREFILL_B} S={PREFILL_S}: first forward "
           f"{times[0]:.3f} s; {PREFILL_WARM} warm forwards at "
@@ -922,7 +1050,10 @@ def run_prefill(torch, cfg, seed, kernel, label):
     res["busy_ms"] = summarize_profile(torch, prof, 1, traced_ms,
                                        f"{label}, one traced forward")
     res["kernel_ms"] = kernel_device_ms(torch, prof, kernel)
+    res["copy_launches"] = copy_rows(torch, prof, label)
     if res["busy_ms"]:
+        check(res["kernel_ms"] > 0, f"{label}: {kernel} launched but no "
+              f"profiler row holds its name")
         print(f"[{label}] {kernel}: {res['kernel_ms']:.3f} ms of the traced "
               f"forward's {res['busy_ms']:.3f} ms device time "
               f"({100 * res['kernel_ms'] / res['busy_ms']:.1f}%)")
@@ -935,6 +1066,53 @@ def kernel_device_ms(torch, prof, name):
     from torch.autograd import DeviceType
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and name in e.key) / 1e3
+
+
+def copy_rows(torch, prof, label):
+    """Print the profiler's device rows of copy kernels (same-dtype and
+    casting copies, ``cat``) with their launches and ms; returns the
+    launches of all of them."""
+    from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "copy" in e.key.lower()]
+    for e in sorted(rows, key=lambda e: -e.count):
+        print(f"[{label}] copy row x{e.count:4d} "
+              f"{e.self_device_time_total / 1e3:8.4f} ms  {e.key[:150]}")
+    return sum(e.count for e in rows)
+
+
+#: aten ops that move no data: views of the operands and the output's
+#: allocation (a layout copy would show as clone, copy_ or contiguous)
+VIEW_OPS = ("aten.transpose", "aten.view", "aten._reshape_alias",
+            "aten.as_strided", "aten.alias", "aten.empty")
+
+
+def attention_ops(torch, qkv):
+    """The aten ops that one flash ``gqa_attention`` call at layer 0's own
+    ``[B, L, H, Dh]`` tensors dispatches, with ``attn_forward``'s reshape
+    of its output (the kernel itself launches through ctypes, outside
+    aten)."""
+    from repro_torch.models import layers
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    q, k, v = (t.transpose(1, 2) for t in qkv)   # back to [B, L, H, Dh]
+    b, l = q.shape[:2]
+    with Record() as rec:
+        out = layers.gqa_attention(q, k, v, causal=True, use_flash=True)
+        out = out.reshape(b, l, -1)
+    torch.cuda.synchronize()
+    check(out.is_contiguous(), "gqa_attention's flash output is not "
+          "contiguous after attn_forward's reshape")
+    return rec.ops
 
 
 def phase_lm_prefill(torch):
@@ -951,16 +1129,39 @@ def phase_lm_prefill(torch):
     model, batch, tokens, res = run_prefill(
         torch, cfg, LM_SEED, "flash_attention", f"lm prefill {LM_ARCH}")
 
-    # the kernel at the path's own inputs (layer 0 of a forward)
+    # the kernel at the path's own inputs (layer 0 of a forward), in the
+    # strided [B, H, L, Dh] views of [B, L, H, Dh] tensors the model passes
     qkv = first_call_operands(torch, "flash_attention",
-                              lambda: zoo.forward_logits(cfg, model, batch))
-    ok, err = flash_close(torch, ops.flash_attention(*qkv),
-                          ref.flash_attention_ref(*qkv))
+                              lambda: zoo.forward_logits(cfg, model, batch),
+                              keep_layout=True)
+    check(all(t.dim() == 4 and t.transpose(1, 2).is_contiguous()
+              and t.stride(2) == t.shape[1] * t.shape[3] for t in qkv),
+          f"layer 0's q/k/v are not the model's [B, L, H, Dh] views: "
+          f"strides {[t.stride() for t in qkv]}")
+    got = ops.flash_attention(*qkv)
+    ok, err, rel = flash_close(torch, *qkv, got,
+                               ref.flash_attention_ref(*qkv))
     check(ok, f"flash_attention disagrees with its twin at layer 0's "
-          f"inputs: max err {err}")
+          f"inputs: max err {err}, relative {rel}")
     print(f"[lm prefill] flash_attention == twin at layer 0's q/k/v "
-          f"{[tuple(t.shape) for t in qkv]} (max abs err {err})")
-    res["qkv"] = qkv
+          f"{[tuple(t.shape) for t in qkv]}, strides "
+          f"{[t.stride() for t in qkv]} (max abs err {err}, relative "
+          f"Frobenius {rel:.3e}; |kernel - SDPA| max "
+          f"{flash_sdpa_gap(torch, *qkv, got)})")
+    res["qkv"], res["layer0_err"], res["layer0_rel"] = qkv, err, rel
+    # no layout copy around the kernel: the attention of a layer, from the
+    # model's [B, L, H, Dh] tensors to attn_forward's reshape, dispatches
+    # views and the output's allocation only, and launches the kernel once
+    ops.reset_launch_counts()
+    aten = attention_ops(torch, qkv)
+    check(all(op.startswith(VIEW_OPS) for op in aten)
+          and ops.flash_route_counts()["tensor_core"] == 1,
+          f"one flash gqa_attention dispatched {aten} and launched "
+          f"{ops.flash_route_counts()}: expected views, one allocation and "
+          f"one tensor-core launch")
+    print(f"[lm prefill] one layer's flash attention, [B, L, H, Dh] in to "
+          f"the reshape out: aten ops {aten} (no copy), one tensor-core "
+          f"launch")
 
     # card against CPU on a 2-layer cut of the same weights
     cut = lm_config(n_layers=2)
@@ -1794,7 +1995,8 @@ def items_timed(torch, items, launches, entries):
     """Time each ``(name, inputs, kw)``; the first entry of a name is the
     one the JSON line reports."""
     for name, inputs, kw in items:
-        inputs = tuple(t.contiguous() for t in inputs)
+        if name != "flash_attention":   # flash runs at the path's strides
+            inputs = tuple(t.contiguous() for t in inputs)
         entry = time_kernel(torch, name, inputs, kw)
         entry["launches"] = launches[name]
         entries.setdefault(name, entry)
@@ -1864,7 +2066,7 @@ def time_kernel(torch, name, inputs, kw):
         n_ops = r * (4 + kw["l1_assoc"] + kw["l2_assoc"])
     elif name == "flash_attention":
         q, k, v = inputs
-        ok, err = flash_close(torch, got, want)
+        ok, err, _ = flash_close(torch, q, k, v, got, want, kw["causal"])
         check(ok, f"flash_attention differs from its twin at the prefill "
               f"inputs: max err {err}")
         (b, hq, lq, dh), hkv, lk = q.shape, k.shape[1], k.shape[2]
@@ -1940,6 +2142,11 @@ def time_kernel(torch, name, inputs, kw):
     ms = gpu_ms(torch, kern)
     plain_ms = gpu_ms(torch, plain, reps=20)
     b_ms, b_by = bound(n_bytes, n_ops, flops)
+    if name == "flash_attention":
+        print(f"[timing flash_attention] strides "
+              f"{[t.stride() for t in inputs]}: {n_ops / ms / 1e9:.1f} "
+              f"TFLOP/s of needed work, {ms / b_ms:.2f}x the bound, "
+              f"{ms / library_ms:.2f}x SDPA's time")
     print(f"[timing {name}] shapes {[list(t.shape) for t in inputs]} kernel "
           f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
           f"({b_by}: {n_bytes} B, {n_ops} ops)  library "
@@ -1980,10 +2187,11 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    lib_path = _build.build(verbose=True)
     _build.library()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
+    phase_build_report(lib_path)
 
     phase_kernels(torch, dev)
     if opts.kernels_only:
@@ -2028,8 +2236,10 @@ def main():
     print(json.dumps({"lm": {"arch": LM_ARCH, "prefill": {
         "batch": PREFILL_B, "seq": PREFILL_S, **{k: prefill[k] for k in (
             "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",
-            "prefill_tok_s", "max_memory_gb", "busy_ms", "cut_max_abs_err",
-            "cut_argmax_agree", "launches")}}, "serve": {
+            "prefill_tok_s", "max_memory_gb", "busy_ms", "kernel_ms",
+            "copy_launches", "layer0_err", "layer0_rel",
+            "cut_max_abs_err", "cut_argmax_agree", "launches",
+            "flash_routes")}}, "serve": {
         "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
         **{k: lm_serve[k] for k in ("tok_s", "wall_s", "median_step_ms",
                                      "instrumented_wall_s", "busy_ms",

@@ -5,8 +5,9 @@ All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` — one
 library with a plain C interface, which ``ctypes`` loads.  The library is
 keyed on a hash of the sources and the flags and lands in ``build/`` at
 the repository root, so the first call in a fresh checkout builds it and
-later calls reuse it.  Nothing here runs at import time; a missing
-``nvcc`` or a failed build raises.
+later calls reuse it; ``nvcc``'s output (ptxas's registers, shared memory
+and spills per kernel) is kept beside it (``build_log``).  Nothing here
+runs at import time; a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -41,8 +42,11 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P),
     "repro_cache_probe_tiered": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                                  _I, _I, _I, _P),
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _P),
+    "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _P),
+    "repro_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _F, *(_LL,) * 12, _P),
+    "repro_flash_attention_sm90_smem": (_I,),
     "repro_gather_reduce": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
     "repro_ssd_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -72,6 +76,11 @@ def library_path() -> Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_log(lib: Path) -> Path:
+    """Where ``build`` keeps ``nvcc``'s output for the library ``lib``."""
+    return lib.with_suffix(".log")
 
 
 def build(verbose: bool = False) -> Path:
@@ -104,10 +113,11 @@ def build(verbose: bool = False) -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        build_log(lib).write_text("".join(
+            f"[nvcc {s.name}]\n{log.strip()}\n" for s, log in zip(srcs, logs)))
         os.replace(tmp_lib, lib)
     if verbose:
-        for s, log in zip(srcs, logs):
-            print(f"[nvcc {s.name}]\n{log.strip()}")
+        print(build_log(lib).read_text(), end="")
         print(f"built {lib.name} in {time.perf_counter() - t0:.1f}s")
     return lib
 

@@ -1,27 +1,25 @@
-// flash_attention: online-softmax attention with GQA head grouping,
+// flash_attention, float32 route: online-softmax attention with GQA head
+// grouping,
 //   out[b, h, i] = sum_j softmax_j(q[b, h, i] . k[b, g, j] * scale) v[b, g, j]
-// with q [B, Hq, Lq, Dh], k/v [B, Hkv, Lk, Dh] (float32 or bfloat16,
-// contiguous), g = h / (Hq / Hkv), scale = 1 / sqrt(Dh), out in q's dtype.
+// with q [B, Hq, Lq, Dh], k/v [B, Hkv, Lk, Dh] (float32, contiguous),
+// g = h / (Hq / Hkv), scale = 1 / sqrt(Dh), out float32.  Bfloat16
+// operands, the dense LM's, go to the tensor-core kernel in
+// flash_attention_sm90.cu; the wrapper picks the route by dtype.
 // Causal: row i sees column j iff i + (Lk - Lq) >= j (the last query
 // aligned with the last key); masked logits are -1e30.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
-// (the pallas_call at :102), which every layer of the dense LM's
-// full-sequence forward reaches through models/layers.py::gqa_attention
-// when use_flash_attention is set and both lengths are multiples of 128.
-// The arithmetic is the Pallas kernel's: q, k, v upcast to float32, the
-// float32 logits scaled after the dot product, a running max and
-// denominator in float32, the denominator clamped at 1e-30 before the one
-// division, one rounding to the output dtype.
+// (the pallas_call at :102) for float32 operands (no path of the dense
+// LM runs it: its compute dtype is bfloat16).  The arithmetic is the
+// Pallas kernel's: the float32 logits scaled after the dot product, a
+// running max and denominator in float32, the denominator clamped at
+// 1e-30 before the one division.
 //
-// Bound on the H100: operations.  Causal attention at B = 8, Hq = 9,
-// L = 2048, Dh = 64 does 4 * Dh FLOP for each of the B * Hq * L(L+1)/2
-// visible (row, column) pairs, 38.7 GFLOP, against 50 MB of q/k/v/o
-// bytes: ~0.039 ms at the 989 TFLOP/s dense bf16 tensor-core rate and
-// ~0.015 ms at 3.35 TB/s.
+// Bound on the H100: operations, 4 * Dh FLOP per visible (row, column)
+// pair at the 67 TFLOP/s float32 rate outside the tensor cores.
 //
-// Design (a first, simple kernel; tensor cores, TMA and a persistent
-// schedule are later work): the TPU kernel keeps a 128-row q block in VMEM
+// Design (a simple kernel: float32 has no full-rate tensor-core route to
+// hold the 1e-5 gates): the TPU kernel keeps a 128-row q block in VMEM
 // and carries (max, denom, acc) scratch across a sequential grid axis of
 // k blocks.  Here one block owns one (batch * head, 64-row query tile) and
 // walks the key tiles itself, so nothing carries between blocks.  The Q
@@ -49,19 +47,22 @@ constexpr size_t smem_bytes() {
   return (3 * kTile * (DH + 1) + kTile * kSRow + 3 * kTile) * sizeof(float);
 }
 
-// A kTile x DH tile of contiguous rows -> float32 rows of stride DH + 1.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// A kTile x DH tile of contiguous rows -> rows of stride DH + 1.
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int tid) {
   for (int e = tid; e < kTile * DH; e += kThreads)
-    dst[(e / DH) * (DH + 1) + e % DH] = repro::to_float(src[e]);
+    dst[(e / DH) * (DH + 1) + e % DH] = src[e];
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int hq, int hkv,
-             int lq, int lk, int causal, float scale) {
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int hq, int hkv, int lq,
+                           int lk, int causal, float scale) {
   constexpr int R = DH + 1;
   constexpr int NJ = DH / 16;    // output columns per thread
   extern __shared__ float smem[];
@@ -79,11 +80,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;                       // b * hq + h
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int off = lk - lq;
-  const T* qp = q + (static_cast<int64_t>(bh) * lq + q0) * DH;
-  const T* kp = k + static_cast<int64_t>(kvh) * lk * DH;
-  const T* vp = v + static_cast<int64_t>(kvh) * lk * DH;
+  const float* qp = q + (static_cast<int64_t>(bh) * lq + q0) * DH;
+  const float* kp = k + static_cast<int64_t>(kvh) * lk * DH;
+  const float* vp = v + static_cast<int64_t>(kvh) * lk * DH;
 
-  load_tile<T, DH>(sQ, qp, tid);
+  load_tile<DH>(sQ, qp, tid);
   if (tid < kTile) {
     sM[tid] = kNeg;
     sL[tid] = 0.f;
@@ -102,8 +103,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's sS/sV reads are done
-    load_tile<T, DH>(sK, kp + static_cast<int64_t>(k0) * DH, tid);
-    load_tile<T, DH>(sV, vp + static_cast<int64_t>(k0) * DH, tid);
+    load_tile<DH>(sK, kp + static_cast<int64_t>(k0) * DH, tid);
+    load_tile<DH>(sV, vp + static_cast<int64_t>(k0) * DH, tid);
     __syncthreads();
 
     float s[4][4];
@@ -183,64 +184,52 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();  // sL is final (or still its initial 0 with no tile run)
 
-  T* op = out + (static_cast<int64_t>(bh) * lq + q0) * DH;
+  float* op = out + (static_cast<int64_t>(bh) * lq + q0) * DH;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     const float den = fmaxf(sL[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      op[static_cast<int64_t>(r) * DH + tx + 16 * j] =
-          repro::from_float<T>(o[i][j] / den);
+      op[static_cast<int64_t>(r) * DH + tx + 16 * j] = o[i][j] / den;
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int hq, int hkv, int lq, int lk, int causal, float scale,
+template <int DH>
+int launch(const float* q, const float* k, const float* v, float* out,
+           int batch, int hq, int hkv, int lq, int lk, int causal, float scale,
            cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DH>();
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      flash_attention_f32_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>(lq / kTile),
                   static_cast<unsigned>(batch * hq));
-  flash_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, lq, lk, causal,
-      scale);
+  flash_attention_f32_kernel<DH><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, out, hq, hkv, lq, lk, causal, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out,
-              int batch, int hq, int hkv, int lq, int lk, int dh, int causal,
-              float scale, cudaStream_t stream) {
-  if (dh == 64)
-    return launch<T, 64>(q, k, v, out, batch, hq, hkv, lq, lk, causal, scale,
-                         stream);
-  if (dh == 128)
-    return launch<T, 128>(q, k, v, out, batch, hq, hkv, lq, lk, causal,
-                          scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int batch,
-                                     int hq, int hkv, int lq, int lk, int dh,
-                                     int causal, float scale, int dtype,
-                                     void* stream) {
+extern "C" int repro_flash_attention_f32(const void* q, const void* k,
+                                         const void* v, void* out, int batch,
+                                         int hq, int hkv, int lq, int lk,
+                                         int dh, int causal, float scale,
+                                         void* stream) {
   if (batch <= 0 || hkv <= 0 || hq % hkv || lq % kTile || lk % kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32)
-    return launch_dh<float>(q, k, v, out, batch, hq, hkv, lq, lk, dh, causal,
-                            scale, s);
-  if (dtype == repro::kBF16)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, lq, lk, dh,
-                                    causal, scale, s);
+  const auto* fq = static_cast<const float*>(q);
+  const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
+  auto* fo = static_cast<float*>(out);
+  if (dh == 64)
+    return launch<64>(fq, fk, fv, fo, batch, hq, hkv, lq, lk, causal, scale,
+                      s);
+  if (dh == 128)
+    return launch<128>(fq, fk, fv, fo, batch, hq, hkv, lq, lk, causal, scale,
+                       s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,26 +1,35 @@
-"""ctypes wrapper of the flash-attention CUDA kernel
-(``csrc/flash_attention.cu``, the port of
-``repro/kernels/flash_attention.py::flash_attention_pallas``).
+"""ctypes wrapper of the flash-attention CUDA kernels, the port of
+``repro/kernels/flash_attention.py::flash_attention_pallas``.
 
-``flash_attention_cuda`` validates its operands, allocates the output,
-launches on PyTorch's current stream, raises on a launch error, and
-counts its launches in ``flash_attention_cuda.launches``.
+``flash_attention_cuda`` picks the route by the operands' dtype alone:
+bfloat16 goes to the Hopper kernel (``csrc/flash_attention_sm90.cu``:
+TMA loads, ``wgmma`` products) and reads any strided view whose last
+dimension is contiguous, so the dense LM's ``[B, L, H, Dh]`` tensors need
+no layout copy; float32 goes to the SIMT kernel
+(``csrc/flash_attention.cu``) on contiguous copies.  It validates its
+operands, allocates the output, launches on PyTorch's current stream,
+raises on a launch error, and counts its launches in
+``flash_attention_cuda.launches`` and per route in
+``flash_attention_cuda.routes``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .ref import flash_attention_ref
 
-#: head dims the kernel is instantiated for (smollm's 64, and 128)
+#: head dims the kernels are instantiated for (smollm's 64, and 128)
 HEAD_DIMS = (64, 128)
-#: query and key tile rows: both sequence lengths must be multiples
+#: both sequence lengths must be multiples of this many rows
 TILE = 64
+#: TMA's alignment (bytes) of every stride but the last and of each base
+TMA_ALIGN = 16
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` unless ``q [B, Hq, Lq, Dh]`` and ``k``/``v
-    [B, Hkv, Lk, Dh]`` are shapes the kernel takes: Hq a multiple of Hkv,
+    [B, Hkv, Lk, Dh]`` are shapes the kernels take: Hq a multiple of Hkv,
     ``Dh`` in ``HEAD_DIMS``, both lengths positive multiples of ``TILE``
     (the Pallas kernel asserts block multiples the same way)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -42,38 +51,91 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"multiples of {TILE}, got {lq} and {lk}")
 
 
+def _check_tma_layout(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless each bfloat16 operand is a view the
+    tensor maps can describe: last dimension contiguous, every other
+    stride and the base address a multiple of ``TMA_ALIGN`` bytes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention needs {name}'s last dimension "
+                             f"to have stride 1, got strides {t.stride()}")
+        item = t.element_size()
+        if any(s * item % TMA_ALIGN for s in t.stride()[:-1]):
+            raise ValueError(f"flash_attention needs {name}'s strides to be "
+                             f"multiples of {TMA_ALIGN} bytes, got "
+                             f"{t.stride()} elements of {item} bytes")
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"flash_attention needs {name}'s data to start "
+                             f"on a {TMA_ALIGN}-byte boundary")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """Online-softmax GQA attention on the card: ``q [B, Hq, Lq, Dh]``,
-    ``k``/``v [B, Hkv, Lk, Dh]`` (float32 or bfloat16, contiguous, one CUDA
+    ``k``/``v [B, Hkv, Lk, Dh]`` (one dtype, float32 or bfloat16, one CUDA
     device) -> ``[B, Hq, Lq, Dh]`` in ``q``'s dtype (see
-    ``ref.flash_attention_ref`` for the arithmetic)."""
+    ``ref.flash_attention_ref`` for the arithmetic).  Bfloat16 operands
+    may be any views with a contiguous last dimension and 16-byte aligned
+    strides; their result is the ``[B, Hq, Lq, Dh]`` view of a contiguous
+    ``[B, Lq, Hq, Dh]`` tensor.  Float32 operands are made contiguous."""
     _check_shapes(q, k, v)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    _build.dtype_code(q)  # raises on a dtype no kernel takes
+    tensor_core = q.dtype == torch.bfloat16
+    if tensor_core:
+        _check_tma_layout(q, k, v)
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"flash_attention_cuda needs its operands on one "
                          f"CUDA device, got {q.device}, {k.device}, "
                          f"{v.device}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_cuda needs contiguous operands")
-    code = _build.dtype_code(q)
     b, hq, lq, dh = q.shape
     hkv, lk = k.shape[1], k.shape[2]
-    if b * hq > 65535:
-        raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535")
-    out = torch.empty_like(q)
+    scale = 1.0 / dh ** 0.5
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        status = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, lq, lk, dh, int(causal), 1.0 / dh ** 0.5, code,
-            _build.stream_of(q))
-    _build.check(status, "flash_attention")
+    if tensor_core:
+        out = torch.empty((b, lq, hq, dh), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        with torch.cuda.device(q.device):
+            status = lib.repro_flash_attention_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hkv, lq, lk, dh, int(causal), scale, *strides,
+                _build.stream_of(q))
+        route = "tensor_core"
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if b * hq > 65535:
+            raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535")
+        out = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            status = lib.repro_flash_attention_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hkv, lq, lk, dh, int(causal), scale, _build.stream_of(q))
+        route = "float32"
+    _build.check(status, f"flash_attention ({route})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.routes[route] += 1
     return out
 
 
+def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     want: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Per-element bound on ``|kernel - twin|`` for bfloat16 operands, in
+    float32: ``2^-8 * flash_attention_ref(q, k, |v|) + 2^-7 * |want| +
+    1e-5``, where ``want`` is the twin's output.  The tensor-core route
+    rounds each ``p`` to bfloat16 before ``P V`` (the reference's plain
+    path does too), which moves an output by at most ``2^-8 sum_j p_ij
+    |v_j| / l_i`` (the first term, the twin's own arithmetic on ``|v|``);
+    the second covers both sides' one output rounding, the third the
+    order of float32 sums."""
+    mag = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                              causal=causal)
+    return 2.0 ** -8 * mag + 2.0 ** -7 * want.float().abs() + 1e-5
+
+
 flash_attention_cuda.launches = 0
+flash_attention_cuda.routes = {"tensor_core": 0, "float32": 0}

@@ -4,7 +4,8 @@ A CPU tensor goes to the plain-torch twin in ``ref``; a CUDA tensor goes
 to the hand-written CUDA kernel, which launches or raises — there is no
 fallback from the kernel to the twin, and no switch that picks one.
 ``launch_counts``/``reset_launch_counts`` read and zero the kernels'
-launch counters (the proof that a run went through the kernels).
+launch counters (the proof that a run went through the kernels);
+``flash_attention`` also counts per route (``flash_route_counts``).
 """
 from __future__ import annotations
 
@@ -120,7 +121,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Online-softmax attention with GQA head grouping: ``q [B, Hq, Lq,
     Dh]``, ``k``/``v [B, Hkv, Lk, Dh]`` -> ``[B, Hq, Lq, Dh]`` in ``q``'s
-    dtype (the dense LM's full-sequence attention).
+    dtype (the dense LM's full-sequence attention).  On the card bfloat16
+    operands pass as they are (any views with a contiguous last dimension:
+    the dense LM hands in its ``[B, L, H, Dh]`` tensors transposed) and the
+    result is the ``[B, Hq, Lq, Dh]`` view of a contiguous ``[B, Lq, Hq,
+    Dh]`` tensor; float32 operands are made contiguous by the wrapper.
 
     Forward only, as in the reference (``jax.grad`` cannot pass through
     ``flash_attention_pallas``): an operand that requires grad under
@@ -132,8 +137,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "torch.no_grad() (an LM training slice needs its own backward "
             "kernel, ROADMAP Queue 3)")
     if _on_cuda(q, k, v):
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal)
+        return flash_attention_cuda(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)
 
 
@@ -178,7 +182,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def flash_route_counts() -> Dict[str, int]:
+    """``flash_attention`` launches since the last reset, by route
+    (``tensor_core``: bfloat16; ``float32``: the SIMT kernel)."""
+    return dict(flash_attention_cuda.routes)
+
+
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch counter."""
+    """Zero every kernel's launch counter (and flash's per-route ones)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    for route in flash_attention_cuda.routes:
+        flash_attention_cuda.routes[route] = 0

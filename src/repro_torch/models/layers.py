@@ -61,7 +61,10 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, Dh]`` -> ``[B, Lq, Hq, Dh]``.
 
     With ``use_flash``, no ``kv_valid_len`` and both lengths multiples of
-    128 (the reference's own predicate) it runs ``ops.flash_attention``.
+    128 (the reference's own predicate) it runs ``ops.flash_attention`` on
+    ``[B, H, L, Dh]`` views of the operands (no copy: the card's bf16
+    kernel reads these strides in place and returns the view of a
+    ``[B, Lq, Hq, Dh]`` tensor, so the transpose back is contiguous).
     Otherwise the plain masked path: logits in float32, scaled after the
     cast, causal with offset ``Lk - Lq``, keys at or past ``kv_valid_len``
     masked (decode against a cache), softmax in float32 and cast to the
