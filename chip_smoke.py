@@ -7,11 +7,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
               power limit.
 2. build    — compile the CUDA kernels (``nvcc``, sm_90a, one process per
               source, all started together) from the sources in this
-              checkout; print the tensor-core flash kernel's ptxas report
-              (registers, spills), its dynamic shared memory per CTA and
-              its HGMMA / UTMALDG / UTMASTG counts from ``cuobjdump
-              -sass`` of the built library (either of the first two at 0
-              fails).
+              checkout; print each tensor-core kernel's ptxas report
+              (registers, spills) per instantiation (flash: Dh 64 and 128;
+              ssd_scan: chunk x state 64/128 x 64/128), its dynamic shared
+              memory per CTA and its HGMMA / UTMALDG / UTMASTG counts from
+              ``cuobjdump -sass`` of the built library (either of the first
+              two at 0 fails).
 3. kernels  — each kernel against its plain-torch twin on the card, at the
               main paths' shapes and at edge cases (assoc 1/2/4, single-set
               tiers, probe counts off a multiple of 32, -1 ids, double hits,
@@ -24,8 +25,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
               2048, H 64, P 64, N 128, chunk 128) with the reference
               test's dt (softplus(N(0, 1))) and with small dt (U[0.005,
               0.05], where the carry across chunks must hold over 1e-2 of
-              the output), at L = chunk and at smaller widths and chunks;
-              each check prints its error and the carry's share.
+              the output), at L = chunk and at smaller widths and chunks
+              (the float32 route); then bf16 copies (the tensor-core route,
+              x, b and c as views of one [B, L, H P + 2N] conv output) at
+              the prefill shape with both dt kinds, L = chunk, zamba2-
+              1.2b's state of 64 and a chunk of 64, within the derived gate
+              (ssd_scan.bf16_error_bound: (2 * 2^-8 + 2^-7 + 2^-12) *
+              ref(|x|, dt, a, |b|, |c|)); each check prints its error (as a
+              share of its gate for bf16) and the carry's share, and for
+              bf16 how far a dropped carry would land past the gate.
 4. serve    — ``serve_gcn`` at full width, 20 000 nodes, 8 warmup sweeps,
               buckets (8, 16, 32), Zipf requests: graphgen-gcn (128 -> 256 ->
               64, fanouts (40, 20), 4096-row 4-way sharded compact cache) at
@@ -98,15 +106,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
               2048, 64 SSM heads of 64 over a state of 128, chunk 128,
               vocab 50 280, untied, random weights from a seed):
               prefill   ``forward_logits`` on 8 x 2048 tokens, bf16 compute:
-                        exactly 48 ssd_scan launches per forward and no
-                        other kernel, finite logits, tokens/s over the five
-                        warm forwards' summed wall (the first forward
-                        apart), one profiled forward's busy share and
-                        ssd_scan's share, peak memory; the kernel against
-                        its twin at layer 0's own operands at the seeded
-                        init (where the carry vanishes: dt ~0.79, a = -1)
-                        and at a carry init (dt_bias -4, a_log ~ N(0,
-                        0.5)), where the carry must hold over 1e-2; the card
+                        exactly 48 ssd_scan launches per forward, all on the
+                        tensor-core route, and no other kernel, finite
+                        logits, tokens/s over the five warm forwards' summed
+                        wall (the first forward apart), one profiled
+                        forward's busy share and ssd_scan's share, peak
+                        memory; the kernel against its twin at layer 0's
+                        own operands (the conv output's bf16 views) within
+                        the bf16 gate at the seeded init (where the carry
+                        vanishes: dt ~0.79, a = -1) and at a carry init
+                        (dt_bias -4, a_log ~ N(0, 0.5)), where the carry
+                        must hold over 1e-2; one layer's SSD, conv output
+                        in to the scan's result out, dispatching views and
+                        one allocation (no aten cast or copy) around one
+                        tensor-core launch; the card
                         against the CPU port on a 2-layer cut at 2 x 256
                         tokens (two chunks), both inits, float32 (atol
                         1e-3) and bfloat16 (atol 5e-2);
@@ -146,8 +159,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
               flash_attention at layer 0's q/k/v of the prefill (the
               model's strided views), with ``scaled_dot_product_attention``
               on the same views as its library yardstick;
-              ssd_scan at layer 0's operands of the SSM prefill (no
-              library call computes it); gather_reduce at a W = 1
+              ssd_scan at layer 0's operands of the SSM prefill on both
+              routes: the conv output's bf16 views (the tensor-core route,
+              bound at the bf16 rate) and their float32 upcast (the SIMT
+              route); no library call computes it; gather_reduce at a W = 1
               request's hop-2 level, with ``embedding_bag`` (sum, mask
               weights) and the division as its yardstick.
 
@@ -220,8 +235,11 @@ KERNEL_META = {
                            "src/repro/kernels/cache_gather.py:282"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:72"),
-    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
                  "src/repro/kernels/ssd_scan.py:59"),
+    # the float32 route of ssd_scan (off the bf16 main path since PR 16)
+    "ssd_scan_f32": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:59"),
     "gather_reduce": ("src/repro_torch/kernels/csrc/gather_reduce.cu",
                       "src/repro/kernels/gather_reduce.py:86"),
 }
@@ -331,50 +349,69 @@ def bound(n_bytes, n_ops, flops=F32_FLOPS):
 
 # ----------------------------------------------------------------- phases
 
+def tensor_core_kernels(lib):
+    """The build report's kernels: name -> (the regex of the template
+    arguments in a mangled name, the instantiations expected, the dynamic
+    shared memory of one, read from the loaded library ``lib``)."""
+    return {
+        "flash_attention_sm90_kernel": (
+            r"kernelILi(\d+)E", {("64",), ("128",)},
+            lambda k: lib.repro_flash_attention_sm90_smem(int(k[0]))),
+        "ssd_scan_sm90_kernel": (
+            r"kernelILi(\d+)ELi(\d+)E",
+            {(q, n) for q in ("64", "128") for n in ("64", "128")},
+            lambda k: lib.repro_ssd_scan_sm90_smem(int(k[0]), int(k[1]))),
+    }
+
+
 def phase_build_report(lib_path):
-    """The tensor-core flash kernel as built: ptxas's registers, spills
-    and static shared memory for each instantiation, its dynamic shared
-    memory per CTA, and its counts of ``HGMMA`` (wgmma) and ``UTMALDG``
-    (TMA load) instructions in the library's SASS (``cuobjdump -sass``).
-    Fails if the report or either instruction is missing."""
+    """The tensor-core kernels as built (flash_attention per head dim,
+    ssd_scan per chunk and state width): ptxas's registers, spills and
+    static shared memory for each instantiation, its dynamic shared memory
+    per CTA, and its counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+    load) instructions in the library's SASS (``cuobjdump -sass``).  Fails
+    if a report or either instruction is missing."""
     import re
     import shutil
     from repro_torch.kernels import _build
-    kernel = "flash_attention_sm90_kernel"
     log = _build.build_log(lib_path).read_text().splitlines()
-    ptxas = {}
-    for i, line in enumerate(log):
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m and kernel in m.group(1):
-            dh = re.search(r"kernelILi(\d+)E", m.group(1)).group(1)
-            ptxas[dh] = " ".join(x.strip() for x in log[i + 2:i + 4])
-    check(len(ptxas) == 2, f"no ptxas report for {kernel} in the build log")
     lib = _build.library()
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.path.exists(cuobjdump), "cuobjdump not found: cannot read the "
-          "kernel's SASS")
+          "kernels' SASS")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     report = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
-        if kernel not in name:
-            continue
-        dh = re.search(r"kernelILi(\d+)E", name).group(1)
-        counts = {op: part.count(op) for op in ("HGMMA", "UTMALDG",
-                                                 "UTMASTG")}
-        smem = lib.repro_flash_attention_sm90_smem(int(dh))
-        report[dh] = {"ptxas": ptxas[dh], "dynamic_smem": smem, **counts}
-        print(f"[build] {kernel}<{dh}>: {ptxas[dh]}; {smem} bytes of "
-              f"dynamic shared memory per CTA; SASS: {counts['HGMMA']} "
-              f"HGMMA, {counts['UTMALDG']} UTMALDG, {counts['UTMASTG']} "
-              f"UTMASTG")
-        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-              f"{kernel}<{dh}> has no HGMMA or no UTMALDG in its SASS")
-    check(sorted(report) == ["128", "64"],
-          f"{kernel}: SASS found for head dims {sorted(report)}, expected "
-          f"64 and 128")
+    for kernel, (args, expected, smem_of) in tensor_core_kernels(lib).items():
+        ptxas = {}
+        for i, line in enumerate(log):
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m and kernel in m.group(1):
+                key = re.search(args, m.group(1)).groups()
+                ptxas[key] = " ".join(x.strip() for x in log[i + 2:i + 4])
+        check(set(ptxas) == expected, f"no ptxas report for every "
+              f"instantiation of {kernel} in the build log: {sorted(ptxas)}")
+        seen = set()
+        for part in sass.split("Function : ")[1:]:
+            name = part.split("\n", 1)[0].strip()
+            if kernel not in name:
+                continue
+            key = re.search(args, name).groups()
+            counts = {op: part.count(op) for op in ("HGMMA", "UTMALDG",
+                                                     "UTMASTG")}
+            smem = smem_of(key)
+            label = f"{kernel}<{', '.join(key)}>"
+            report[label] = {"ptxas": ptxas[key], "dynamic_smem": smem,
+                             **counts}
+            print(f"[build] {label}: {ptxas[key]}; {smem} bytes of dynamic "
+                  f"shared memory per CTA; SASS: {counts['HGMMA']} HGMMA, "
+                  f"{counts['UTMALDG']} UTMALDG, {counts['UTMASTG']} UTMASTG")
+            check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                  f"{label} has no HGMMA or no UTMALDG in its SASS")
+            seen.add(key)
+        check(seen == expected, f"{kernel}: SASS found for {sorted(seen)}, "
+              f"expected {sorted(expected)}")
     return report
 
 
@@ -494,13 +531,15 @@ def gather_close(torch, got, want):
                                atol=tol[1])), err
 
 
-def ssd_inputs(torch, dev, shape, dt_kind, seed):
+def ssd_inputs(torch, dev, shape, dt_kind, seed, dtype=None):
     """Seeded SSD operands ``(x, dt, a, b, c)`` on ``dev`` for ``shape =
     (B, L, H, P, N)``: x, b, c standard normal, ``a = -exp(N(0, 1))`` (the
     reference test's), dt ``softplus(N(0, 1))`` (``"ref"``, the reference
     test's: mean ~0.8, so the carry dies within a 128-row chunk where
     ``a`` is near -1) or uniform in [0.005, 0.05] (``"small"``: the carry
-    across chunks matters)."""
+    across chunks matters).  With ``dtype`` bfloat16, x, b and c are the
+    same draws rounded to bf16, as views of one ``[B, L, H P + 2N]`` tensor
+    (the SSM's conv output, ``ssm.ssd_operands``)."""
     b, l, h, p, n = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, l, h, p), generator=gen, device=dev)
@@ -512,7 +551,12 @@ def ssd_inputs(torch, dev, shape, dt_kind, seed):
     a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
     bm = torch.randn((b, l, n), generator=gen, device=dev)
     cm = torch.randn((b, l, n), generator=gen, device=dev)
-    return x, dt, a, bm, cm
+    if dtype is None or dtype == torch.float32:
+        return x, dt, a, bm, cm
+    from repro_torch.models.ssm import ssd_operands
+    conv_out = torch.cat([x.reshape(b, l, h * p), bm, cm], dim=-1).to(dtype)
+    xv, bv, cv = ssd_operands(conv_out, h, p, n)
+    return xv, dt, a, bv, cv
 
 
 def ssd_close(torch, got, want):
@@ -527,36 +571,87 @@ def ssd_close(torch, got, want):
     return ok, err, err / max(scale, 1e-30)
 
 
-def carry_share(torch, x, dt, a, bm, cm, chunk):
+def ssd_gate(torch, ins, chunk, got, want):
+    """The bfloat16 route against its twin (both bf16) under the derived
+    gate ``ssd_scan.bf16_error_bound`` (elementwise).  Returns ``(ok, max
+    abs err, the largest error as a share of its gate, the gate)``."""
+    from repro_torch.kernels.ssd_scan import bf16_error_bound
+    gate = bf16_error_bound(*ins, chunk=chunk)
+    diff = (got.float() - want.float()).abs()
+    ok = (got.dtype == want.dtype == torch.bfloat16
+          and bool(torch.isfinite(got).all()) and bool((diff <= gate).all()))
+    share = (diff / gate.clamp(min=1e-30)).max().item()
+    return ok, diff.max().item(), share, gate
+
+
+def carry_share(torch, x, dt, a, bm, cm, chunk, gate=None):
     """How much of the scan's output the carry across chunks holds: the
     twin's ``y`` against the same scan with every chunk started from a
     zero state (the sequence cut into chunk-long ones), as a share of the
-    largest ``|y|``."""
+    largest ``|y|``; with ``gate``, also the largest gap as a multiple of
+    the gate (over 1: a dropped carry would fail it)."""
     from repro_torch.kernels import ref
     b, l, h, p = x.shape
     q = min(chunk, l)
-    y = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=q)
+    y = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=q).float()
     cut = ref.ssd_scan_ref(x.reshape(-1, q, h, p), dt.reshape(-1, q, h), a,
                            bm.reshape(-1, q, bm.shape[-1]),
-                           cm.reshape(-1, q, cm.shape[-1]), chunk=q)
-    return ((y - cut.reshape(y.shape)).abs().max()
-            / y.abs().max().clamp(min=1e-30)).item()
+                           cm.reshape(-1, q, cm.shape[-1]), chunk=q).float()
+    gap = (y - cut.reshape(y.shape)).abs()
+    share = (gap.max() / y.abs().max().clamp(min=1e-30)).item()
+    if gate is None:
+        return share
+    return share, (gap / gate.clamp(min=1e-30)).max().item()
 
 
 #: ssd_scan checks on the card: (B, L, H, P, N), chunk, dt kind; the
 #: prefill's shape with both dt kinds, L = chunk, and the smoke config's
-#: widths with a chunk of 8 and of 64
+#: widths with a chunk of 8 and of 64 (float32, the SIMT route)
 SSD_CHECKS = (((8, 2048, 64, 64, 128), 128, "ref"),
               ((8, 2048, 64, 64, 128), 128, "small"),
               ((2, 128, 64, 64, 128), 128, "small"),
               ((2, 64, 8, 16, 16), 8, "small"),
               ((3, 256, 5, 40, 72), 64, "ref"))
+#: the bf16 copy (the tensor-core route, P 64): the prefill's shape with
+#: both dt kinds, L = chunk, zamba2-1.2b's state of 64, a chunk of 64, and
+#: L = chunk = 64
+SSD_BF16_CHECKS = (((8, 2048, 64, 64, 128), 128, "ref"),
+                   ((8, 2048, 64, 64, 128), 128, "small"),
+                   ((2, 128, 64, 64, 128), 128, "small"),
+                   ((4, 2048, 64, 64, 64), 128, "small"),
+                   ((2, 512, 8, 64, 128), 64, "small"),
+                   ((2, 64, 8, 64, 64), 64, "ref"))
+
+
+def check_ssd_bf16(torch, ins, chunk, label, tag="[ssd]"):
+    """One bf16 ``ssd_scan`` call through the tensor-core route (and no
+    other launch) against its twin under the derived gate; prints the
+    error as a share of the gate, the carry's share of y and how far a
+    dropped carry lands past the gate.  Returns ``(max abs err, share of
+    the gate, carry share, carry over the gate)``."""
+    from repro_torch.kernels import ops, ref
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(*ins, chunk=chunk)
+    check(ops.ssd_route_counts() == {"tensor_core": 1, "float32": 0},
+          f"ssd_scan bf16 {label} took the wrong route: "
+          f"{ops.ssd_route_counts()}")
+    ok, err, share, gate = ssd_gate(torch, ins, chunk, got,
+                                    ref.ssd_scan_ref(*ins, chunk=chunk))
+    check(ok, f"ssd_scan bf16 {label} is outside the bf16 gate: max err "
+          f"{err}, {share:.3f} of the gate")
+    carry, carry_gate = carry_share(torch, *ins, chunk, gate=gate)
+    print(f"{tag} bf16 {label} within the gate (tensor-core route; max abs "
+          f"err {err:.3e}, {share:.3f} of the gate; carry share {carry:.3e}, "
+          f"a dropped carry at {carry_gate:.2f}x the gate)")
+    return err, share, carry, carry_gate
 
 
 def phase_ssd_kernels(torch, dev):
-    """``ssd_scan`` against its twin on the card at ``SSD_CHECKS``, with
-    the carry's share of the output printed (and required to matter for
-    the small-dt inputs over more than one chunk)."""
+    """``ssd_scan`` against its twin on the card at ``SSD_CHECKS``
+    (float32: the SIMT route, rtol 1e-5) and ``SSD_BF16_CHECKS`` (the
+    tensor-core route, the derived gate), with the carry's share of the
+    output printed (and required to matter, and for bf16 to land past the
+    gate, for the small-dt inputs over more than one chunk)."""
     from repro_torch.kernels import ops, ref
     for i, (shape, chunk, kind) in enumerate(SSD_CHECKS):
         ins = ssd_inputs(torch, dev, shape, kind, seed=20 + i)
@@ -571,6 +666,15 @@ def phase_ssd_kernels(torch, dev):
         print(f"[ssd] {shape} chunk {chunk} dt {kind} == twin (max abs err "
               f"{err:.3e}, {rel:.2e} of the largest |y|; carry share "
               f"{share:.3e})")
+    for i, (shape, chunk, kind) in enumerate(SSD_BF16_CHECKS):
+        ins = ssd_inputs(torch, dev, shape, kind, seed=40 + i,
+                         dtype=torch.bfloat16)
+        _, _, carry, carry_gate = check_ssd_bf16(
+            torch, ins, chunk, f"{shape} chunk {chunk} dt {kind}")
+        if kind == "small" and shape[1] > chunk:
+            check(carry > 1e-2 and carry_gate > 1, f"ssd_scan bf16 {shape} "
+                  f"small dt: a dropped carry lands at {carry_gate:.2f}x the "
+                  f"gate, the check cannot see it")
     torch.cuda.synchronize()
 
 
@@ -957,17 +1061,16 @@ def lm_config(n_layers=None):
         cfg, n_layers=n_layers)
 
 
-def first_call_operands(torch, name, forward, keep_layout=False):
+def first_call_operands(torch, name, forward):
     """The operands of the first ``ops.<name>`` call that ``forward()``
-    makes (a layer's own inputs on the path), cloned: contiguous, or with
-    the caller's strides kept (``keep_layout``)."""
+    makes (a layer's own inputs on the path), cloned with the caller's
+    strides kept (a dense view's clone keeps its strides)."""
     from repro_torch.kernels import ops
     real, calls = getattr(ops, name), []
 
     def record(*operands, **kw):
         if not calls:
-            calls.append(tuple(t.clone() if keep_layout
-                               else t.contiguous().clone() for t in operands))
+            calls.append(tuple(t.clone() for t in operands))
         return real(*operands, **kw)
     setattr(ops, name, record)
     try:
@@ -1011,6 +1114,7 @@ def run_prefill(torch, cfg, seed, kernel, label):
         times.append(time.perf_counter() - t)
     counts = ops.launch_counts()
     routes = ops.flash_route_counts()
+    ssd_routes = ops.ssd_route_counts()
     n_fwd = len(times)
     check(counts[kernel] == cfg.n_layers * n_fwd,
           f"{label} launched {kernel} {counts[kernel]} times over {n_fwd} "
@@ -1021,6 +1125,11 @@ def run_prefill(torch, cfg, seed, kernel, label):
         check(routes == {"tensor_core": cfg.n_layers * n_fwd, "float32": 0},
               f"{label}: flash_attention routes {routes}, expected every "
               f"launch on the tensor-core route")
+    if kernel == "ssd_scan":
+        check(ssd_routes == {"tensor_core": cfg.n_layers * n_fwd,
+                             "float32": 0},
+              f"{label}: ssd_scan routes {ssd_routes}, expected every launch "
+              f"on the tensor-core route")
     v_pad = padded_vocab(cfg)
     check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, v_pad)
           and logits.dtype == torch.float32, f"{label} logits "
@@ -1033,7 +1142,8 @@ def run_prefill(torch, cfg, seed, kernel, label):
            "forward_ms": [t * 1e3 for t in times],
            "prefill_tok_s": PREFILL_B * PREFILL_S * PREFILL_WARM
            / sum(times[1:]),
-           "launches": counts, "flash_routes": routes, "max_memory_gb":
+           "launches": counts, "flash_routes": routes,
+           "ssd_routes": ssd_routes, "max_memory_gb":
            torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"[{label}] B={PREFILL_B} S={PREFILL_S}: first forward "
           f"{times[0]:.3f} s; {PREFILL_WARM} warm forwards at "
@@ -1082,17 +1192,16 @@ def copy_rows(torch, prof, label):
 
 
 #: aten ops that move no data: views of the operands and the output's
-#: allocation (a layout copy would show as clone, copy_ or contiguous)
+#: allocation (a layout copy would show as clone, copy_ or contiguous, a
+#: cast as _to_copy)
 VIEW_OPS = ("aten.transpose", "aten.view", "aten._reshape_alias",
-            "aten.as_strided", "aten.alias", "aten.empty")
+            "aten.as_strided", "aten.alias", "aten.split_with_sizes",
+            "aten.empty")
 
 
-def attention_ops(torch, qkv):
-    """The aten ops that one flash ``gqa_attention`` call at layer 0's own
-    ``[B, L, H, Dh]`` tensors dispatches, with ``attn_forward``'s reshape
-    of its output (the kernel itself launches through ctypes, outside
-    aten)."""
-    from repro_torch.models import layers
+def recorded_ops(torch, fn):
+    """``(the aten ops that fn() dispatches, its result)``; a kernel
+    launched through ctypes does not show."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Record(TorchDispatchMode):
@@ -1104,15 +1213,25 @@ def attention_ops(torch, qkv):
             self.ops.append(str(func))
             return func(*args, **(kwargs or {}))
 
+    with Record() as rec:
+        out = fn()
+    torch.cuda.synchronize()
+    return rec.ops, out
+
+
+def attention_ops(torch, qkv):
+    """The aten ops that one flash ``gqa_attention`` call at layer 0's own
+    ``[B, L, H, Dh]`` tensors dispatches, with ``attn_forward``'s reshape
+    of its output (the kernel itself launches through ctypes, outside
+    aten)."""
+    from repro_torch.models import layers
     q, k, v = (t.transpose(1, 2) for t in qkv)   # back to [B, L, H, Dh]
     b, l = q.shape[:2]
-    with Record() as rec:
-        out = layers.gqa_attention(q, k, v, causal=True, use_flash=True)
-        out = out.reshape(b, l, -1)
-    torch.cuda.synchronize()
+    aten, out = recorded_ops(torch, lambda: layers.gqa_attention(
+        q, k, v, causal=True, use_flash=True).reshape(b, l, -1))
     check(out.is_contiguous(), "gqa_attention's flash output is not "
           "contiguous after attn_forward's reshape")
-    return rec.ops
+    return aten
 
 
 def phase_lm_prefill(torch):
@@ -1132,8 +1251,7 @@ def phase_lm_prefill(torch):
     # the kernel at the path's own inputs (layer 0 of a forward), in the
     # strided [B, H, L, Dh] views of [B, L, H, Dh] tensors the model passes
     qkv = first_call_operands(torch, "flash_attention",
-                              lambda: zoo.forward_logits(cfg, model, batch),
-                              keep_layout=True)
+                              lambda: zoo.forward_logits(cfg, model, batch))
     check(all(t.dim() == 4 and t.transpose(1, 2).is_contiguous()
               and t.stride(2) == t.shape[1] * t.shape[3] for t in qkv),
           f"layer 0's q/k/v are not the model's [B, L, H, Dh] views: "
@@ -1358,55 +1476,99 @@ def cut_model(torch, model, n_layers, device):
     return cut
 
 
-def check_layer0_ssd(torch, ins, chunk, label):
-    """``ssd_scan`` against its twin at a layer's own operands; returns
-    ``(max abs err, carry share)``."""
-    from repro_torch.kernels import ops, ref
-    ok, err, rel = ssd_close(torch, ops.ssd_scan(*ins, chunk=chunk),
-                             ref.ssd_scan_ref(*ins, chunk=chunk))
-    check(ok, f"ssd_scan disagrees with its twin at {label}: max err {err} "
-          f"({rel:.2e} of the largest |y|)")
-    share = carry_share(torch, *ins, chunk)
-    mean_dt = ins[1].mean().item()
-    print(f"[ssm prefill] ssd_scan == twin at {label} "
-          f"{[tuple(t.shape) for t in ins]} (max abs err {err:.3e}, "
-          f"{rel:.2e} of the largest |y|); mean dt {mean_dt:.4f}, carry "
-          f"share {share:.3e}")
-    return err, share
+def ssd_layer0(torch, model, batch):
+    """Layer 0's SSD operands of ``model``'s forward over ``batch``, as the
+    model passes them: ``(conv_out, (x, dt, a, b, c))`` with the conv
+    output, dt and a cloned and x, b, c rebuilt as views of the clone by
+    ``ssm.ssd_operands``; checks the model's own x, b and c were such views
+    of one conv output (no copy)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm, zoo
+    real, calls = ops.ssd_scan, []
+
+    def record(x, dt, a, bm, cm, **kw):
+        if not calls:
+            calls.append((x._base, [(t.shape, t.stride(),
+                                     t.data_ptr() - x.data_ptr())
+                                    for t in (x, bm, cm)],
+                          x._base.clone(), dt.clone(), a.clone()))
+        return real(x, dt, a, bm, cm, **kw)
+    ops.ssd_scan = record
+    try:
+        zoo.forward_logits(model.cfg, model, batch)
+    finally:
+        ops.ssd_scan = real
+    base, layout, conv_out, dt, a = calls[0]
+    xh, bm, cm = ssm.ssd_operands(conv_out, *ssm.dims(model.cfg)[1:])
+    want = [(t.shape, t.stride(), t.data_ptr() - xh.data_ptr())
+            for t in (xh, bm, cm)]
+    check(base is not None and layout == want,
+          f"layer 0's x, b and c are not views of one conv output: "
+          f"{layout}, expected {want}")
+    return conv_out, (xh, dt, a, bm, cm)
 
 
 def phase_ssm_prefill(torch):
     """``forward_logits`` of mamba2-1.3b at full width and depth over
     ``PREFILL_B x PREFILL_S`` seeded tokens, bf16 compute, with zeroed
     launch counters (48 ``ssd_scan`` launches per forward, nothing else);
-    one profiled forward; the kernel at layer 0's own operands at the
-    reference's init and at the carry init; the card against the CPU on a
+    one profiled forward; the kernel at layer 0's own operands (the conv
+    output's bf16 views) at the reference's init and at the carry init,
+    and one layer's SSD dispatching no aten cast or copy; the card against
+    the CPU on a
     2-layer cut at 2 x ``SSM_CUT_S`` tokens (two chunks), both inits, in
     float32 and bfloat16 compute."""
     import copy
     import numpy as np
-    from repro_torch.models import layers, zoo
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, ssm, zoo
     cfg = ssm_config()
     model, batch, tokens, res = run_prefill(
         torch, cfg, SSM_SEED, "ssd_scan", f"ssm prefill {SSM_ARCH}")
 
-    # the kernel at layer 0's own operands: the reference's init (the
-    # state forgets a whole chunk, but each chunk's first rows still read
-    # the previous chunk's last rows through it), then the carry init
-    def layer0(m):
-        return first_call_operands(
-            torch, "ssd_scan", lambda: zoo.forward_logits(m.cfg, m, batch))
-    ins = layer0(model)
-    res["layer0_err"], res["layer0_carry_share"] = check_layer0_ssd(
-        torch, ins, cfg.ssm_chunk, "layer 0's operands (reference init)")
+    print(f"[ssm prefill] ssd_scan routes over the {1 + PREFILL_WARM} "
+          f"forwards: {res['ssd_routes']}")
+    # the kernel at layer 0's own operands (the conv output's bf16 views):
+    # the reference's init (the state forgets a whole chunk, but each
+    # chunk's first rows still read the previous chunk's last rows through
+    # it), then the carry init
+    conv_out, ins = ssd_layer0(torch, model, batch)
+    (res["layer0_err"], res["layer0_gate_share"],
+     res["layer0_carry_share"], _) = check_ssd_bf16(
+        torch, ins, cfg.ssm_chunk, f"layer 0's operands (reference init) "
+        f"{[tuple(t.shape) for t in ins]}, mean dt "
+        f"{ins[1].mean().item():.4f},", tag="[ssm prefill]")
     res["ssd_inputs"] = ins
     one = carry_init(torch, cut_model(torch, model, 1, DEVICE))
-    res["carry_err"], share = check_layer0_ssd(
-        torch, layer0(one), cfg.ssm_chunk, "layer 0's operands (carry init)")
-    check(share > 1e-2, f"carry init: the carry holds only {share:.2e} of "
-          f"layer 0's scan output")
+    _, carry_ins = ssd_layer0(torch, one, batch)
+    (res["carry_err"], res["carry_gate_share"], share,
+     res["carry_over_gate"]) = check_ssd_bf16(
+        torch, carry_ins, cfg.ssm_chunk, f"layer 0's operands (carry init), "
+        f"mean dt {carry_ins[1].mean().item():.4f},", tag="[ssm prefill]")
+    check(share > 1e-2 and res["carry_over_gate"] > 1,
+          f"carry init: the carry holds only {share:.2e} of layer 0's scan "
+          f"output ({res['carry_over_gate']:.2f}x the gate)")
     res["carry_share"] = share
-    del one
+    del one, carry_ins
+    # no cast or copy around the kernel: one layer's SSD, from the conv
+    # output to the scan's result, dispatches views and the output's
+    # allocation only, and launches the tensor-core kernel once
+    def one_layer_ssd():
+        xh, bm, cm = ssm.ssd_operands(conv_out, *ssm.dims(cfg)[1:])
+        return ops.ssd_scan(xh, ins[1], ins[2], bm, cm, chunk=cfg.ssm_chunk)
+    ops.reset_launch_counts()
+    aten, _ = recorded_ops(torch, one_layer_ssd)
+    check(all(op.startswith(VIEW_OPS) for op in aten)
+          and sum(op.startswith("aten.empty") for op in aten) == 1
+          and ops.ssd_route_counts() == {"tensor_core": 1, "float32": 0},
+          f"one layer's SSD dispatched {aten} and launched "
+          f"{ops.ssd_route_counts()}: expected views, one allocation and one "
+          f"tensor-core launch")
+    print(f"[ssm prefill] one layer's SSD, conv output in to the scan's "
+          f"result out: aten ops {aten} (no cast or copy), one tensor-core "
+          f"launch")
+    res["ssd_dispatch_ops"] = aten
+    del conv_out
 
     # card against CPU on a 2-layer cut, two chunks, both inits
     small = torch.from_numpy(np.ascontiguousarray(tokens[:2, :SSM_CUT_S]))
@@ -1905,9 +2067,11 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
     runs, the tiered probe (graphgen-gcn-deep) and fanout_mean_bwd at the
     hidden-level shapes of both runs (real masks, a random gradient); and
     flash_attention at ``qkv``, layer 0's inputs of the LM prefill;
-    ssd_scan at ``ssd_ins``, layer 0's operands of the SSM prefill; and
-    gather_reduce at ``gather_ins``, a W = 1 request's hop-2 level.
-    Returns one JSON entry per kernel (its first, largest shape)."""
+    ssd_scan at ``ssd_ins``, layer 0's operands of the SSM prefill (the
+    conv output's bf16 views, the tensor-core route) and at their float32
+    upcast (``ssd_scan_f32``, the SIMT route); and gather_reduce at
+    ``gather_ins``, a W = 1 request's hop-2 level.  Returns one JSON entry
+    per kernel or route (its first, largest shape)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.feature_cache import CacheConfig
@@ -1985,7 +2149,10 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
         cache.l2.rows[0], uniq[0]),
         {"l1_assoc": dcfg.l1_assoc, "l2_assoc": dcfg.assoc}))
     items.append(("flash_attention", qkv, {"causal": True}))
-    items.append(("ssd_scan", ssd_ins, {"chunk": ssm_config().ssm_chunk}))
+    chunk = {"chunk": ssm_config().ssm_chunk}
+    items.append(("ssd_scan", ssd_ins, chunk))
+    items.append(("ssd_scan_f32", tuple(t.float().contiguous()
+                                        for t in ssd_ins), chunk))
     items.append(("gather_reduce", gather_ins, {}))
     items_timed(torch, items, launches, entries)
     return [entries[name] for name in KERNEL_META]
@@ -1995,7 +2162,8 @@ def items_timed(torch, items, launches, entries):
     """Time each ``(name, inputs, kw)``; the first entry of a name is the
     one the JSON line reports."""
     for name, inputs, kw in items:
-        if name != "flash_attention":   # flash runs at the path's strides
+        if name not in ("flash_attention", "ssd_scan"):
+            # flash and the bf16 scan run at the path's strides
             inputs = tuple(t.contiguous() for t in inputs)
         entry = time_kernel(torch, name, inputs, kw)
         entry["launches"] = launches[name]
@@ -2003,12 +2171,15 @@ def items_timed(torch, items, launches, entries):
 
 
 def time_kernel(torch, name, inputs, kw):
-    """Times, error and bound of one kernel at ``inputs``.  The bound counts
-    each input byte read once and each output byte written once; for the
-    probes only the rows the hits need are counted (data-dependent)."""
+    """Times, error and bound of one kernel at ``inputs`` (``ssd_scan_f32``:
+    ``ssd_scan`` at float32 inputs).  The bound counts each input byte read
+    once and each output byte written once, at the operands' element sizes
+    and the peak rate of their type; for the probes only the rows the hits
+    need are counted (data-dependent)."""
     from repro_torch.kernels import ops, ref
-    kern_fn = getattr(ops, name)
-    plain_fn = getattr(ref, name + "_ref")
+    op = "ssd_scan" if name == "ssd_scan_f32" else name
+    kern_fn = getattr(ops, op)
+    plain_fn = getattr(ref, op + "_ref")
     kern = lambda: kern_fn(*inputs, **kw)              # noqa: E731
     plain = lambda: plain_fn(*inputs, **kw)            # noqa: E731
     got, want = kern(), plain()
@@ -2088,11 +2259,16 @@ def time_kernel(torch, name, inputs, kw):
             vr = v.repeat_interleave(hq // hkv, dim=1)
             library = lambda: sdpa(q, kr, vr, is_causal=kw["causal"])  # noqa: E731
         library_ms = gpu_ms(torch, library)
-    elif name == "ssd_scan":
+    elif op == "ssd_scan":
         x, dt, a, bm, cm = inputs
-        ok, err, rel = ssd_close(torch, got, want)
-        check(ok, f"ssd_scan differs from its twin at the prefill inputs: "
-              f"max err {err}")
+        if x.dtype == torch.bfloat16:
+            ok, err, share, _ = ssd_gate(torch, inputs, kw["chunk"], got,
+                                         want)
+            flops = BF16_FLOPS
+        else:
+            ok, err, share = ssd_close(torch, got, want)
+        check(ok, f"ssd_scan ({x.dtype}) differs from its twin at the "
+              f"prefill inputs: max err {err}")
         (b, l, h, p), n = x.shape, bm.shape[-1]
         q = min(kw["chunk"], l)
         nc, pairs = l // q, q * (q + 1) // 2
@@ -2103,8 +2279,8 @@ def time_kernel(torch, name, inputs, kw):
         # first chunk only (the state before it is zero)
         n_ops = (2 * b * nc * pairs * n + b * h * nc * pairs * (2 * p + 3)
                  + 2 * b * h * (l - q) * 2 * n * p)
-        n_bytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + bm.numel()
-                       + cm.numel())
+        n_bytes = (x.element_size() * (2 * x.numel() + bm.numel() + cm.numel())
+                   + 4 * (dt.numel() + a.numel()))
     elif name == "gather_reduce":
         table, idx, mask = inputs
         ok, err = gather_close(torch, got, want)
@@ -2147,6 +2323,12 @@ def time_kernel(torch, name, inputs, kw):
               f"{[t.stride() for t in inputs]}: {n_ops / ms / 1e9:.1f} "
               f"TFLOP/s of needed work, {ms / b_ms:.2f}x the bound, "
               f"{ms / library_ms:.2f}x SDPA's time")
+    if op == "ssd_scan":
+        print(f"[timing {name}] {inputs[0].dtype}, strides "
+              f"{[t.stride() for t in inputs]}: {n_bytes / ms / 1e6:.1f} "
+              f"GB/s and {n_ops / ms / 1e9:.1f} TFLOP/s of needed work, "
+              f"{ms / b_ms:.2f}x the bound; error {share:.3e} of "
+              f"{'its gate' if x.dtype == torch.bfloat16 else 'the largest |y|'}")
     print(f"[timing {name}] shapes {[list(t.shape) for t in inputs]} kernel "
           f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
           f"({b_by}: {n_bytes} B, {n_ops} ops)  library "
@@ -2211,8 +2393,12 @@ def main():
     gather = phase_gather_reduce(torch, serve_res)
     runs = (list(serve_res.values()) + list(train_res.values())
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather])
-    launches = {name: sum(r["launches"][name] for r in runs)
+    launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
+    # the float32 route of ssd_scan: its launches on the main path (0 in a
+    # bf16 forward, which run_prefill requires)
+    launches["ssd_scan_f32"] = sum(r.get("ssd_routes", {}).get("float32", 0)
+                                   for r in runs)
     phase_agree(torch, dev)
     phase_agree_train(torch, dev)
     kernels = phase_timing(torch, serve_res, train_res, launches,
@@ -2252,8 +2438,10 @@ def main():
         "batch": PREFILL_B, "seq": PREFILL_S, **{k: ssm_prefill[k] for k in (
             "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",
             "prefill_tok_s", "max_memory_gb", "busy_ms", "kernel_ms",
-            "layer0_err", "layer0_carry_share", "carry_err", "carry_share",
-            "cut", "launches")}}, "serve": {
+            "layer0_err", "layer0_gate_share", "layer0_carry_share",
+            "carry_err", "carry_gate_share", "carry_share",
+            "carry_over_gate", "ssd_dispatch_ops", "cut", "launches",
+            "ssd_routes")}}, "serve": {
         "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
         **{k: ssm_serve[k] for k in ("tok_s", "wall_s", "median_step_ms",
                                      "instrumented_wall_s", "busy_ms",

@@ -49,6 +49,9 @@ _SIGNATURES = {
     "repro_flash_attention_sm90_smem": (_I,),
     "repro_gather_reduce": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
     "repro_ssd_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_ssd_scan_sm90": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            *(_LL,) * 7, _P),
+    "repro_ssd_scan_sm90_smem": (_I, _I),
 }
 
 

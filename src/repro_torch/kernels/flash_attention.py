@@ -27,11 +27,24 @@ TILE = 64
 TMA_ALIGN = 16
 
 
-def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_causal(lq: int, lk: int, causal: bool) -> None:
+    """Raise ``ValueError`` for causal attention with ``Lq > Lk``: the mask
+    aligns the last query with the last key, so the first ``Lq - Lk``
+    query rows would see no key at all (and the twin, the card's kernel and
+    the Pallas reference give them three different answers)."""
+    if causal and lq > lk:
+        raise ValueError(f"causal flash_attention needs Lq <= Lk, got Lq "
+                         f"{lq} > Lk {lk}: the first {lq - lk} query rows "
+                         f"would see no key")
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> None:
     """Raise ``ValueError`` unless ``q [B, Hq, Lq, Dh]`` and ``k``/``v
     [B, Hkv, Lk, Dh]`` are shapes the kernels take: Hq a multiple of Hkv,
     ``Dh`` in ``HEAD_DIMS``, both lengths positive multiples of ``TILE``
-    (the Pallas kernel asserts block multiples the same way)."""
+    (the Pallas kernel asserts block multiples the same way), and ``Lq <=
+    Lk`` when causal (``check_causal``)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention needs q [B, Hq, Lq, Dh] and k/v "
                          f"[B, Hkv, Lk, Dh], got {tuple(q.shape)}, "
@@ -49,6 +62,7 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if lq <= 0 or lk <= 0 or lq % TILE or lk % TILE:
         raise ValueError(f"flash_attention needs Lq and Lk to be positive "
                          f"multiples of {TILE}, got {lq} and {lk}")
+    check_causal(lq, lk, causal)
 
 
 def _check_tma_layout(q: torch.Tensor, k: torch.Tensor,
@@ -79,7 +93,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     may be any views with a contiguous last dimension and 16-byte aligned
     strides; their result is the ``[B, Hq, Lq, Dh]`` view of a contiguous
     ``[B, Lq, Hq, Dh]`` tensor.  Float32 operands are made contiguous."""
-    _check_shapes(q, k, v)
+    _check_shapes(q, k, v, causal)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")

@@ -5,7 +5,8 @@ to the hand-written CUDA kernel, which launches or raises — there is no
 fallback from the kernel to the twin, and no switch that picks one.
 ``launch_counts``/``reset_launch_counts`` read and zero the kernels'
 launch counters (the proof that a run went through the kernels);
-``flash_attention`` also counts per route (``flash_route_counts``).
+``flash_attention`` and ``ssd_scan`` also count per route
+(``flash_route_counts``, ``ssd_route_counts``).
 """
 from __future__ import annotations
 
@@ -16,10 +17,10 @@ import torch
 from . import ref
 from .cache_gather import (cache_probe_compact_cuda, cache_probe_gather_cuda,
                            cache_probe_tiered_cuda)
-from .flash_attention import flash_attention_cuda
+from .flash_attention import check_causal, flash_attention_cuda
 from .gather_reduce import (fanout_mean_bwd_cuda, fanout_mean_cuda,
                             gather_reduce_cuda)
-from .ssd_scan import ssd_scan_cuda
+from .ssd_scan import check_dtypes, ssd_scan_cuda
 
 #: kernel name -> its CUDA wrapper (each carries a ``launches`` counter)
 KERNELS = {
@@ -121,7 +122,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Online-softmax attention with GQA head grouping: ``q [B, Hq, Lq,
     Dh]``, ``k``/``v [B, Hkv, Lk, Dh]`` -> ``[B, Hq, Lq, Dh]`` in ``q``'s
-    dtype (the dense LM's full-sequence attention).  On the card bfloat16
+    dtype (the dense LM's full-sequence attention).  Causal operands need
+    ``Lq <= Lk`` on both devices (``ValueError`` otherwise: the first ``Lq
+    - Lk`` rows would see no key).  On the card bfloat16
     operands pass as they are (any views with a contiguous last dimension:
     the dense LM hands in its ``[B, L, H, Dh]`` tensors transposed) and the
     result is the ``[B, Hq, Lq, Dh]`` view of a contiguous ``[B, Lq, Hq,
@@ -135,7 +138,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "flash_attention has no backward yet: run it under "
             "torch.no_grad() (an LM training slice needs its own backward "
-            "kernel, ROADMAP Queue 3)")
+            "kernel, ROADMAP Queue 1 item 6)")
+    check_causal(q.shape[-2], k.shape[-2], causal)
     if _on_cuda(q, k, v):
         return flash_attention_cuda(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)
@@ -146,8 +150,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """Mamba-2 SSD chunked scan: ``x [B, L, H, P]``, ``dt [B, L, H]``,
     ``a [H]``, ``b_mat``/``c_mat [B, L, N]`` -> ``y [B, L, H, P]`` in
-    float32, the state carried across chunks of ``min(chunk, L)`` rows
-    (every layer of the SSM's full-sequence forward).
+    ``x``'s dtype, the state carried across chunks of ``min(chunk, L)``
+    rows (every layer of the SSM's full-sequence forward).  x, b and c are
+    float32 or bfloat16 (one dtype), dt and a float32 (``TypeError``
+    otherwise).  On the card bfloat16 x, b and c pass as they are (any
+    views with a contiguous last dimension: the SSM hands in views of its
+    conv output) to the tensor-core kernel; float32 ones go to the SIMT
+    kernel.
 
     Forward only, as the reference's Pallas kernel: an operand that
     requires grad under autograd raises on both devices rather than leave
@@ -159,9 +168,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             "ssd_scan has no backward yet: run it under torch.no_grad() "
             "(LM training needs its own SSD backward kernel, ROADMAP Queue "
             "1 item 6)")
+    check_dtypes(*operands)
     if _on_cuda(*operands):
-        return ssd_scan_cuda(*(t.contiguous() for t in operands),
-                             chunk=chunk)
+        return ssd_scan_cuda(*operands, chunk=chunk)
     return ref.ssd_scan_ref(*operands, chunk=chunk)
 
 
@@ -188,9 +197,17 @@ def flash_route_counts() -> Dict[str, int]:
     return dict(flash_attention_cuda.routes)
 
 
+def ssd_route_counts() -> Dict[str, int]:
+    """``ssd_scan`` launches since the last reset, by route
+    (``tensor_core``: bfloat16; ``float32``: the SIMT kernel)."""
+    return dict(ssd_scan_cuda.routes)
+
+
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch counter (and flash's per-route ones)."""
+    """Zero every kernel's launch counter (and the per-route ones of
+    flash_attention and ssd_scan)."""
     for fn in KERNELS.values():
         fn.launches = 0
-    for route in flash_attention_cuda.routes:
-        flash_attention_cuda.routes[route] = 0
+    for routes in (flash_attention_cuda.routes, ssd_scan_cuda.routes):
+        for route in routes:
+            routes[route] = 0

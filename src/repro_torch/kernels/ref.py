@@ -142,7 +142,10 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``repro/models/ssm.py::ssd_chunked``, the function
     ``repro/kernels/ssd_scan.py::ssd_scan_pallas`` computes): ``x [B, L,
     H, P]``, ``dt [B, L, H]`` (> 0), ``a [H]`` (< 0), ``b_mat``/``c_mat
-    [B, L, N]`` (one group, broadcast over heads) -> ``y [B, L, H, P]``.
+    [B, L, N]`` (one group, broadcast over heads) -> ``y [B, L, H, P]``
+    in ``x``'s dtype: x, b and c (float32 or bfloat16) are upcast to
+    float32 first and the float32 result is cast back once at the end, as
+    the Pallas kernel does.
 
     Chunks of ``Q = min(chunk, L)`` rows (``L % Q`` must be 0).  Within a
     chunk ``cum = cumsum(a dt)`` (accumulated in float64 and rounded once
@@ -182,4 +185,4 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     st_prev = torch.stack(prev, dim=1)                         # [B,NC,H,P,N]
     inter = torch.einsum("bnqk,bnhpk->bnqhp", cr, st_prev)
     y = y + inter * torch.exp(cum)[..., None]
-    return y.reshape(bsz, l, h, p)
+    return y.reshape(bsz, l, h, p).to(x.dtype)

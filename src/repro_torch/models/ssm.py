@@ -62,6 +62,17 @@ def causal_conv(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ssd_operands(conv_out: torch.Tensor, heads: int, head_dim: int,
+                 state: int):
+    """``(xh [B, L, H, P], b [B, L, N], c [B, L, N])``: the SSD's operands
+    as views of the conv output ``conv_out [B, L, H P + 2N]`` (no copy:
+    the card's bfloat16 kernel reads these strides in place)."""
+    bsz, l, _ = conv_out.shape
+    xc, bmat, cmat = torch.split(conv_out, [heads * head_dim, state, state],
+                                 dim=-1)
+    return xc.reshape(bsz, l, heads, head_dim), bmat, cmat
+
+
 class MambaBlock(nn.Module):
     """One mamba2 block: ``w_in [D, 2 d_in + 2N + H]``, ``conv_k [W,
     d_in + 2N]``, ``a_log``/``d_skip``/``dt_bias [H]``, ``w_out [d_in,
@@ -102,18 +113,15 @@ class MambaBlock(nn.Module):
 
     def mamba_train(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The block over a full sequence: ``x [B, L, D]`` -> ``[B, L, D]``
-        (the SSD through ``ops.ssd_scan``)."""
-        bsz, l, _ = x.shape
-        d_in, h, pdim, n = dims(cfg)
+        (the SSD through ``ops.ssd_scan`` on views of the conv output, in
+        the compute dtype; its result comes back in that dtype)."""
+        _, h, pdim, n = dims(cfg)
         z, conv_in, dt = self._project(x, cfg)
         conv_out = silu(causal_conv(conv_in, self.conv_k.to(x.dtype)))
-        xc, bmat, cmat = torch.split(conv_out, [d_in, n, n], dim=-1)
+        xh, bmat, cmat = ssd_operands(conv_out, h, pdim, n)
         dt = softplus(dt.to(torch.float32) + self.dt_bias)
         a = -torch.exp(self.a_log)
-        xh = xc.reshape(bsz, l, h, pdim)
-        y = ops.ssd_scan(xh.to(torch.float32), dt, a,
-                         bmat.to(torch.float32), cmat.to(torch.float32),
-                         chunk=cfg.ssm_chunk).to(x.dtype)
+        y = ops.ssd_scan(xh, dt, a, bmat, cmat, chunk=cfg.ssm_chunk)
         return self._out(y, xh, z, cfg)
 
     def mamba_decode(self, x: torch.Tensor, cfg: ModelConfig,

@@ -15,11 +15,13 @@ inputs made by numpy from a seed:
 * the bfloat16 gate (``flash_attention.bf16_error_bound``) holds the
   kernel's arithmetic (p rounded to bfloat16 before P V) against the twin
   and rejects a mask that is one column off;
-* the per-route launch counters reset with the others.
+* the per-route launch counters reset with the others;
+* causal operands with ``Lq > Lk`` (whose first rows would see no key)
+  raise ``ValueError`` from ``ops.flash_attention`` before dispatch.
 
 On a card (marked ``cuda``): the tensor-core route against the twin at the
 bfloat16 gate on strided operands, Dh 64 and 128, without a float32-route
-launch.
+launch; causal ``Lq > Lk`` raises there too, launching nothing.
 """
 import numpy as np
 import pytest
@@ -155,6 +157,21 @@ def test_route_counters_reset_with_the_others():
     assert ops.launch_counts()["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_lq_above_lk_raises(dtype):
+    """Causal Lq > Lk raises ValueError on the CPU (the twin would average
+    every v for the rows that see no key); the same shapes without the
+    mask, and causal Lq <= Lk, still run."""
+    tdt = _DT[dtype][0]
+    q, k, v = (torch.from_numpy(a).to(tdt).transpose(1, 2)
+               for a in _blhd(1, 3, 1, 128, 64, 16))
+    with pytest.raises(ValueError, match="Lq <= Lk"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention(q, k, v, causal=False).shape == q.shape
+    assert ops.flash_attention(k, q[:, :1], q[:, :1],
+                               causal=True).shape == k.shape
+
+
 # ------------------------------------------------------------------ on a card
 
 @pytest.fixture
@@ -180,3 +197,16 @@ def test_tensor_core_route_on_card(cuda, dh):
     want = ref.flash_attention_ref(q, k, v, causal=True)
     bound = flash_mod.bf16_error_bound(q, k, v, want, causal=True)
     assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_lq_above_lk_raises_on_card(cuda, dtype):
+    """Causal Lq > Lk raises ValueError on the card too, before any
+    launch, on either route."""
+    q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+               .transpose(1, 2) for a in _blhd(1, 6, 2, 256, 128, 64))
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="Lq <= Lk"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_route_counts() == {"tensor_core": 0, "float32": 0}

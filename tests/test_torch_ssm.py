@@ -14,6 +14,17 @@ across by ``repro_torch.convert``:
   [0.005, 0.05]), each with the carry across chunks shown to hold a
   share of the output (the same scan with every chunk started from a
   zero state differs by more than 1e-3 of it);
+* bfloat16 x, b and c through ``ops.ssd_scan`` on the CPU against
+  ``ssd_scan_pallas`` in interpret mode on the same bf16 arrays (both
+  return bf16: one float32 result rounded once) within one bf16 ulp of
+  |y| plus 1e-5 of the largest |y|; the output dtype follows x; the
+  operand dtypes are checked on both devices;
+* the bf16 route's gate (``ssd_scan.bf16_error_bound``) holds the
+  tensor-core route's arithmetic written in plain torch (scores, x . w and
+  the state's copy rounded to bf16) and rejects a dropped carry and a
+  causal mask one column off;
+* the bf16 route's refusals (a shape it does not take, a view TMA cannot
+  read) before any device work;
 * ``causal_conv`` and ``softplus`` against the reference's;
 * the whole model at the ssm smoke config (4 layers, d_model 64, state
   16, head_dim 16, chunk 8), at the reference's own init (``a = -1``,
@@ -27,10 +38,15 @@ across by ``repro_torch.convert``:
   rtol 1e-5 and the bfloat16 conv history within one bf16 ulp); the
   port's prefill against its own decode (within atol 2e-3: the decode
   keeps the conv history in bfloat16);
+* the model hands the scan bf16 views of its conv output, and its CPU
+  logits are bit-equal to the call it made before (float32 operands in,
+  the result rounded after) in both compute dtypes;
 * the dispatch's refusals (autograd, ``L`` off the chunk, a device mix)
   and the entry points' default to the card.
 
-On a card (marked ``cuda``): the CUDA kernel against its twin.
+On a card (marked ``cuda``): the float32 kernel against its twin, and the
+bf16 tensor-core kernel under the gate at the mamba2 and zamba2 shapes,
+chunks of 128 and 64, on conv-output views.
 """
 import dataclasses
 
@@ -205,6 +221,151 @@ def test_ssd_scan_refuses():
     assert "ssd_scan" in ops.KERNELS
 
 
+def _bf16(ins):
+    """The numpy operands as torch tensors, x, b and c rounded to bf16."""
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in ins)
+    return (x.to(torch.bfloat16), dt, a, bm.to(torch.bfloat16),
+            cm.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("kind", ["ref", "small"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_bf16_matches_pallas(case, kind):
+    """bf16 x, b and c through ops.ssd_scan on the CPU (the twin) against
+    ssd_scan_pallas (interpret) on the same bf16 arrays: both upcast to
+    float32 inside and round the float32 result to bf16 once, so they
+    differ by at most one bf16 ulp of |y| (2^-7 |y|) where their float32
+    sums round apart, plus 1e-5 of the largest |y|."""
+    *shape, chunk = case
+    ins = _bf16(_ssd_inputs(*shape, kind, seed=sum(case) + 1))
+    got = ops.ssd_scan(*ins, chunk=chunk)
+    assert got.dtype == torch.bfloat16 and got.shape == ins[0].shape
+    want = np.asarray(ssd_scan_pallas(
+        *(jnp.asarray(t.float().numpy()).astype(
+            jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+          for t in ins), chunk=chunk))
+    assert want.dtype == jnp.bfloat16
+    want = want.astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_output_dtype_follows_x(dtype):
+    """y comes back in x's dtype; x, b and c must share one dtype (float32
+    or bfloat16) and dt and a be float32, on the CPU as on the card."""
+    tdt = _DT[dtype][0]
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in
+                        _ssd_inputs(1, 16, 2, 8, 4, "ref", 3))
+    x, bm, cm = x.to(tdt), bm.to(tdt), cm.to(tdt)
+    y = ops.ssd_scan(x, dt, a, bm, cm, chunk=8)
+    assert y.dtype == tdt and y.shape == x.shape
+    with pytest.raises(TypeError, match="dt and a in float32"):
+        ops.ssd_scan(x, dt.double(), a, bm, cm, chunk=8)
+    other = torch.float32 if tdt == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.ssd_scan(x, dt, a, bm.to(other), cm, chunk=8)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.ssd_scan(x.half(), dt, a, bm.half(), cm.half(), chunk=8)
+
+
+def _tensor_core_arith(x, dt, a, bm, cm, chunk, shift=0, carry=True):
+    """The bf16 route's arithmetic in plain torch, chunk by chunk: float32
+    cum (a float64 running sum rounded once), decays, products and state;
+    the scores, x . w and the copy of the state the inter term reads
+    rounded to bf16; y rounded to bf16 once.  ``shift`` moves the causal
+    diagonal (row i sees j <= i + shift); ``carry=False`` starts every
+    chunk from a zero state."""
+    f32 = torch.float32
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(f32)
+    bsz, l, h, p = x.shape
+    q = min(chunk, l)
+    xf, bf, cf = x.to(f32), bm.to(f32), cm.to(f32)
+    ii = torch.arange(q)
+    vis = (ii[:, None] + shift >= ii[None, :])[None, :, :, None]
+    state = torch.zeros(bsz, h, p, bm.shape[-1])
+    out = []
+    for c0 in range(0, l, q):
+        xc, dtc = xf[:, c0:c0 + q], dt[:, c0:c0 + q]
+        bc, cc = bf[:, c0:c0 + q], cf[:, c0:c0 + q]
+        cum = torch.cumsum((a * dtc).double(), dim=1).to(f32)    # [B,Q,H]
+        seg = torch.where(vis, cum[:, :, None] - cum[:, None], 0.0)
+        decay = torch.where(vis, torch.exp(seg) * dtc[:, None], 0.0)
+        scores = rnd((cc @ bc.transpose(1, 2))[..., None] * decay)
+        inter = torch.einsum("bin,bhpn->bihp", cc, rnd(state))
+        y = inter * torch.exp(cum)[..., None] + torch.einsum(
+            "bijh,bjhp->bihp", scores, xc)
+        out.append(y)
+        w = dtc * torch.exp(cum[:, -1:] - cum)
+        upd = torch.einsum("bjhp,bjn->bhpn", rnd(xc * w[..., None]), bc)
+        state = (state * torch.exp(cum[:, -1])[..., None, None] + upd
+                 if carry else torch.zeros_like(state))
+    return torch.cat(out, dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_bf16_gate_holds_rounding_and_rejects_faults(case):
+    """The gate covers the bf16 route's three roundings (which move the
+    outputs) and still catches a dropped carry and a causal mask one
+    column off, on bf16 inputs whose carry matters."""
+    *shape, chunk = case
+    ins = _bf16(_ssd_inputs(*shape, "small", seed=sum(case) + 2))
+    want = ref.ssd_scan_ref(*ins, chunk=chunk)
+    bound = ssd_mod.bf16_error_bound(*ins, chunk=chunk)
+    assert bound.dtype == torch.float32 and bound.shape == want.shape
+
+    def within(y):
+        return bool(((y.float() - want.float()).abs() <= bound).all())
+    got = _tensor_core_arith(*ins, chunk)
+    assert got.dtype == torch.bfloat16 and not torch.equal(got, want)
+    assert within(got)
+    assert not within(_tensor_core_arith(*ins, chunk, carry=False))
+    assert not within(_tensor_core_arith(*ins, chunk, shift=1))
+
+
+def _bad_views():
+    """bf16 ``(x, b, c)`` the tensor-core route refuses, by fault, with the
+    message it raises; the good ones are views of one [1, 128, 64 + 2 * 128]
+    conv output."""
+    bf = torch.bfloat16
+    x, bm, cm = ssm.ssd_operands(torch.zeros(1, 128, 64 + 256, dtype=bf),
+                                 1, 64, 128)
+    odd = torch.zeros(1, 128, 64 + 260, dtype=bf)[..., :128]
+    shifted = torch.zeros(128 * 128 + 1, dtype=bf)[1:].view(1, 128, 128)
+    return {
+        "head dim": ((torch.zeros(1, 128, 2, 32, dtype=bf), bm, cm),
+                     "head dim 64"),
+        "state": ((x, bm[..., :96], cm[..., :96]), "state"),
+        "last stride": ((x, torch.zeros(1, 128, 256, dtype=bf)[..., ::2], cm),
+                        "stride 1"),
+        "row stride": ((x, bm, odd), "multiples of 16 bytes"),
+        "base": ((x, shifted, cm), "16-byte boundary"),
+    }
+
+
+@pytest.mark.parametrize("fault", ["head dim", "state", "last stride",
+                                   "row stride", "base", "chunk"])
+def test_bf16_route_refuses_what_it_cannot_take(fault):
+    """A shape outside the tensor-core kernel's (head dim 64, state 64 or
+    128, chunk 64 or 128), or a bf16 view TMA cannot read, raises
+    ``ValueError`` naming the limit before the wrapper looks for a card
+    (these tensors lie on the CPU); no fallback to the float32 route."""
+    views = _bad_views()
+    if fault == "chunk":
+        (x, _, _), _ = views["base"]
+        (_, bm, cm), _ = views["head dim"]
+        msg, chunk = "chunk", 32
+    else:
+        (x, bm, cm), msg = views[fault]
+        chunk = 128
+    l, h = x.shape[1], x.shape[2]
+    dt, a = torch.full((1, l, h), 0.1), -torch.ones(h)
+    with pytest.raises(ValueError, match=msg):
+        ssd_mod.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk)
+
+
 def test_conv_and_softplus_match():
     """causal_conv in the reference's order and softplus as logaddexp(x,
     0) (above torch's threshold of 20 too), float32."""
@@ -260,6 +421,40 @@ def test_forward_logits_matches(compute, init, monkeypatch):
                 want).max())
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"], indirect=True)
+def test_forward_logits_bit_equal_to_the_upcast_call(compute, monkeypatch):
+    """The model hands ops.ssd_scan x, b and c as views of one conv output
+    in the compute dtype, and its CPU logits are bit-equal (tobytes) to the
+    call the model made before: float32 operands in, the result rounded to
+    the compute dtype after."""
+    cfg, jcfg = _smoke()
+    model = convert.mamba_params_from_numpy(_ref_params(jcfg, "carry"), cfg,
+                                            device="cpu")
+    tokens = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    real, calls = ops.ssd_scan, []
+
+    def record(x, dt, a, bm, cm, chunk):
+        calls.append((x, bm, cm))
+        return real(x, dt, a, bm, cm, chunk=chunk)
+    monkeypatch.setattr(ops, "ssd_scan", record)
+    got = zoo.forward_logits(cfg, model, batch)
+    assert len(calls) == cfg.n_layers
+    tdt = layers.COMPUTE_DTYPE
+    for x, bm, cm in calls:
+        assert x.dtype == bm.dtype == cm.dtype == tdt
+        assert x._base is not None and x._base is bm._base is cm._base
+
+    def upcast(x, dt, a, bm, cm, chunk):
+        f32 = torch.float32
+        return real(x.to(f32), dt, a, bm.to(f32), cm.to(f32),
+                    chunk=chunk).to(x.dtype)
+    monkeypatch.setattr(ops, "ssd_scan", upcast)
+    want = zoo.forward_logits(cfg, model, batch)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
 
 
 def _serve_args(prompt, gen, batch=2):
@@ -430,3 +625,36 @@ def test_ssd_scan_kernel_on_card(cuda, case, kind):
     want = ref.ssd_scan_ref(*ins, chunk=chunk)
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+def _conv_operands(b, l, h, n, kind, seed, device):
+    """Seeded bf16 ``(x, dt, a, b, c)`` on ``device``, x, b and c views of
+    one ``[B, L, 64 H + 2N]`` conv output, as the SSM passes them."""
+    x, dt, a, bm, cm = _ssd_inputs(b, l, h, 64, n, kind, seed)
+    conv = torch.from_numpy(np.concatenate(
+        [x.reshape(b, l, h * 64), bm, cm], axis=-1)).to(device, torch.bfloat16)
+    xv, bv, cv = ssm.ssd_operands(conv, h, 64, n)
+    return (xv, torch.from_numpy(dt).to(device), torch.from_numpy(a).to(device),
+            bv, cv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ref", "small"])
+@pytest.mark.parametrize("case", [(2, 512, 8, 128, 128),    # mamba2's widths
+                                  (2, 512, 8, 64, 128),     # zamba2's state
+                                  (1, 128, 4, 128, 128),    # L = chunk
+                                  (2, 256, 4, 128, 64),     # chunk 64
+                                  (1, 64, 4, 64, 64)])      # L = chunk 64
+def test_ssd_bf16_route_on_card(cuda, case, kind):
+    """bf16 views of a conv output through the tensor-core route only (one
+    launch per call, none on the float32 route), within the derived gate
+    ``bf16_error_bound`` of the twin, elementwise."""
+    b, l, h, n, chunk = case
+    ins = _conv_operands(b, l, h, n, kind, sum(case), cuda)
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(*ins, chunk=chunk)
+    assert ops.ssd_route_counts() == {"tensor_core": 1, "float32": 0}
+    assert got.dtype == torch.bfloat16 and got.shape == ins[0].shape
+    want = ref.ssd_scan_ref(*ins, chunk=chunk)
+    bound = ssd_mod.bf16_error_bound(*ins, chunk=chunk)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
