@@ -12,7 +12,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
               ssd_scan: chunk x state 64/128 x 64/128), its dynamic shared
               memory per CTA and its HGMMA / UTMALDG / UTMASTG counts from
               ``cuobjdump -sass`` of the built library (either of the first
-              two at 0 fails).
+              two at 0 fails); and ptxas's report (registers, shared
+              memory, spills) of every instantiation of the compact probe
+              and fanout_mean kernels.
 3. kernels  — each kernel against its plain-torch twin on the card, at the
               main paths' shapes and at edge cases (assoc 1/2/4, single-set
               tiers, probe counts off a multiple of 32, -1 ids, double hits,
@@ -159,6 +161,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
               flash_attention at layer 0's q/k/v of the prefill (the
               model's strided views), with ``scaled_dot_product_attention``
               on the same views as its library yardstick;
+              the compact probe also at the W = 4 train run's own probe
+              round (its calibrated slack and hit cap: shapes, kernel and
+              bound ms, and their ratio on a line of its own, and as
+              ``train_round`` in its JSON entry);
               ssd_scan at layer 0's operands of the SSM prefill on both
               routes: the conv output's bf16 views (the tensor-core route,
               bound at the bf16 rate) and their float32 upcast (the SIMT
@@ -412,6 +418,22 @@ def phase_build_report(lib_path):
             seen.add(key)
         check(seen == expected, f"{kernel}: SASS found for {sorted(seen)}, "
               f"expected {sorted(expected)}")
+    # the SIMT kernels redesigned for the card's SMs: ptxas's registers,
+    # barriers, static shared memory and spills per instantiation (the
+    # mangled template arguments: T, then the load unit V)
+    for kernel, n_inst in (("probe_compact_kernel", 3),
+                           ("fanout_mean_kernel", 4)):
+        found = {}
+        for i, line in enumerate(log):
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m and kernel in m.group(1):
+                targs = re.search(kernel + r"I(\w+?)EEv", m.group(1)).group(1)
+                found[targs] = " ".join(x.strip() for x in log[i + 2:i + 4])
+        check(len(found) == n_inst, f"{kernel}: ptxas reports for "
+              f"{sorted(found)}, expected {n_inst} instantiations")
+        for targs, info in sorted(found.items()):
+            print(f"[build] {kernel}<{targs}>: {info}")
+            report[f"{kernel}<{targs}>"] = {"ptxas": info}
     return report
 
 
@@ -2070,13 +2092,14 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
     ssd_scan at ``ssd_ins``, layer 0's operands of the SSM prefill (the
     conv output's bf16 views, the tensor-core route) and at their float32
     upcast (``ssd_scan_f32``, the SIMT route); and gather_reduce at
-    ``gather_ins``, a W = 1 request's hop-2 level.  Returns one JSON entry
-    per kernel or route (its first, largest shape)."""
+    ``gather_ins``, a W = 1 request's hop-2 level; and the compact probe
+    again at the W = 4 train run's own probe round (``train_round`` in its
+    entry).  Returns one JSON entry per kernel or route (its first,
+    largest shape)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.feature_cache import CacheConfig
-    from repro_torch.core.generation import (dedup_requests, probe_hit_cap,
-                                             probe_round_capacity, probe_send)
+    from repro_torch.core.generation import dedup_requests
     from repro_torch.kernels import ops
 
     cfg = get_config("graphgen-gcn")
@@ -2097,31 +2120,30 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
         if arch != "graphgen-gcn":
             continue
         batch = server.generate(bucket32())
-        need = torch.cat([batch.seeds.reshape(w, -1)] + [
-            h.reshape(w, -1) for h in batch.hops], dim=1)
-        uniq, _, valid, _ = dedup_requests(need)
         if w == 1:
+            uniq = dedup_requests(torch.cat([batch.seeds.reshape(1, -1)] + [
+                h.reshape(1, -1) for h in batch.hops], dim=1))[0]
             items = [("cache_probe_gather", (server.cache.keys[0],
                                              server.cache.rows[0], uniq[0]),
                       {"assoc": cfg.cache_assoc})]
         else:
-            k2 = cfg.fanouts[1]
-            gen = torch.Generator(device=need.device).manual_seed(5)
-            hidden = torch.randn(batch.x_hops[0].shape[:-1] + (cfg.gcn_hidden,),
-                                 generator=gen, device=need.device)
-            cap = probe_round_capacity(need.shape[1], w, 2.0)
-            _, recv = probe_send(uniq, valid, cap, w)
-            hc = probe_hit_cap(CacheConfig.from_model(cfg), cap)
-            items = [
-                ("fanout_mean", (batch.x_hops[1].reshape(-1, k2,
-                                                         cfg.gcn_in_dim),
-                                 batch.masks[1].reshape(-1, k2)), {}),
-                ("fanout_mean", (batch.x_hops[0], batch.masks[0]), {}),
-                ("fanout_mean", (hidden, batch.masks[0]), {}),
-                ("cache_probe_compact", (server.cache.keys,
-                                         server.cache.rows, recv),
-                 {"assoc": cfg.cache_assoc, "hit_cap": hc})]
+            items = request_items(torch, server, batch, w)
         items_timed(torch, items, launches, entries)
+
+    # the compact probe at the W = 4 train run's own probe round (the main
+    # path's: its calibrated slack and hit cap), beside the serve round
+    res = train_res["graphgen-gcn"]
+    keys, rows, recv, hc = train_probe_round(torch, res, 4)
+    entry = time_kernel(torch, "cache_probe_compact", (keys, rows, recv),
+                        {"assoc": res["cache_cfg"].assoc, "hit_cap": hc})
+    print(f"[timing cache_probe_compact train round] ids "
+          f"{tuple(recv.shape)}, hit_cap {hc}, D {rows.shape[-1]}: kernel "
+          f"{entry['ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, "
+          f"{entry['ms'] / entry['bound_ms']:.2f}x the bound")
+    entries["cache_probe_compact"]["train_round"] = {
+        "ids": list(recv.shape), "hit_cap": hc, "ms": entry["ms"],
+        "bound_ms": entry["bound_ms"], "plain_ms": entry["plain_ms"],
+        "ratio": entry["ms"] / entry["bound_ms"]}
 
     # the train runs' own inputs
     gen = torch.Generator(device=DEVICE).manual_seed(6)
@@ -2156,6 +2178,36 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
     items.append(("gather_reduce", gather_ins, {}))
     items_timed(torch, items, launches, entries)
     return [entries[name] for name in KERNEL_META]
+
+
+def request_items(torch, server, batch, w):
+    """The timed kernel calls of one request ``batch`` on a graphgen-gcn
+    ``server`` at ``w`` > 1 workers: ``fanout_mean`` at its three layer
+    shapes (the hidden level a seeded random activation) and the compact
+    probe on the request's probe round at the serve slack (2.0) and hit
+    cap."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.feature_cache import CacheConfig
+    from repro_torch.core.generation import (dedup_requests, probe_hit_cap,
+                                             probe_round_capacity, probe_send)
+    cfg = get_config("graphgen-gcn")
+    need = torch.cat([batch.seeds.reshape(w, -1)] + [
+        h.reshape(w, -1) for h in batch.hops], dim=1)
+    uniq, _, valid, _ = dedup_requests(need)
+    k2 = cfg.fanouts[1]
+    gen = torch.Generator(device=need.device).manual_seed(5)
+    hidden = torch.randn(batch.x_hops[0].shape[:-1] + (cfg.gcn_hidden,),
+                         generator=gen, device=need.device)
+    cap = probe_round_capacity(need.shape[1], w, 2.0)
+    _, recv = probe_send(uniq, valid, cap, w)
+    hc = probe_hit_cap(CacheConfig.from_model(cfg), cap)
+    return [
+        ("fanout_mean", (batch.x_hops[1].reshape(-1, k2, cfg.gcn_in_dim),
+                         batch.masks[1].reshape(-1, k2)), {}),
+        ("fanout_mean", (batch.x_hops[0], batch.masks[0]), {}),
+        ("fanout_mean", (hidden, batch.masks[0]), {}),
+        ("cache_probe_compact", (server.cache.keys, server.cache.rows, recv),
+         {"assoc": cfg.cache_assoc, "hit_cap": hc})]
 
 
 def items_timed(torch, items, launches, entries):
@@ -2304,8 +2356,8 @@ def time_kernel(torch, name, inputs, kw):
     else:
         keys, rows, ids = inputs
         for a, b in zip(got, want):
-            check(torch.equal(a, b), "compact probe differs from its twin at "
-                  "the serve inputs")
+            check(torch.equal(a, b), f"compact probe differs from its twin at "
+                  f"ids {tuple(ids.shape)}, hit_cap {kw['hit_cap']}")
         err = (got[2] - want[2]).abs().max().item()
         h, w, r = ids.shape
         d = rows.shape[2]

@@ -35,11 +35,10 @@ _F = ctypes.c_float
 #: are ``c_void_p``, a float scalar ``c_float``; each returns the
 #: ``cudaGetLastError()`` code)
 _SIGNATURES = {
-    "repro_fanout_mean": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "repro_fanout_mean": (_P, _P, _P, _LL, *(_I,) * 10, _P),
     "repro_fanout_mean_bwd": (_P, _P, _P, _LL, _I, _I, _I, _P),
     "repro_cache_probe_gather": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
-    "repro_cache_probe_compact": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _P),
+    "repro_cache_probe_compact": (_P, _P, _P, _P, _P, _P, *(_I,) * 14, _P),
     "repro_cache_probe_tiered": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                                  _I, _I, _I, _P),
     "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -150,6 +149,20 @@ def stream_of(t) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (a launch plan's
+    width)."""
+    import torch
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def dtype_code(t) -> int:

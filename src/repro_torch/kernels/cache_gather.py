@@ -10,6 +10,8 @@ launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..core.config import VALID_CACHE_ASSOC
@@ -80,6 +82,34 @@ def cache_probe_gather_cuda(keys: torch.Tensor, rows: torch.Tensor,
 cache_probe_gather_cuda.launches = 0
 
 
+#: the portable thread-block cluster size (the compact probe's S <= 8)
+MAX_CLUSTER = 8
+#: shared memory one CTA may take on the H100 (227 KB)
+SMEM_LIMIT = 232_448
+
+
+class CompactPlan(NamedTuple):
+    """Launch plan of ``csrc/cache_probe_compact.cu``: a grid of
+    ``(cluster, W, H)`` CTAs in clusters of ``cluster`` along each
+    destination row."""
+    cluster: int        # S, the CTAs of one destination row
+    words_per_cta: int  # bitmap words each cluster rank owns
+    smem: int           # dynamic shared memory per CTA, bytes
+
+
+def compact_plan(n_holders: int, n_dest: int, n_probe: int, n_slots_c: int,
+                 n_sm: int = 132) -> CompactPlan:
+    """The compact probe's plan: ``S = clamp(ceil(n_sm / (H W)), 1, 8)``,
+    at most one CTA per bitmap word, each rank owning ``ceil(n_words / S)``
+    whole words; shared memory holds the holder's ``n_slots_c`` keys and,
+    per owned slot, its matched slot and kept-list entry, per owned word
+    its ballot and offset (``4 (C + 66 words_per_cta)`` bytes)."""
+    n_words = -(-n_probe // 32)
+    s = max(1, min(-(-n_sm // (n_holders * n_dest)), MAX_CLUSTER, n_words))
+    wpc = -(-n_words // s)
+    return CompactPlan(s, wpc, 4 * (n_slots_c + 66 * wpc))
+
+
 def cache_probe_compact_cuda(keys: torch.Tensor, rows: torch.Tensor,
                              ids: torch.Tensor, assoc: int = 1,
                              hit_cap: int = 1):
@@ -90,7 +120,10 @@ def cache_probe_compact_cuda(keys: torch.Tensor, rows: torch.Tensor,
     [H, W, ceil(R/32)], raw_words [H, W, ceil(R/32)], payload
     [H, W, min(hit_cap, R), D])``; holder ``h``'s cache answers
     ``ids[h]``.  Words are the int32 bit patterns of the uint32 bitmap
-    words."""
+    words.  Launched as ``compact_plan`` says; raises ``ValueError`` where
+    the plan's shared memory exceeds the card's or a 16-byte-route row
+    base is misaligned, and ``RuntimeError`` where CUDA refuses the
+    cluster launch."""
     _check_device(keys, rows, ids)
     if keys.dim() != 2 or rows.dim() != 3 or ids.dim() != 3 \
             or ids.shape[0] != keys.shape[0]:
@@ -112,6 +145,17 @@ def cache_probe_compact_cuda(keys: torch.Tensor, rows: torch.Tensor,
     c, d = keys.shape[1], rows.shape[2]
     n_words = -(-r // 32)
     dev = ids.device
+    plan = compact_plan(h, w, r, c, _build.sm_count(dev))
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(f"cache_probe_compact_cuda: {c} keys per holder and "
+                         f"{plan.words_per_cta} bitmap words per CTA need "
+                         f"{plan.smem} bytes of shared memory, above "
+                         f"{SMEM_LIMIT}")
+    vec = (d * rows.element_size()) % 16 == 0
+    if vec and rows.data_ptr() % 16:
+        raise ValueError("cache_probe_compact_cuda: rows of a 16-byte "
+                         "multiple width take 16-byte loads and need a "
+                         "16-byte aligned base")
     words = torch.empty((h, w, n_words), dtype=torch.int32, device=dev)
     raw = torch.empty((h, w, n_words), dtype=torch.int32, device=dev)
     payload = torch.empty((h, w, hc, d), dtype=rows.dtype, device=dev)
@@ -120,8 +164,8 @@ def cache_probe_compact_cuda(keys: torch.Tensor, rows: torch.Tensor,
         status = lib.repro_cache_probe_compact(
             keys.data_ptr(), rows.data_ptr(), ids.data_ptr(),
             words.data_ptr(), raw.data_ptr(), payload.data_ptr(),
-            h, c, w, r, n_words, hc, d, assoc, shift, code,
-            _build.stream_of(ids))
+            h, c, w, r, n_words, hc, d, assoc, shift, code, plan.cluster,
+            plan.words_per_cta, plan.smem, int(vec), _build.stream_of(ids))
     _build.check(status, "cache_probe_compact")
     cache_probe_compact_cuda.launches += 1
     return words, raw, payload

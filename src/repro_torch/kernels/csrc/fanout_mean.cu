@@ -10,67 +10,225 @@
 // Bound on the H100: bytes.  Each x element is used once (one multiply-add),
 // so the kernel does ~0.5 FLOP per byte read, far below the ~20 FLOP/byte
 // where float32 arithmetic (67 TFLOP/s) would take over from HBM
-// (3.35 TB/s).  At the serve shape (5120, 20, 128) float32 it must read
-// 52 MB, about 16 us at the HBM rate.
+// (3.35 TB/s).  At the W = 4 request's shapes, float32: (5120, 20, 128)
+// reads 52 MB (0.0165 ms); (128, 40, 128) and (128, 40, 256) read 2.6 and
+// 5.2 MB (0.0008 and 0.0016 ms), where launch and one round trip to L2 are
+// most of the time.
 //
-// Design: the TPU kernel keeps a (block_m, K, block_d) tile in VMEM and
-// reduces it with an einsum.  Here one thread owns one (row, d) output:
-// threads of a warp run along D, so every load of the K loop is a
-// contiguous, coalesced 128-byte (float32) line, and each x byte is read
-// exactly once.  The K loop accumulates in float32 in a register and counts
-// the mask beside it; the division happens once and the result is rounded
-// once to the output dtype.  Blocks are independent (no cross-block
-// reduction), which is what the sequential TPU grid does not need to care
-// about and the 132-SM card does.  No shared memory: nothing is reused.
+// What the first version lost: one thread per (row, d) output, 2 rows per
+// 256-thread block, a serial K loop of 4-byte loads whose trip count is
+// known only at run time.  At M = 128 that was 64 blocks for 132 SMs with
+// 40 mostly serial loads per thread (0.39 TB/s).
+//
+// Design (the launch plan is gather_reduce.py::fanout_mean_plan): lanes
+// run along D with 16-byte loads (4 float32 or 8 bfloat16 per lane, so 32
+// lanes cover a 128-float row in one instruction); a CTA's thread groups
+// split the fanout axis K (group g takes k = g, g + ways, ...), each
+// accumulating its share in float32 registers with kUnroll loads in flight
+// (with the streaming hint, __ldcs: every x byte is read once);
+// at small M the plan narrows the lanes per CTA so the grid holds ~2 CTAs
+// per SM.  The CTA's mask rows are staged in shared memory once, after the
+// first x loads are issued.  The groups' partial sums and mask counts meet
+// in shared memory and are added in group order, so the result is the same
+// from run to run; one division and one rounding to the output dtype.  Each
+// x byte is read once.  A row whose width is not a multiple of 16 bytes (or
+// a base off 16-byte alignment) takes the scalar instance of the same
+// kernel (V = T).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBlockD = 128;  // threads along D (threadIdx.x)
-constexpr int kRows = 2;      // output rows per block (threadIdx.y)
+constexpr int kUnroll = 4;        // x loads in flight per thread
+constexpr int kMaxThreads = 256;  // the plan's CTA size
+
+// The float32 view of one load unit V of elements T: E elements, added
+// into E sums, and packed back after the division.
+template <typename T, typename V>
+struct Unit;
+
+template <>
+struct Unit<float, int4> {
+  static constexpr int E = 4;
+  __device__ static void add(float* acc, const int4& v, float w) {
+    const float4 f = reinterpret_cast<const float4&>(v);
+    acc[0] += f.x * w;
+    acc[1] += f.y * w;
+    acc[2] += f.z * w;
+    acc[3] += f.w * w;
+  }
+  __device__ static int4 pack(const float* a) {
+    const float4 f = make_float4(a[0], a[1], a[2], a[3]);
+    return reinterpret_cast<const int4&>(f);
+  }
+};
+
+template <>
+struct Unit<__nv_bfloat16, int4> {
+  static constexpr int E = 8;
+  __device__ static void add(float* acc, const int4& v, float w) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(p[i]);
+      acc[2 * i] += f.x * w;
+      acc[2 * i + 1] += f.y * w;
+    }
+  }
+  __device__ static int4 pack(const float* a) {
+    int4 v;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+    return v;
+  }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kBlockD * kRows)
-fanout_mean_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
-                   T* __restrict__ out, int64_t m_rows, int k_fan, int d_dim) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.y;
-  const int d = blockIdx.y * kBlockD + threadIdx.x;
-  if (m >= m_rows || d >= d_dim) return;
-  const T* xr = x + m * k_fan * d_dim + d;
-  const uint8_t* mr = mask + m * k_fan;
-  float acc = 0.f;
-  float cnt = 0.f;
-  for (int k = 0; k < k_fan; ++k) {
-    const float w = mr[k] ? 1.f : 0.f;
-    acc += repro::to_float(xr[static_cast<int64_t>(k) * d_dim]) * w;
-    cnt += w;
+struct Unit<T, T> {
+  static constexpr int E = 1;
+  __device__ static void add(float* acc, const T& v, float w) {
+    acc[0] += repro::to_float(v) * w;
   }
-  out[m * d_dim + d] = repro::from_float<T>(acc / fmaxf(cnt, 1.f));
+  __device__ static T pack(const float* a) { return repro::from_float<T>(a[0]); }
+};
+
+// thread t = ((r * ways + way) * lanes + lane): output row r of the CTA's
+// rows, K share `way`, load unit blockIdx.y * lanes + lane of the row
+template <typename T, typename V>
+__global__ void __launch_bounds__(kMaxThreads)
+fanout_mean_kernel(const V* __restrict__ x, const uint8_t* __restrict__ mask,
+                   V* __restrict__ out, int64_t m_rows, int k_fan,
+                   int row_vecs, int lanes, int ways, int rows_per_cta) {
+  using U = Unit<T, V>;
+  constexpr int E = U::E;
+  // shared memory: the threads' partial sums, the groups' mask counts, the
+  // CTA's mask rows
+  extern __shared__ int4 smem_v[];
+  float* sp = reinterpret_cast<float*>(smem_v);
+  float* sc = sp + blockDim.x * E;
+  uint8_t* sm = reinterpret_cast<uint8_t*>(sc + rows_per_cta * ways);
+
+  const int t = threadIdx.x;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * rows_per_cta;
+  const int n_rows = static_cast<int>(min(static_cast<int64_t>(rows_per_cta),
+                                          m_rows - m0));
+  const int lane = t % lanes;
+  const int g = t / lanes;
+  const int way = g % ways;
+  const int r = g / ways;
+  const int v = blockIdx.y * lanes + lane;
+  const bool active = r < n_rows && v < row_vecs;
+  const V* xr = x + (m0 + r) * k_fan * row_vecs + v;
+
+  // the first kUnroll x loads go out before the mask is waited for, so the
+  // two round trips overlap (at the main path's fanouts a thread has at
+  // most kUnroll slots: this is all of its x)
+  V u[kUnroll];
+  int k0 = way;
+#pragma unroll
+  for (int q = 0; q < kUnroll; ++q) {
+    const int k = k0 + q * ways;
+    if (active && k < k_fan) u[q] = __ldcs(xr + static_cast<int64_t>(k) * row_vecs);
+  }
+  const uint8_t* mg = mask + m0 * k_fan;
+  for (int i = t; i < n_rows * k_fan; i += blockDim.x) sm[i] = mg[i];
+  __syncthreads();
+
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  float cnt = 0.f;
+  if (active) {
+    const uint8_t* mr = sm + r * k_fan;
+    while (true) {
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int k = k0 + q * ways;
+        if (k < k_fan) {
+          const float w = mr[k] ? 1.f : 0.f;
+          U::add(acc, u[q], w);
+          cnt += w;
+        }
+      }
+      k0 += kUnroll * ways;
+      if (k0 >= k_fan) break;
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int k = k0 + q * ways;
+        if (k < k_fan) u[q] = __ldcs(xr + static_cast<int64_t>(k) * row_vecs);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) sp[t * E + e] = acc[e];
+  if (lane == 0) sc[g] = cnt;
+  __syncthreads();
+
+  // one thread per output unit adds the K shares in order
+  if (t < rows_per_cta * lanes) {
+    const int rr = t / lanes;
+    const int vv = blockIdx.y * lanes + t % lanes;
+    if (rr < n_rows && vv < row_vecs) {
+      float s[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) s[e] = 0.f;
+      float c = 0.f;
+      for (int wy = 0; wy < ways; ++wy) {
+        const float* p = sp + ((rr * ways + wy) * lanes + t % lanes) * E;
+#pragma unroll
+        for (int e = 0; e < E; ++e) s[e] += p[e];
+        c += sc[rr * ways + wy];
+      }
+      const float den = fmaxf(c, 1.f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) s[e] /= den;
+      out[(m0 + rr) * row_vecs + vv] = U::pack(s);
+    }
+  }
 }
 
-template <typename T>
+template <typename T, typename V>
 void launch(const void* x, const void* mask, void* out, int64_t m_rows,
-            int k_fan, int d_dim, cudaStream_t stream) {
-  const dim3 block(kBlockD, kRows);
-  const dim3 grid(static_cast<unsigned>((m_rows + kRows - 1) / kRows),
-                  static_cast<unsigned>((d_dim + kBlockD - 1) / kBlockD));
-  fanout_mean_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), m_rows, k_fan, d_dim);
+            int k_fan, int row_vecs, int lanes, int ways, int rows, dim3 grid,
+            int smem, cudaStream_t stream) {
+  fanout_mean_kernel<T, V><<<grid, lanes * ways * rows, smem, stream>>>(
+      static_cast<const V*>(x), static_cast<const uint8_t*>(mask),
+      static_cast<V*>(out), m_rows, k_fan, row_vecs, lanes, ways, rows);
 }
 
 }  // namespace
 
+// vec, lanes, ways, rows, the grid and smem are the wrapper's launch plan
+// (gather_reduce.py::fanout_mean_plan): vec is the elements a lane loads at
+// once, 16 bytes' worth on the vector route and 1 on the scalar one.
 extern "C" int repro_fanout_mean(const void* x, const void* mask, void* out,
                                  long long m_rows, int k_fan, int d_dim,
-                                 int dtype, void* stream) {
+                                 int dtype, int vec, int lanes, int ways,
+                                 int rows, int grid_m, int grid_d, int smem,
+                                 void* stream) {
   if (dtype != repro::kF32 && dtype != repro::kBF16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int elem = dtype == repro::kF32 ? 4 : 2;
+  const int row_vecs = vec > 0 ? d_dim / vec : 0;
+  if (lanes * ways * rows > kMaxThreads || (vec != 1 && vec * elem != 16) ||
+      d_dim % vec != 0 || static_cast<int64_t>(grid_m) * rows < m_rows ||
+      grid_d * lanes < row_vecs)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32)
-    launch<float>(x, mask, out, m_rows, k_fan, d_dim, s);
+  const dim3 grid(grid_m, grid_d);
+  if (vec == 1 && dtype == repro::kF32)
+    launch<float, float>(x, mask, out, m_rows, k_fan, row_vecs, lanes, ways,
+                         rows, grid, smem, s);
+  else if (vec == 1)
+    launch<__nv_bfloat16, __nv_bfloat16>(x, mask, out, m_rows, k_fan,
+                                         row_vecs, lanes, ways, rows, grid,
+                                         smem, s);
+  else if (dtype == repro::kF32)
+    launch<float, int4>(x, mask, out, m_rows, k_fan, row_vecs, lanes, ways,
+                        rows, grid, smem, s);
   else
-    launch<__nv_bfloat16>(x, mask, out, m_rows, k_fan, d_dim, s);
+    launch<__nv_bfloat16, int4>(x, mask, out, m_rows, k_fan, row_vecs, lanes,
+                                ways, rows, grid, smem, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,9 +12,57 @@ autograd; ``gather_reduce`` is forward only, as in the reference.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from . import _build
+
+#: threads of one ``fanout_mean`` CTA
+FANOUT_THREADS = 256
+#: x loads each thread keeps in flight (``kUnroll`` in ``fanout_mean.cu``)
+FANOUT_UNROLL = 4
+#: dynamic shared memory a ``fanout_mean`` launch may take without opting in
+FANOUT_SMEM_LIMIT = 48 * 1024
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class FanoutPlan(NamedTuple):
+    """Launch plan of ``csrc/fanout_mean.cu``: CTAs of ``lanes x ways x
+    rows`` threads on a ``grid`` of (rows of M, load units of D)."""
+    vec: int               # elements a lane loads at once (16 bytes), or 1
+    lanes: int             # threads along D for one (row, K share)
+    ways: int              # thread groups splitting K: k = way + i ways
+    rows: int              # output rows per CTA
+    grid: Tuple[int, int]  # CTAs along M, along D
+    smem: int              # dynamic shared memory per CTA, bytes
+
+
+def fanout_mean_plan(m: int, k: int, d: int, elem_size: int,
+                     aligned: bool = True, n_sm: int = 132) -> FanoutPlan:
+    """The ``fanout_mean`` plan for ``x [m, k, d]`` of ``elem_size``-byte
+    elements.  Rows of a 16-byte multiple width on a 16-byte aligned base
+    take 16-byte loads, others the scalar route; up to 32 lanes cover a
+    row's load units, fewer (down to 16) while the grid would hold under
+    two CTAs per SM; the CTA's other thread groups split K, about
+    ``FANOUT_UNROLL`` loads each, and what is left of the CTA takes more
+    rows.  Shared memory: the partial sums, the groups' counts, the rows'
+    mask bytes."""
+    vec = (16 // elem_size if aligned and (d * elem_size) % 16 == 0
+           else 1)
+    row_vecs = d // vec
+    lanes = min(32, _pow2_at_least(row_vecs))
+    while lanes > 16 and m * -(-row_vecs // lanes) < 2 * n_sm:
+        lanes //= 2
+    groups = FANOUT_THREADS // lanes
+    ways = min(groups, _pow2_at_least(-(-k // FANOUT_UNROLL)))
+    rows = groups // ways
+    grid = (-(-m // rows), -(-row_vecs // lanes))
+    smem = 4 * (FANOUT_THREADS * vec + rows * ways) + rows * k
+    return FanoutPlan(vec, lanes, ways, rows, grid, smem)
 
 
 def _check(x: torch.Tensor, mask: torch.Tensor, name: str) -> None:
@@ -31,7 +79,9 @@ def _check(x: torch.Tensor, mask: torch.Tensor, name: str) -> None:
 def fanout_mean_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over the fanout axis on the card: ``x [M, K, D]``
     (float32 or bfloat16, contiguous CUDA), ``mask [M, K]`` bool ->
-    ``[M, D]`` in ``x``'s dtype, accumulated in float32."""
+    ``[M, D]`` in ``x``'s dtype, accumulated in float32, launched as
+    ``fanout_mean_plan`` says (raises ``ValueError`` for a fanout whose
+    mask rows do not fit its shared memory)."""
     _check(x, mask, "fanout_mean_cuda")
     if x.dim() != 3 or mask.shape != x.shape[:2]:
         raise ValueError(f"fanout_mean_cuda needs x [M, K, D] and mask "
@@ -42,11 +92,18 @@ def fanout_mean_cuda(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = fanout_mean_plan(m, k, d, x.element_size(),
+                            aligned=x.data_ptr() % 16 == 0,
+                            n_sm=_build.sm_count(x.device))
+    if plan.smem > FANOUT_SMEM_LIMIT:
+        raise ValueError(f"fanout_mean_cuda: a fanout of {k} needs {plan.smem}"
+                         f" bytes of shared memory, above {FANOUT_SMEM_LIMIT}")
     lib = _build.library()
     with torch.cuda.device(x.device):
         status = lib.repro_fanout_mean(
             x.data_ptr(), mask.data_ptr(), out.data_ptr(), m, k, d, code,
-            _build.stream_of(x))
+            plan.vec, plan.lanes, plan.ways, plan.rows, *plan.grid,
+            plan.smem, _build.stream_of(x))
     _build.check(status, "fanout_mean")
     fanout_mean_cuda.launches += 1
     return out

@@ -116,3 +116,79 @@ def assert_batch_equal(jax_batch, torch_batch):
                                            getattr(torch_batch, name))):
             np.testing.assert_array_equal(np_(g), np.asarray(w),
                                           err_msg=f"{name}[{level}]")
+
+
+def probe_cache(c: int, d: int, assoc: int, seed: int):
+    """A populated ``assoc``-way cache hashed by the port (bit-equal to
+    ``repro``'s hash): ``(keys [C] int32, rows [C, D] float32, pool, rng)``
+    with keys unique per set, drawn from ``pool`` (a few slots empty)."""
+    import torch
+    from repro_torch.core.feature_cache import hash_slots
+    rng = np.random.default_rng(seed)
+    n_sets = c // assoc
+    pool = rng.choice(10 * c, size=c, replace=False).astype(np.int32)
+    sets = hash_slots(torch.from_numpy(pool), n_sets).numpy()
+    keys = np.full(c, -1, np.int32)
+    fill = np.zeros(n_sets, np.int64)
+    for pid, s in zip(pool, sets):
+        if fill[s] < assoc:
+            keys[s * assoc + fill[s]] = pid
+            fill[s] += 1
+    rows = rng.standard_normal((c, d)).astype(np.float32)
+    return keys, rows, pool, rng
+
+
+def resident_absent(keys: np.ndarray):
+    """The ids a cache holds, and ids in ``[0, 10 C)`` it does not."""
+    resident = keys[keys >= 0]
+    return resident, np.setdiff1d(np.arange(10 * keys.size, dtype=np.int32),
+                                  resident)
+
+
+def compact_word_ranges(plan, n_words: int):
+    """The ``[lo, hi)`` bitmap words each cluster rank of a
+    ``cache_gather.compact_plan`` owns, as the kernel computes them (the
+    last ranks may own none)."""
+    return [(min(c * plan.words_per_cta, n_words),
+             min((c + 1) * plan.words_per_cta, n_words))
+            for c in range(plan.cluster)]
+
+
+#: edge cases of the compact probe's launch plan (one holder, W 3, R 333 =
+#: 11 bitmap words: cluster ranks of 2 words, the last two owning none)
+COMPACT_EDGES = ("r_off_plan", "cap_on_boundary", "last_segment_only",
+                 "all_miss", "all_minus_one", "cap_is_r")
+
+
+def compact_edge(case: str, c: int = 256, d: int = 8, w: int = 3,
+                 r: int = 333, assoc: int = 2, seed: int = 7):
+    """``(keys [C], rows [C, D], ids [W, R], hit_cap)`` for one of
+    ``COMPACT_EDGES``: R off a multiple of 32 x S with demotion across
+    ranks; hit_cap equal to the first rank's hits (every row probes the
+    same ids); hits only in the last rank that owns words; all misses;
+    all ``-1``; hit_cap equal to R."""
+    from repro_torch.kernels.cache_gather import compact_plan
+    keys, rows, _, rng = probe_cache(c, d, assoc, seed)
+    resident, absent = resident_absent(keys)
+    ids = np.where(rng.random((w, r)) < 0.5,
+                   rng.choice(resident, size=(w, r)),
+                   rng.choice(absent, size=(w, r))).astype(np.int32)
+    ids[rng.random((w, r)) < 0.1] = -1
+    hit_cap = 40
+    ranges = compact_word_ranges(compact_plan(1, w, r, c), -(-r // 32))
+    if case == "cap_on_boundary":
+        ids[:] = ids[0]
+        hi = ranges[0][1] * 32
+        hit_cap = int(np.isin(ids[0, :hi], resident).sum())
+    elif case == "last_segment_only":
+        lo = max(a for a, b in ranges if b > a) * 32
+        ids[:, :lo] = rng.choice(absent, size=(w, lo))
+        ids[:, lo:] = rng.choice(resident, size=(w, r - lo))
+        hit_cap = 3
+    elif case == "all_miss":
+        ids = rng.choice(absent, size=(w, r)).astype(np.int32)
+    elif case == "all_minus_one":
+        ids[:] = -1
+    elif case == "cap_is_r":
+        hit_cap = r
+    return keys, rows, ids, hit_cap

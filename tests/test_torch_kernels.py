@@ -20,27 +20,16 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_parity import as_u32  # noqa: E402
+from _torch_parity import (COMPACT_EDGES, as_u32, compact_edge,  # noqa: E402
+                           compact_word_ranges, probe_cache)
 from repro.core.feature_cache import hash_slots as jhash  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-
-
-def _cache(c, d, assoc, seed):
-    """A populated ``assoc``-way cache (keys unique per set) and its pool."""
-    rng = np.random.default_rng(seed)
-    n_sets = c // assoc
-    pool = rng.choice(10 * c, size=c, replace=False).astype(np.int32)
-    sets = np.asarray(jhash(jnp.asarray(pool), n_sets))
-    keys = np.full(c, -1, np.int32)
-    fill = np.zeros(n_sets, np.int64)
-    for pid, s in zip(pool, sets):
-        if fill[s] < assoc:
-            keys[s * assoc + fill[s]] = pid
-            fill[s] += 1
-    rows = rng.standard_normal((c, d)).astype(np.float32)
-    return keys, rows, pool, rng
+from repro_torch.kernels.cache_gather import (  # noqa: E402
+    MAX_CLUSTER, SMEM_LIMIT, compact_plan)
+from repro_torch.kernels.gather_reduce import (  # noqa: E402
+    FANOUT_THREADS, fanout_mean_plan)
 
 
 @pytest.mark.parametrize("m,k,d", [(8, 4, 16), (37, 9, 130), (5, 40, 64)])
@@ -94,7 +83,7 @@ def test_gather_reduce_twin(n, d, m, k, dtype):
 def test_cache_probe_gather_twin(c, d, r, assoc):
     """Probe twin vs the oracle and the Pallas kernel, exactly — resident
     ids, misses, and -1 ids (which the oracle lets match empty slots)."""
-    keys, rows, pool, rng = _cache(c, d, assoc, c + r + assoc)
+    keys, rows, pool, rng = probe_cache(c, d, assoc, c + r + assoc)
     ids = np.where(rng.random(r) < 0.5, rng.choice(pool, size=r),
                    rng.integers(0, 10 * c, r)).astype(np.int32)
     ids[rng.random(r) < 0.1] = -1
@@ -130,7 +119,7 @@ def test_cache_probe_compact_twin(c, d, w, r, assoc, hit_cap):
     """Compact probe twin (one holder on the stacked axis) vs the oracle
     and the Pallas kernel: identical bitmap words (as uint32) and payload,
     with heavy demotion (hit_cap 1) and none (4096, clamped to R)."""
-    keys, rows, pool, rng = _cache(c, d, assoc, c + r + assoc)
+    keys, rows, pool, rng = probe_cache(c, d, assoc, c + r + assoc)
     ids = np.where(rng.random((w, r)) < 0.5, rng.choice(pool, size=(w, r)),
                    rng.integers(0, 10 * c, (w, r))).astype(np.int32)
     ids[rng.random((w, r)) < 0.15] = -1
@@ -150,7 +139,7 @@ def test_cache_probe_compact_stacked_holders():
     """The holder axis probes each holder's cache with its own ids — the
     same as one call per holder."""
     c, d, w, r = 64, 4, 3, 40
-    parts = [_cache(c, d, 2, s) for s in (1, 2)]
+    parts = [probe_cache(c, d, 2, s) for s in (1, 2)]
     keys = torch.from_numpy(np.stack([p[0] for p in parts]))
     rows = torch.from_numpy(np.stack([p[1] for p in parts]))
     rng = np.random.default_rng(3)
@@ -165,14 +154,113 @@ def test_cache_probe_compact_stacked_holders():
             assert torch.equal(a[h], b[0])
 
 
+@pytest.mark.parametrize("case", COMPACT_EDGES)
+def test_cache_probe_compact_plan_edges(case):
+    """Compact probe twin vs the oracle and the Pallas kernel (interpret)
+    on the edges of the CUDA kernel's launch plan (``compact_edge``): R
+    off a multiple of 32 x S, hit_cap on a cluster rank's boundary, hits
+    only in the last rank owning words, all misses, all -1, hit_cap = R."""
+    keys, rows, ids, hit_cap = compact_edge(case)
+    got = [t[0] for t in ops.cache_probe_compact(
+        torch.from_numpy(keys[None]), torch.from_numpy(rows[None]),
+        torch.from_numpy(ids[None]), assoc=2, hit_cap=hit_cap)]
+    args = (jnp.asarray(keys), jnp.asarray(rows), jnp.asarray(ids))
+    for use_kernel in (False, True):
+        want = jops.cache_probe_compact(*args, assoc=2, hit_cap=hit_cap,
+                                        use_kernel=use_kernel)
+        np.testing.assert_array_equal(as_u32(got[0]), as_u32(want[0]))
+        np.testing.assert_array_equal(as_u32(got[1]), as_u32(want[1]))
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    kept = np.unpackbits(as_u32(got[0]).view(np.uint8)).reshape(3, -1).sum(1)
+    raw = np.unpackbits(as_u32(got[1]).view(np.uint8)).reshape(3, -1).sum(1)
+    if case == "cap_on_boundary":     # demotion starts at rank 1's words
+        assert (kept == hit_cap).all() and (raw > hit_cap).all()
+    elif case in ("all_miss", "all_minus_one"):
+        assert raw.sum() == 0 and not got[2].any()
+    elif case == "cap_is_r":
+        assert (kept == raw).all() and got[2].shape[1] == 333
+    else:
+        assert (raw > kept).all()     # hits demoted in every row
+
+
+@pytest.mark.parametrize("h,w,r,c", [
+    (4, 4, 13464, 4096),    # the W = 4 serve round
+    (4, 4, 6736, 4096),     # the W = 4 train round
+    (1, 3, 333, 256), (1, 2, 77, 4), (1, 1, 1, 4), (8, 8, 1000, 64),
+    (132, 1, 32, 16), (2, 64, 40000, 4096), (1, 1, 2048, 1 << 15)])
+def test_compact_plan_partitions_words(h, w, r, c):
+    """The compact probe's launch plan: S <= 8 ranks whose word ranges
+    partition [0, n_words) in order, shared memory as the kernel lays it
+    out, and one 128-CTA wave at the W = 4 rounds."""
+    plan = compact_plan(h, w, r, c)
+    n_words = -(-r // 32)
+    assert 1 <= plan.cluster <= MAX_CLUSTER
+    assert plan.cluster <= -(-132 // (h * w)) and plan.cluster <= n_words
+    ranges = compact_word_ranges(plan, n_words)
+    assert len(ranges) == plan.cluster and ranges[0][0] == 0
+    assert ranges[-1][1] == n_words
+    for (lo, hi), (nlo, _) in zip(ranges, ranges[1:] + [(n_words, 0)]):
+        assert lo <= hi == nlo and hi - lo <= plan.words_per_cta
+    assert ranges[0][1] - ranges[0][0] == plan.words_per_cta
+    assert plan.smem == 4 * (c + 66 * plan.words_per_cta)
+    if (h, w) == (4, 4):
+        assert plan.cluster == 8 and h * w * plan.cluster == 128
+    if c == 1 << 15:    # 128 KB of keys and a 2 048-slot row still fit
+        assert plan.smem <= SMEM_LIMIT
+    assert compact_plan(1, 1, 32, 1 << 16).smem > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m,k,d,elem", [
+    (5120, 20, 128, 4), (128, 40, 128, 4), (128, 40, 256, 4),   # W = 4
+    (32, 15, 256, 4), (480, 10, 128, 4), (4800, 5, 128, 4),     # deep
+    (37, 9, 130, 4), (37, 9, 130, 2), (5120, 20, 128, 2), (1, 1, 1, 4),
+    (3, 1100, 3, 4), (481, 10, 128, 4), (5, 0, 64, 4)])
+def test_fanout_mean_plan_covers_every_k(m, k, d, elem):
+    """The fanout_mean launch plan: a 256-thread CTA, every k of a row in
+    exactly one thread group's share, the grid covering M and D, 16-byte
+    loads exactly where a row is a 16-byte multiple, ~2 CTAs per SM at the
+    W = 4 request's M = 128 shapes; and the masked mean summed in the
+    plan's order (each share in k order, the shares in group order)
+    agrees with the oracle within rtol 1e-5 / atol 1e-6."""
+    plan = fanout_mean_plan(m, k, d, elem)
+    assert plan.lanes * plan.ways * plan.rows == FANOUT_THREADS
+    assert plan.vec == (16 // elem if (d * elem) % 16 == 0 else 1)
+    assert fanout_mean_plan(m, k, d, elem, aligned=False).vec == 1
+    # thread group `way` of a row adds k = way, way + ways, ... (the kernel)
+    split = [range(way, k, plan.ways) for way in range(plan.ways)]
+    assert sorted(j for share in split for j in share) == list(range(k))
+    row_vecs = d // plan.vec
+    assert plan.grid[0] * plan.rows >= m > (plan.grid[0] - 1) * plan.rows
+    assert plan.grid[1] * plan.lanes >= row_vecs
+    assert (plan.grid[1] - 1) * plan.lanes < row_vecs
+    if m == 128:
+        assert plan.grid[0] * plan.grid[1] >= 256
+    rng = np.random.default_rng(m + k + d)
+    x = rng.standard_normal((m, k, d)).astype(np.float32)
+    mask = rng.random((m, k)) < 0.6
+    mask[0] = False
+    xm = torch.from_numpy(x * mask[..., None])
+    acc = torch.zeros((m, d))
+    for share in split:
+        part = torch.zeros((m, d))
+        for j in share:
+            part = part + xm[:, j]
+        acc = acc + part
+    got = acc / torch.from_numpy(mask.sum(1, dtype=np.float32)).clamp(
+        min=1)[:, None]
+    want = jref.fanout_mean_ref(jnp.asarray(x), jnp.asarray(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
 def _tiered_cache(c1, c2, d, a1, a2, seed):
     """An L1 and an L2 with unique keys per set; half the L1's ids are
     also L2 residents (double hits), and a few slots stay empty with zero
     rows, as in a real state (the Pallas kernel lets the last matching
     way win, so an id of -1 in a set of several empty ways must find the
     same zeros whichever way serves it)."""
-    k2, r2, pool2, rng = _cache(c2, d, a2, seed)
-    k1, r1, pool1, _ = _cache(c1, d, a1, seed + 1)
+    k2, r2, pool2, rng = probe_cache(c2, d, a2, seed)
+    k1, r1, pool1, _ = probe_cache(c1, d, a1, seed + 1)
     shared = rng.choice(k2[k2 >= 0], c1 // 2, replace=False)
     sets = np.asarray(jhash(jnp.asarray(shared), c1 // a1))
     k1[:] = -1
@@ -327,7 +415,7 @@ def test_fanout_mean_kernel_on_card(cuda, dtype, tol):
 @pytest.mark.parametrize("assoc", [1, 2, 4])
 def test_probe_kernels_on_card(cuda, assoc):
     """CUDA probe kernels vs their twins on the card, exactly."""
-    keys, rows, pool, rng = _cache(256, 40, assoc, assoc)
+    keys, rows, pool, rng = probe_cache(256, 40, assoc, assoc)
     ids = np.where(rng.random((3, 333)) < 0.5,
                    rng.choice(pool, size=(3, 333)),
                    rng.integers(-1, 2560, (3, 333))).astype(np.int32)
