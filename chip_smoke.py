@@ -13,8 +13,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
               memory per CTA and its HGMMA / UTMALDG / UTMASTG counts from
               ``cuobjdump -sass`` of the built library (either of the first
               two at 0 fails); and ptxas's report (registers, shared
-              memory, spills) of every instantiation of the compact probe
-              and fanout_mean kernels.
+              memory, spills) of every instantiation of the compact probe,
+              fanout_mean, fanout_mean_bwd and tiered probe kernels.
 3. kernels  — each kernel against its plain-torch twin on the card, at the
               main paths' shapes and at edge cases (assoc 1/2/4, single-set
               tiers, probe counts off a multiple of 32, -1 ids, double hits,
@@ -155,9 +155,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
 8. timing   — per bucket-32 request and per train step: kernel launches,
               and device busy time against wall time from a torch.profiler
               trace; then each kernel at its path's own inputs: kernel,
-              plain-twin and library-call times (CUDA events, median of 30),
-              and the bound (bytes over 3.35 TB/s or operations over the
-              peak rate of the inputs' type, whichever is larger);
+              plain-twin and library-call times, each read two ways: the
+              median of 30 CUDA-event intervals (``ms``) and the median
+              device duration per call from a torch.profiler trace of 30
+              calls (``device_ms``: the call's device rows, start to end;
+              the phase fails if the trace has none), beside the floor of
+              both readings (a 4-byte ``zero_()``, the ``timing_floor``
+              line); the bound (bytes over 3.35 TB/s or operations over
+              the peak rate of the inputs' type, whichever is larger) and
+              its share of both readings; fanout_mean_bwd at every shape
+              of both train runs (W = 4: (128, 40, 256); deep: (32, 15,
+              256) twice a step and (480, 10, 256) once), each with its
+              launches and lost ms per step, the deep step's loss summed
+              over its three launches (``shapes`` and
+              ``deep_step_lost_ms`` in its JSON entry); the backward and
+              the tiered probe also beside a ``zero_()`` of their output's
+              bytes (``zero_ms``, ``zero_device_ms``), and the tiered
+              probe's inputs counted (ids, distinct ids, id 0, hit and
+              miss rows);
               flash_attention at layer 0's q/k/v of the prefill (the
               model's strided views), with ``scaled_dot_product_attention``
               on the same views as its library yardstick;
@@ -172,8 +187,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
               request's hop-2 level, with ``embedding_bag`` (sum, mask
               weights) and the division as its yardstick.
 
-The second-to-last lines are the kernel JSON and ``nvidia-smi``'s line; the
-last line is ``{"ok": true, "device": {...}}``.
+The lines before the last are the timing floor's JSON, the kernel JSON
+and ``nvidia-smi``'s line; the last line is ``{"ok": true, "device":
+{...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
@@ -226,6 +242,7 @@ SSM_STATE_RTOL = 1e-2          # final float32 state, of its largest entry
 SSM_CONV_ATOL = 6.25e-2        # final bf16 conv history (entries up to ~4)
 SSM_PREFILL_DECODE_ATOL = 1e-1
 DEVICE = "cuda"                # the device every phase drives
+MIN_WHOLE_CALLS = 5            # device_ms: fewer whole calls: trace again
 
 KERNEL_META = {
     "fanout_mean": ("src/repro_torch/kernels/csrc/fanout_mean.cu",
@@ -345,6 +362,80 @@ def gpu_ms(torch, fn, reps=30):
                              for i in range(reps))
 
 
+def traced_calls(torch, fn, reps):
+    """One ``torch.profiler`` trace of ``reps`` calls of ``fn``, each
+    behind a marker row (``torch.cuda._sleep``, a ``spin_kernel``, 0.5 us
+    longer each call): the device-row durations (us) after each marker,
+    the marker's first, in trace order.  A warm-up step runs first, so
+    tracing is on before the first timed call; a ~0.5 ms marker and a
+    50 ms pause on the host come last, since a trace can lose its last
+    rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for n in (5, reps):
+            for i in range(n):
+                torch.cuda._sleep(1000 * (i + 1))
+                fn()
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            prof.step()
+    rows = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("ProfilerStep")),
+                  key=lambda e: e.time_range.start)
+    calls, cur = [], None
+    for e in rows:
+        if "spin_kernel" in e.name:
+            cur = [e.time_range.elapsed_us()]
+            calls.append(cur)
+        elif cur is not None:
+            cur.append(e.time_range.elapsed_us())
+    return calls
+
+
+def device_ms(torch, fn, reps=30):
+    """Median device duration of one call of ``fn`` in ms: the summed
+    start-to-end times of the device rows (kernels, copies, sets) the call
+    put on the card, from ``traced_calls``.  No launch gap lies inside a
+    row, so this reading has no event-timing floor.  A trace can lose its
+    last rows, or all of them (in a long process a few traces in a hundred
+    kept none, some 4-26 of 30 calls), so only calls with the usual number
+    of rows count, and a trace that keeps fewer than ``MIN_WHOLE_CALLS``
+    of them is taken again, up to three times; fails when three traces
+    record no device row or no whole call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    seen = 0
+    for _ in range(3):
+        calls = traced_calls(torch, fn, reps)
+        seen += len(calls)
+        sizes = [len(c) for c in calls if len(c) > 1]
+        per = max(set(sizes), key=sizes.count) if sizes else 0
+        whole = [sum(c[1:]) for c in calls if len(c) == per]
+        if len(whole) >= MIN_WHOLE_CALLS:
+            break
+    check(seen > 0, "the profiler recorded no device row in three traces: "
+          "device durations cannot be measured on this machine")
+    check(len(whole) > 0, f"the profiler kept no whole call of {reps} in "
+          f"three traces")
+    if len(whole) < reps:
+        print(f"[timing] the trace kept {len(whole)} of {reps} calls whole "
+              f"({per - 1} device rows each); the median is theirs")
+    return statistics.median(whole) / 1e3
+
+
+def both_ms(torch, fn, reps=30):
+    """``(gpu_ms, device_ms)`` of ``fn``: the event median and the
+    profiler's device duration."""
+    return gpu_ms(torch, fn, reps), device_ms(torch, fn, reps)
+
+
 def bound(n_bytes, n_ops, flops=F32_FLOPS):
     """Least time (ms) for the work, and which term sets it; ``flops`` is
     the peak rate for the inputs' type."""
@@ -420,9 +511,12 @@ def phase_build_report(lib_path):
               f"expected {sorted(expected)}")
     # the SIMT kernels redesigned for the card's SMs: ptxas's registers,
     # barriers, static shared memory and spills per instantiation (the
-    # mangled template arguments: T, then the load unit V)
+    # mangled template arguments: T, then the load unit V; the backward's
+    # T; the tiered probe's row unit V)
     for kernel, n_inst in (("probe_compact_kernel", 3),
-                           ("fanout_mean_kernel", 4)):
+                           ("fanout_mean_kernel", 4),
+                           ("fanout_mean_bwd_kernel", 2),
+                           ("probe_tiered_kernel", 3)):
         found = {}
         for i, line in enumerate(log):
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -493,35 +587,63 @@ def phase_kernels(torch, dev):
                       f"w={w} r={r} assoc={assoc} hit_cap={hit_cap} "
                       f"disagrees with its twin")
             n += 1
-    for c1, a1, c2, a2, d, r in ((512, 2, 4096, 4, 128, 26912),
-                                 (16, 1, 64, 1, 40, 77),
-                                 (16, 2, 64, 2, 130, 96),
-                                 (2, 2, 64, 4, 8, 50),
-                                 (8, 1, 4, 4, 8, 41)):
+    # the tiered probe: the deep config's 2-way L1 before a 4-way L2 and
+    # other associativities, 16-byte row units and the scalar route (D *
+    # item off 16 bytes, or a base slid one element off, as in the "shift"
+    # case), R = 1 and R off a multiple of 32, single-set tiers
+    for c1, a1, c2, a2, d, r, dtype, shift in (
+            (512, 2, 4096, 4, 128, 26912, torch.float32, False),
+            (512, 2, 4096, 4, 128, 29312, torch.bfloat16, False),
+            (512, 2, 4096, 4, 128, 1, torch.float32, False),
+            (512, 2, 4096, 4, 128, 1000, torch.float32, True),
+            (16, 1, 64, 1, 40, 77, torch.float32, False),
+            (16, 2, 64, 2, 130, 96, torch.float32, False),
+            (16, 4, 64, 1, 8, 33, torch.bfloat16, False),
+            (2, 2, 64, 4, 8, 50, torch.float32, False),
+            (8, 1, 4, 4, 8, 41, torch.float32, False)):
         blocks, pool, rng = tiered_cache(torch, c1, a1, c2, a2, d,
                                          c1 + c2 + r, dev)
+        blocks[1], blocks[3] = blocks[1].to(dtype), blocks[3].to(dtype)
+        if shift:
+            blocks = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:]
+                      .view(t.shape) for t in blocks]
         ids = torch.from_numpy(probe_ids(rng, pool, (r,), c2)).to(dev)
         for a, b in zip(ops.cache_probe_tiered(*blocks, ids, l1_assoc=a1,
                                                l2_assoc=a2),
                         ref.cache_probe_tiered_ref(*blocks, ids, l1_assoc=a1,
                                                    l2_assoc=a2)):
             check(torch.equal(a, b), f"cache_probe_tiered c1={c1}/{a1} "
-                  f"c2={c2}/{a2} r={r} disagrees with its twin")
+                  f"c2={c2}/{a2} d={d} r={r} {dtype} shifted={shift} "
+                  f"disagrees with its twin")
         n += 1
-    for (m, k, d), dtype in (((128, 40, 256), torch.float32),
-                             ((480, 10, 256), torch.float32),
-                             ((37, 9, 130), torch.float32),
-                             ((5, 1100, 3), torch.float32),
-                             ((480, 10, 256), torch.bfloat16),
-                             ((37, 9, 130), torch.bfloat16)):
-        g = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+    # the backward: D a multiple of 32 and not, g one element off its base,
+    # M = 1, K = 1, K > 32, all-masked rows (1 and 2), and inf / nan in g
+    # (nan where the twin has nan)
+    for (m, k, d), dtype, shift in (((128, 40, 256), torch.float32, False),
+                                    ((480, 10, 256), torch.float32, False),
+                                    ((32, 15, 256), torch.float32, False),
+                                    ((480, 10, 256), torch.float32, True),
+                                    ((1, 1, 256), torch.float32, False),
+                                    ((3, 33, 128), torch.float32, False),
+                                    ((37, 9, 130), torch.float32, False),
+                                    ((5, 1100, 3), torch.float32, False),
+                                    ((480, 10, 256), torch.bfloat16, False),
+                                    ((32, 15, 256), torch.bfloat16, True),
+                                    ((37, 9, 130), torch.bfloat16, False)):
+        g = torch.randn((m * d + 1,), generator=gen, device=dev).to(dtype)
+        g = (g[1:] if shift else g[:-1]).view(m, d)
+        g[0, :3] = torch.tensor([float("inf"), -float("inf"), float("nan")],
+                                dtype=dtype, device=dev)[:d]
         mask = torch.rand((m, k), generator=gen, device=dev) < 0.7
-        mask[:3] = False
+        mask[1:3] = False
         got = ops.fanout_mean_bwd(g, mask)
         want = ref.fanout_mean_bwd_ref(g, mask)
-        check(got.dtype == dtype and torch.equal(got, want),
-              f"fanout_mean_bwd {m, k, d} {dtype} disagrees with its twin: "
-              f"max err {(got.float() - want.float()).abs().max().item()}")
+        nan = want.isnan()
+        check(got.dtype == dtype and torch.equal(got.isnan(), nan)
+              and torch.equal(got[~nan], want[~nan]),
+              f"fanout_mean_bwd {m, k, d} {dtype} shifted={shift} disagrees "
+              f"with its twin: max err "
+              f"{(got.float() - want.float())[~nan].abs().max().item()}")
         n += 1
     for n_rows, d, m, k, dtype in ((N_NODES, 128, 1280, 20, torch.float32),
                                    (100, 64, 13, 5, torch.float32),
@@ -2094,8 +2216,9 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
     upcast (``ssd_scan_f32``, the SIMT route); and gather_reduce at
     ``gather_ins``, a W = 1 request's hop-2 level; and the compact probe
     again at the W = 4 train run's own probe round (``train_round`` in its
-    entry).  Returns one JSON entry per kernel or route (its first,
-    largest shape)."""
+    entry).  Every time is read by events and by device duration.  Returns
+    one JSON entry per kernel or route (its first shape; the backward's
+    entry lists every shape) and the floor of both readings."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.feature_cache import CacheConfig
@@ -2104,6 +2227,11 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
 
     cfg = get_config("graphgen-gcn")
     entries = {}
+    # the floor of each reading: a null launch, a 4-byte zero_()
+    null = torch.zeros(1, device=DEVICE)
+    floor_ms, floor_dev_ms = both_ms(torch, null.zero_)
+    print(f"[timing floor] a 4-byte zero_(): {floor_ms:.4f} ms (events), "
+          f"{floor_dev_ms:.4f} ms (device duration)")
     for (arch, w), res in serve_res.items():
         server, head_order = res["built"]
         rng = np.random.default_rng(11)
@@ -2138,28 +2266,64 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
                         {"assoc": res["cache_cfg"].assoc, "hit_cap": hc})
     print(f"[timing cache_probe_compact train round] ids "
           f"{tuple(recv.shape)}, hit_cap {hc}, D {rows.shape[-1]}: kernel "
-          f"{entry['ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, "
+          f"{entry['ms']:.4f} ms (events) {entry['device_ms']:.4f} ms "
+          f"(device), bound {entry['bound_ms']:.4f} ms, "
           f"{entry['ms'] / entry['bound_ms']:.2f}x the bound")
     entries["cache_probe_compact"]["train_round"] = {
         "ids": list(recv.shape), "hit_cap": hc, "ms": entry["ms"],
-        "bound_ms": entry["bound_ms"], "plain_ms": entry["plain_ms"],
+        "device_ms": entry["device_ms"], "bound_ms": entry["bound_ms"],
+        "plain_ms": entry["plain_ms"],
         "ratio": entry["ms"] / entry["bound_ms"]}
 
-    # the train runs' own inputs
+    # the train runs' own inputs: the backward at every shape of both runs
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    items = []
+    shapes = []
     for arch in ("graphgen-gcn", "graphgen-gcn-deep"):
         batch = train_res[arch]["batch"]
         hidden = get_config(arch).gcn_hidden
+        depth = len(batch.masks)
         # the hidden levels whose mean the backward reaches: children of
-        # levels 0 .. L-2 (level L-1's children are raw features)
-        for lvl in range(len(batch.masks) - 1):
+        # levels 0 .. L-2 (level L-1's children are raw features); layers
+        # 1 .. L-1-lvl each differentiate level lvl's mean once a step
+        for lvl in range(depth - 1):
             mask = batch.masks[lvl]
             k = mask.shape[-1]
-            mask = mask.reshape(-1, k)
+            mask = mask.reshape(-1, k).contiguous()
             g = torch.randn((mask.shape[0], hidden), generator=gen,
                             device=DEVICE)
-            items.append(("fanout_mean_bwd", (g, mask), {}))
+            entry = time_kernel(torch, "fanout_mean_bwd", (g, mask), {})
+            entry["launches"] = launches["fanout_mean_bwd"]
+            entries.setdefault("fanout_mean_bwd", entry)
+            per_step = depth - 1 - lvl
+            shapes.append({
+                "run": arch, "shape": [mask.shape[0], k, hidden],
+                "launches_per_step": per_step,
+                **{key: entry[key] for key in (
+                    "ms", "device_ms", "bound_ms", "library_ms",
+                    "library_device_ms", "zero_ms", "zero_device_ms")},
+                "lost_ms": per_step * (entry["ms"] - entry["bound_ms"]),
+                "lost_device_ms": per_step * (entry["device_ms"]
+                                              - entry["bound_ms"])})
+    for sh in shapes:
+        print(f"[timing fanout_mean_bwd per shape] {sh['run']} "
+              f"{tuple(sh['shape'])} x{sh['launches_per_step']} per step: "
+              f"{sh['ms']:.4f} ms (events) {sh['device_ms']:.4f} ms "
+              f"(device), bound {sh['bound_ms']:.4f} ms "
+              f"({100 * sh['bound_ms'] / sh['device_ms']:.0f}% by device); "
+              f"lost per step {sh['lost_ms']:.4f} / "
+              f"{sh['lost_device_ms']:.4f} ms")
+    deep_shapes = [sh for sh in shapes if sh["run"] == "graphgen-gcn-deep"]
+    check(sum(sh["launches_per_step"] for sh in deep_shapes) == 3,
+          "the deep step's backward launches are not 3 per step")
+    bwd = entries["fanout_mean_bwd"]
+    bwd["shapes"] = shapes
+    bwd["deep_step_lost_ms"] = sum(sh["lost_ms"] for sh in deep_shapes)
+    bwd["deep_step_lost_device_ms"] = sum(sh["lost_device_ms"]
+                                          for sh in deep_shapes)
+    print(f"[timing fanout_mean_bwd] lost per deep step (3 launches): "
+          f"{bwd['deep_step_lost_ms']:.4f} ms (events), "
+          f"{bwd['deep_step_lost_device_ms']:.4f} ms (device)")
+    items = []
     deep = train_res["graphgen-gcn-deep"]
     dcfg = CacheConfig.from_model(get_config("graphgen-gcn-deep"))
     batch, cache = deep["batch"], deep["cache"]
@@ -2177,7 +2341,8 @@ def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
                                         for t in ssd_ins), chunk))
     items.append(("gather_reduce", gather_ins, {}))
     items_timed(torch, items, launches, entries)
-    return [entries[name] for name in KERNEL_META]
+    floor = {"ms": floor_ms, "device_ms": floor_dev_ms}
+    return [entries[name] for name in KERNEL_META], floor
 
 
 def request_items(torch, server, batch, w):
@@ -2235,7 +2400,7 @@ def time_kernel(torch, name, inputs, kw):
     kern = lambda: kern_fn(*inputs, **kw)              # noqa: E731
     plain = lambda: plain_fn(*inputs, **kw)            # noqa: E731
     got, want = kern(), plain()
-    library_ms = None
+    library = store = None
     flops = F32_FLOPS
     if name == "fanout_mean":
         x, mask = inputs
@@ -2245,7 +2410,7 @@ def time_kernel(torch, name, inputs, kw):
         # with x (the normalisation is precomputed and not timed)
         wts = mask.float() / mask.float().sum(1, keepdim=True).clamp(min=1)
         wts = wts[:, None, :].contiguous()
-        library_ms = gpu_ms(torch, lambda: torch.bmm(wts, x))
+        library = lambda: torch.bmm(wts, x)            # noqa: E731
         n_bytes = x.numel() * x.element_size() + mask.numel() + m * d * 4
         n_ops = 2 * m * k * d + m * d
     elif name == "cache_probe_gather":
@@ -2270,7 +2435,9 @@ def time_kernel(torch, name, inputs, kw):
         wts = mask.float() / mask.float().sum(1, keepdim=True).clamp(min=1)
         wts = wts[:, :, None].contiguous()
         g3 = g[:, None, :]
-        library_ms = gpu_ms(torch, lambda: torch.bmm(wts, g3))
+        library = lambda: torch.bmm(wts, g3)           # noqa: E731
+        # what sets a store-bound kernel's time: a zero_() of its output
+        store = torch.empty_like(got)
         item = g.element_size()
         n_bytes = m * d * item + m * k + m * k * d * item
         n_ops = m * k + m * d + m * k * d
@@ -2287,6 +2454,15 @@ def time_kernel(torch, name, inputs, kw):
         n_bytes = (r * 4 + (k1.numel() + k2.numel()) * 4
                    + n_hit_rows * d * 4 + r * 4 + r * d * 4)
         n_ops = r * (4 + kw["l1_assoc"] + kw["l2_assoc"])
+        store = torch.empty_like(got[1])
+        n_uniq = int(torch.unique(ids).numel())
+        n_hit = int((src > 0).sum())
+        print(f"[timing cache_probe_tiered] R {r} ids, {n_uniq} distinct, "
+              f"{int((ids == 0).sum())} of id 0 (dedup's pads and a real id "
+              f"0), {n_hit} hit rows ({n_hit_rows} distinct: "
+              f"{n_hit_rows * d * r2.element_size()} B read), {r - n_hit} "
+              f"miss rows (zeros, no read); output {r * d * r2.element_size()}"
+              f" B")
     elif name == "flash_attention":
         q, k, v = inputs
         ok, err, _ = flash_close(torch, q, k, v, got, want, kw["causal"])
@@ -2310,7 +2486,6 @@ def time_kernel(torch, name, inputs, kw):
             kr = k.repeat_interleave(hq // hkv, dim=1)
             vr = v.repeat_interleave(hq // hkv, dim=1)
             library = lambda: sdpa(q, kr, vr, is_causal=kw["causal"])  # noqa: E731
-        library_ms = gpu_ms(torch, library)
     elif op == "ssd_scan":
         x, dt, a, bm, cm = inputs
         if x.dtype == torch.bfloat16:
@@ -2351,8 +2526,8 @@ def time_kernel(torch, name, inputs, kw):
         wts = mask.to(table.dtype)
         den = mask.float().sum(1, keepdim=True).clamp(min=1).to(table.dtype)
         emb = torch.nn.functional.embedding_bag
-        library_ms = gpu_ms(torch, lambda: emb(
-            bag_idx, table, mode="sum", per_sample_weights=wts) / den)
+        library = lambda: emb(                         # noqa: E731
+            bag_idx, table, mode="sum", per_sample_weights=wts) / den
     else:
         keys, rows, ids = inputs
         for a, b in zip(got, want):
@@ -2367,8 +2542,10 @@ def time_kernel(torch, name, inputs, kw):
         n_bytes = (ids.numel() * 4 + keys.numel() * 4 + kept * d * 4
                    + 2 * h * w * n_words * 4 + h * w * hc * d * 4)
         n_ops = ids.numel() * (2 + kw["assoc"])
-    ms = gpu_ms(torch, kern)
-    plain_ms = gpu_ms(torch, plain, reps=20)
+    ms, dev_ms = both_ms(torch, kern)
+    plain_ms, plain_dev_ms = both_ms(torch, plain, reps=20)
+    library_ms, library_dev_ms = (None, None) if library is None else \
+        both_ms(torch, library)
     b_ms, b_by = bound(n_bytes, n_ops, flops)
     if name == "flash_attention":
         print(f"[timing flash_attention] strides "
@@ -2382,15 +2559,26 @@ def time_kernel(torch, name, inputs, kw):
               f"{ms / b_ms:.2f}x the bound; error {share:.3e} of "
               f"{'its gate' if x.dtype == torch.bfloat16 else 'the largest |y|'}")
     print(f"[timing {name}] shapes {[list(t.shape) for t in inputs]} kernel "
-          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
-          f"({b_by}: {n_bytes} B, {n_ops} ops)  library "
-          f"{'null' if library_ms is None else f'{library_ms:.4f} ms'}  "
-          f"max_abs_err {err}")
+          f"{ms:.4f} ms (events) {dev_ms:.4f} ms (device)  plain "
+          f"{plain_ms:.4f} / {plain_dev_ms:.4f} ms  bound {b_ms:.4f} ms "
+          f"({b_by}: {n_bytes} B, {n_ops} ops; {100 * b_ms / ms:.0f}% by "
+          f"events, {100 * b_ms / dev_ms:.0f}% by device)  library "
+          f"{'null' if library_ms is None else f'{library_ms:.4f} / {library_dev_ms:.4f} ms'}"
+          f"  max_abs_err {err}")
     src, replaces = KERNEL_META[name]
-    return {"name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+    entry = {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces, "max_abs_err": err, "ms": ms,
+             "device_ms": dev_ms, "plain_ms": plain_ms,
+             "plain_device_ms": plain_dev_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": library_ms,
+             "library_device_ms": library_dev_ms}
+    if store is not None:
+        entry["zero_ms"], entry["zero_device_ms"] = both_ms(torch, store.zero_)
+        print(f"[timing {name}] a zero_() of the output's "
+              f"{store.numel() * store.element_size()} B: "
+              f"{entry['zero_ms']:.4f} ms (events) "
+              f"{entry['zero_device_ms']:.4f} ms (device)")
+    return entry
 
 
 def main():
@@ -2453,7 +2641,7 @@ def main():
                                    for r in runs)
     phase_agree(torch, dev)
     phase_agree_train(torch, dev)
-    kernels = phase_timing(torch, serve_res, train_res, launches,
+    kernels, floor = phase_timing(torch, serve_res, train_res, launches,
                            prefill["qkv"], ssm_prefill["ssd_inputs"],
                            gather["inputs"])
     print(json.dumps({"serve": {f"{arch} W={w}": {k: r[k] for k in (
@@ -2500,6 +2688,8 @@ def main():
                                      "total_s", "agree", "launches")}},
         "gather_reduce": {"requests": GATHER_REQUESTS,
                           "launches": gather["launches"]}}}))
+    print(json.dumps({"timing_floor": {"null_launch": "a 4-byte zero_()",
+                                       **floor}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

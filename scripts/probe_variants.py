@@ -144,12 +144,20 @@ FANOUT_VARIANTS = {
                        "row_vecs);")]),
 }
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: (name, source, variants, C entry point, its argument types, the parent's)
+KERNELS = (
+    ("compact", "cache_probe_compact.cu", COMPACT_VARIANTS,
+     "repro_cache_probe_compact", [_P] * 6 + [_I] * 14 + [_P],
+     [_P] * 6 + [_I] * 10 + [_P]),
+    ("fanout", "fanout_mean.cu", FANOUT_VARIANTS, "repro_fanout_mean",
+     [_P] * 3 + [_LL] + [_I] * 10 + [_P], [_P] * 3 + [_LL] + [_I] * 3 + [_P]),
+)
 
 
-def prepare(rev):
-    """Write the parent's two kernel sources to ``build/parent/``."""
+def prepare(rev, sources=SOURCES):
+    """Write the parent's kernel ``sources`` to ``build/parent/``."""
     os.makedirs(PARENT, exist_ok=True)
-    for name in SOURCES:
+    for name in sources:
         src = subprocess.run(
             ["git", "show", f"{rev}:src/repro_torch/kernels/csrc/{name}"],
             cwd=ROOT, capture_output=True, text=True, check=True).stdout
@@ -158,32 +166,38 @@ def prepare(rev):
     print(f"wrote the sources of {rev} to {PARENT}")
 
 
-def build_all():
-    """Compile every variant and the parent's kernels, all ``nvcc``
-    processes started together; returns ``{(kernel, name): (library,
-    ptxas summary)}``.  A variant that fails to build is reported and
-    left out; the committed kernels and the parent's must build."""
+def variant_source(kernel, source, name, subs):
+    """The text of ``source`` with a variant's substitutions made; each
+    must be found."""
+    text = open(os.path.join(CSRC, source)).read()
+    for old, new in subs:
+        cs.check(old in text, f"{kernel} variant {name}: text not in the "
+                 f"source")
+        text = text.replace(old, new)
+    return text
+
+
+def build_all(kernels=KERNELS, out=OUT):
+    """Compile every variant of ``kernels`` (see ``KERNELS``) and the
+    parent's kernels into ``out``, all ``nvcc`` processes started
+    together; returns ``{(kernel, name): (library, ptxas summary)}``.  A
+    variant that fails to build is reported and left out; the committed
+    kernels and the parent's must build."""
     from repro_torch.kernels import _build
-    os.makedirs(OUT, exist_ok=True)
-    jobs = {}
-    for kernel, source, variants in (
-            ("compact", "cache_probe_compact.cu", COMPACT_VARIANTS),
-            ("fanout", "fanout_mean.cu", FANOUT_VARIANTS)):
-        base = open(os.path.join(CSRC, source)).read()
+    os.makedirs(out, exist_ok=True)
+    jobs, argtypes = {}, {}
+    for kernel, source, variants, symbol, args, parent_args in kernels:
         for name, (_, subs) in variants.items():
-            text = base
-            for old, new in subs:
-                cs.check(old in text, f"{kernel} variant {name}: text not in "
-                         f"the source")
-                text = text.replace(old, new)
-            jobs[kernel, name] = text
+            jobs[kernel, name] = variant_source(kernel, source, name, subs)
+            argtypes[kernel, name] = symbol, args
         parent = os.path.join(PARENT, source)
         cs.check(os.path.exists(parent), f"{parent} is missing: run "
                  f"--prepare in a git checkout first")
         jobs[kernel, "parent"] = open(parent).read()
+        argtypes[kernel, "parent"] = symbol, parent_args
     procs = {}
     for (kernel, name), text in jobs.items():
-        path = os.path.join(OUT, f"{kernel}_{name}.cu")
+        path = os.path.join(out, f"{kernel}_{name}.cu")
         with open(path, "w") as f:
             f.write(text)
         procs[kernel, name] = subprocess.Popen(
@@ -199,14 +213,9 @@ def build_all():
             print(f"{kernel} variant {name} failed to build, left out:\n"
                   f"{log[-2000:]}")
             continue
-        lib = ctypes.CDLL(os.path.join(OUT, f"{kernel}_{name}.so"))
-        if kernel == "compact":
-            lib.repro_cache_probe_compact.argtypes = (
-                [_P] * 6 + [_I] * (10 if name == "parent" else 14) + [_P])
-        else:
-            lib.repro_fanout_mean.argtypes = (
-                [_P] * 3 + [_LL] + [_I] * (3 if name == "parent" else 10)
-                + [_P])
+        lib = ctypes.CDLL(os.path.join(out, f"{kernel}_{name}.so"))
+        symbol, args = argtypes[kernel, name]
+        getattr(lib, symbol).argtypes = args
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
         libs[kernel, name] = (lib, f"registers {regs}, spill stores {spills}")
@@ -292,13 +301,14 @@ def real_inputs(torch):
             for name, ins, kw in items]
 
 
-def turns(torch, fns):
-    """Median ms of each closure over four turns, forward and reverse."""
+def turns(torch, fns, timer=cs.gpu_ms):
+    """Per closure, its four turns' ``timer`` readings, forward and reverse
+    order."""
     times = {name: [] for name in fns}
     order = list(fns)
     for turn in range(4):
         for name in order if turn % 2 == 0 else order[::-1]:
-            times[name].append(cs.gpu_ms(torch, fns[name]))
+            times[name].append(timer(torch, fns[name]))
     return times
 
 

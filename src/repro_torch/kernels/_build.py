@@ -36,11 +36,11 @@ _F = ctypes.c_float
 #: ``cudaGetLastError()`` code)
 _SIGNATURES = {
     "repro_fanout_mean": (_P, _P, _P, _LL, *(_I,) * 10, _P),
-    "repro_fanout_mean_bwd": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "repro_fanout_mean_bwd": (_P, _P, _P, _LL, *(_I,) * 6, _P),
     "repro_cache_probe_gather": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
     "repro_cache_probe_compact": (_P, _P, _P, _P, _P, _P, *(_I,) * 14, _P),
-    "repro_cache_probe_tiered": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                                 _I, _I, _I, _P),
+    "repro_cache_probe_tiered": (_P, _P, _P, _P, _P, _P, _P, _LL,
+                                 *(_I,) * 8, _P),
     "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _P),
     "repro_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

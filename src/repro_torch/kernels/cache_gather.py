@@ -174,6 +174,32 @@ def cache_probe_compact_cuda(keys: torch.Tensor, rows: torch.Tensor,
 cache_probe_compact_cuda.launches = 0
 
 
+#: ids one warp of ``cache_probe_tiered`` probes, one a lane (the kernel's
+#: ``kIdsPerWarp``)
+TIERED_IDS = 8
+#: warps of one ``cache_probe_tiered`` CTA (the kernel's ``kWarps``)
+TIERED_WARPS = 1
+
+
+class TieredPlan(NamedTuple):
+    """Launch plan of ``csrc/cache_probe_tiered.cu``."""
+    vec: int   # elements of one row unit (16 bytes), or 1
+    grid: int  # CTAs of TIERED_WARPS warps of TIERED_IDS ids
+
+
+def tiered_plan(r: int, d: int, elem_size: int,
+                aligned: bool = True) -> TieredPlan:
+    """The tiered probe's plan for ``r`` ids and rows of ``d``
+    ``elem_size``-byte elements.  Rows of a 16-byte multiple width on
+    16-byte aligned bases move as 16-byte units, others on the scalar
+    route; ``TIERED_IDS`` ids per warp and CTAs of ``TIERED_WARPS`` warps,
+    so the grid spreads evenly over the SMs (3 664 one-warp CTAs at the
+    deep step's R = 29 312, ~28 an SM: one wave)."""
+    vec = (16 // elem_size if aligned and (d * elem_size) % 16 == 0
+           else 1)
+    return TieredPlan(vec, max(-(-r // (TIERED_IDS * TIERED_WARPS)), 1))
+
+
 def cache_probe_tiered_cuda(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
                             l2_keys: torch.Tensor, l2_rows: torch.Tensor,
                             ids: torch.Tensor, l1_assoc: int = 1,
@@ -181,7 +207,8 @@ def cache_probe_tiered_cuda(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
     """Probe ``ids [R]`` against the L1 (``l1_keys [C1]``, ``l1_rows
     [C1, D]``) and the L2 (``l2_keys [C2]``, ``l2_rows [C2, D]``) on the
     card: ``(src [R] int32, out [R, D])`` — 0 miss, 1 L1 (it wins a double
-    hit), 2 L2 — and the serving tier's row, zeros on a miss."""
+    hit), 2 L2 — and the serving tier's row, zeros on a miss.  Launched as
+    ``tiered_plan`` says."""
     _check_device(l1_keys, l1_rows, l2_keys, l2_rows, ids)
     if (l1_keys.dim() != 1 or l2_keys.dim() != 1 or l1_rows.dim() != 2
             or l2_rows.dim() != 2 or ids.dim() != 1):
@@ -197,19 +224,25 @@ def cache_probe_tiered_cuda(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
                          f"{l2_rows.dtype}")
     if ids.dtype != torch.int32:
         raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if max(l1_keys.shape[0], l2_keys.shape[0]) > 1 << 30:
+        raise ValueError("cache_probe_tiered_cuda takes tiers of at most "
+                         "2^30 rows")
     code = _build.dtype_code(l2_rows)
     r, d = ids.shape[0], l2_rows.shape[1]
     src = torch.empty((r,), dtype=torch.int32, device=ids.device)
     out = torch.empty((r, d), dtype=l2_rows.dtype, device=ids.device)
     if r == 0:
         return src, out
+    plan = tiered_plan(
+        r, d, out.element_size(),
+        aligned=all(t.data_ptr() % 16 == 0 for t in (l1_rows, l2_rows, out)))
     lib = _build.library()
     with torch.cuda.device(ids.device):
         status = lib.repro_cache_probe_tiered(
             l1_keys.data_ptr(), l1_rows.data_ptr(), l2_keys.data_ptr(),
             l2_rows.data_ptr(), ids.data_ptr(), src.data_ptr(),
             out.data_ptr(), r, d, l1_assoc, shift1, l2_assoc, shift2, code,
-            _build.stream_of(ids))
+            plan.vec, plan.grid, _build.stream_of(ids))
     _build.check(status, "cache_probe_tiered")
     cache_probe_tiered_cuda.launches += 1
     return src, out

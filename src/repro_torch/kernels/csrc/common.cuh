@@ -1,5 +1,5 @@
-// Shared helpers of the port's kernels: element conversions and the cache
-// set hash.  The hash must stay bit-compatible with
+// Shared helpers of the port's kernels: element conversions, the cache
+// set hash and the set probe.  The hash must stay bit-compatible with
 // repro_torch/core/feature_cache.py::hash_slots (and so with
 // repro/core/feature_cache.py::hash_slots): set = (uint32(id) * K) >> shift,
 // where shift = 32 - log2(n_sets), and a single-set cache (shift == 32)
@@ -18,6 +18,33 @@ __device__ __forceinline__ uint32_t set_of(int32_t id, int shift) {
   if (shift >= 32) return 0u;
   return (static_cast<uint32_t>(id) * kHashK) >> shift;
 }
+
+// Largest associativity a cache may have (core/config.py VALID_CACHE_ASSOC).
+constexpr int kMaxAssoc = 4;
+
+// The ways of one cache set (any associativity up to kMaxAssoc, given at
+// run time), each a 4-byte load, all issued before any is tested, so that a
+// probe of several tiers has every tier's key loads in flight at once.
+// first() is the first way whose key equals id, or -1 (an id of -1 matches
+// an empty way).
+struct SetWays {
+  int32_t key[kMaxAssoc];
+
+  __device__ __forceinline__ void load(const int32_t* __restrict__ keys,
+                                       uint32_t set, int assoc) {
+    const int32_t* p = keys + static_cast<int64_t>(set) * assoc;
+#pragma unroll
+    for (int j = 0; j < kMaxAssoc; ++j) key[j] = j < assoc ? __ldg(p + j) : 0;
+  }
+
+  __device__ __forceinline__ int first(int32_t id, int assoc) const {
+    int way = -1;
+#pragma unroll
+    for (int j = kMaxAssoc - 1; j >= 0; --j)
+      if (j < assoc && key[j] == id) way = j;
+    return way;
+  }
+};
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {

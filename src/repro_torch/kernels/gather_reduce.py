@@ -65,6 +65,23 @@ def fanout_mean_plan(m: int, k: int, d: int, elem_size: int,
     return FanoutPlan(vec, lanes, ways, rows, grid, smem)
 
 
+#: warps of one ``fanout_mean_bwd`` CTA (the kernel's ``kWarps``)
+BWD_WARPS = 4
+
+
+def fanout_mean_bwd_plan(m: int, k: int, d: int,
+                         n_sm: int = 132) -> Tuple[int, int, int]:
+    """The grid of ``csrc/fanout_mean_bwd.cu`` for ``dx [m, k, d]``: CTAs
+    of ``BWD_WARPS`` warps along M, K shares and blocks of 32 columns of
+    D.  A warp takes one (row, share, block); share y of ``ways`` takes
+    k = y, y + ways, ...; K is split over up to K shares until the grid
+    holds two CTAs per SM."""
+    d_blocks = -(-d // 32)
+    ways = max(1, min(k, -(-2 * n_sm * BWD_WARPS // max(m * d_blocks, 1)),
+                      65535))
+    return -(-m // BWD_WARPS), ways, d_blocks
+
+
 def _check(x: torch.Tensor, mask: torch.Tensor, name: str) -> None:
     """Validate an ``x``/``g`` tensor against its ``[M, K]`` mask."""
     if x.device.type != "cuda" or mask.device != x.device:
@@ -116,7 +133,9 @@ def fanout_mean_bwd_cuda(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Gradient of the masked mean on the card: ``g [M, D]`` (float32 or
     bfloat16, contiguous CUDA), ``mask [M, K]`` bool -> ``dx [M, K, D]`` in
     ``g``'s dtype, ``g / max(count, 1) * mask`` (see
-    ``ref.fanout_mean_bwd_ref``)."""
+    ``ref.fanout_mean_bwd_ref``), launched as ``fanout_mean_bwd_plan``
+    says (raises ``ValueError`` for a row of more than 65 535 blocks of 32
+    columns)."""
     _check(g, mask, "fanout_mean_bwd_cuda")
     if g.dim() != 2 or mask.dim() != 2 or mask.shape[0] != g.shape[0]:
         raise ValueError(f"fanout_mean_bwd_cuda needs g [M, D] and mask "
@@ -127,11 +146,15 @@ def fanout_mean_bwd_cuda(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     dx = torch.empty((m, k, d), dtype=g.dtype, device=g.device)
     if dx.numel() == 0:
         return dx
+    grid = fanout_mean_bwd_plan(m, k, d, n_sm=_build.sm_count(g.device))
+    if grid[2] > 65535:
+        raise ValueError(f"fanout_mean_bwd_cuda: a row of {d} elements is "
+                         f"{grid[2]} blocks of 32 columns, above 65 535")
     lib = _build.library()
     with torch.cuda.device(g.device):
         status = lib.repro_fanout_mean_bwd(
             g.data_ptr(), mask.data_ptr(), dx.data_ptr(), m, k, d, code,
-            _build.stream_of(g))
+            *grid, _build.stream_of(g))
     _build.check(status, "fanout_mean_bwd")
     fanout_mean_bwd_cuda.launches += 1
     return dx

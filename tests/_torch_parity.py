@@ -138,6 +138,39 @@ def probe_cache(c: int, d: int, assoc: int, seed: int):
     return keys, rows, pool, rng
 
 
+def tiered_blocks(c1: int, a1: int, c2: int, a2: int, d: int, seed: int,
+                  minus_one_slot: bool = False):
+    """An L1 (``c1`` rows, ``a1``-way) and an L2 (``c2``, ``a2``-way) of
+    ``d`` float32 columns hashed by the port: keys unique per set, half the
+    L1's ids also L2 residents (double hits), a few slots empty with zero
+    rows as in a real state.  With ``minus_one_slot`` the last way of -1's
+    set in each tier is emptied, so an id of -1 matches there.  Returns
+    ``(k1, r1, k2, r2, pool, rng)`` as numpy, ``pool`` the resident ids."""
+    import torch
+    from repro_torch.core.feature_cache import hash_slots
+    k2, r2, pool2, rng = probe_cache(c2, d, a2, seed)
+    resident = k2[k2 >= 0]
+    cand = np.concatenate([
+        rng.choice(resident, min(c1 // 2, resident.size), replace=False),
+        rng.choice(10 * c2, c1, replace=False).astype(np.int32) + 10 * c2])
+    sets = hash_slots(torch.from_numpy(cand), c1 // a1).numpy()
+    k1 = np.full(c1, -1, np.int32)
+    fill = np.zeros(c1 // a1, np.int64)
+    for pid, s in zip(cand, sets):
+        if fill[s] < a1 and pid not in k1 and fill.sum() < c1 - c1 // 8 - 1:
+            k1[s * a1 + fill[s]] = pid
+            fill[s] += 1
+    r1 = rng.standard_normal((c1, d)).astype(np.float32) + 100
+    if minus_one_slot:
+        for keys, c, a in ((k1, c1, a1), (k2, c2, a2)):
+            s = int(hash_slots(torch.tensor([-1], dtype=torch.int32),
+                               c // a)[0])
+            keys[s * a + a - 1] = -1
+    r1[k1 < 0] = 0
+    r2[k2 < 0] = 0
+    return k1, r1, k2, r2, np.concatenate([pool2, k1[k1 >= 0]]), rng
+
+
 def resident_absent(keys: np.ndarray):
     """The ids a cache holds, and ids in ``[0, 10 C)`` it does not."""
     resident = keys[keys >= 0]

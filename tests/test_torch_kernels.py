@@ -12,6 +12,9 @@ On a card (marked ``cuda``, skipped elsewhere): each CUDA kernel against
 its twin on the same CUDA inputs.  ``chip_smoke.py`` repeats that check at
 the serving shapes.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -25,11 +28,12 @@ from _torch_parity import (COMPACT_EDGES, as_u32, compact_edge,  # noqa: E402
 from repro.core.feature_cache import hash_slots as jhash  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, cache_gather, ops, ref  # noqa: E402
 from repro_torch.kernels.cache_gather import (  # noqa: E402
-    MAX_CLUSTER, SMEM_LIMIT, compact_plan)
+    MAX_CLUSTER, SMEM_LIMIT, TIERED_IDS, TIERED_WARPS, compact_plan,
+    tiered_plan)
 from repro_torch.kernels.gather_reduce import (  # noqa: E402
-    FANOUT_THREADS, fanout_mean_plan)
+    BWD_WARPS, FANOUT_THREADS, fanout_mean_bwd_plan, fanout_mean_plan)
 
 
 @pytest.mark.parametrize("m,k,d", [(8, 4, 16), (37, 9, 130), (5, 40, 64)])
@@ -345,6 +349,191 @@ def test_fanout_mean_backward_bf16_matches_jax_grad():
                                   torch.from_numpy(mask))
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+#: the backward's shapes on the train steps' path: the deep step's two
+#: hidden levels (level 0 twice a step) and the W = 4 step's
+BWD_PATH_SHAPES = [(32, 15, 256), (480, 10, 256), (128, 40, 256)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("m,k,d", BWD_PATH_SHAPES + [
+    (3, k, d) for k in (1, 31, 32, 33, 64) for d in (8, 130, 256)])
+def test_fanout_mean_bwd_plan_covers_every_unit(m, k, d, n_sm):
+    """The backward's launch plan, walked as ``fanout_mean_bwd.cu`` walks
+    it (warp w of CTA (x, y, z) takes row x * BWD_WARPS + w, k = y, y +
+    grid[1], ... and columns 32 z + lane): every (m, k, column) is written
+    exactly once; CTAs of ``BWD_WARPS`` warps within the device's grid
+    limits; and at the path's shapes the grid gives every SM two CTAs of
+    work, or every warp a single k (132 SMs: the H100 SXM; 114: the
+    PCIe card)."""
+    gm, gy, gz = fanout_mean_bwd_plan(m, k, d, n_sm=n_sm)
+    assert 1 <= gy <= k
+    assert gm < 2 ** 31 and gy <= 65535 and gz <= 65535
+    assert gz * 32 >= d > (gz - 1) * 32
+    assert gm * BWD_WARPS >= m > (gm - 1) * BWD_WARPS
+    written = np.zeros((m, k, d), np.int64)
+    rows = np.arange(gm * BWD_WARPS)
+    rows = rows[rows < m]
+    cols = np.arange(gz * 32)
+    cols = cols[cols < d]
+    for way in range(gy):
+        for kk in range(way, k, gy):
+            written[np.ix_(rows, [kk], cols)] += 1
+    assert (written == 1).all()
+    if (m, k, d) in BWD_PATH_SHAPES:
+        assert gm * gy * gz >= 2 * n_sm or gy == k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fanout_mean_bwd_select_matches_twin(dtype):
+    """The kernel's arithmetic in torch: q = g / max(count, 1) in float32
+    once per (m, d), q * 1 and q * 0 rounded once each, one of the two
+    stored per k by the mask bit — equal to the twin, bit for bit, also
+    where g holds inf and nan (q * 0 is nan there, as the twin's product
+    with the float mask is) and negative values (-0.0 where masked)."""
+    rng = np.random.default_rng(3)
+    m, k, d = 40, 33, 24
+    g = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32))
+    g[1, :4] = torch.tensor([float("inf"), -float("inf"), float("nan"), -3.])
+    g = g.to(dtype)
+    mask = torch.from_numpy(rng.random((m, k)) < 0.6)
+    mask[2] = False
+    q = g.float() / mask.float().sum(1, keepdim=True).clamp(min=1)
+    on, off = (q * 1.0).to(dtype), (q * 0.0).to(dtype)
+    got = torch.where(mask[:, :, None], on[:, None, :], off[:, None, :])
+    want = ref.fanout_mean_bwd_ref(g, mask)
+    assert torch.equal(got.isnan(), want.isnan()) and want.isnan().any()
+    fin = ~want.isnan()
+    assert torch.equal(got[fin], want[fin])
+    assert torch.equal(torch.signbit(got[fin]), torch.signbit(want[fin]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,d", BWD_PATH_SHAPES[:2])
+def test_fanout_mean_backward_deep_shapes(m, k, d, dtype):
+    """``fanout_mean_bwd_ref`` against ``jax.grad`` of the oracle at the
+    deep config's own backward shapes (batch 32, fanouts 15 then 10,
+    hidden 256), with every fifth row all masked: exact in float32, and in
+    bfloat16 (the gradient lifted to float32, divided, multiplied by the
+    mask, rounded once, in both)."""
+    rng = np.random.default_rng(m + k)
+    mask = rng.random((m, k)) < 0.7
+    mask[::5] = False
+    g = rng.standard_normal((m, d)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    gj = jnp.asarray(g, jdt)
+    _, vjp = jax.vjp(lambda xx: jref.fanout_mean_ref(xx, jnp.asarray(mask)),
+                     jnp.zeros((m, k, d), jdt))
+    want = np.asarray(vjp(gj)[0].astype(jnp.float32))
+    gt = torch.from_numpy(g).to(getattr(torch, dtype))
+    got = ref.fanout_mean_bwd_ref(gt, torch.from_numpy(mask))
+    assert got.dtype == gt.dtype and got.shape == (m, k, d)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert not got[::5].any()
+
+
+@pytest.mark.parametrize("d,elem,aligned", [(128, 4, True), (128, 2, True),
+                                            (130, 4, True), (128, 4, False),
+                                            (3, 4, True)])
+@pytest.mark.parametrize("r", [1, 31, 33, 29312])
+def test_tiered_plan_covers_every_id(r, d, elem, aligned):
+    """The tiered probe's plan: one lane per id over ``TIERED_IDS``-id
+    warps, every id in exactly one lane, CTAs of ``TIERED_WARPS`` warps
+    within the device's grid, all 132 SMs given work at the deep step's
+    R = 29 312; and the warp's row walk as ``cache_probe_tiered.cu`` does
+    it (unit u = lane + 32 i of the warp's rows, column and row advanced
+    by 32 % and 32 / the row's units) writes every unit of every row
+    exactly once."""
+    plan = tiered_plan(r, d, elem, aligned=aligned)
+    vec = 16 // elem if aligned and (d * elem) % 16 == 0 else 1
+    assert plan.vec == vec and 1 <= TIERED_IDS <= 32
+    assert plan.grid < 2 ** 31
+    per_cta = TIERED_WARPS * TIERED_IDS
+    assert plan.grid * per_cta >= r > (plan.grid - 1) * per_cta
+    owner = np.zeros(plan.grid * per_cta, np.int64)
+    np.add.at(owner, np.arange(r), 1)
+    assert (owner[:r] == 1).all()
+    if r == 29312:
+        assert plan.grid >= 132
+    row_vecs = d // plan.vec
+    for n in {min(r, TIERED_IDS), r % TIERED_IDS or TIERED_IDS}:
+        seen = np.zeros((n, row_vecs), np.int64)
+        for lane in range(32):
+            j, c = divmod(lane, row_vecs)
+            for u in range(lane, -(-n * row_vecs // 32) * 32, 32):
+                assert (j, c) == divmod(u, row_vecs)
+                if u < n * row_vecs:
+                    seen[j, c] += 1
+                    assert j < n
+                j += 32 // row_vecs
+                c += 32 % row_vecs
+                if c >= row_vecs:
+                    c -= row_vecs
+                    j += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("source,name,value", [
+    ("cache_probe_tiered.cu", "kIdsPerWarp", TIERED_IDS),
+    ("cache_probe_tiered.cu", "kWarps", TIERED_WARPS),
+    ("fanout_mean_bwd.cu", "kWarps", BWD_WARPS)])
+def test_plans_match_kernel_constants(source, name, value):
+    """``tiered_plan`` and ``fanout_mean_bwd_plan`` size their grids with
+    the kernels' own ids per warp and warps per CTA, compile-time
+    constants of their sources."""
+    path = os.path.join(os.path.dirname(cache_gather.__file__), "csrc",
+                        source)
+    with open(path) as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    assert found == [str(value)]
+
+
+def _deep_tiers(seed, d=128):
+    """graphgen-gcn-deep's tiers: a 512-row 2-way L1 and a 4 096-row 4-way
+    L2 of ``d`` float32 columns, as ``_tiered_cache`` fills them (half the
+    L1's ids also L2 residents, a few empty slots with zero rows)."""
+    return _tiered_cache(512, 4096, d, 2, 4, seed)
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_miss", "all_l1"])
+def test_cache_probe_tiered_twin_deep_tiers(case):
+    """``ref.cache_probe_tiered_ref`` against ``repro``'s oracle at the
+    deep config's tiers (L1 512 x 2-way, L2 4 096 x 4-way, D 128),
+    exactly: a mixed id set with -1 pads (which match the empty slots, as
+    in the oracle), double hits (the L1 wins) and misses; an all-miss set;
+    and a set of L1 residents only."""
+    k1, r1, k2, r2, pool, rng = _deep_tiers(18)
+    r = 2000
+    if case == "mixed":
+        # empty the last way of -1's L2 set, so a -1 pad finds an empty slot
+        s2 = int(np.asarray(jhash(jnp.asarray([-1], jnp.int32), 1024))[0])
+        k2[s2 * 4 + 3], r2[s2 * 4 + 3] = -1, 0
+        ids = np.where(rng.random(r) < 0.7, rng.choice(pool, size=r),
+                       rng.integers(0, 10 * 4096, r)).astype(np.int32)
+        ids[rng.random(r) < 0.1] = -1
+    elif case == "all_miss":
+        ids = rng.integers(20 * 4096, 30 * 4096, r).astype(np.int32)
+    else:
+        ids = rng.choice(k1[k1 >= 0], size=r).astype(np.int32)
+    src, out = ref.cache_probe_tiered_ref(
+        *map(torch.from_numpy, (k1, r1, k2, r2, ids)), l1_assoc=2,
+        l2_assoc=4)
+    ws, wo = jref.cache_probe_tiered_ref(*map(jnp.asarray,
+                                              (k1, r1, k2, r2, ids)),
+                                         l1_assoc=2, l2_assoc=4)
+    np.testing.assert_array_equal(src.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(wo))
+    s = src.numpy()
+    if case == "mixed":
+        both = np.isin(ids, k1) & np.isin(ids, k2) & (ids >= 0)
+        assert both.any() and (s[both] == 1).all()
+        assert (s == 0).any() and (s == 2).any()
+        assert (s[ids == -1] > 0).all()     # -1 matches an empty slot
+    elif case == "all_miss":
+        assert not s.any() and not out.numpy().any()
+    else:
+        assert (s == 1).all()
 
 
 def test_dispatch_refuses_mixed_or_unknown_devices():
