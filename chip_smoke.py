@@ -14,7 +14,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
               ``cuobjdump -sass`` of the built library (either of the first
               two at 0 fails); and ptxas's report (registers, shared
               memory, spills) of every instantiation of the compact probe,
-              fanout_mean, fanout_mean_bwd and tiered probe kernels.
+              fanout_mean, fanout_mean_bwd, tiered probe and gather_reduce
+              kernels.
 3. kernels  — each kernel against its plain-torch twin on the card, at the
               main paths' shapes and at edge cases (assoc 1/2/4, single-set
               tiers, probe counts off a multiple of 32, -1 ids, double hits,
@@ -185,7 +186,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
               bound at the bf16 rate) and their float32 upcast (the SIMT
               route); no library call computes it; gather_reduce at a W = 1
               request's hop-2 level, with ``embedding_bag`` (sum, mask
-              weights) and the division as its yardstick.
+              weights) and the division as its yardstick, its kept slots
+              and distinct rows counted (``kept_slots``, ``distinct_rows``,
+              ``kept_row_bytes``), and the same ids over the table cast
+              once to bfloat16 (``bf16_ms``, ``bf16_device_ms``).
 
 The lines before the last are the timing floor's JSON, the kernel JSON
 and ``nvidia-smi``'s line; the last line is ``{"ok": true, "device":
@@ -512,11 +516,12 @@ def phase_build_report(lib_path):
     # the SIMT kernels redesigned for the card's SMs: ptxas's registers,
     # barriers, static shared memory and spills per instantiation (the
     # mangled template arguments: T, then the load unit V; the backward's
-    # T; the tiered probe's row unit V)
+    # T; the tiered probe's row unit V; gather_reduce's T and V)
     for kernel, n_inst in (("probe_compact_kernel", 3),
                            ("fanout_mean_kernel", 4),
                            ("fanout_mean_bwd_kernel", 2),
-                           ("probe_tiered_kernel", 3)):
+                           ("probe_tiered_kernel", 3),
+                           ("gather_reduce_kernel", 4)):
         found = {}
         for i, line in enumerate(log):
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1947,23 +1952,16 @@ def decode_state_gap(torch, a, b, prompt_len):
             "conv": state_gap("conv")}
 
 
-def phase_gather_reduce(torch, serve_res):
-    """``gather_reduce`` driven as edge-centric collection + aggregation
-    at a graphgen-gcn W = 1 server's own requests (no model calls it):
-    over ``GATHER_REQUESTS`` bucket-32 requests, the hop-2 level's mean
-    straight from the 20 000 x 128 feature table (``idx``/``mask`` the
-    request's hop-2 ids and mask as ``[32 * 40, 20]``), with zeroed launch
-    counters.  Then, apart: each result against the twin and against
-    ``fanout_mean`` of the features the generator gathered for that level
-    (where the request dropped nothing), and the kernel against its twin
-    on a copy with ids off both ends of the table and all-masked rows.
-    Returns the launches and the first request's operands."""
+def gather_levels(torch, server, head_order):
+    """The ``gather_reduce`` drive's operands on a graphgen-gcn W = 1
+    ``server``: the 20 000 x 128 feature table, and ``GATHER_REQUESTS``
+    bucket-32 requests of Zipf(1.5) seeds (seeded) with each one's hop-2
+    ``(idx, mask)`` as ``[32 * 40, 20]``.  Returns ``(table, batches,
+    levels)``."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.graph.synthetic import node_features
-    from repro_torch.kernels import ops, ref
     cfg = get_config("graphgen-gcn")
-    server, head_order = serve_res["graphgen-gcn", 1]["built"]
     k2 = cfg.fanouts[1]
     table = torch.from_numpy(node_features(N_NODES, cfg.gcn_in_dim,
                                            0)).to(DEVICE)
@@ -1975,6 +1973,26 @@ def phase_gather_reduce(torch, serve_res):
     levels = [(b.hops[1].reshape(-1, k2).contiguous(),
                b.masks[1].reshape(-1, k2).contiguous()) for b in batches]
     torch.cuda.synchronize()
+    return table, batches, levels
+
+
+def phase_gather_reduce(torch, serve_res):
+    """``gather_reduce`` driven as edge-centric collection + aggregation
+    at a graphgen-gcn W = 1 server's own requests (no model calls it):
+    over ``GATHER_REQUESTS`` bucket-32 requests, the hop-2 level's mean
+    straight from the 20 000 x 128 feature table (``idx``/``mask`` the
+    request's hop-2 ids and mask as ``[32 * 40, 20]``), with zeroed launch
+    counters.  Then, apart: each result against the twin and against
+    ``fanout_mean`` of the features the generator gathered for that level
+    (where the request dropped nothing), and the kernel against its twin
+    on a copy with ids off both ends of the table and all-masked rows.
+    Returns the launches and the first request's operands."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config("graphgen-gcn")
+    k2 = cfg.fanouts[1]
+    table, batches, levels = gather_levels(
+        torch, *serve_res["graphgen-gcn", 1]["built"])
     ops.reset_launch_counts()
     outs = [ops.gather_reduce(table, idx, mask) for idx, mask in levels]
     torch.cuda.synchronize()
@@ -2401,6 +2419,7 @@ def time_kernel(torch, name, inputs, kw):
     plain = lambda: plain_fn(*inputs, **kw)            # noqa: E731
     got, want = kern(), plain()
     library = store = None
+    extra = {}
     flops = F32_FLOPS
     if name == "fanout_mean":
         x, mask = inputs
@@ -2516,10 +2535,28 @@ def time_kernel(torch, name, inputs, kw):
         (n_rows, d), (m, k) = table.shape, idx.shape
         kept = idx.to(torch.int64).clamp(0, n_rows - 1)[mask]
         item = table.element_size()
+        n_distinct = int(torch.unique(kept).numel())
         # the rows the kept slots need, once each; ids, mask, output
-        n_bytes = (int(torch.unique(kept).numel()) * d * item + m * k * 4
-                   + m * k + m * d * item)
+        n_bytes = n_distinct * d * item + m * k * 4 + m * k + m * d * item
         n_ops = kept.numel() * d + m * d
+        # what the kernel reads: every kept slot's row, from L2 (the table
+        # stays there); and the same ids over a bfloat16 table, cast once
+        print(f"[timing gather_reduce] {kept.numel()} kept slots of {m * k}, "
+              f"{n_distinct} distinct rows: {kept.numel() * d * item} B of "
+              f"kept-slot rows against {n_distinct * d * item} B of distinct "
+              f"rows")
+        t16 = table.to(torch.bfloat16)
+        ok, err16 = gather_close(torch, ops.gather_reduce(t16, idx, mask),
+                                 ref.gather_reduce_ref(t16, idx, mask))
+        check(ok, f"gather_reduce (bfloat16) differs from its twin at the "
+              f"request inputs: max err {err16}")
+        bf16_ms = both_ms(torch, lambda: ops.gather_reduce(t16, idx, mask))
+        print(f"[timing gather_reduce bfloat16] the same ids over the table "
+              f"cast once: {bf16_ms[0]:.4f} ms (events) {bf16_ms[1]:.4f} ms "
+              f"(device), max_abs_err {err16}")
+        extra = {"kept_slots": kept.numel(), "distinct_rows": n_distinct,
+                 "kept_row_bytes": kept.numel() * d * item,
+                 "bf16_ms": bf16_ms[0], "bf16_device_ms": bf16_ms[1]}
         # the one-call yardstick: embedding_bag's weighted sum, then the
         # division (clamped ids, float mask and counts precomputed)
         bag_idx = idx.to(torch.int64).clamp(0, n_rows - 1)
@@ -2571,7 +2608,7 @@ def time_kernel(torch, name, inputs, kw):
              "device_ms": dev_ms, "plain_ms": plain_ms,
              "plain_device_ms": plain_dev_ms, "bound_ms": b_ms,
              "bound_by": b_by, "library_ms": library_ms,
-             "library_device_ms": library_dev_ms}
+             "library_device_ms": library_dev_ms, **extra}
     if store is not None:
         entry["zero_ms"], entry["zero_device_ms"] = both_ms(torch, store.zero_)
         print(f"[timing {name}] a zero_() of the output's "

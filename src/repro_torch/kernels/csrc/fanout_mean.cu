@@ -41,57 +41,6 @@ namespace {
 constexpr int kUnroll = 4;        // x loads in flight per thread
 constexpr int kMaxThreads = 256;  // the plan's CTA size
 
-// The float32 view of one load unit V of elements T: E elements, added
-// into E sums, and packed back after the division.
-template <typename T, typename V>
-struct Unit;
-
-template <>
-struct Unit<float, int4> {
-  static constexpr int E = 4;
-  __device__ static void add(float* acc, const int4& v, float w) {
-    const float4 f = reinterpret_cast<const float4&>(v);
-    acc[0] += f.x * w;
-    acc[1] += f.y * w;
-    acc[2] += f.z * w;
-    acc[3] += f.w * w;
-  }
-  __device__ static int4 pack(const float* a) {
-    const float4 f = make_float4(a[0], a[1], a[2], a[3]);
-    return reinterpret_cast<const int4&>(f);
-  }
-};
-
-template <>
-struct Unit<__nv_bfloat16, int4> {
-  static constexpr int E = 8;
-  __device__ static void add(float* acc, const int4& v, float w) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(p[i]);
-      acc[2 * i] += f.x * w;
-      acc[2 * i + 1] += f.y * w;
-    }
-  }
-  __device__ static int4 pack(const float* a) {
-    int4 v;
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
-    return v;
-  }
-};
-
-template <typename T>
-struct Unit<T, T> {
-  static constexpr int E = 1;
-  __device__ static void add(float* acc, const T& v, float w) {
-    acc[0] += repro::to_float(v) * w;
-  }
-  __device__ static T pack(const float* a) { return repro::from_float<T>(a[0]); }
-};
-
 // thread t = ((r * ways + way) * lanes + lane): output row r of the CTA's
 // rows, K share `way`, load unit blockIdx.y * lanes + lane of the row
 template <typename T, typename V>
@@ -99,7 +48,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 fanout_mean_kernel(const V* __restrict__ x, const uint8_t* __restrict__ mask,
                    V* __restrict__ out, int64_t m_rows, int k_fan,
                    int row_vecs, int lanes, int ways, int rows_per_cta) {
-  using U = Unit<T, V>;
+  using U = repro::Unit<T, V>;
   constexpr int E = U::E;
   // shared memory: the threads' partial sums, the groups' mask counts, the
   // CTA's mask rows

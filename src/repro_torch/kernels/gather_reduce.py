@@ -7,8 +7,10 @@ kernels.
 with respect to ``x``, and ``gather_reduce_cuda`` wraps
 ``csrc/gather_reduce.cu`` (the port of ``gather_reduce_pallas``, the
 fused row gather and masked mean); ``<wrapper>.launches`` counts each
-kernel's launches.  ``ops.FanoutMean`` ties the first two together for
-autograd; ``gather_reduce`` is forward only, as in the reference.
+kernel's launches.  Each kernel's launch plan is plain Python here
+(``fanout_mean_plan``, ``fanout_mean_bwd_plan``, ``gather_reduce_plan``),
+so the CPU tests hold it.  ``ops.FanoutMean`` ties the first two together
+for autograd; ``gather_reduce`` is forward only, as in the reference.
 """
 from __future__ import annotations
 
@@ -80,6 +82,56 @@ def fanout_mean_bwd_plan(m: int, k: int, d: int,
     ways = max(1, min(k, -(-2 * n_sm * BWD_WARPS // max(m * d_blocks, 1)),
                       65535))
     return -(-m // BWD_WARPS), ways, d_blocks
+
+
+#: warps of one ``gather_reduce`` CTA (the kernel's ``kWarps``)
+GATHER_WARPS = 4
+#: row loads a slot group keeps in flight (``kUnroll`` in ``gather_reduce.cu``)
+GATHER_UNROLL = 10
+
+
+class GatherPlan(NamedTuple):
+    """Launch plan of ``csrc/gather_reduce.cu``: CTAs of ``rows x ways``
+    warps on a ``grid`` of (rows of M, blocks of ``lanes`` load units of
+    D)."""
+    vec: int               # elements a lane loads at once (16 bytes), or 1
+    lanes: int             # threads along D for one slot
+    ways: int              # warps splitting K into shares of ceil(K / ways)
+    rows: int              # output rows per CTA
+    grid: Tuple[int, int]  # CTAs along M, along D
+    smem: int              # dynamic shared memory per CTA, bytes
+
+
+def gather_reduce_plan(m: int, k: int, d: int, elem_size: int,
+                       aligned: bool = True, n_sm: int = 132,
+                       warps: int = GATHER_WARPS,
+                       unroll: int = GATHER_UNROLL) -> GatherPlan:
+    """The ``gather_reduce`` plan for ``idx [m, k]`` over a table of ``d``
+    columns of ``elem_size``-byte elements.  Rows of a 16-byte multiple
+    width on a 16-byte aligned base take 16-byte loads, others the scalar
+    route; a power of two of lanes, up to 32, covers a row's load units,
+    and a warp's ``32 // lanes`` slot groups take every ``32 // lanes``-th
+    slot each.  K is split over ``ways`` warps, at least enough that a
+    share's slots fit its groups' ``unroll`` loads in flight, and more, up
+    to ``warps`` (and one slot a group), while the grid would hold under
+    two CTAs per SM; the CTA's other warps take more rows.  Shared memory:
+    the threads' partial sums.  ``warps`` and ``unroll`` are the kernel's
+    ``kWarps`` and ``kUnroll`` (a variant of the source built with others
+    passes its own)."""
+    vec = (16 // elem_size if aligned and (d * elem_size) % 16 == 0
+           else 1)
+    row_vecs = d // vec
+    lanes = min(32, _pow2_at_least(row_vecs))
+    groups = 32 // lanes
+    d_blocks = -(-row_vecs // lanes)
+    most = max(1, min(warps, -(-k // groups)))
+    ways = max(1, min(most, -(-k // (groups * unroll))))
+    while ways < most and -(-m // (warps // ways)) * d_blocks < 2 * n_sm:
+        ways += 1
+    rows = warps // ways
+    grid = (-(-m // rows), d_blocks)
+    smem = 4 * rows * ways * 32 * vec
+    return GatherPlan(vec, lanes, ways, rows, grid, smem)
 
 
 def _check(x: torch.Tensor, mask: torch.Tensor, name: str) -> None:
@@ -169,7 +221,9 @@ def gather_reduce_cuda(table: torch.Tensor, idx: torch.Tensor,
     bfloat16), ``idx [M, K]`` int32, ``mask [M, K]`` bool (contiguous, one
     CUDA device) -> ``[M, D]`` in ``table``'s dtype, ids clamped to
     ``[0, N - 1]``, accumulated in float32 (see
-    ``ref.gather_reduce_ref``)."""
+    ``ref.gather_reduce_ref``), launched as ``gather_reduce_plan`` says
+    (raises ``ValueError`` for a row of more than 65 535 blocks of load
+    units)."""
     _check(idx, mask, "gather_reduce_cuda")
     if table.device != idx.device or not table.is_contiguous():
         raise ValueError(f"gather_reduce_cuda needs a contiguous table on "
@@ -186,11 +240,18 @@ def gather_reduce_cuda(table: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((m, d), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
+    plan = gather_reduce_plan(m, k, d, table.element_size(),
+                              aligned=table.data_ptr() % 16 == 0,
+                              n_sm=_build.sm_count(table.device))
+    if plan.grid[1] > 65535:
+        raise ValueError(f"gather_reduce_cuda: a row of {d} elements is "
+                         f"{plan.grid[1]} blocks of load units, above 65 535")
     lib = _build.library()
     with torch.cuda.device(table.device):
         status = lib.repro_gather_reduce(
             table.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            n, m, k, d, code, _build.stream_of(table))
+            n, m, k, d, code, plan.vec, plan.lanes, plan.ways, plan.rows,
+            *plan.grid, plan.smem, _build.stream_of(table))
     _build.check(status, "gather_reduce")
     gather_reduce_cuda.launches += 1
     return out

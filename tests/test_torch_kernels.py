@@ -33,7 +33,8 @@ from repro_torch.kernels.cache_gather import (  # noqa: E402
     MAX_CLUSTER, SMEM_LIMIT, TIERED_IDS, TIERED_WARPS, compact_plan,
     tiered_plan)
 from repro_torch.kernels.gather_reduce import (  # noqa: E402
-    BWD_WARPS, FANOUT_THREADS, fanout_mean_bwd_plan, fanout_mean_plan)
+    BWD_WARPS, FANOUT_SMEM_LIMIT, FANOUT_THREADS, GATHER_UNROLL, GATHER_WARPS,
+    fanout_mean_bwd_plan, fanout_mean_plan, gather_reduce_plan)
 
 
 @pytest.mark.parametrize("m,k,d", [(8, 4, 16), (37, 9, 130), (5, 40, 64)])
@@ -257,6 +258,121 @@ def test_fanout_mean_plan_covers_every_k(m, k, d, elem):
                                atol=1e-6)
 
 
+def _gather_walk(plan, mask, row_vecs):
+    """``gather_reduce.cu``'s walk of ``plan`` over ``mask [M, K]``: warp
+    (way, r) of CTA (x, y) takes row x * rows + r and K share way, in
+    passes of 32 slots; slot group g of the warp takes the pass's slots g,
+    g + groups, ... and reads the kept ones, lane l of the group loading
+    unit y * lanes + l where it is below ``row_vecs``.  Returns ``seen [M,
+    K, units]``, the times each (row, slot, load unit) is read, and per
+    row the (share, group, slot) order in which the kernel adds the
+    slots."""
+    m, k = mask.shape
+    groups = 32 // plan.lanes
+    share = -(-k // plan.ways)
+    seen = np.zeros((m, k, plan.grid[1] * plan.lanes), np.int64)
+    order = [[] for _ in range(m)]
+    for x in range(plan.grid[0]):
+        for r in range(plan.rows):
+            row = x * plan.rows + r
+            if row >= m:
+                continue
+            for way in range(plan.ways):
+                k_lo, k_hi = way * share, min(k, (way + 1) * share)
+                for s0 in range(k_lo, k_hi, 32):
+                    n_pos = min(32, k_hi - s0)
+                    for g in range(groups):
+                        for j in range(g, n_pos, groups):
+                            if mask[row, s0 + j]:
+                                seen[row, s0 + j, :row_vecs] += 1
+                                order[row].append((way, g, s0 + j))
+    return seen, order
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("elem,aligned", [(4, True), (2, True), (4, False)])
+@pytest.mark.parametrize("k", [1, 5, 20, 33, 40, 64])
+@pytest.mark.parametrize("d", [8, 100, 128, 256])
+def test_gather_reduce_plan_covers_every_unit(d, k, elem, aligned, n_sm):
+    """The gather_reduce launch plan, walked as ``gather_reduce.cu`` walks
+    it (``_gather_walk``), over a mask with dropped slots, an all-masked
+    row and an all-kept row: every kept (row, slot, load unit) is read
+    exactly once, no masked slot and no unit past the row is read; 16-byte
+    loads (float32, bfloat16) exactly where the row is a 16-byte multiple
+    on an aligned base, else the scalar route; CTAs of at most
+    ``GATHER_WARPS`` warps within the device's grid; shared memory under
+    ``FANOUT_SMEM_LIMIT``, the most a launch may take without opting in
+    (132 SMs: the H100 SXM; 114: the PCIe card)."""
+    m = 37
+    plan = gather_reduce_plan(m, k, d, elem, aligned=aligned, n_sm=n_sm)
+    vec = 16 // elem if aligned and (d * elem) % 16 == 0 else 1
+    row_vecs = d // vec
+    assert plan.vec == vec and plan.lanes & (plan.lanes - 1) == 0
+    assert min(row_vecs, 32) <= plan.lanes <= 32
+    assert 1 <= plan.ways <= min(k, GATHER_WARPS)
+    assert 1 <= plan.rows and plan.rows * plan.ways <= GATHER_WARPS
+    assert plan.grid[0] * plan.rows >= m > (plan.grid[0] - 1) * plan.rows
+    assert plan.grid[1] * plan.lanes >= row_vecs
+    assert (plan.grid[1] - 1) * plan.lanes < row_vecs <= 65535 * plan.lanes
+    assert plan.smem == 4 * plan.rows * plan.ways * 32 * vec
+    assert plan.smem <= FANOUT_SMEM_LIMIT
+    rng = np.random.default_rng(d + k)
+    mask = rng.random((m, k)) < 0.7
+    mask[0], mask[1] = True, False
+    seen, _ = _gather_walk(plan, mask, row_vecs)
+    want = np.zeros_like(seen)
+    want[:, :, :row_vecs] = mask[:, :, None]
+    assert seen[:, :, row_vecs:].sum() == 0
+    np.testing.assert_array_equal(seen, want)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("m,k,d,dtype", [
+    (1280, 20, 128, "float32"), (1280, 20, 128, "bfloat16"),    # the drive
+    (37, 40, 130, "float32"), (50, 9, 130, "bfloat16"),
+    (13, 5, 64, "float32")])
+def test_gather_reduce_plan_order_matches_oracle(m, k, d, dtype, n_sm):
+    """The kernel's arithmetic in the plan's order (each slot group's
+    float32 sum in slot order, the groups' sums added in (share, group)
+    order, one division, one rounding) against the jnp oracle
+    ``repro.kernels.ref.gather_reduce_ref``: float32 within rtol 1e-5 /
+    atol 1e-6, bfloat16 within 2e-2 (the oracle sums and divides in bf16);
+    at the drive's shape the grid gives every SM two CTAs of work."""
+    elem = 4 if dtype == "float32" else 2
+    plan = gather_reduce_plan(m, k, d, elem, n_sm=n_sm)
+    if m == 1280:
+        assert plan.grid[0] * plan.grid[1] >= 2 * n_sm
+        assert k <= plan.ways * (32 // plan.lanes) * GATHER_UNROLL
+    n = 3 * m
+    rng = np.random.default_rng(m + k + d)
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    idx = rng.integers(-5, n + 5, (m, k)).astype(np.int32)
+    mask = rng.random((m, k)) < 0.8
+    mask[1:3] = False
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "float32"
+                else (torch.bfloat16, jnp.bfloat16))
+    rows = torch.from_numpy(table).to(tdt).float()[
+        torch.from_numpy(idx).long().clamp(0, n - 1)]
+    _, order = _gather_walk(plan, mask, d // plan.vec)
+    got = torch.zeros((m, d))
+    for row in range(m):
+        parts = {}
+        for way, g, slot in order[row]:
+            part = parts.get((way, g), torch.zeros(d))
+            parts[way, g] = part + rows[row, slot]
+        for key in sorted(parts):
+            got[row] = got[row] + parts[key]
+    got = (got / torch.from_numpy(mask.sum(1, dtype=np.float32)).clamp(
+        min=1)[:, None]).to(tdt)
+    want = jref.gather_reduce_ref(jnp.asarray(table).astype(jdt),
+                                  jnp.asarray(idx), jnp.asarray(mask))
+    tol = (1e-5, 1e-6) if dtype == "float32" else (2e-2, 2e-2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol[0],
+                               atol=tol[1])
+    assert not got[1:3].any()
+
+
 def _tiered_cache(c1, c2, d, a1, a2, seed):
     """An L1 and an L2 with unique keys per set; half the L1's ids are
     also L2 residents (double hits), and a few slots stay empty with zero
@@ -477,11 +593,13 @@ def test_tiered_plan_covers_every_id(r, d, elem, aligned):
 @pytest.mark.parametrize("source,name,value", [
     ("cache_probe_tiered.cu", "kIdsPerWarp", TIERED_IDS),
     ("cache_probe_tiered.cu", "kWarps", TIERED_WARPS),
-    ("fanout_mean_bwd.cu", "kWarps", BWD_WARPS)])
+    ("fanout_mean_bwd.cu", "kWarps", BWD_WARPS),
+    ("gather_reduce.cu", "kWarps", GATHER_WARPS),
+    ("gather_reduce.cu", "kUnroll", GATHER_UNROLL)])
 def test_plans_match_kernel_constants(source, name, value):
-    """``tiered_plan`` and ``fanout_mean_bwd_plan`` size their grids with
-    the kernels' own ids per warp and warps per CTA, compile-time
-    constants of their sources."""
+    """``tiered_plan``, ``fanout_mean_bwd_plan`` and ``gather_reduce_plan``
+    size their grids with the kernels' own ids per warp, warps per CTA and
+    loads in flight, compile-time constants of their sources."""
     path = os.path.join(os.path.dirname(cache_gather.__file__), "csrc",
                         source)
     with open(path) as f:

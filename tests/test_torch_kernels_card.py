@@ -1,6 +1,6 @@
-"""The compact probe, fanout_mean, fanout_mean_bwd and tiered probe CUDA
-kernels against their twins on the card (every test is ``cuda``-marked and
-skips without one).
+"""The compact probe, fanout_mean, fanout_mean_bwd, tiered probe and
+gather_reduce CUDA kernels against their twins on the card (every test is
+``cuda``-marked and skips without one).
 
 This file imports no jax, so it also runs where only torch is installed:
 ``python -m pytest -m cuda tests/test_torch_kernels_card.py`` on the card's
@@ -17,7 +17,8 @@ from _torch_parity import (COMPACT_EDGES, compact_edge,  # noqa: E402
                            probe_cache, resident_absent, tiered_blocks)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.cache_gather import compact_plan  # noqa: E402
-from repro_torch.kernels.gather_reduce import fanout_mean_plan  # noqa: E402
+from repro_torch.kernels.gather_reduce import (  # noqa: E402
+    fanout_mean_plan, gather_reduce_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -303,3 +304,76 @@ def test_gcn_deep_backward_card_vs_cpu(cuda):
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-6)
     for a, b in zip(gg, gc):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def _gather_once(table, idx, mask):
+    """One launch of the gather_reduce kernel, within ``chip_smoke.
+    gather_close``'s bounds of its twin: float32 rtol 1e-5 / atol 1e-6
+    (summation order), bfloat16 2e-2 (both round one float32 mean once);
+    rows with no kept slot exact zeros."""
+    ops.reset_launch_counts()
+    got = ops.gather_reduce(table, idx, mask)
+    assert ops.launch_counts()["gather_reduce"] == 1
+    want = ref.gather_reduce_ref(table, idx, mask)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = (1e-5, 1e-6) if table.dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])
+    assert not got[~mask.any(1)].any()
+    return got
+
+
+def _gather_operands(cuda, n, m, k, d, dtype, seed, keep=0.7):
+    """A seeded ``table [n, d]`` of ``dtype``, ``idx [m, k]`` with ids off
+    both ends of the table (clamped), and a mask with the first three rows
+    all masked (``keep`` 1: every slot kept)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    table = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(-5, n + 5, (m, k), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[-1, 0], idx[-1, -1] = -(2 ** 31), 2 ** 31 - 1
+    if keep == 1:
+        return table, idx, torch.ones((m, k), dtype=torch.bool, device=cuda)
+    mask = torch.rand((m, k), generator=gen, device=cuda) < keep
+    mask[:3] = False
+    mask[-1] = True
+    return table, idx, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 5, 20, 33, 40, 64])
+@pytest.mark.parametrize("d", [8, 100, 128, 256])
+def test_gather_reduce_shapes_on_card(cuda, d, k, dtype):
+    """gather_reduce against its twin across the plan tests' K and D (both
+    16-byte routes; D 100 in bfloat16 is the scalar route), with ids off
+    both ends of the table (the int32 extremes included) and all-masked
+    rows (exact zeros)."""
+    table, idx, mask = _gather_operands(cuda, 1000, 300, k, d, dtype, k + d)
+    _gather_once(table, idx, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_reduce_drive_shape_on_card(cuda, dtype):
+    """The drive's shape (table 20 000 x 128, idx 1 280 x 20): a mask with
+    dropped slots and one with every slot kept, and two calls equal to each
+    other bit for bit (the partial sums meet in a fixed order)."""
+    for keep in (0.7, 1):
+        table, idx, mask = _gather_operands(cuda, 20_000, 1280, 20, 128,
+                                            dtype, 7, keep)
+        got = _gather_once(table, idx, mask)
+        assert torch.equal(got, ops.gather_reduce(table, idx, mask))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 100])
+def test_gather_reduce_misaligned_base_on_card(cuda, d, dtype):
+    """A table view whose base is one element off 16-byte alignment takes
+    the scalar instance of the kernel and agrees with its twin."""
+    table, idx, mask = _gather_operands(cuda, 2001, 640, 20, d, dtype, 9)
+    flat = torch.zeros(table.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = table.reshape(-1)
+    view = flat[1:].view(table.shape)
+    assert view.data_ptr() % 16
+    assert gather_reduce_plan(640, 20, d, view.element_size(),
+                              aligned=False).vec == 1
+    _gather_once(view, idx, mask)
