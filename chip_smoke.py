@@ -59,6 +59,39 @@ Phases, each of which fails the run (nonzero exit, no result line):
               layer call of the trained model on each run's last batch
               (rtol 1e-5 / atol 1e-6), and cache_probe_compact on the W = 4
               run's own probe round with its calibrated hit cap (exact).
+   host     — the L3 host-RAM feature store: graphgen-gcn-deep W = 1 at
+              gather depth 2 and 1, graphgen-gcn W = 4 at depth 2, each for
+              20 steps beside a device-store run of the same seeds, all with
+              --capacity-slack 2.0 --probe-hit-cap 0 (the values host mode
+              takes, so both build the same exchange).  Gates: losses equal
+              (torch.equal), no request dropped in either run, L3 rows and
+              bytes issued, the launch counts equal to the device run's
+              (fanout_mean L(L+1)/2, fanout_mean_bwd L(L-1)/2 per step, one
+              probe per round).  Prints each run's median step, warm
+              nodes/s, idle share, L3 bytes per step, the table's bytes and
+              the traced steps' H2D copies (their stream and the ms that
+              overlap a kernel).  Then the tiered probe on the deep host
+              run's last round (its cache filled by deferred admission) and
+              the compact probe on the W = 4 host run's round under the
+              uncalibrated hit cap, each against its twin (exact).
+   merge    — graphgen-gcn W = 4's 20 rounds generated with the butterfly
+              and with the reduce-scatter merge in turns, same draws, cold
+              caches: every batch and cache state equal; median ms per
+              round of each.
+   offline  — the GraphGen baseline (``train.offline_gcn``: generate all,
+              store through pickle, read back, train) for graphgen-gcn
+              W = 4 (device store) and graphgen-gcn-deep W = 1 (host store)
+              over the host phase's schedule: losses equal to its
+              pipelined runs'; t_gen, t_train, their sum and the pipelined
+              wall time side by side.
+   ckpt     — graphgen-gcn-deep W = 1: 10 steps saving every 5, then
+              --resume to 20, beside an uninterrupted 20-step run exported
+              with --export-serve: the resumed losses and final params
+              equal the uninterrupted run's (each run's dropped count
+              printed); serve --warm-from on the export (64 requests, no
+              request-path step shape), its logits on 64 more requests
+              equal to a server built from the in-process state; a serve
+              view of another n_rows refused.
 6. LM       — the dense LM (smollm-135m, full width: 30 layers, d_model
               576, 9 query heads over 3 KV heads, head_dim 64, vocab
               49 152, random weights from a seed):
@@ -881,14 +914,15 @@ def phase_serve(torch):
     return results
 
 
-def train_args(arch, w):
+def train_args(arch, w, *extra):
     """Training flags of the main path: 20 000 nodes, batch 32 per worker,
-    20 steps, full width, the calibration ladders left on."""
+    20 steps, full width, the calibration ladders left on unless
+    ``extra`` flags pin them."""
     from repro_torch.launch import train
     return train.parse_args([
         "--arch", arch, "--workers", str(w), "--device", DEVICE,
         "--nodes", str(N_NODES), "--batch-per-worker", str(TRAIN_BATCH),
-        "--steps", str(TRAIN_STEPS), "--log-every", "5"])
+        "--steps", str(TRAIN_STEPS), "--log-every", "5", *extra])
 
 
 class StepClock:
@@ -954,40 +988,94 @@ def summarize_profile(torch, prof, n, wall_ms, label):
     return dev_ms
 
 
+def copy_overlap(torch, prof):
+    """The L3 store's H2D copies in a profiler trace: their count, device
+    ms, the ms of them that overlap a kernel on another stream, and
+    whether any ran on the kernels' main stream (None when the trace
+    holds no such copy)."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    # device rows only; a scheduled trace's ProfilerStep row spans the step
+    rows = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+    copies = [e for e in rows if "HtoD" in e.name and "Pinned" in e.name]
+    kernels = [e for e in rows if "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    if not copies or not kernels:
+        return None
+    main = Counter(e.device_resource_id for e in kernels).most_common(1)[0][0]
+    busy = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in kernels
+                  if e.device_resource_id != copies[0].device_resource_id)
+    total = over = 0.0
+    names = Counter()
+    for c in copies:
+        lo, hi = c.time_range.start, c.time_range.end
+        total += hi - lo
+        cur = lo
+        for s, e, name in busy:
+            if e <= cur or s >= hi:
+                continue
+            over += min(e, hi) - max(s, cur)
+            cur = min(e, hi)
+            names[name[:40]] += 1
+    return {"copies": len(copies), "copy_ms": total / 1e3,
+            "overlap_ms": over / 1e3,
+            "on_main_stream": any(c.device_resource_id == main
+                                  for c in copies),
+            "streams": sorted({c.device_resource_id for c in copies}
+                              | {main}),
+            "overlapped_by": dict(names.most_common(3))}
+
+
+def clocked_train(torch, args, label):
+    """``train_gcn`` with zeroed launch counters and a ``StepClock``: the
+    result with its launches, step times, rates over all steps and over
+    the untraced warm ones, the median untraced step, device busy ms per
+    traced step and idle share, and the traced window's L3 H2D copies;
+    and the clock."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    ops.reset_launch_counts()
+    clock = StepClock(torch, first=TRAIN_STEPS - 6, n=4)
+    res = train.train_gcn(args, step_hook=clock)
+    clock.close()
+    torch.cuda.synchronize()
+    res["launches"] = ops.launch_counts()
+    nodes = res["nodes_per_iter"]
+    warm = clock.warm_window()
+    # rates over whole windows, so a stall inside one shows: all the
+    # steps (train_gcn's own clock, from batch 0 to the last loss on the
+    # host, the two start-up steps and the traced ones included) and the
+    # untraced warm steps; the median is a per-step statistic
+    res["window_nodes_per_s"] = TRAIN_STEPS * nodes / res["wall_s"]
+    res["warm_nodes_per_s"] = len(warm) * nodes / sum(warm)
+    res["startup_s"] = res["wall_s"] - sum(clock.times[2:])
+    res["median_step_ms"] = statistics.median(warm) * 1e3
+    res["step_times_ms"] = [1e3 * t for t in clock.times[1:]]
+    res["traced_ms"] = clock.traced_ms()
+    res["busy_ms"] = summarize_profile(torch, clock.prof, clock.n,
+                                       res["traced_ms"], label)
+    res["idle_share"] = (None if res["busy_ms"] is None else
+                         1 - res["busy_ms"] / res["median_step_ms"])
+    res["copy_overlap"] = copy_overlap(torch, clock.prof)
+    return res, clock
+
+
 def phase_train(torch):
     """train_gcn for both train runs with zeroed launch counters; the
     gates of phase 5.  Returns per-arch results (launches, step times, a
     profiler summary) and the trained state."""
     from repro_torch.graph.subgraph import slots_per_seed
-    from repro_torch.kernels import ops
     from repro_torch.launch import train
     results = {}
     for arch, (w, probe) in TRAIN_RUNS.items():
         args = train_args(arch, w)
         depth = len(train._model_config(args).fanouts)
-        ops.reset_launch_counts()
-        clock = StepClock(torch, first=TRAIN_STEPS - 6, n=4)
-        res = train.train_gcn(args, step_hook=clock)
-        clock.close()
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        res["launches"] = counts
+        res, clock = clocked_train(
+            torch, args, f"train {arch} W={w}, per traced pipelined step")
+        counts = res["launches"]
         steps = TRAIN_STEPS
-        nodes = res["nodes_per_iter"]
-        warm = clock.warm_window()
-        # rates over whole windows, so a stall inside one shows: all the
-        # steps (train_gcn's own clock, from batch 0 to the last loss on
-        # the host, the two start-up steps and the traced ones included)
-        # and the untraced warm steps; the median is a per-step statistic
-        res["window_nodes_per_s"] = steps * nodes / res["wall_s"]
-        res["warm_nodes_per_s"] = len(warm) * nodes / sum(warm)
-        res["startup_s"] = res["wall_s"] - sum(clock.times[2:])
-        res["median_step_ms"] = statistics.median(warm) * 1e3
-        res["step_times_ms"] = [1e3 * t for t in clock.times[1:]]
-        res["busy_ms"] = summarize_profile(
-            torch, clock.prof, clock.n, clock.traced_ms(),
-            f"train {arch} W={w}, per traced pipelined step")
-        res["traced_ms"] = clock.traced_ms()
         if res["busy_ms"] is not None:
             print(f"[profile train {arch} W={w}] against the median untraced "
                   f"step ({res['median_step_ms']:.3f} ms): device busy "
@@ -1107,6 +1195,307 @@ def phase_train_kernels(torch, train_res):
               f"the train probe round: ids {tuple(recv.shape)}, hit_cap "
               f"{hc}")
     torch.cuda.synchronize()
+
+
+def store_args(arch, w, store, depth=2):
+    """The main path's training flags with the values host mode takes
+    (``--capacity-slack 2.0``, ``--probe-hit-cap 0``: no ladder), so a
+    device-store and a host-store run build the same exchange."""
+    return train_args(arch, w, "--capacity-slack", "2.0", "--probe-hit-cap",
+                      "0", "--feature-store", store, "--host-gather-depth",
+                      str(depth))
+
+
+#: host-store cells: (arch, W) -> the gather depths run beside the device
+#: store, and the probe kernel of the path
+HOST_RUNS = {("graphgen-gcn-deep", 1): ((2, 1), "cache_probe_tiered"),
+             ("graphgen-gcn", 4): ((2,), "cache_probe_compact")}
+
+
+def phase_host(torch):
+    """Phase 9: each host-store run beside a device-store run of the same
+    seeds and flags.  Gates: losses equal, no request dropped in either,
+    L3 rows and bytes issued, the same kernel launches as the device run
+    (fanout_mean L(L+1)/2 and fanout_mean_bwd L(L-1)/2 per step, one
+    probe launch per round).  Returns the runs by ``(arch, W, store,
+    depth)``."""
+    from repro_torch.launch import train
+    results = {}
+    for (arch, w), (depths, probe) in HOST_RUNS.items():
+        depth_l = len(train._model_config(train_args(arch, w)).fanouts)
+        runs = [("device", 2)] + [("host", d) for d in depths]
+        for store, depth in runs:
+            label = f"{arch} W={w} {store} store" + (
+                f" depth {depth}" if store == "host" else "")
+            res, _ = clocked_train(torch, store_args(arch, w, store, depth),
+                                   label)
+            results[arch, w, store, depth] = res
+            counts = res["launches"]
+            over = res["copy_overlap"]
+            idle = ("not measured" if res["idle_share"] is None
+                    else f"{100 * res['idle_share']:.1f}%")
+            print(f"[host {label}] median step {res['median_step_ms']:.3f} "
+                  f"ms, {res['warm_nodes_per_s']:,.0f} padded nodes/s "
+                  f"(warm), idle {idle}, wall {res['wall_s']:.3f} s, "
+                  f"dropped {res['n_dropped']}, launches {counts}")
+            check(res["n_dropped"] == 0, f"{label}: trained batches dropped "
+                  f"{res['n_dropped']} requests")
+            check(counts["fanout_mean"]
+                  == TRAIN_STEPS * depth_l * (depth_l + 1) // 2,
+                  f"{label}: fanout_mean launched {counts['fanout_mean']}")
+            check(counts["fanout_mean_bwd"]
+                  == TRAIN_STEPS * depth_l * (depth_l - 1) // 2,
+                  f"{label}: fanout_mean_bwd launched "
+                  f"{counts['fanout_mean_bwd']}")
+            check(counts[probe] == TRAIN_STEPS, f"{label}: {probe} launched "
+                  f"{counts[probe]} times in {TRAIN_STEPS} rounds")
+            if store == "device":
+                continue
+            ref = results[arch, w, "device", 2]
+            check(torch.equal(torch.tensor(res["losses"]),
+                              torch.tensor(ref["losses"])),
+                  f"{label}: losses {res['losses']} differ from the device "
+                  f"store's {ref['losses']}")
+            check(counts == ref["launches"], f"{label}: launches {counts} "
+                  f"differ from the device store's {ref['launches']}")
+            check(res["n_l3_hits"] > 0 and res["host_gather_bytes"] > 0,
+                  f"{label}: no row came from the L3 store")
+            print(f"[host {label}] losses == device store's; "
+                  f"{res['n_l3_hits']} L3 rows, "
+                  f"{res['host_gather_bytes'] / TRAIN_STEPS / 1e6:.3f} MB "
+                  f"issued per step, table {res['table_bytes'] / 1e6:.1f} MB "
+                  f"in host RAM; H2D copies in the traced steps: "
+                  f"{'none in the trace' if over is None else over}")
+    return results
+
+
+def phase_host_kernels(torch, host_res):
+    """The probe kernels against their twins at the host runs' own
+    operands: the tiered probe on the deep depth-2 run's last round (its
+    cache filled by deferred admission) and the compact probe on the W = 4
+    run's round under the uncalibrated hit cap (exact)."""
+    from repro_torch.core.generation import dedup_requests
+    from repro_torch.kernels import ops, ref
+    res = host_res["graphgen-gcn-deep", 1, "host", 2]
+    batch, cache, cfg = res["batch"], res["cache"], res["cache_cfg"]
+    need = torch.cat([batch.seeds.reshape(1, -1)]
+                     + [h.reshape(1, -1) for h in batch.hops], dim=1)
+    ids = dedup_requests(need)[0][0]
+    blocks = (cache.l1.keys[0], cache.l1.rows[0], cache.l2.keys[0],
+              cache.l2.rows[0], ids)
+    kw = dict(l1_assoc=cfg.l1_assoc, l2_assoc=cfg.assoc)
+    got, want = ops.cache_probe_tiered(*blocks, **kw), \
+        ref.cache_probe_tiered_ref(*blocks, **kw)
+    for a, b in zip(got, want):
+        check(torch.equal(a, b), "cache_probe_tiered disagrees with its twin "
+              "on the deep host run's probe round")
+    print(f"[host kernels] cache_probe_tiered == twin on the deep host run's "
+          f"round: ids {tuple(ids.shape)}, {int((got[0] > 0).sum())} hits")
+    res = host_res["graphgen-gcn", 4, "host", 2]
+    keys, rows, recv, hc = train_probe_round(torch, res, 4)
+    check(res["cache_cfg"].hit_cap == 0, "the W = 4 host run calibrated a "
+          "hit cap")
+    assoc = res["cache_cfg"].assoc
+    got = ops.cache_probe_compact(keys, rows, recv, assoc=assoc, hit_cap=hc)
+    want = ref.cache_probe_compact_ref(keys, rows, recv, assoc=assoc,
+                                       hit_cap=hc)
+    for a, b in zip(got, want):
+        check(torch.equal(a, b), "cache_probe_compact disagrees with its twin "
+              "on the W = 4 host run's probe round")
+    print(f"[host kernels] cache_probe_compact == twin on the W = 4 host "
+          f"run's round: ids {tuple(recv.shape)}, hit_cap {hc} (auto)")
+    torch.cuda.synchronize()
+
+
+def phase_merge(torch):
+    """Phase 10: the 20 training rounds of graphgen-gcn W = 4 generated
+    with the butterfly and with the reduce-scatter merge, from the same
+    draws and cold caches, in turns.  Gate: every round's batch and the
+    cache state after it equal.  Returns the median ms per round of each
+    and the launches."""
+    from repro_torch.core.feature_cache import init_cache_state
+    from repro_torch.core.generation import make_generator_fn
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    run = train.build_gcn_run(store_args("graphgen-gcn", 4, "device"))
+    w, b = run["w"], run["b"]
+    ops.reset_launch_counts()
+    gens, caches, times = {}, {}, {}
+    for mode in ("butterfly", "reduce_scatter"):
+        gens[mode] = make_generator_fn(
+            fanouts=run["cfg"].fanouts, merge_mode=mode,
+            capacity_slack=run["slack"], cache_cfg=run["cache_cfg"])
+        caches[mode] = init_cache_state(run["cache_cfg"],
+                                        run["cfg"].gcn_in_dim, w,
+                                        device=DEVICE)
+        times[mode] = []
+    with torch.no_grad():
+        for t in range(TRAIN_STEPS):
+            out = {}
+            for mode in gens:
+                seeds, draws = run["seeds_for"](t), run["draws"](t, w, b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[mode], caches[mode] = gens[mode](
+                    run["device_args"], seeds, draws, caches[mode])
+                torch.cuda.synchronize()
+                times[mode].append(1e3 * (time.perf_counter() - t0))
+            for name, x, y in zip(out["butterfly"]._fields, out["butterfly"],
+                                  out["reduce_scatter"]):
+                xs = x if isinstance(x, tuple) else (x,)
+                ys = y if isinstance(y, tuple) else (y,)
+                check(all(torch.equal(u, v) for u, v in zip(xs, ys)),
+                      f"merge: round {t} {name} differs between butterfly "
+                      f"and reduce_scatter")
+            for u, v in zip(caches["butterfly"], caches["reduce_scatter"]):
+                check(torch.equal(u, v), f"merge: round {t} cache states "
+                      f"differ")
+    counts = ops.launch_counts()
+    check(counts["cache_probe_compact"] == 2 * TRAIN_STEPS,
+          f"merge: cache_probe_compact launched "
+          f"{counts['cache_probe_compact']} times")
+    med = {m: statistics.median(v) for m, v in times.items()}
+    print(f"[merge graphgen-gcn W=4] batches, counters and cache states equal "
+          f"over {TRAIN_STEPS} rounds; median ms per round: butterfly "
+          f"{med['butterfly']:.3f}, reduce_scatter "
+          f"{med['reduce_scatter']:.3f} (first rounds {times['butterfly'][0]:.1f} "
+          f"/ {times['reduce_scatter'][0]:.1f}); launches {counts}")
+    return {"median_round_ms": med, "launches": counts}
+
+
+#: offline cells: (arch, W, store), each held to phase 9's pipelined run
+OFFLINE_RUNS = (("graphgen-gcn", 4, "device"), ("graphgen-gcn-deep", 1, "host"))
+
+
+def phase_offline(torch, host_res):
+    """Phase 11: the GraphGen baseline (``offline_gcn``: generate all, store,
+    read back, train) over phase 9's 20-step schedule.  Gate: losses equal
+    to the pipelined run's.  Prints t_gen, t_train, their sum and the
+    pipelined run's wall time."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    results = {}
+    for arch, w, store in OFFLINE_RUNS:
+        ops.reset_launch_counts()
+        off = train.offline_gcn(store_args(arch, w, store))
+        torch.cuda.synchronize()
+        off["launches"] = ops.launch_counts()
+        pipe = host_res[arch, w, store, 2]
+        check(torch.equal(torch.tensor(off["losses"]),
+                          torch.tensor(pipe["losses"])),
+              f"offline {arch} W={w} {store}: losses {off['losses']} differ "
+              f"from the pipelined loop's {pipe['losses']}")
+        total = off["t_gen"] + off["t_train"]
+        print(f"[offline {arch} W={w} {store} store] losses == pipelined; "
+              f"t_gen {off['t_gen']:.3f} s + t_train {off['t_train']:.3f} s "
+              f"= {total:.3f} s against the pipelined loop's "
+              f"{pipe['wall_s']:.3f} s wall ({TRAIN_STEPS} x its median step "
+              f"= {TRAIN_STEPS * pipe['median_step_ms'] / 1e3:.3f} s); "
+              f"launches {off['launches']}")
+        results[arch, w, store] = off
+    return results
+
+
+def phase_ckpt(torch):
+    """Phase 12: graphgen-gcn-deep W = 1 for 10 steps with checkpoints
+    every 5, then ``--resume`` to 20, beside an uninterrupted 20-step run
+    exported for serving; then ``serve --warm-from`` on the export.
+    Gates: the resumed steps' losses and the final params equal to the
+    uninterrupted run's; the warm-from server's predictions and logits
+    equal to a server built from the in-process state, with no new step
+    shape on the request path; a serve view of another ``n_rows``
+    refused."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.generation import SeededDraws
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.train import checkpoint as ckpt
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt")
+    try:
+        def args(steps, *extra):
+            return train.parse_args([
+                "--arch", "graphgen-gcn-deep", "--device", DEVICE,
+                "--nodes", str(N_NODES), "--batch-per-worker",
+                str(TRAIN_BATCH), "--steps", str(steps), "--log-every", "10",
+                "--ckpt-dir", os.path.join(tmp, "ck"), *extra])
+        ops.reset_launch_counts()
+        full = train.train_gcn(args(TRAIN_STEPS, "--ckpt-every", "1000",
+                                    "--export-serve",
+                                    os.path.join(tmp, "serve")))
+        first = train.train_gcn(args(TRAIN_STEPS // 2, "--ckpt-every", "5"))
+        resumed = train.train_gcn(args(TRAIN_STEPS, "--ckpt-every", "5",
+                                       "--resume"))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        print(f"[ckpt] dropped: uninterrupted {full['n_dropped']}, first "
+              f"{first['n_dropped']}, resumed {resumed['n_dropped']}; "
+              f"checkpoints {sorted(os.listdir(os.path.join(tmp, 'ck')))}; "
+              f"launches {counts}")
+        check(resumed["start"] == TRAIN_STEPS // 2, f"resumed from step "
+              f"{resumed['start']}")
+        check(torch.equal(torch.tensor(first["losses"] + resumed["losses"]),
+                          torch.tensor(full["losses"])),
+              f"ckpt: losses {first['losses'] + resumed['losses']} differ "
+              f"from the uninterrupted run's {full['losses']}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            resumed["model"].leaves(), full["model"].leaves())),
+              "ckpt: the resumed run's final params differ")
+        check(counts["cache_probe_tiered"] > 0, "ckpt: cache_probe_tiered "
+              "never launched")
+        print("[ckpt] resumed steps 10-19: losses and final params == the "
+              "uninterrupted run's")
+
+        sargs = serve_args("graphgen-gcn-deep", 1)
+        sargs.warm_from = os.path.join(tmp, "serve")
+        ops.reset_launch_counts()
+        built = serve.build_server(sargs)
+        res = serve.serve_gcn(sargs, built)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(res["request_path_compiles"] == 0, "warm-from: requests added "
+              "step shapes")
+        check(counts["cache_probe_tiered"] > 0 and counts["fanout_mean"] > 0,
+              f"warm-from: launches {counts}")
+        warm = built[0]
+        cfg = train._model_config(args(TRAIN_STEPS))
+        servers = [serve.GraphServer(
+            warm._gen_fn, warm._device_args, model, cache,
+            draws=SeededDraws(cfg.fanouts, sargs.seed, DEVICE),
+            buckets=warm.buckets, n_workers=1)
+            for model, cache in ((warm._model, warm.cache),
+                                 (full["model"], full["cache"]))]
+        rng = np.random.default_rng(5)
+        stream = list(serve._zipf_request_stream(rng, N_REQUESTS, built[1],
+                                                 warm.capacity))
+        for s in servers:
+            s.warmup()
+        for ids in stream:
+            a, b = (s.logits(ids) for s in servers)
+            check(torch.equal(a, b), "warm-from: logits differ from the "
+                  "in-process state's")
+            check(torch.equal(torch.argmax(a, -1), torch.argmax(b, -1)),
+                  "warm-from: predictions differ")
+        check(all(s.compile_count() == 3 for s in servers),
+              "warm-from: the request path added step shapes")
+        print(f"[ckpt] serve --warm-from: p50 {res['p50_ms']:.3f} ms, p99 "
+              f"{res['p99_ms']:.3f} ms, QPS {res['qps']:.2f}, 0 request-path "
+              f"step shapes; {N_REQUESTS} requests' logits == the in-process "
+              f"server's; launches {counts}")
+        wrong = built[0]._model
+        try:
+            ckpt.restore_serving_state(
+                os.path.join(tmp, "serve"), wrong, full["cache"],
+                expect_cache_cfg=full["cache_cfg"]._replace(
+                    n_rows=2 * full["cache_cfg"].n_rows).serve_view())
+        except ValueError as e:
+            print(f"[ckpt] another n_rows refused: {e}")
+        else:
+            fail("ckpt: a serve view with another n_rows was accepted")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": counts}
 
 
 #: flash_attention checks on the card: (B, Hq, Hkv, Lq, Lk, Dh, causal,
@@ -2661,6 +3050,11 @@ def main():
     serve_res = phase_serve(torch)
     train_res = phase_train(torch)
     phase_train_kernels(torch, train_res)
+    host_res = phase_host(torch)
+    phase_host_kernels(torch, host_res)
+    merge_res = phase_merge(torch)
+    offline_res = phase_offline(torch, host_res)
+    ckpt_res = phase_ckpt(torch)
     phase_flash(torch, dev)
     phase_ssd_kernels(torch, dev)
     prefill = phase_lm_prefill(torch)
@@ -2669,6 +3063,8 @@ def main():
     ssm_serve = phase_ssm_serve(torch)
     gather = phase_gather_reduce(torch, serve_res)
     runs = (list(serve_res.values()) + list(train_res.values())
+            + list(host_res.values()) + [merge_res]
+            + list(offline_res.values()) + [ckpt_res]
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
@@ -2696,6 +3092,17 @@ def main():
         "hit_cap": r["cache_cfg"].hit_cap, "wire": r["cache_cfg"].wire,
         "cache_hit_rate": r.get("cache_hit_rate"),
         "launches": r["launches"]} for arch, r in train_res.items()}}))
+    print(json.dumps({"host_store": {
+        f"{arch} W={w} {store}" + (f" depth {d}" if store == "host" else ""):
+        {k: r.get(k) for k in (
+            "median_step_ms", "warm_nodes_per_s", "busy_ms", "idle_share",
+            "wall_s", "n_dropped", "n_l3_hits", "host_gather_bytes",
+            "table_bytes", "copy_overlap", "launches")}
+        for (arch, w, store, d), r in host_res.items()},
+        "merge": merge_res, "offline": {
+            f"{arch} W={w} {store}": {k: r[k] for k in (
+                "t_gen", "t_train", "launches")}
+            for (arch, w, store), r in offline_res.items()}}))
     print(json.dumps({"lm": {"arch": LM_ARCH, "prefill": {
         "batch": PREFILL_B, "seq": PREFILL_S, **{k: prefill[k] for k in (
             "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",

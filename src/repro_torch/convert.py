@@ -11,8 +11,16 @@ holding the same weights, ``adam_state_from_numpy`` the port's
 KV cache, ``mamba_params_from_numpy`` a ``Mamba2LM`` and
 ``mamba_cache_from_numpy`` its recurrent state, so a run of the port can
 start from the reference's state mid-run.
+
+The other direction, ``gcn_params_to_numpy``, ``adam_state_to_numpy``
+and ``cache_state_to_numpy``, gives the port's GCN, AdamW and cache state
+back as numpy trees of the reference's structure — NamedTuples with the
+reference's field names — so ``train.checkpoint`` writes them under the
+reference's pytree paths.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +31,57 @@ from .models.gcn import GCN
 from .models.ssm import Mamba2LM
 from .models.transformer import DenseLM
 from .train.optimizer import AdamState
+
+
+class GCNLayerParams(NamedTuple):
+    """One layer's weights in the reference's pytree form."""
+    w_self: np.ndarray
+    w_nbr: np.ndarray
+    b: np.ndarray
+
+
+class GCNParams(NamedTuple):
+    """The reference's ``GCNParams`` as numpy: layers, then the read-out."""
+    layers: Tuple[GCNLayerParams, ...]
+    w_out: np.ndarray
+    b_out: np.ndarray
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _gcn_tree(leaves) -> GCNParams:
+    """Leaves in ``GCN.leaves()`` order -> a ``GCNParams`` tree."""
+    depth = (len(leaves) - 2) // 3
+    return GCNParams(
+        layers=tuple(GCNLayerParams(*leaves[3 * i:3 * i + 3])
+                     for i in range(depth)),
+        w_out=leaves[-2], b_out=leaves[-1])
+
+
+def gcn_params_to_numpy(model: GCN) -> GCNParams:
+    """A ``GCN``'s weights as the reference's ``GCNParams`` of numpy
+    arrays (the inverse of ``gcn_params_from_numpy``)."""
+    return _gcn_tree([_numpy(p) for p in model.leaves()])
+
+
+def adam_state_to_numpy(state: AdamState) -> AdamState:
+    """The port's ``AdamState`` as the reference's: ``step`` an int32
+    scalar and ``m``/``v`` ``GCNParams`` trees of numpy arrays (the
+    inverse of ``adam_state_from_numpy``)."""
+    return AdamState(step=np.asarray(_numpy(state.step), np.int32),
+                     m=_gcn_tree([_numpy(a) for a in state.m]),
+                     v=_gcn_tree([_numpy(a) for a in state.v]))
+
+
+def cache_state_to_numpy(state):
+    """A ``FeatureCache`` or ``TieredCache`` (per-worker or stacked) with
+    numpy leaves, same NamedTuple types (the inverse of
+    ``cache_state_from_numpy``)."""
+    if isinstance(state, TieredCache):
+        return TieredCache(*(cache_state_to_numpy(t) for t in state))
+    return FeatureCache(*(_numpy(a) for a in state))
 
 
 def _gcn_leaves(tree_np):

@@ -84,6 +84,7 @@ class ModelConfig:
     cache_wire: str = "compact"
     cache_hit_cap: int = 0      # compact wire payload rows (0 = auto)
     feature_store: str = "device"
+    host_gather_depth: int = 2  # host store: 2 overlaps the gather, 1 blocks
     use_flash_attention: bool = False
 
     def __post_init__(self):
@@ -122,6 +123,10 @@ class ModelConfig:
             raise ValueError(
                 f"feature_store must be one of {VALID_FEATURE_STORES}, "
                 f"got {self.feature_store!r}")
+        if self.host_gather_depth not in (1, 2):
+            raise ValueError(
+                f"host_gather_depth must be 1 (synchronous) or 2 "
+                f"(double-buffered), got {self.host_gather_depth}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -134,9 +139,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """AdamW with linear warmup, cosine decay and a global-norm clip (the
-    fields of ``repro.core.config.TrainConfig`` that the GCN trainer
-    reads, with the same defaults)."""
+    """AdamW with linear warmup, cosine decay and a global-norm clip, and
+    the checkpoint cadence (the fields of ``repro.core.config.TrainConfig``
+    that the GCN trainer reads, with the same defaults)."""
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     beta1: float = 0.9
@@ -145,3 +150,5 @@ class TrainConfig:
     grad_clip: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 1000
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3

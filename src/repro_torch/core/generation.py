@@ -1,6 +1,5 @@
 """Distributed subgraph generation (paper §2 step 3) on a stacked worker
-axis — the port of ``repro/core/generation.py`` (device store, flat cache
-modes, butterfly merge).
+axis — the port of ``repro/core/generation.py``.
 
 ``repro`` runs one ``shard_map`` instance per worker.  Here every
 per-worker array carries a leading ``[W, ...]`` axis and the ``lax``
@@ -14,12 +13,16 @@ kernel launch over every holder.
 
 Flow per round, per hop: broadcast the frontier (``all_gather``), sample
 ``k`` weighted candidates per frontier node from each worker's local
-edges (``local_candidates``), merge them over the butterfly
-(``tree_allreduce`` of ``merge_topk``), slice this worker's rows.  Then
-one request-deduplicated feature fetch (``fetch_rows``): distinct ids
-probe the hot-node cache (locally at W = 1, through the shard-probe round
-to their cache-shard holders at W > 1), and only misses take the routed
-owner fetch.
+edges (``local_candidates``), merge them (``merge_mode="butterfly"``:
+``tree_allreduce`` of ``merge_topk``, then slice this worker's rows;
+``"reduce_scatter"``: ``tree_reduce_scatter``, each worker merging only
+its own segment, then an ``all_gather`` of the next frontier).  Then one
+request-deduplicated feature fetch (``fetch_rows``): distinct ids probe
+the hot-node cache (locally at W = 1, through the shard-probe round to
+their cache-shard holders at W > 1), and only misses take the routed
+owner fetch — or, with ``feature_store="host"``, are staged for the L3
+host gather (``core/host_store.py``) and patched into the batch one step
+later.
 
 **Random draws.** ``repro`` draws the sampler's offsets and Exp(1)
 variates from threefry inside the worker; torch cannot reproduce those
@@ -29,8 +32,7 @@ float32 ``= -log(u)``.  Production makes them with ``sample_draws`` from
 a seeded ``torch.Generator``; the parity tests feed ``repro``'s own
 draws, and the keys ``e / max(deg / k, 1e-30)`` then agree bit for bit.
 
-Waiting for later slices: the reduce-scatter merge, the host (L3) store
-and the ``collect_stats`` trace seam.
+Waiting for a later slice: the ``collect_stats`` trace seam.
 """
 from __future__ import annotations
 
@@ -49,8 +51,12 @@ from .feature_cache import (CacheConfig, CacheStats, FeatureCache,
                             expand_hit_rows, hit_bitmap_words,
                             init_cache_state, shard_of, tiered_probe,
                             unpack_hit_bitmap)
+from .host_store import HostFeatureStore, HostMissRequest
 from .partition import PartitionedGraph
-from .tree_reduce import tree_allreduce
+from .tree_reduce import tree_allreduce, tree_reduce_scatter
+
+#: how the per-hop candidates merge across workers
+MERGE_MODES = ("butterfly", "reduce_scatter")
 
 #: smallest positive float32 — the floor ``repro`` draws ``u`` from
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -65,8 +71,7 @@ class Candidates(NamedTuple):
 
 class FetchStats(NamedTuple):
     """Per-worker telemetry of one ``fetch_rows`` (``[W]`` int32 each);
-    fields match ``repro.core.generation.FetchStats`` (the host-store
-    ``host_gather_bytes`` is always zero in this slice)."""
+    fields match ``repro.core.generation.FetchStats``."""
     n_requests: torch.Tensor
     n_unique: torch.Tensor
     n_dropped: torch.Tensor
@@ -513,11 +518,134 @@ def _cache_tier(cfg: CacheConfig):
     return _FrozenTier(base) if cfg.frozen else base
 
 
-def fetch_rows(table: torch.Tensor, ids: torch.Tensor, *,
+def _host_admit(cache, cfg: CacheConfig, adm_ids: torch.Tensor,
+                adm_rows: torch.Tensor, w: int):
+    """Deferred admission: offer the PREVIOUS step's landed L3 rows
+    (``adm_ids [W, S]``, ``adm_rows [W, S, D]``) to the cache.
+
+    Sharded and tiered stores at W > 1 route each row to its cache-shard
+    holder in one ``all_to_all`` round first (never overflowing: a
+    holder's slots per source equal ``S``); tiered stores admit into the
+    L2.  Returns ``(new_cache, n_inserted [W], admit_round_bytes)``."""
+    s, d = adm_ids.shape[-1], adm_rows.shape[-1]
+    if cfg.mode == "tiered":
+        target, tcfg = cache.l2, cfg.l2_config()
+    else:
+        target, tcfg = cache, cfg
+    if w == 1 or cfg.mode == "replicated":
+        out = [cache_insert(target.worker(i), adm_ids[i], adm_rows[i],
+                            adm_ids[i] >= 0, tcfg) for i in range(w)]
+        adm_bytes = 0
+    else:
+        dest = torch.where(adm_ids >= 0, shard_of(adm_ids, w),
+                           torch.full_like(adm_ids, w))
+        plan = _route_plan(dest, s, w)
+        recv_ids = all_to_all(_to_wire(plan, _take(adm_ids, plan.order),
+                                       w, s, -1))
+        recv_rows = all_to_all(_to_wire(plan, _take(adm_rows, plan.order),
+                                        w, s, 0))
+        out = []
+        for h in range(w):
+            flat = recv_ids[h].reshape(-1)
+            out.append(cache_insert(target.worker(h), flat,
+                                    recv_rows[h].reshape(-1, d), flat >= 0,
+                                    tcfg))
+        adm_bytes = w * s * (4 + d * adm_rows.element_size())
+    new = FeatureCache.stack([c for c, _ in out])
+    n_ins = torch.stack([n for _, n in out])
+    if cfg.mode == "tiered":
+        return TieredCache(l1=cache.l1, l2=new), n_ins, adm_bytes
+    return new, n_ins, adm_bytes
+
+
+def _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg, host_admit,
+                d, dtype, w):
+    """The ``store="host"`` fetch body: probe the tiers, then STAGE the
+    misses into a per-worker ``[S]`` id buffer for the L3 gather.
+
+    Hit slots are served now; staged slots are zero holes flagged
+    ``req.patch``; misses beyond the staging capacity ``S`` are dropped
+    and counted.  Returns ``(out, stats, req)``, or with a cache ``(out,
+    new_cache, stats, cstats, req)`` where ``cstats.n_l3_hits`` counts
+    the staged ids and ``n_misses`` the overflow."""
+    r = ids.shape[-1]
+    dev = ids.device
+    s = capacity if capacity is not None \
+        else probe_round_capacity(r, 1, capacity_slack)
+    s = max(int(s), 1)
+    req_ids, inverse, req_valid, _ = dedup_requests(ids)
+    z = torch.zeros(w, dtype=torch.int32, device=dev)
+    n_adm, adm_bytes = z, 0
+    if cache is not None and host_admit is not None:
+        cache, n_adm, adm_bytes = _host_admit(cache, cache_cfg, *host_admit,
+                                              w)
+    tier = _cache_tier(cache_cfg) if cache is not None else None
+    if tier is not None:
+        probe = tier.probe(cache, cache_cfg, req_ids, req_valid,
+                           probe_round_capacity(r, w, capacity_slack), w)
+        hit = probe.hit
+    else:
+        probe = None
+        hit = torch.zeros(ids.shape, dtype=torch.bool, device=dev)
+    # stage the misses: compact them into the [S] id buffer
+    miss = req_valid & ~hit
+    cs = torch.cumsum(miss.to(torch.int32), dim=-1)
+    staged = miss & (cs <= s)
+    slot_u = cs - 1
+    miss_ids = torch.full((w, s + 1), -1, dtype=torch.int32, device=dev)
+    miss_ids.scatter_(1, torch.where(staged, slot_u, s).to(torch.int64),
+                      torch.where(staged, req_ids, -1))
+    miss_ids = miss_ids[:, :s].contiguous()
+    n_staged = staged.sum(-1).to(torch.int32)
+    n_overflow = miss.sum(-1).to(torch.int32) - n_staged
+    if tier is not None:
+        out_u = torch.where(hit[..., None], probe.rows, 0)
+    else:
+        out_u = torch.zeros(ids.shape + (d,), dtype=dtype, device=dev)
+    served_u = hit | staged
+    out = _take(out_u, inverse)
+    dropped = (~_take(served_u, inverse)).sum(-1).to(torch.int32)
+    req = HostMissRequest(ids=miss_ids,
+                          slot=_take(slot_u, inverse).to(torch.int32),
+                          patch=_take(staged, inverse))
+    item = torch.empty((), dtype=dtype).element_size()
+    probe_bytes = probe.wire.probe_bytes if tier is not None else 0
+    stats = FetchStats(
+        torch.full((w,), r, dtype=torch.int32, device=dev), n_staged, dropped,
+        torch.full((w,), probe_bytes + adm_bytes, dtype=torch.int32,
+                   device=dev),
+        torch.full((w,), s * (4 + d * item), dtype=torch.int32, device=dev))
+    if tier is None:
+        return out, stats, req
+    # tiered L1 promotion still happens at probe time (L2-served rows)
+    new_cache, n_ins = cache, n_adm
+    if cache_cfg.mode == "tiered":
+        l2_hit = probe.ctx[2]
+        l1_cfg = cache_cfg.l1_config()
+        l1 = [cache_insert(cache.l1.worker(i), req_ids[i], probe.rows[i],
+                           l2_hit[i], l1_cfg) for i in range(w)]
+        new_cache = TieredCache(l1=FeatureCache.stack([c for c, _ in l1]),
+                                l2=cache.l2)
+        n_ins = n_ins + torch.stack([n for _, n in l1])
+    n_hits = probe.hit.sum(-1).to(torch.int32)
+    n_l1 = probe.l1_hit.sum(-1).to(torch.int32)
+    n_local = probe.local.sum(-1).to(torch.int32)
+    cstats = CacheStats(
+        n_hits=n_hits, n_misses=n_overflow, n_inserted=n_ins,
+        bytes_saved=(n_l1 + n_local) * (d * item), n_local_hits=n_local,
+        n_shard_hits=n_hits - n_l1 - n_local, n_l1_hits=n_l1,
+        n_probe_demoted=probe.wire.n_demoted,
+        probe_hit_peak=probe.wire.hit_peak, n_l3_hits=n_staged)
+    return out, new_cache, stats, cstats, req
+
+
+def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
                capacity_slack: float = 2.0, dedup: bool = True,
                capacity: Optional[int] = None,
                cache: Optional[FeatureCache] = None,
-               cache_cfg: Optional[CacheConfig] = None):
+               cache_cfg: Optional[CacheConfig] = None,
+               store: Optional[str] = None, feat_dim: Optional[int] = None,
+               host_admit=None):
     """Routed row fetch (the MapReduce shuffle) for every worker at once.
 
     ``table [W, rows, D]`` is the row-sharded table (global row ``i`` on
@@ -532,23 +660,67 @@ def fetch_rows(table: torch.Tensor, ids: torch.Tensor, *,
     served misses are offered for admission unless ``cache_cfg.frozen``.
     Requests beyond the per-destination capacity (``ceil(R/W) * slack``,
     clamped to ``rows`` under dedup, or ``capacity``) return zero rows and
-    count as dropped.  Rows are bit-identical to ``repro``'s."""
+    count as dropped.  Rows are bit-identical to ``repro``'s.
+
+    ``store`` picks where misses resolve (default ``cache_cfg.store``,
+    else ``"device"``).  With ``store="host"`` they are staged for the L3
+    gather instead (``_host_fetch``): the return grows a
+    ``HostMissRequest`` tail, the staged rows are zero holes until
+    ``host_store.patch_batch`` fills them, ``host_admit=(ids [W, S], rows
+    [W, S, D])`` feeds the previous step's landed rows to the cache, and
+    ``table`` may be ``None`` when ``feat_dim`` gives the row width."""
     if cache is not None and not dedup:
         raise ValueError("the cache front end requires dedup=True")
     if cache is not None and cache_cfg is None:
         raise ValueError("fetch_rows(cache=...) requires cache_cfg "
                          "(the CacheConfig the state was populated under)")
-    w, rows, d = table.shape
-    r = ids.shape[-1]
-    dev = table.device
+    if store is None:
+        store = cache_cfg.store if cache_cfg is not None else "device"
+    host = store == "host"
+    if host and not dedup:
+        raise ValueError('fetch_rows(store="host") requires dedup=True')
+    if host and cache_cfg is not None and cache_cfg.frozen:
+        raise ValueError('a frozen (read-mostly serve) cache cannot ride '
+                         'the L3 staging path — serve misses resolve '
+                         'against the device table (see serve_view())')
+    if host and table is None and feat_dim is None:
+        raise ValueError('fetch_rows(store="host") without a device table '
+                         'requires feat_dim (the feature row width)')
+    if not host and table is None:
+        raise ValueError('fetch_rows(store="device") requires a table')
+    if not host and host_admit is not None:
+        raise ValueError('host_admit only applies to store="host"')
+    w, r = ids.shape[0], ids.shape[-1]
+    d = table.shape[-1] if table is not None else feat_dim
+    dtype = table.dtype if table is not None else torch.float32
+    dev = ids.device
     z = torch.zeros(w, dtype=torch.int32, device=dev)
-    n_req = torch.full((w,), r, dtype=torch.int32, device=dev)
     if r == 0:
-        out = table.new_zeros((w, 0, d))
+        out = torch.zeros((w, 0, d), dtype=dtype, device=dev)
         stats = FetchStats(z, z, z, z, z)
+        if host:
+            # a landed buffer may be pending even when nothing is requested
+            n_adm = z
+            if cache is not None and host_admit is not None:
+                cache, n_adm, _ = _host_admit(cache, cache_cfg, *host_admit,
+                                              w)
+            s0 = max(int(capacity), 1) if capacity is not None else 1
+            req = HostMissRequest(
+                torch.full((w, s0), -1, dtype=torch.int32, device=dev),
+                torch.zeros((w, 0), dtype=torch.int32, device=dev),
+                torch.zeros((w, 0), dtype=torch.bool, device=dev))
+            if cache is not None:
+                return out, cache, stats, CacheStats(
+                    z, z, n_adm, z, z, z, z, z, z, z), req
+            return out, stats, req
         if cache is not None:
             return out, cache, stats, CacheStats(*(z,) * 10)
         return out, stats
+    if host:
+        return _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg,
+                           host_admit, d, dtype, w)
+    rows = table.shape[1]
+    n_req = torch.full((w,), r, dtype=torch.int32, device=dev)
     if w == 1 and cache is None:
         out = table[0][torch.clamp(ids[0], 0, rows - 1).to(torch.int64)][None]
         n_unique = dedup_requests(ids)[3] if dedup else n_req
@@ -619,21 +791,36 @@ def fetch_rows(table: torch.Tensor, ids: torch.Tensor, *,
 
 
 def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
-                     x: torch.Tensor, y: torch.Tensor, seeds: torch.Tensor,
-                     draws, cache: Optional[FeatureCache] = None, *,
-                     fanouts: Tuple[int, ...], capacity_slack: float = 2.0,
+                     x: Optional[torch.Tensor], y: torch.Tensor,
+                     seeds: torch.Tensor, draws,
+                     cache: Optional[FeatureCache] = None, *,
+                     fanouts: Tuple[int, ...], merge_mode: str = "butterfly",
+                     capacity_slack: float = 2.0,
                      cache_cfg: Optional[CacheConfig] = None,
-                     fetch_capacity: Optional[int] = None):
-    """One L-hop generation round of every worker (the butterfly merge).
+                     fetch_capacity: Optional[int] = None,
+                     feature_store: str = "device",
+                     feat_dim: Optional[int] = None, host_admit=None):
+    """One L-hop generation round of every worker.
 
     ``indptr [W, N+1]``, ``indices [W, E]``, ``x [W, rows, D]``,
     ``y [W, rows, 1]``, ``seeds [W, b]`` and the round's ``draws``.  Per
-    hop: broadcast the frontier, sample local candidates, merge them over
-    the butterfly, slice this worker's rows; masks chain so a padded
-    parent's subtree stays padded.  Then one deduplicated feature fetch
-    (cache-probed first when a cache is threaded in) and the label fetch.
-    Returns the ``SubgraphBatch`` (global leading axis), and the new cache
-    state when a cache is given."""
+    hop: broadcast the frontier, sample local candidates, merge them
+    (``merge_mode``: the butterfly, then this worker's rows; or the
+    reduce-scatter of this worker's segment, then an ``all_gather`` of the
+    global frontier); masks chain so a padded parent's subtree stays
+    padded.  Then one deduplicated feature fetch (cache-probed first when
+    a cache is threaded in) and the label fetch.  Returns the
+    ``SubgraphBatch`` (global leading axis), and the new cache state when
+    a cache is given.
+
+    With ``feature_store="host"`` ``x`` is ``None`` (``feat_dim`` gives
+    the width), the misses are staged for the L3 gather and the returns
+    grow a ``HostMissRequest`` tail — ``(batch, cache, req)`` or
+    ``(batch, req)``; ``host_admit`` is the previous step's landed
+    ``(ids, rows)``."""
+    if merge_mode not in MERGE_MODES:
+        raise ValueError(f"merge_mode must be one of {MERGE_MODES}, "
+                         f"got {merge_mode!r}")
     w, b = seeds.shape
     dev = seeds.device
     frontier = all_gather(seeds)                           # [W, W*b]
@@ -647,12 +834,21 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         cand = local_candidates(indptr, indices, frontier, k, offs, e)
         cand = Candidates(ids=cand.ids, keys=torch.where(
             parent_mask[..., None], cand.keys, float("inf")))
-        merged = tree_allreduce(cand, merge_topk)          # [W, F, k]
-        m_all = torch.isfinite(merged.keys)
-        h_all = torch.where(m_all, merged.ids, 0)
-        mine = me[:, None] * local_rows + torch.arange(local_rows, device=dev)
-        h = _take(h_all, mine)
-        m = _take(m_all, mine)
+        if merge_mode == "reduce_scatter":
+            seg = tree_reduce_scatter(cand, merge_topk)    # [W, rows_l, k]
+            m = torch.isfinite(seg.keys)
+            h = torch.where(m, seg.ids, 0)
+            # the next frontier is still global: every worker scans its
+            # local edges against all hop-l nodes
+            h_all, m_all = all_gather(h), all_gather(m)
+        else:
+            merged = tree_allreduce(cand, merge_topk)      # [W, F, k]
+            m_all = torch.isfinite(merged.keys)
+            h_all = torch.where(m_all, merged.ids, 0)
+            mine = (me[:, None] * local_rows
+                    + torch.arange(local_rows, device=dev))
+            h = _take(h_all, mine)
+            m = _take(m_all, mine)
         shape = shape + (k,)
         hops.append(h.reshape((w,) + shape))
         masks.append(m.reshape((w,) + shape))
@@ -664,17 +860,19 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
 
     need = torch.cat([seeds] + [h.reshape(w, -1) for h in hops], dim=1)
     z = torch.zeros(w, dtype=torch.int32, device=dev)
+    kw = dict(capacity_slack=capacity_slack, capacity=fetch_capacity,
+              store=feature_store, feat_dim=feat_dim, host_admit=host_admit)
     if cache is not None:
-        feats, cache, fstats, cstats = fetch_rows(
-            x, need, capacity_slack=capacity_slack, capacity=fetch_capacity,
-            cache=cache, cache_cfg=cache_cfg)
+        # the host store's fetch returns its HostMissRequest as the tail
+        feats, cache, fstats, cstats, *tail = fetch_rows(
+            x, need, cache=cache, cache_cfg=cache_cfg, **kw)
         n_hits, n_misses = cstats.n_hits, cstats.n_misses
         n_demoted = cstats.n_probe_demoted
     else:
-        feats, fstats = fetch_rows(x, need, capacity_slack=capacity_slack,
-                                   capacity=fetch_capacity)
+        feats, fstats, *tail = fetch_rows(x, need, **kw)
         n_hits, n_misses, n_demoted = z, fstats.n_unique, z
-    d = x.shape[-1]
+    req = tail[0] if tail else None
+    d = feats.shape[-1]
     x_seed = feats[:, :b]
     x_hops = []
     off = n = b
@@ -684,7 +882,7 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         x_hops.append(xh * masks[level][..., None])
         off += n
     ys, ystats = fetch_rows(y, seeds, capacity_slack=capacity_slack,
-                            dedup=False)
+                            dedup=False, store="device")
     labels = ys[..., 0].to(torch.int32)
 
     def glob(t):
@@ -697,9 +895,9 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         n_dropped=fstats.n_dropped + ystats.n_dropped,
         n_cache_hits=n_hits, n_cache_misses=n_misses,
         n_probe_demoted=n_demoted)
-    if cache is not None:
-        return batch, cache
-    return batch
+    out = (batch,) + ((cache,) if cache is not None else ()) \
+        + ((req,) if req is not None else ())
+    return out if len(out) > 1 else batch
 
 
 def shard_rows(table: np.ndarray, n_workers: int) -> np.ndarray:
@@ -714,9 +912,12 @@ def shard_rows(table: np.ndarray, n_workers: int) -> np.ndarray:
 
 
 def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
+                      merge_mode: str = "butterfly",
                       capacity_slack: float = 2.0,
                       cache_cfg: Optional[CacheConfig] = None,
-                      fetch_capacity: Optional[int] = None):
+                      fetch_capacity: Optional[int] = None,
+                      feature_store: str = "device",
+                      feat_dim: Optional[int] = None):
     """The generator function, without data.
 
     ``gen_fn(device_args, seeds [W, b], draws) -> SubgraphBatch`` where
@@ -724,23 +925,53 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
     y [W, rows, 1])``.  With a ``cache_cfg`` it threads the stacked cache
     state: ``gen_fn(device_args, seeds, draws, cache) -> (batch, cache)``;
     with a FROZEN ``cache_cfg`` (``serve_view()``) the cache is a
-    read-only input and only the batch comes back."""
+    read-only input and only the batch comes back.
+
+    With ``feature_store="host"`` (``feat_dim`` required) the feature
+    table never reaches the device: ``device_args = (indptr, indices,
+    y)``, and ``gen_fn(device_args, seeds, draws) -> (batch, req)``
+    uncached, ``gen_fn(device_args, seeds, draws, cache, admit_ids
+    [W, S], admit_rows [W, S, D]) -> (batch, cache, req)`` cached, where
+    ``admit_*`` is the previous step's landed gather
+    (``host_store.empty_admit`` for the first)."""
     if not fanouts:
         raise ValueError("fanouts must name at least one hop, got ()")
+    if merge_mode not in MERGE_MODES:
+        raise ValueError(f"merge_mode must be one of {MERGE_MODES}, "
+                         f"got {merge_mode!r}")
+    if feature_store not in ("device", "host"):
+        raise ValueError(f"feature_store must be 'device' or 'host', "
+                         f"got {feature_store!r}")
+    host = feature_store == "host"
+    if host and feat_dim is None:
+        raise ValueError('make_generator_fn(feature_store="host") requires '
+                         'feat_dim (no device table to read it from)')
     cached = cache_cfg is not None and cache_cfg.n_rows > 0
     frozen = cached and cache_cfg.frozen
+    if frozen and host:
+        raise ValueError('a frozen (read-mostly serve) cache cannot ride '
+                         'the L3 staging path — build the serve generator '
+                         'with feature_store="device"')
     if cached:
-        cache_cfg = cache_cfg.validated()
-        if cache_cfg.store != "device":
-            raise NotImplementedError(
-                "the host (L3) feature store is not ported yet")
+        # the generator's feature_store is authoritative
+        cache_cfg = cache_cfg.validated()._replace(store=feature_store)
     worker_gen = functools.partial(
-        _worker_generate, fanouts=tuple(fanouts),
+        _worker_generate, fanouts=tuple(fanouts), merge_mode=merge_mode,
         capacity_slack=capacity_slack,
         cache_cfg=cache_cfg if cached else None,
-        fetch_capacity=fetch_capacity)
+        fetch_capacity=fetch_capacity, feature_store=feature_store,
+        feat_dim=feat_dim)
 
-    if cached and frozen:
+    if host and cached:
+        def gen_fn(device_args, seeds, draws, cache, admit_ids, admit_rows):
+            indptr, indices, ys = device_args
+            return worker_gen(indptr, indices, None, ys, seeds, draws, cache,
+                              host_admit=(admit_ids, admit_rows))
+    elif host:
+        def gen_fn(device_args, seeds, draws):
+            indptr, indices, ys = device_args
+            return worker_gen(indptr, indices, None, ys, seeds, draws)
+    elif frozen:
         def gen_fn(device_args, seeds, draws, cache):
             batch, _ = worker_gen(*device_args, seeds, draws, cache)
             return batch
@@ -756,24 +987,45 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
 def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
                                labels: np.ndarray, *,
                                fanouts: Tuple[int, ...] = (40, 20),
+                               merge_mode: str = "butterfly",
                                capacity_slack: float = 2.0,
                                cache_cfg: Optional[CacheConfig] = None,
                                fetch_capacity: Optional[int] = None,
+                               feature_store: str = "device",
+                               host_gather_depth: int = 2,
                                device="cuda"):
     """Place the graph, features and labels on ``device`` and build the
     generator: ``(gen_fn, device_args)``, or with a ``cache_cfg``
-    ``(gen_fn, device_args, cache0)`` with an empty stacked cache state."""
+    ``(gen_fn, device_args, cache0)`` with an empty stacked cache state.
+
+    With ``feature_store="host"`` the feature table stays in host RAM
+    (unsharded) behind a ``HostFeatureStore`` of depth
+    ``host_gather_depth``; only the graph and the labels go to the
+    device, and the returns are ``(gen_fn, device_args, store)`` and
+    ``(gen_fn, device_args, store, cache0)``."""
     dev = resolve_device(device)
     w = part.n_workers
-    x = shard_rows(features.astype(np.float32), w)
+    host = feature_store == "host"
     y = shard_rows(labels.reshape(-1, 1).astype(np.float32), w)
-    device_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                        for a in (part.indptr, part.indices, x, y))
-    gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=capacity_slack,
+    graph = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in (part.indptr, part.indices))
+    labels_t = torch.from_numpy(np.ascontiguousarray(y)).to(dev)
+    d = int(features.shape[1])
+    gen_fn = make_generator_fn(fanouts=fanouts, merge_mode=merge_mode,
+                               capacity_slack=capacity_slack,
                                cache_cfg=cache_cfg,
-                               fetch_capacity=fetch_capacity)
-    if cache_cfg is not None and cache_cfg.n_rows > 0:
-        cache0 = init_cache_state(cache_cfg.validated(), x.shape[-1], w,
-                                  device=dev)
-        return gen_fn, device_args, cache0
-    return gen_fn, device_args
+                               fetch_capacity=fetch_capacity,
+                               feature_store=feature_store,
+                               feat_dim=d if host else None)
+    cached = cache_cfg is not None and cache_cfg.n_rows > 0
+    cache0 = (init_cache_state(cache_cfg.validated(), d, w, device=dev)
+              if cached else None)
+    if host:
+        table = (features if features.dtype == np.float32
+                 else features.astype(np.float32))
+        out = (gen_fn, graph + (labels_t,),
+               HostFeatureStore(table, depth=host_gather_depth))
+    else:
+        x = shard_rows(features.astype(np.float32), w)
+        out = (gen_fn, graph + (torch.from_numpy(x).to(dev), labels_t))
+    return out + ((cache0,) if cached else ())

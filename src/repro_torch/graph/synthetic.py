@@ -36,10 +36,25 @@ def powerlaw_graph(
     return CSRGraph.from_edges(src, dst, n_nodes)
 
 
-def node_features(n_nodes: int, dim: int, seed: int = 0) -> np.ndarray:
-    """Synthetic [n_nodes, dim] float32 feature table."""
+def node_features(n_nodes: int, dim: int, seed: int = 0, *,
+                  features_on_host: bool = False,
+                  chunk_rows: int = 1 << 16) -> np.ndarray:
+    """Synthetic [n_nodes, dim] float32 feature table.
+
+    With ``features_on_host=True`` (the L3 host store's table) it is
+    drawn in ``chunk_rows``-row chunks into one preallocated array, so
+    the peak is the table plus one chunk; sequential chunk draws consume
+    the generator exactly like one full draw, so the result is
+    bit-identical for every chunk size."""
     rng = np.random.default_rng(seed + 1)
-    return rng.standard_normal((n_nodes, dim), dtype=np.float32) * 0.1
+    if not features_on_host:
+        return rng.standard_normal((n_nodes, dim), dtype=np.float32) * 0.1
+    out = np.empty((n_nodes, dim), np.float32)
+    for lo in range(0, n_nodes, chunk_rows):
+        hi = min(lo + chunk_rows, n_nodes)
+        out[lo:hi] = rng.standard_normal((hi - lo, dim), dtype=np.float32)
+    out *= np.float32(0.1)
+    return out
 
 
 def node_labels(n_nodes: int, n_classes: int, seed: int = 0) -> np.ndarray:

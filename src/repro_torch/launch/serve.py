@@ -14,8 +14,10 @@ way, and at W = 1 its probe is the fused two-tier kernel.
 
 ``compile_count()`` counts the distinct step shapes the server has run:
 the ladder is run once at startup, and the request path must add none
-(capturing a CUDA graph per bucket is later work).  ``--warm-from``
-checkpoints wait for a later slice.
+(capturing a CUDA graph per bucket is later work).  ``--warm-from DIR``
+restores the params and the warm cache that ``repro_torch.launch.train
+--export-serve DIR`` (or the reference's) saved, instead of running the
+warm-up sweeps; a state warmed under another cache layout is refused.
 
 ``serve_lm`` runs batched greedy decode of a dense LM (``smollm-135m``,
 ``smollm-360m``, with a bfloat16 KV cache) or of the SSM LM
@@ -55,6 +57,7 @@ from ..core.partition import partition_edges
 from ..graph.synthetic import node_features, node_labels, powerlaw_graph
 from ..models import zoo
 from ..models.gcn import init_gcn
+from ..train import checkpoint as ckpt
 
 #: default request-shape ladder: per-worker seed slots per bucket
 DEFAULT_BUCKETS = (8, 16, 32)
@@ -224,15 +227,22 @@ def build_server(args):
         gen_mut, device_args, cache0 = make_distributed_generator(
             part, feats, labels, fanouts=cfg.fanouts, cache_cfg=cache_cfg,
             device=dev)
-        head = head_order[:max(buckets[-1] * w,
-                               args.warmup_head or cache_cfg.n_rows)]
-        cache = warmup_sweep(gen_mut, device_args, cache0, head,
-                             n_workers=w, bucket=max(buckets),
-                             sweeps=args.warmup_sweeps, draws=draws)
-        print(f"warmup sweep: {args.warmup_sweeps} sweeps over the "
-              f"{head.size}-node Zipf head")
+        serve_cfg = cache_cfg.serve_view()
+        if args.warm_from:
+            model, cache = ckpt.restore_serving_state(
+                args.warm_from, model, cache0, expect_cache_cfg=serve_cfg)
+            print(f"restored serving state from {args.warm_from} "
+                  f"(params + warm cache)")
+        else:
+            head = head_order[:max(buckets[-1] * w,
+                                   args.warmup_head or cache_cfg.n_rows)]
+            cache = warmup_sweep(gen_mut, device_args, cache0, head,
+                                 n_workers=w, bucket=max(buckets),
+                                 sweeps=args.warmup_sweeps, draws=draws)
+            print(f"warmup sweep: {args.warmup_sweeps} sweeps over the "
+                  f"{head.size}-node Zipf head")
         gen_serve = make_generator_fn(fanouts=cfg.fanouts,
-                                      cache_cfg=cache_cfg.serve_view())
+                                      cache_cfg=serve_cfg)
     else:
         gen_serve, device_args = make_distributed_generator(
             part, feats, labels, fanouts=cfg.fanouts, device=dev)
@@ -395,6 +405,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--warmup-head", type=int, default=0,
                     help="head population of the warmup sweep "
                          "(0 = the cache's row count)")
+    ap.add_argument("--warm-from", default=None, metavar="DIR",
+                    help="restore params + warm cache from a serving "
+                         "checkpoint (train --export-serve DIR) instead of "
+                         "sweeping")
     return ap.parse_args(argv)
 
 

@@ -1,5 +1,5 @@
 """GCN training driver of the port (``repro/launch/train.py``'s
-``train_gcn``, device store).
+``train_gcn``).
 
 Synthetic power-law graph -> edge partition -> balance table ->
 synchronized subgraph generation + in-memory GCN training (the GraphGen+
@@ -11,23 +11,34 @@ rolling back to the calibrated width if a shrunken batch drops requests.
 On a card the cache probes, the GCN aggregation and its gradient run the
 port's CUDA kernels.
 
+``--feature-store host`` keeps the feature table in host RAM behind the
+L3 store (``core/host_store.py``): both ladders are skipped (slack 2.0:
+misses stage to the store, not the owner exchange) and the loop runs the
+split dispatch, with the gather overlapped (``--host-gather-depth 2``)
+or blocking (``1``).  ``--ckpt-dir``/``--ckpt-every`` checkpoint
+``(params, opt_state)`` in the reference's layout, ``--resume`` restarts
+from the latest one (batch ``start``'s seeds and draws first, a cold
+cache), and ``--export-serve DIR`` saves the trained params and the warm
+cache for ``repro_torch.launch.serve --warm-from DIR``.  ``offline_gcn``
+runs the same setup through the GraphGen baseline (``offline_loop``).
+
 Waiting for later slices, and not accepted by this parser: the profile
-autotuner (``--autotune``), the host (L3) feature store
-(``--feature-store host``), checkpoints (``--resume``, ``--ckpt-*``),
-``--export-serve`` and the LM archs.  ``--device`` is the one flag the
-reference lacks.
+autotuner (``--autotune``) and the LM archs.  ``--device`` is the one
+flag the reference lacks.
 
 Examples::
 
     python -m repro_torch.launch.train --arch graphgen-gcn-deep
     python -m repro_torch.launch.train --arch graphgen-gcn --workers 4
     python -m repro_torch.launch.train --arch graphgen-gcn-deep --smoke \\
-        --device cpu --nodes 2000 --steps 4
+        --device cpu --nodes 2000 --steps 6 --feature-store host
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -36,14 +47,17 @@ import torch
 from ..configs import get_config, smoke_config
 from ..core.balance import balance_table
 from ..core.config import TrainConfig, resolve_device
+from ..convert import (adam_state_from_numpy, adam_state_to_numpy,
+                       gcn_params_from_numpy, gcn_params_to_numpy)
 from ..core.feature_cache import CacheConfig, init_cache_state
 from ..core.generation import (SeededDraws, make_distributed_generator,
                                make_generator_fn, probe_round_capacity)
 from ..core.partition import partition_edges
-from ..core.pipeline import pipelined_loop
+from ..core.pipeline import offline_loop, pipelined_loop
 from ..graph.subgraph import slots_per_seed
 from ..graph.synthetic import node_features, node_labels, powerlaw_graph
 from ..models.gcn import gcn_loss, init_gcn
+from ..train import checkpoint as ckpt
 from ..train.optimizer import adam_update, init_adam
 
 #: ascending slack ladder probed by the drop-aware capacity calibration
@@ -166,7 +180,9 @@ def _model_config(args):
                         ("l1_rows", "cache_l1_rows"),
                         ("l1_promote", "cache_l1_promote"),
                         ("probe_wire", "cache_wire"),
-                        ("probe_hit_cap", "cache_hit_cap")):
+                        ("probe_hit_cap", "cache_hit_cap"),
+                        ("feature_store", "feature_store"),
+                        ("host_gather_depth", "host_gather_depth")):
         if getattr(args, flag) is not None:
             cfg = dataclasses.replace(cfg, **{field: getattr(args, flag)})
     if args.smoke:
@@ -174,24 +190,29 @@ def _model_config(args):
     return cfg
 
 
-def train_gcn(args, step_hook=None) -> dict:
-    """Train a GCN arch for ``args.steps`` pipelined steps; returns the
-    losses, the padded nodes per iteration, the wall time, the slack, the
-    calibration ladders that ran, the requests dropped by the trained
-    batches, the final cache hit rate, and the trained model, the cache
-    state and the last batch.  ``step_hook(t)``, when given, runs after
-    step ``t``'s loss has reached the host (a profiler's step marker)."""
+def build_gcn_run(args) -> dict:
+    """Everything ``train_gcn`` sets up before its loop, from ``args``:
+    the graph and tables, the calibrated slack and cache policy, the
+    generator (``gen_fn``, ``device_args``, the L3 ``store`` in host mode
+    or None, the empty ``cache`` or None), the model at its seeded init,
+    the AdamW ``train_fn``, ``seeds_np(t)`` and ``draws(t, W, b)``."""
     dev = resolve_device(args.device)
     w = args.workers
     cfg = _model_config(args)
     fanouts = cfg.fanouts
+    host = cfg.feature_store == "host"
+    if host and args.warm_recalibrate:
+        raise SystemExit("--warm-recalibrate shrinks the owner-exchange "
+                         "buffers, which --feature-store host replaces "
+                         "with the L3 staging path — drop the flag")
     cache_cfg = CacheConfig.from_model(cfg)
     cached = cache_cfg is not None
 
     graph = powerlaw_graph(args.nodes, avg_degree=args.avg_degree,
                            n_hot=max(args.nodes // 1000, 1), seed=args.seed)
     part = partition_edges(graph, w)
-    feats = node_features(graph.n_nodes, cfg.gcn_in_dim, args.seed)
+    feats = node_features(graph.n_nodes, cfg.gcn_in_dim, args.seed,
+                          features_on_host=host)
     labels = node_labels(graph.n_nodes, cfg.n_classes, args.seed)
     table = balance_table(np.arange(graph.n_nodes), w, args.seed)
 
@@ -205,42 +226,62 @@ def train_gcn(args, step_hook=None) -> dict:
     def seeds_for(t):
         return torch.from_numpy(np.ascontiguousarray(seeds_np(t))).to(dev)
 
-    # the compact probe wire needs a hit_cap: calibrate one unless the
-    # config pins it or --probe-hit-cap was given (replicated mode and
-    # W == 1 run no probe round)
-    need_hit_cap = (cached and w > 1 and cache_cfg.mode != "replicated"
-                    and cache_cfg.wire == "compact"
-                    and cache_cfg.hit_cap == 0
-                    and args.probe_hit_cap is None)
-    # the graph and the tables are placed once; every rung of both
-    # ladders runs against the same placement
-    _, device_args = make_distributed_generator(part, feats, labels,
-                                                fanouts=fanouts, device=dev)
-    probes = [(seeds_for(t), draws(t, w, b))
-              for t in range(CALIBRATION_PROBES)]
     ladders = []
-    if args.capacity_slack is not None:
-        slack = args.capacity_slack
-    elif w == 1:
-        slack = 2.0      # the W = 1 fetch is a local gather
+    store = cache = None
+    if host:
+        # the L3 staging path replaces the owner exchange, and its default
+        # staging size never drops: no ladder probes a generator this run
+        # does not build
+        slack = args.capacity_slack if args.capacity_slack is not None \
+            else 2.0
+        if w > 1 and args.capacity_slack is None:
+            print("capacity_slack fixed at 2.0 (--feature-store host skips "
+                  "the drop-aware ladder: misses stage to the L3 store "
+                  "instead of the owner exchange)")
+        gen_fn, device_args, store, *c0 = make_distributed_generator(
+            part, feats, labels, fanouts=fanouts, capacity_slack=slack,
+            cache_cfg=cache_cfg, feature_store="host",
+            host_gather_depth=cfg.host_gather_depth, device=dev)
+        cache = c0[0] if cached else None
+        print(f"L3 host feature store: {feats.shape[0]}x{feats.shape[1]} "
+              f"f32 table ({feats.nbytes / 1e6:.1f} MB) in host RAM, "
+              f"gather depth {cfg.host_gather_depth} "
+              f"({'overlapped' if cfg.host_gather_depth == 2 else 'synchronous'})")
     else:
-        # the cached generator, a cold cache per rung
-        slack = calibrate_capacity_slack(device_args, fanouts, probes,
-                                         cache_cfg=cache_cfg)
-        ladders.append("slack")
-        print(f"capacity_slack auto-sized to {slack} "
-              f"(override with --capacity-slack)")
-    if need_hit_cap:
-        cache_cfg = calibrate_probe_hit_cap(device_args, fanouts, probes,
-                                            slack, cache_cfg)
-        ladders.append("hit_cap")
-    del probes
-
-    gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
-                               cache_cfg=cache_cfg)
-    cache = None
+        # the compact probe wire needs a hit_cap: calibrate one unless the
+        # config pins it or --probe-hit-cap was given (replicated mode
+        # and W == 1 run no probe round)
+        need_hit_cap = (cached and w > 1 and cache_cfg.mode != "replicated"
+                        and cache_cfg.wire == "compact"
+                        and cache_cfg.hit_cap == 0
+                        and args.probe_hit_cap is None)
+        # the graph and the tables are placed once; every rung of both
+        # ladders runs against the same placement
+        _, device_args = make_distributed_generator(
+            part, feats, labels, fanouts=fanouts, device=dev)
+        probes = [(seeds_for(t), draws(t, w, b))
+                  for t in range(CALIBRATION_PROBES)]
+        if args.capacity_slack is not None:
+            slack = args.capacity_slack
+        elif w == 1:
+            slack = 2.0      # the W = 1 fetch is a local gather
+        else:
+            # the cached generator, a cold cache per rung
+            slack = calibrate_capacity_slack(device_args, fanouts, probes,
+                                             cache_cfg=cache_cfg)
+            ladders.append("slack")
+            print(f"capacity_slack auto-sized to {slack} "
+                  f"(override with --capacity-slack)")
+        if need_hit_cap:
+            cache_cfg = calibrate_probe_hit_cap(device_args, fanouts, probes,
+                                                slack, cache_cfg)
+            ladders.append("hit_cap")
+        del probes
+        gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
+                                   cache_cfg=cache_cfg)
+        if cached:
+            cache = init_cache_state(cache_cfg, cfg.gcn_in_dim, w, device=dev)
     if cached:
-        cache = init_cache_state(cache_cfg, cfg.gcn_in_dim, w, device=dev)
         line = (f"hot-node cache: {cache_cfg.n_rows} rows/worker "
                 f"({cache_cfg.assoc}-way, {cache_cfg.mode}), "
                 f"admit-after-{cache_cfg.admit}")
@@ -252,23 +293,67 @@ def train_gcn(args, step_hook=None) -> dict:
             if cache_cfg.wire == "compact" and cache_cfg.hit_cap:
                 line += f" (hit_cap {cache_cfg.hit_cap})"
         print(line)
-    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
-    model = init_gcn(cfg, args.seed, device=dev)
-    train_fn = make_gcn_train_fn(tcfg)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                       checkpoint_every=args.ckpt_every)
+    return {"dev": dev, "w": w, "b": b, "cfg": cfg, "cache_cfg": cache_cfg,
+            "slack": slack, "ladders": ladders, "gen_fn": gen_fn,
+            "device_args": device_args, "store": store, "cache": cache,
+            "model": init_gcn(cfg, args.seed, device=dev),
+            "train_fn": make_gcn_train_fn(tcfg), "tcfg": tcfg,
+            "seeds_np": seeds_np, "seeds_for": seeds_for, "draws": draws,
+            "table_bytes": feats.nbytes}
+
+
+def _store_stats(run: dict) -> dict:
+    """The L3 store's telemetry of a run (empty for the device store)."""
+    store = run["store"]
+    if store is None:
+        return {}
+    return {"host_gather_bytes": store.bytes_issued,
+            "n_l3_hits": store.rows_issued,
+            "table_bytes": run["table_bytes"], "depth": store.depth}
+
+
+def train_gcn(args, step_hook=None) -> dict:
+    """Train a GCN arch for ``args.steps`` pipelined steps; returns the
+    losses, the padded nodes per iteration, the wall time, the slack, the
+    calibration ladders that ran, the requests dropped by the trained
+    batches, the final cache hit rate, the L3 store's telemetry in host
+    mode, and the trained model, the cache state and the last batch.
+    ``step_hook(t)``, when given, runs after step ``t``'s loss has
+    reached the host (a profiler's step marker)."""
+    run = build_gcn_run(args)
+    dev, w, b = run["dev"], run["w"], run["b"]
+    cache_cfg, slack = run["cache_cfg"], run["slack"]
+    cached = cache_cfg is not None
+    device_args, draws, seeds_for = (run["device_args"], run["draws"],
+                                     run["seeds_for"])
+    model = run["model"]
+    opt = init_adam(model.leaves())
+    start = 0
+    if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
+        start = ckpt.latest_step(args.ckpt_dir)
+        params_np, opt_np = ckpt.restore(
+            args.ckpt_dir, start,
+            (gcn_params_to_numpy(model), adam_state_to_numpy(opt)))
+        model = gcn_params_from_numpy(params_np, device=dev)
+        opt = adam_state_from_numpy(opt_np, device=dev)
+        print(f"resumed from step {start}")
 
     losses = []
-    final = {}        # the last trained batch
+    final = {"batch": None}     # the last trained batch
     n_dropped = 0
     miss_peak = 0
     wide_gen = None   # pre-recalibration generator, kept for rollback
     # only the second half of the warm window counts toward the miss peak
-    warm_from = max(args.warm_recalibrate // 2, 1)
-    t0 = None
+    warm_from = start + max(args.warm_recalibrate // 2, 1)
+    t0 = time.perf_counter()
 
-    def before_step(t, carry, gen_fn):
+    def before_step(i, carry, gen_fn):
         nonlocal miss_peak, wide_gen, n_dropped, t0
-        if t == 0:
-            t0 = time.perf_counter()   # batch 0 is generated: steps begin
+        t = start + i
+        if i == 0:
+            t0 = time.perf_counter()   # batch `start` is generated
         if cached and args.warm_recalibrate and t >= warm_from:
             miss_peak = max(miss_peak, int(carry[2].n_cache_misses.max()))
         # rollback check first: carry[2] was generated by the shrunken
@@ -283,11 +368,13 @@ def train_gcn(args, step_hook=None) -> dict:
                   f"regenerated the batch and rolled back to the "
                   f"calibrated width")
         if (args.warm_recalibrate and cached and w > 1
-                and t == args.warm_recalibrate and t + 1 < args.steps):
+                and t == start + args.warm_recalibrate
+                and t + 1 < args.steps):
             rows_pw = device_args[2].shape[1]
             new_cap = warm_capacity(miss_peak, w, slack, rows_pw)
             wide_gen = gen_fn
-            gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
+            gen_fn = make_generator_fn(fanouts=run["cfg"].fanouts,
+                                       capacity_slack=slack,
                                        cache_cfg=cache_cfg,
                                        fetch_capacity=new_cap)
             print(f"warm re-calibration at step {t}: owner-exchange "
@@ -296,10 +383,16 @@ def train_gcn(args, step_hook=None) -> dict:
         n_dropped += int(carry[2].n_dropped.sum())
         return carry, gen_fn
 
-    def after_step(t, carry, loss):
+    def after_step(i, carry, loss):
+        t = start + i
         losses.append(float(loss))
         if step_hook is not None:
-            step_hook(t)
+            step_hook(i)
+        if (t + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, t + 1,
+                      (gcn_params_to_numpy(carry[0]),
+                       adam_state_to_numpy(carry[1])),
+                      keep=run["tcfg"].keep_checkpoints)
         if (t + 1) % args.log_every == 0:
             line = f"step {t + 1}: loss={losses[-1]:.4f}"
             nb = carry[2]
@@ -315,32 +408,71 @@ def train_gcn(args, step_hook=None) -> dict:
             print(line)
         final["batch"] = carry[2]
 
-    schedule = np.stack([seeds_np(t) for t in range(args.steps)])
-    model, _, _, *rest = pipelined_loop(
-        gen_fn, train_fn, device_args, schedule, model,
-        init_adam(model.leaves()), draws, cache=cache,
-        before_step=before_step, after_step=after_step)
+    cache = run["cache"]
+    if start < args.steps:
+        # batch t comes from seeds_np(t) and draws(t): a resumed run
+        # primes the pipeline at `start`
+        schedule = np.stack([run["seeds_np"](t)
+                             for t in range(start, args.steps)])
+        model, _, _, *rest = pipelined_loop(
+            run["gen_fn"], run["train_fn"], device_args, schedule, model,
+            opt, lambda i, *a: draws(start + i, *a), cache=cache,
+            before_step=before_step, after_step=after_step,
+            host_store=run["store"])
+        if cached:
+            cache = rest[0]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    batch = final["batch"]
-    nodes_per_iter = batch.nodes_per_iteration()
+    if args.export_serve:
+        if not cached:
+            raise SystemExit("--export-serve checkpoints params + the warm "
+                             "cache state; this run has no cache "
+                             "(--cache-rows 0)")
+        ckpt.save_serving_state(args.export_serve, args.steps, model, cache,
+                                cache_cfg=cache_cfg)
+        print(f"exported serving state (params + warm cache) to "
+              f"{args.export_serve}")
+    n_run = args.steps - start
+    nodes_per_iter = (b * w * slots_per_seed(run["cfg"].fanouts))
     out = {"losses": losses, "nodes_per_iter": nodes_per_iter, "wall_s": dt,
-           "capacity_slack": slack, "ladders": ladders,
+           "capacity_slack": slack, "ladders": run["ladders"],
            "n_dropped": n_dropped, "cache_cfg": cache_cfg, "model": model,
-           "cache": rest[0] if cached else None, "batch": batch}
-    print(f"trained {args.steps} steps in {dt:.1f}s "
+           "cache": cache, "batch": final["batch"], "start": start,
+           **_store_stats(run)}
+    if run["store"] is not None:
+        print(f"L3 host gathers shipped {out['host_gather_bytes'] / 1e6:.1f} "
+              f"MB ({out['n_l3_hits']} rows)")
+    print(f"trained {n_run} steps in {dt:.1f}s "
           f"({nodes_per_iter} padded nodes/iter, "
-          f"{args.steps * nodes_per_iter / dt:,.0f} nodes/s)")
-    if cached:
-        out["cache_hit_rate"] = batch.cache_hit_rate()
+          f"{n_run * nodes_per_iter / max(dt, 1e-9):,.0f} nodes/s)")
+    if cached and final["batch"] is not None:
+        out["cache_hit_rate"] = final["batch"].cache_hit_rate()
         print(f"steady-state cache hit rate: {out['cache_hit_rate']:.3f}")
     return out
 
 
+def offline_gcn(args) -> dict:
+    """The GraphGen baseline on ``train_gcn``'s setup: ``offline_loop``
+    over the same seeds and draws for ``args.steps`` batches.  Returns the
+    losses, ``t_gen`` and ``t_train`` (seconds), the trained model and
+    the L3 store's telemetry in host mode."""
+    run = build_gcn_run(args)
+    model = run["model"]
+    schedule = np.stack([run["seeds_np"](t) for t in range(args.steps)])
+    model, _, losses, stats, *_ = offline_loop(
+        run["gen_fn"], run["train_fn"], run["device_args"], schedule, model,
+        init_adam(model.leaves()), run["draws"], cache=run["cache"],
+        host_store=run["store"])
+    print(f"offline: generated and stored {args.steps} batches in "
+          f"{stats['t_gen']:.3f}s, trained in {stats['t_train']:.3f}s")
+    return {"losses": [float(x) for x in losses], "model": model, **stats,
+            **_store_stats(run)}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
-    """The GCN training flags (``repro``'s, minus those of the parts still
-    to be ported, plus ``--device``)."""
+    """The GCN training flags (``repro``'s, minus ``--autotune`` and the
+    LM flags, plus ``--device``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="graphgen-gcn")
     ap.add_argument("--device", default="cuda",
@@ -377,6 +509,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="compact wire: pin the probe-response payload rows "
                          "per destination (skips the hit-cap calibration; "
                          "0 = half the probe capacity)")
+    ap.add_argument("--feature-store", default=None,
+                    choices=["device", "host"],
+                    help="where the feature table lives: device row-shards "
+                         "it over the workers, host keeps it in host RAM "
+                         "behind the async L3 gather")
+    ap.add_argument("--host-gather-depth", type=int, default=None,
+                    choices=[1, 2],
+                    help="host store gather pipeline depth: 2 overlaps the "
+                         "gather with the train step (default), 1 gathers "
+                         "synchronously")
     ap.add_argument("--warm-recalibrate", type=int, default=0,
                     help="after N warm steps, shrink the owner-exchange "
                          "capacity to the observed steady-state miss peak "
@@ -391,6 +533,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_ckpt"),
+                    help="checkpoint directory (the reference's layout)")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="save (params, opt_state) every N steps")
+    ap.add_argument("--resume", action="store_true",
+                    help="restart from the latest checkpoint in --ckpt-dir")
+    ap.add_argument("--export-serve", default=None, metavar="DIR",
+                    help="after training, save the params and the warm "
+                         "cache for repro_torch.launch.serve --warm-from DIR")
     return ap.parse_args(argv)
 
 

@@ -2,7 +2,12 @@
 reference's own random draws: candidates, merge, dedup, routing, the
 cached fetch and whole generation rounds — ids, masks, features and
 counters exact.  At W = 4 (stacked worker axis) the dense probe wire is
-held to the compact one, which test_torch_serve.py holds to ``repro``."""
+held to the compact one, which test_torch_serve.py holds to ``repro``.
+The reduce-scatter merge is held to the butterfly at W = 2, 4 and 8, and
+to the reference's merge and generation rounds at W = 2 and 4 (one
+forced-4-device subprocess for the whole file)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -14,7 +19,8 @@ from jax.experimental.shard_map import shard_map  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from _torch_parity import (assert_batch_equal, assert_state_equal,  # noqa: E402
-                           hop_draws, jax_round_draws, torch_draws)
+                           hop_draws, jax_round_draws, run_forced,
+                           torch_draws)
 from repro.core import feature_cache as jfc  # noqa: E402
 from repro.core import generation as jgen  # noqa: E402
 from repro.core.partition import partition_edges  # noqa: E402
@@ -189,3 +195,231 @@ def test_dense_and_compact_wires_agree_w4(mode):
     for a, b in zip(outs["dense"], outs["compact"]):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the reduce-scatter merge
+
+def _tied_candidates(w, f, k, seed, cross_ties):
+    """Stacked ``Candidates [W, F, k]`` with tied keys: ``+inf`` (invalid
+    draws) at 30% of a row's slots, or at 97% in every other row (rows
+    whose merge keeps some), and finite keys from a small set, so one
+    worker's
+    candidates tie among themselves.  With ``cross_ties`` workers share
+    the set (finite ties across workers too); without, worker ``i``'s
+    finite keys are ``i + W j``, disjoint across workers."""
+    rng = np.random.default_rng(seed)
+    j = rng.integers(0, 4, (w, f, k)).astype(np.float32)
+    keys = j if cross_ties else np.arange(w, dtype=np.float32)[:, None,
+                                                             None] + w * j
+    p_inf = np.where(np.arange(f) % 2, 0.97, 0.3)[None, :, None]
+    keys[rng.random(keys.shape) < p_inf] = np.inf
+    ids = rng.integers(0, 1000, (w, f, k)).astype(np.int32)
+    return ids, keys
+
+
+@pytest.mark.parametrize("w", [2, 4, 8])
+def test_tree_reduce_scatter_equals_butterfly_slice(w):
+    """Each worker's reduce-scatter segment equals its rows of the
+    butterfly's result, on keys tied within a worker and at ``+inf``:
+    keys exact, ids exact wherever the key is finite (the generator
+    zeroes the ids of ``+inf`` keys; finite keys tied ACROSS workers are
+    where the reference's two merges order sources differently, which
+    ``test_tree_reduce_scatter_matches_reference`` holds instead)."""
+    from repro_torch.core.tree_reduce import (tree_allreduce,
+                                              tree_reduce_scatter)
+    f, k = 8 * w, 6
+    ids, keys = _tied_candidates(w, f, k, w, cross_ties=False)
+    cand = tgen.Candidates(torch.from_numpy(ids), torch.from_numpy(keys))
+    seg = tree_reduce_scatter(cand, tgen.merge_topk)
+    full = tree_allreduce(cand, tgen.merge_topk)
+    rows = f // w
+    assert seg.ids.shape == (w, rows, k)
+    for i in range(w):
+        want = tgen.Candidates(*(a[i, i * rows:(i + 1) * rows]
+                                 for a in full))
+        assert torch.equal(seg.keys[i], want.keys)
+        fin = torch.isfinite(want.keys)
+        assert torch.equal(seg.ids[i][fin], want.ids[fin])
+    assert bool(torch.isinf(seg.keys).any()) and bool(
+        torch.isfinite(seg.keys).any())
+
+
+def test_tree_reduce_scatter_rejects_non_power_of_two():
+    """W = 3 raises, as in the reference (and so does the butterfly)."""
+    from repro_torch.core.tree_reduce import tree_reduce_scatter
+    cand = tgen.Candidates(torch.zeros((3, 6, 2), dtype=torch.int32),
+                           torch.zeros((3, 6, 2)))
+    with pytest.raises(ValueError, match="power-of-two"):
+        tree_reduce_scatter(cand, tgen.merge_topk)
+
+
+def test_tree_psum_sums_every_worker():
+    """``tree_psum`` over the stacked axis: every worker holds the sum."""
+    from repro_torch.core.tree_reduce import tree_psum
+    x = torch.arange(4 * 3, dtype=torch.float32).reshape(4, 3)
+    got = tree_psum((x, x * 2))
+    assert torch.equal(got[0], x.sum(0).expand(4, 3))
+    assert torch.equal(got[1], 2 * x.sum(0).expand(4, 3))
+
+
+_RS_FANOUTS, _RS_B, _RS_ROUNDS = (4, 3), 4, 2
+#: the W = 4 rounds run graphgen-gcn's sharded, 4-way cache on the
+#: compact wire (cut to 64 rows, admitting on the first miss)
+_RS_CACHE = dict(n_rows=64, admit=1, assoc=4, mode="sharded", hit_cap=24)
+
+_REFERENCE_RS = """
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.experimental.shard_map import shard_map
+from jax.sharding import PartitionSpec as P
+sys.path.insert(0, {tests!r})
+from _torch_parity import jax_round_draws
+from repro.core import feature_cache as jfc
+from repro.core import generation as jgen
+from repro.core.partition import partition_edges
+from repro.core.tree_reduce import tree_reduce_scatter
+from repro.graph.synthetic import node_features, node_labels, powerlaw_graph
+from repro.launch.mesh import make_mesh
+
+out = {{}}
+cand = np.load({cand!r})
+mesh4 = make_mesh((4,), ("data",))
+
+def body(i, k):
+    seg = tree_reduce_scatter(jgen.Candidates(i[0], k[0]), jgen.merge_topk,
+                              "data")
+    return seg.ids[None], seg.keys[None]
+ids, keys = shard_map(body, mesh=mesh4, in_specs=(P("data"), P("data")),
+                      out_specs=(P("data"), P("data")), check_rep=False)(
+    jnp.asarray(cand["ids"]), jnp.asarray(cand["keys"]))
+out["seg_ids"], out["seg_keys"] = np.asarray(ids), np.asarray(keys)
+
+g = powerlaw_graph(300, avg_degree=6, n_hot=3, hot_degree=60, seed=0)
+feats, labels = node_features(300, 6), node_labels(300, 5)
+fanouts, b = {fanouts!r}, {b}
+for W in (2, 4):
+    mesh = make_mesh((W,), ("data",))
+    part = partition_edges(g, W)
+    cfg = jfc.CacheConfig(**{cache!r}).validated() if W == 4 else None
+    res = jgen.make_distributed_generator(
+        mesh, part, feats, labels, fanouts=fanouts, cache_cfg=cfg,
+        merge_mode="reduce_scatter")
+    gen_fn, dargs = res[:2]
+    state = res[2] if cfg is not None else None
+    rng = np.random.default_rng(W)
+    for t in range({rounds}):
+        p = f"w{{W}}_{{t}}_"
+        seeds = rng.choice(300, (W, b), replace=False).astype(np.int32)
+        key = jax.random.PRNGKey(10 + t)
+        out[p + "in"] = seeds
+        for l, (o, e) in enumerate(jax_round_draws(key, W, b, fanouts)):
+            out[f"{{p}}offs{{l}}"], out[f"{{p}}e{{l}}"] = o, e
+        if state is None:
+            batch = gen_fn(dargs, jnp.asarray(seeds), key)
+        else:
+            batch, state = gen_fn(dargs, jnp.asarray(seeds), key, state)
+            for name, a in zip(("keys", "rows", "tags", "counts"), state):
+                out[p + "c_" + name] = np.asarray(a)
+        for name in ("seeds", "x_seed", "labels", "n_dropped",
+                     "n_cache_hits", "n_cache_misses", "n_probe_demoted"):
+            out[p + name] = np.asarray(getattr(batch, name))
+        for name in ("hops", "masks", "x_hops"):
+            for l, a in enumerate(getattr(batch, name)):
+                out[f"{{p}}{{name}}{{l}}"] = np.asarray(a)
+np.savez({path!r}, **out)
+print("SAVED")
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_rs(tmp_path_factory):
+    """The reference's reduce-scatter cases, all in ONE forced-4-device
+    subprocess: ``tree_reduce_scatter`` at W = 4 on candidates with keys
+    tied across workers, and generation rounds at W = 2 (uncached) and
+    W = 4 (sharded cache) with ``merge_mode="reduce_scatter"``."""
+    d = tmp_path_factory.mktemp("rs")
+    ids, keys = _tied_candidates(4, 32, 6, 11, cross_ties=True)
+    np.savez(d / "cand.npz", ids=ids, keys=keys)
+    path = str(d / "ref.npz")
+    assert "SAVED" in run_forced(_REFERENCE_RS.format(
+        tests=os.path.dirname(__file__), cand=str(d / "cand.npz"),
+        fanouts=_RS_FANOUTS, b=_RS_B, cache=_RS_CACHE, rounds=_RS_ROUNDS,
+        path=path), devices=4)
+    return np.load(path), ids, keys
+
+
+def test_tree_reduce_scatter_matches_reference(reference_rs):
+    """W = 4, finite keys tied across workers and ``+inf`` ties: every
+    worker's segment, ids and keys, equals the reference's exactly (the
+    same partners, halves and ``merge(keep, recv)`` order)."""
+    from repro_torch.core.tree_reduce import tree_reduce_scatter
+    ref, ids, keys = reference_rs
+    seg = tree_reduce_scatter(
+        tgen.Candidates(torch.from_numpy(ids), torch.from_numpy(keys)),
+        tgen.merge_topk)
+    np.testing.assert_array_equal(seg.ids.numpy(), ref["seg_ids"])
+    assert seg.keys.numpy().tobytes() == ref["seg_keys"].tobytes()
+
+
+class _SavedBatch:
+    """Attribute view of one saved reference batch."""
+
+    def __init__(self, ref, p, depth):
+        for name in ("seeds", "x_seed", "labels", "n_dropped", "n_cache_hits",
+                     "n_cache_misses", "n_probe_demoted"):
+            setattr(self, name, ref[p + name])
+        for name in ("hops", "masks", "x_hops"):
+            setattr(self, name, tuple(ref[f"{p}{name}{l}"]
+                                      for l in range(depth)))
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_reduce_scatter_generation_matches_reference(reference_rs, w):
+    """Generation rounds with ``merge_mode="reduce_scatter"`` fed the
+    reference's draws: ids, masks, features, labels and counters exact
+    against the reference's rounds (W = 4 with the sharded cache, whose
+    states are exact too), and equal to the port's own butterfly rounds
+    from the same draws and a cold cache."""
+    ref = reference_rs[0]
+    g = powerlaw_graph(300, avg_degree=6, n_hot=3, hot_degree=60, seed=0)
+    part = partition_edges(g, w)
+    feats, labels = node_features(300, 6), node_labels(300, 5)
+    cfg = tfc.CacheConfig(**_RS_CACHE).validated() if w == 4 else None
+    gens = {mode: tgen.make_distributed_generator(
+        part, feats, labels, fanouts=_RS_FANOUTS, cache_cfg=cfg,
+        merge_mode=mode, device="cpu") for mode in tgen.MERGE_MODES}
+    states = {mode: (out[2] if cfg is not None else None)
+              for mode, out in gens.items()}
+    for t in range(_RS_ROUNDS):
+        p = f"w{w}_{t}_"
+        seeds = torch.from_numpy(ref[p + "in"])
+        draws = torch_draws([(ref[f"{p}offs{l}"], ref[f"{p}e{l}"])
+                             for l in range(len(_RS_FANOUTS))])
+        got = {}
+        for mode, (gen_fn, dargs, *_) in gens.items():
+            if cfg is None:
+                got[mode] = gen_fn(dargs, seeds, draws)
+            else:
+                got[mode], states[mode] = gen_fn(dargs, seeds, draws,
+                                                 states[mode])
+        assert_batch_equal(_SavedBatch(ref, p, len(_RS_FANOUTS)),
+                           got["reduce_scatter"])
+        for a, b in zip(got["butterfly"], got["reduce_scatter"]):
+            for x, y in zip(a if isinstance(a, tuple) else (a,),
+                            b if isinstance(b, tuple) else (b,)):
+                assert torch.equal(x, y)
+        if cfg is not None:
+            for name, a, b in zip(("keys", "rows", "tags", "counts"),
+                                  states["reduce_scatter"],
+                                  states["butterfly"]):
+                assert a.numpy().tobytes() == ref[p + "c_" + name].tobytes()
+                assert torch.equal(a, b), name
+    if cfg is not None:
+        assert int(got["reduce_scatter"].n_cache_hits.sum()) > 0
+
+
+def test_unknown_merge_mode_raises():
+    """An unknown ``merge_mode`` is refused when the generator is built."""
+    with pytest.raises(ValueError, match="merge_mode"):
+        tgen.make_generator_fn(fanouts=(2,), merge_mode="ring")
