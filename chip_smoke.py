@@ -92,6 +92,45 @@ Phases, each of which fails the run (nonzero exit, no result line):
               request-path step shape), its logits on 64 more requests
               equal to a server built from the in-process state; a serve
               view of another n_rows refused.
+   autotune — ``train_gcn --autotune --autotune-steps 8`` for 20 steps at
+              graphgen-gcn W = 4 (sharded, compact wire), graphgen-gcn-deep
+              W = 1 (tiered) and graphgen-gcn-deep W = 1 on the host store
+              (depth 2): the trace's length and violations, the
+              candidates searched, the best predicted against the traced
+              ms per step, each validated pick's measured ms and verdict
+              (or the fallback reason), the accepted candidate, and the
+              trained run's warm nodes/s, idle share and launches.  Gates:
+              no violation; the anchor prediction's counts and bytes equal
+              to the warm window's sums; in the host cell every record's L3
+              bytes W x the static gather; finite losses, no request
+              dropped; per step of the trained loop fanout_mean L(L+1)/2,
+              fanout_mean_bwd L(L-1)/2 and one probe launch.  First, a
+              fresh process splits a train run's first step (library
+              start-up, kernel load, set-up, the first generation round,
+              forward, backward and AdamW, then the second of each).
+   agree    — the autotune trace on the card against the CPU's (the port's
+   autotune   twins) on the same seeds and draws at the CPU differential
+              test's shape (2 000 nodes, W = 4 sharded device and host
+              store, W = 1 tiered): every record equal but wall_time_s.
+   baselines — the SQL-like join, the node-centric walk and the
+              edge-centric sampler on benchmarks/gen_throughput.py's task
+              (20 000 nodes, 256 seeds, fanouts (40, 20): 215 296 padded
+              nodes), both hops each: ms by host clock and by CUDA events
+              (median of several calls after a warm one, with the range),
+              nodes/s, the edge-centric speedups beside the paper's 27x,
+              node-centric's launches; then edge-centric alone at the
+              reference's --scale task (60 000 nodes, 1 189 seeds: 999 949
+              padded nodes).  Gates: every kept id an out-neighbour of its
+              node, the SQL-like and node-centric masks min(deg, k) per
+              row, the edge-centric mask its finite keys.
+   recovery — examples/distributed_pipeline.py on the port: W = 8 with a
+              tiered cache and checkpoints every 10 steps loses workers 3
+              and 6 at step 20; the survivors' table, a rebuild at W = 4
+              with a cold cache, the step-20 checkpoint restored and a
+              resume to step 40.  Gates: the resume at the checkpoint's
+              step, equal shares, finite losses, and at both widths the L1
+              gather probe, the compact probe and fanout_mean(_bwd)
+              launched.
 6. LM       — the dense LM (smollm-135m, full width: 30 layers, d_model
               576, 9 query heads over 3 KV heads, head_dim 64, vocab
               49 152, random weights from a seed):
@@ -928,12 +967,15 @@ def train_args(arch, w, *extra):
 class StepClock:
     """``train_gcn``'s step hook: the host-clock time of every step (each
     step ends with its loss on the host) and a ``torch.profiler`` trace of
-    steps ``first .. first + n - 1``."""
+    steps ``first .. first + n - 1``.  The profiler's own step calls are
+    kept out of the step times and summed in ``prof_s`` (its warm-up
+    initializes the device tracer, seconds once per process)."""
 
     def __init__(self, torch, first, n):
         from torch.profiler import ProfilerActivity, profile, schedule
         self.first, self.n = first, n
         self.times = []
+        self.prof_s = 0.0
         self.prof = profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
             schedule=schedule(wait=first - 1, warmup=1, active=n, repeat=1))
@@ -945,6 +987,7 @@ class StepClock:
         self.times.append(now - self.t)
         self.prof.step()
         self.t = time.perf_counter()
+        self.prof_s += self.t - now
 
     def close(self):
         """Stop the profiler."""
@@ -1050,7 +1093,10 @@ def clocked_train(torch, args, label):
     # untraced warm steps; the median is a per-step statistic
     res["window_nodes_per_s"] = TRAIN_STEPS * nodes / res["wall_s"]
     res["warm_nodes_per_s"] = len(warm) * nodes / sum(warm)
-    res["startup_s"] = res["wall_s"] - sum(clock.times[2:])
+    # steps 0-1: the run's wall time less the later steps and the
+    # profiler's own step calls (which the step times leave out)
+    res["profiler_s"] = clock.prof_s
+    res["startup_s"] = res["wall_s"] - sum(clock.times[2:]) - clock.prof_s
     res["median_step_ms"] = statistics.median(warm) * 1e3
     res["step_times_ms"] = [1e3 * t for t in clock.times[1:]]
     res["traced_ms"] = clock.traced_ms()
@@ -1085,7 +1131,8 @@ def phase_train(torch):
         results[arch] = res
         print(f"[train {arch} W={w}] {steps} steps in {res['wall_s']:.3f} s "
               f"({res['window_nodes_per_s']:,.0f} padded nodes/s over all "
-              f"of them; steps 0-1 took {res['startup_s']:.3f} s); warm "
+              f"of them; steps 0-1 took {res['startup_s']:.3f} s, the "
+              f"profiler's step calls {res['profiler_s']:.3f} s); warm "
               f"steps 2-{clock.first - 2}: {res['warm_nodes_per_s']:,.0f} "
               f"padded nodes/s, median step {res['median_step_ms']:.3f} ms; "
               f"slack {res['capacity_slack']}, ladders {res['ladders']}, "
@@ -1496,6 +1543,714 @@ def phase_ckpt(torch):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"launches": counts}
+
+
+# ------------------------------------------------- autotune, baselines, fleet
+
+#: autotune cells: (arch, W, extra flags, the probe kernel of the path)
+AUTOTUNE_RUNS = (
+    ("graphgen-gcn", 4, (), "cache_probe_compact"),
+    ("graphgen-gcn-deep", 1, (), "cache_probe_tiered"),
+    ("graphgen-gcn-deep", 1, ("--feature-store", "host",
+                              "--host-gather-depth", "2"),
+     "cache_probe_tiered"))
+AUTOTUNE_STEPS = 8
+
+
+class LoopLaunches:
+    """Within the context, ``train.pipelined_loop`` records the launches
+    of the trained loop alone (``counts``), apart from the autotune
+    windows and any ladder that ran before it."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train
+        self.train, self.orig, self.counts = train, train.pipelined_loop, None
+
+        def loop(*args, **kwargs):
+            before = ops.launch_counts()
+            out = self.orig(*args, **kwargs)
+            self.counts = {k: v - before[k]
+                           for k, v in ops.launch_counts().items()}
+            return out
+        train.pipelined_loop = loop
+        return self
+
+    def __exit__(self, *exc):
+        self.train.pipelined_loop = self.orig
+
+
+def first_step_split():
+    """``--first-step``: in this fresh process, the once-per-process costs
+    of a train run's step 0, each ended by a synchronize: library start-up
+    (import torch, the CUDA context), loading the built kernels, the run's
+    set-up (graph, tables, placement, model), the first generation round,
+    forward, backward and AdamW, then the second of each (warm); then a
+    ``torch.profiler`` set up as ``StepClock`` sets it up (entered, then
+    stepped through its wait, warm-up and one traced step, then closed)
+    around six more steps.  Prints one JSON line."""
+    t = time.perf_counter()
+    out = {}
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        out[name] = now - t
+        t = now
+
+    import torch
+    lap("import_torch_s")
+    torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    lap("cuda_context_s")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    _build.build()
+    _build.library()
+    lap("kernels_load_s")
+    from repro_torch.launch import train
+    from repro_torch.models.gcn import gcn_loss
+    from repro_torch.train.optimizer import adam_update, init_adam
+    run = train.build_gcn_run(train_args("graphgen-gcn-deep", 1))
+    model, cache = run["model"], run["cache"]
+    opt = init_adam(model.leaves())
+    torch.cuda.synchronize()
+    lap("setup_s")
+    for rnd in ("first", "second"):
+        i = 0 if rnd == "first" else 1
+        with torch.no_grad():
+            batch, cache = run["gen_fn"](run["device_args"],
+                                         run["seeds_for"](i),
+                                         run["draws"](i, 1, TRAIN_BATCH),
+                                         cache)
+        torch.cuda.synchronize()
+        lap(f"{rnd}_generation_s")
+        params = model.leaves()
+        loss = gcn_loss(model, batch)
+        torch.cuda.synchronize()
+        lap(f"{rnd}_forward_s")
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        lap(f"{rnd}_backward_s")
+        new, opt, _ = adam_update(run["tcfg"], params, grads, opt)
+        with torch.no_grad():
+            for p, n in zip(params, new):
+                p.copy_(n)
+        torch.cuda.synchronize()
+        lap(f"{rnd}_adamw_s")
+    from torch.profiler import ProfilerActivity, profile, schedule
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=3, warmup=1, active=1, repeat=1))
+    prof.__enter__()
+    lap("profiler_enter_s")
+    for i in range(2, 8):
+        with torch.no_grad():
+            batch, cache = run["gen_fn"](run["device_args"],
+                                         run["seeds_for"](i),
+                                         run["draws"](i, 1, TRAIN_BATCH),
+                                         cache)
+        model, opt, loss = run["train_fn"](model, opt, batch)
+        float(loss)
+        prof.step()
+        lap(f"profiled_step{i - 2}_s")
+    prof.__exit__(None, None, None)
+    lap("profiler_exit_s")
+    print(json.dumps({"first_step": out}))
+
+
+def phase_first_step():
+    """Satellite of phase 13: ``first_step_split`` in a fresh process (this
+    one paid its once-per-process costs long ago).  Prints the split and
+    returns it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--first-step"], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"first-step process failed: "
+          f"{proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith('{"first_step"')]
+    check(len(line) == 1, f"first-step process printed {proc.stdout[-2000:]}")
+    split = json.loads(line[0])["first_step"]
+    split["process_wall_s"] = wall
+    print("[first step] a fresh process, graphgen-gcn-deep W=1 (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return split
+
+
+def phase_autotune(torch):
+    """Phase 13: ``train_gcn --autotune --autotune-steps 8`` for 20 steps
+    in each of ``AUTOTUNE_RUNS``.  Prints the trace length and its
+    violations, the candidates searched, the best predicted against the
+    traced ms per step, each validated pick with its measured ms and its
+    verdict (or the fallback reason), the accepted candidate, and the
+    trained run's warm nodes/s, idle share and launches.  Gates: no
+    violation; the anchor prediction's counts and bytes equal to the warm
+    window's sums; in the host cell every record's L3 bytes equal to W x
+    the static gather; finite losses and no request dropped; per step of
+    the trained loop, fanout_mean L(L+1)/2 and fanout_mean_bwd L(L-1)/2
+    launches and one probe launch."""
+    from repro_torch.launch import autotune as at
+    from repro_torch.launch import train
+    results = {"first_step": phase_first_step()}
+    for arch, w, extra, probe in AUTOTUNE_RUNS:
+        store = "host" if "host" in extra else "device"
+        label = f"{arch} W={w} {store}"
+        args = train_args(arch, w, "--autotune", "--autotune-steps",
+                          str(AUTOTUNE_STEPS), *extra)
+        depth = len(train._model_config(args).fanouts)
+        with LoopLaunches() as loop:
+            res, _ = clocked_train(torch, args, f"autotune {label}, per "
+                                   f"traced pipelined step")
+        r = res["autotune"]
+        trace = r.trace
+        tc = trace.config
+        viol = trace.violations()
+        print(f"[autotune {label}] trace {len(trace.records)} steps, "
+              f"violations {viol}; step ms "
+              f"{[round(x.wall_time_s * 1e3, 3) for x in trace.records]}")
+        check(len(trace.records) == AUTOTUNE_STEPS and viol == (),
+              f"{label}: trace of {len(trace.records)} steps, violations "
+              f"{viol}")
+        model = at.CostModel.fit(trace)
+        p = model.predict(tc.candidate())
+        warm = trace.warm_records()
+        probe_b, gather_b, _ = at.static_wire_bytes(tc, tc.candidate())
+        check((p.n_hits, p.n_l1_hits, p.n_l3_hits, p.n_misses, p.n_distinct)
+              == (sum(x.n_hits for x in warm), sum(x.n_l1_hits for x in warm),
+                  sum(x.n_l3_hits for x in warm),
+                  sum(x.n_misses for x in warm),
+                  sum(x.n_distinct() for x in warm))
+              and (p.probe_round_bytes, p.host_gather_bytes)
+              == (probe_b, gather_b) and p.step_time_s == model.wall_mean_s,
+              f"{label}: the anchor prediction {p} is not the warm window's")
+        if store == "host":
+            check(gather_b > 0 and all(x.host_gather_bytes == w * gather_b
+                                       for x in trace.records),
+                  f"{label}: L3 bytes {[x.host_gather_bytes for x in trace.records]}"
+                  f" != W x {gather_b}")
+        print(f"[autotune {label}] anchor exact: hits {p.n_hits:.0f}, L1 "
+              f"{p.n_l1_hits:.0f}, L3 {p.n_l3_hits:.0f}, misses "
+              f"{p.n_misses:.0f} of {p.n_distinct:.0f} distinct over "
+              f"{len(warm)} warm steps; probe {p.probe_round_bytes} B, "
+              f"gather {p.host_gather_bytes} B per worker")
+        if r.picks:
+            best = r.picks[0].prediction
+            print(f"[autotune {label}] searched {r.n_searched} candidates; "
+                  f"best predicted {best.step_time_s * 1e3:.3f} ms/step vs "
+                  f"traced {model.wall_mean_s * 1e3:.3f}")
+        for v in r.picks:
+            c = v.prediction.candidate
+            print(f"[autotune {label}] pick fanouts={c.fanouts} rows="
+                  f"{c.cache_rows} l1={c.l1_rows} assoc={c.assoc} hit_cap="
+                  f"{c.hit_cap} slack={c.capacity_slack}: predicted "
+                  f"{v.prediction.step_time_s * 1e3:.3f} ms, measured "
+                  f"{v.measured_step_s * 1e3:.3f} ms, dropped {v.n_dropped}, "
+                  f"demoted {v.n_demoted}: "
+                  f"{'accepted' if v.accepted else 'rejected'}")
+        verdict = ("accepted " + str(tuple(r.candidate)) if r.accepted
+                   else "fallback: " + r.reason)
+        if res["autotune_rollback"] is not None:
+            verdict += (f"; rolled back to the traced slack at step "
+                        f"{res['autotune_rollback']} (the pick's exchange "
+                        f"dropped requests)")
+        counts = loop.counts
+        idle = ("not measured" if res["idle_share"] is None
+                else f"{100 * res['idle_share']:.1f}%")
+        print(f"[autotune {label}] {verdict}; trained with slack "
+              f"{res['capacity_slack']}, fanouts {res['fanouts']}, cache "
+              f"{tuple(res['cache_cfg']) if res['cache_cfg'] else None}, "
+              f"ladders {res['ladders']}: {res['warm_nodes_per_s']:,.0f} "
+              f"padded nodes/s (warm), median step "
+              f"{res['median_step_ms']:.3f} ms, idle {idle}, steps 0-1 "
+              f"{res['startup_s']:.3f} s (the profiler's step calls "
+              f"{res['profiler_s']:.3f} s apart); launches: all "
+              f"{res['launches']}, trained loop {counts}")
+        check(all(map(math.isfinite, res["losses"])),
+              f"{label}: a loss is not finite")
+        check(res["n_dropped"] == 0, f"{label}: the trained batches dropped "
+              f"{res['n_dropped']} requests")
+        # a rollback generates its batch once more: one more probe round
+        rounds = TRAIN_STEPS + (res["autotune_rollback"] is not None)
+        check(counts["fanout_mean"] == TRAIN_STEPS * depth * (depth + 1) // 2
+              and counts["fanout_mean_bwd"]
+              == TRAIN_STEPS * depth * (depth - 1) // 2
+              and counts[probe] == rounds,
+              f"{label}: trained-loop launches {counts} ({rounds} rounds)")
+        res["autotune_summary"] = {
+            "trace_steps": len(trace.records),
+            "traced_ms": model.wall_mean_s * 1e3,
+            "trace_step_ms": [x.wall_time_s * 1e3 for x in trace.records],
+            "searched": r.n_searched, "accepted": r.accepted,
+            "reason": r.reason, "rollback_at": res["autotune_rollback"],
+            "candidate": list(r.candidate) if r.candidate else None,
+            "picks": [{"candidate": list(v.prediction.candidate),
+                       "predicted_ms": v.prediction.step_time_s * 1e3,
+                       "measured_ms": v.measured_step_s * 1e3,
+                       "dropped": v.n_dropped, "demoted": v.n_demoted,
+                       "accepted": v.accepted} for v in r.picks],
+            "loop_launches": counts}
+        results[label] = res
+    return results
+
+
+#: the autotune agreement cells (the CPU differential test's shape): name
+#: -> (W, store, cache policy)
+AGREE_AUTOTUNE = {
+    "sharded": (4, "device", dict(n_rows=256, admit=1, assoc=2,
+                                  mode="sharded", wire="compact", hit_cap=0)),
+    "host": (4, "host", dict(n_rows=256, admit=1, assoc=2, mode="sharded",
+                             wire="compact", hit_cap=0, store="host")),
+    "tiered": (1, "device", dict(n_rows=256, admit=1, assoc=2, mode="tiered",
+                                 l1_rows=32, l1_promote=1)),
+}
+
+
+def phase_autotune_agree(torch):
+    """Phase 14: the autotune trace of the card against the CPU's (the
+    port's plain twins) on the same seeds and draws, at the CPU
+    differential test's shape (2 000 nodes, W = 4 sharded device and host
+    store, W = 1 tiered; b 8, dim 16, fanouts (3, 2), slack 1.0, 8 steps).
+    Gate: every record equal in every field but wall_time_s; both
+    consistent; the path's probe kernel launched on the card."""
+    import numpy as np
+    from repro_torch.core.balance import balance_table
+    from repro_torch.core.feature_cache import CacheConfig
+    from repro_torch.core.generation import SeededDraws
+    from repro_torch.core.partition import partition_edges
+    from repro_torch.graph.synthetic import (node_features, node_labels,
+                                             powerlaw_graph)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import autotune as at
+    n, dim, b, fanouts, steps = 2000, 16, 8, (3, 2), 8
+    g = powerlaw_graph(n, avg_degree=8, n_hot=3, hot_degree=400, seed=0)
+    x, y = node_features(n, dim), node_labels(n, 5)
+    launches = {}
+    for name, (w, store, kw) in AGREE_AUTOTUNE.items():
+        part = partition_edges(g, w)
+        table = balance_table(np.arange(n), w, seed=0)
+        cfg = CacheConfig(**kw).validated()
+        tc = at._traced_config(fanouts, w, b, dim, cfg, 1.0, store)
+        draws = SeededDraws(fanouts, 1, "cpu")
+        cpu = [(torch.from_numpy(np.ascontiguousarray(
+            table.per_worker[:, (np.arange(b) + t * b)
+                             % table.per_worker.shape[1]])),
+                draws(t, w, b)) for t in range(steps)]
+        card = [(s.to(DEVICE), tuple((o.to(DEVICE), e.to(DEVICE))
+                                     for o, e in d)) for s, d in cpu]
+        ops.reset_launch_counts()
+        got = at._instrumented_run(DEVICE, part, x, y, tc, cfg, card)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = at._instrumented_run("cpu", part, x, y, tc, cfg, cpu)
+        a = [tuple(r)[:-1] for r in got.records]
+        e = [tuple(r)[:-1] for r in want.records]
+        check(a == e, f"autotune agree {name}: card records {a} != CPU {e}")
+        check(got.violations() == () == want.violations(),
+              f"autotune agree {name}: violations {got.violations()}")
+        probe = "cache_probe_tiered" if w == 1 else "cache_probe_compact"
+        check(counts[probe] == steps, f"autotune agree {name}: {probe} "
+              f"launched {counts[probe]} times in {steps} rounds")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[autotune agree {name} W={w}] {steps} card records == the "
+              f"CPU's in every field but wall_time_s (hits "
+              f"{sum(r.n_hits for r in got.records)}, L1 "
+              f"{sum(r.n_l1_hits for r in got.records)}, L3 "
+              f"{sum(r.n_l3_hits for r in got.records)}, misses "
+              f"{sum(r.n_misses for r in got.records)}); card step ms "
+              f"{[round(r.wall_time_s * 1e3, 3) for r in got.records]}; "
+              f"launches {counts}")
+    return {"launches": launches}
+
+
+#: the baselines' task (benchmarks/gen_throughput.py's defaults)
+BASE_NODES, BASE_SEEDS, BASE_FANOUTS = 20_000, 256, (40, 20)
+SCALE_NODES, SCALE_SEEDS = 60_000, 1_189
+BASE_CALLS, NODE_CALLS = 5, 3
+
+
+def timed_calls(torch, fn, n):
+    """One warm call, then ``n`` calls each read by the host clock (to a
+    synchronize) and by CUDA events: ``(host ms list, event ms list)``."""
+    fn()
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return host, dev
+
+
+def launched_ops(torch, fn):
+    """Non-view aten ops with a CUDA output that ``fn()`` dispatches: its
+    kernel launches (every op the baselines run launches one kernel)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            if not func.is_view and any(
+                    isinstance(o, torch.Tensor) and o.is_cuda for o in outs):
+                self.n += 1
+            return out
+
+    with Count() as c:
+        fn()
+    torch.cuda.synchronize()
+    return c.n
+
+
+def csr_members(torch, indptr, indices, frontier, ids, mask):
+    """Whether every kept id is an out-neighbour of its frontier node: a
+    search of ``node * N + id`` in the sorted edge keys."""
+    n = indptr.shape[0] - 1
+    deg = (indptr[1:] - indptr[:-1]).to(torch.int64)
+    src = torch.repeat_interleave(torch.arange(n, device=indptr.device), deg)
+    keys = torch.unique(src * n + indices.to(torch.int64))
+    q = frontier.to(torch.int64)[:, None] * n + ids.to(torch.int64)
+    pos = torch.clamp(torch.searchsorted(keys, q.reshape(-1)), max=len(keys) - 1)
+    found = (keys[pos] == q.reshape(-1)).reshape(q.shape)
+    return bool((found | ~mask).all())
+
+
+def phase_baselines(torch):
+    """Phase 15: the paper's three samplers on
+    ``benchmarks/gen_throughput.py``'s default task (20 000 nodes, avg
+    degree 10, 40 hot nodes of degree 2 000, seed 0; 256 seeds, fanouts
+    (40, 20): 215 296 padded nodes per iteration), both hops each, draws
+    from seeded ``torch.Generator``s on the card.  Prints each sampler's
+    ms by host clock and CUDA events (median of several calls after a
+    warm one, with the range), nodes/s, the edge-centric speedups beside
+    the paper's 27x, and node-centric's launches; then edge-centric alone
+    at the reference's ``--scale`` task (60 000 nodes, 1 189 seeds:
+    999 949 padded nodes).  Gates: every kept id an out-neighbour of its
+    node; the SQL-like and node-centric masks keep min(deg, k) per row;
+    the edge-centric mask equals its finite keys."""
+    import numpy as np
+    from repro_torch.core import baselines as base
+    from repro_torch.core.generation import local_candidates
+    from repro_torch.graph.subgraph import slots_per_seed
+    from repro_torch.graph.synthetic import powerlaw_graph
+
+    def graph(n_nodes):
+        g = powerlaw_graph(n_nodes, avg_degree=10, n_hot=n_nodes // 500,
+                           hot_degree=2_000, seed=0)
+        src, dst = g.edge_list()
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+             for a in (g.indptr, g.indices, src, dst)]
+        return g, t
+
+    g, (indptr, indices, src, dst) = graph(BASE_NODES)
+    max_deg = int(g.degrees().max())
+    seeds = torch.arange(BASE_SEEDS, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+
+    def draws(name, level, f, k):
+        gen.manual_seed(1000 * level + {"sql": 1, "node": 2, "edge": 3}[name])
+        if name == "sql":
+            return (base.sql_priorities(gen, src.shape[0], DEVICE),)
+        if name == "node":
+            return (base.node_centric_draws(gen, f, max_deg, DEVICE),)
+        return base.edge_centric_draws(gen, f, k, DEVICE)
+
+    def sampler(name, frontier, k, d):
+        if name == "sql":
+            return base.sql_like_sample(src, dst, frontier, k, *d)
+        if name == "node":
+            return base.node_centric_sample(indptr, indices, frontier, k, *d,
+                                            max_deg)
+        return base.edge_centric_sample(indptr, indices, frontier, k, *d)
+
+    # the draws of both hops are made once, outside the timed calls
+    f1 = BASE_SEEDS
+    f2 = BASE_SEEDS * BASE_FANOUTS[0]
+    hop_draws = {name: [draws(name, 0, f1, BASE_FANOUTS[0]),
+                        draws(name, 1, f2, BASE_FANOUTS[1])]
+                 for name in ("sql", "node", "edge")}
+
+    def expand(name):
+        frontier, out = seeds, []
+        for level, k in enumerate(BASE_FANOUTS):
+            ids, m = sampler(name, frontier, k, hop_draws[name][level])
+            out.append((frontier, ids, m))
+            frontier = ids.reshape(-1)
+        return out
+
+    nodes = BASE_SEEDS * slots_per_seed(BASE_FANOUTS)
+    deg_all = (indptr[1:] - indptr[:-1]).to(torch.int64)
+    res = {"nodes_per_iter": nodes, "max_degree": max_deg,
+           "n_edges": int(g.n_edges)}
+    for name in ("edge", "sql", "node"):
+        out = expand(name)
+        torch.cuda.synchronize()
+        for level, (frontier, ids, m) in enumerate(out):
+            k = BASE_FANOUTS[level]
+            check(csr_members(torch, indptr, indices, frontier, ids, m),
+                  f"baselines {name} hop {level}: a kept id is not an "
+                  f"out-neighbour of its node")
+            deg = deg_all[frontier.to(torch.int64)]
+            if name == "edge":
+                cand = local_candidates(indptr, indices, frontier, k,
+                                        *hop_draws[name][level])
+                check(torch.equal(m, torch.isfinite(cand.keys))
+                      and torch.equal(m, (deg > 0)[:, None].expand_as(m)),
+                      f"baselines edge hop {level}: the mask is not its "
+                      f"finite keys")
+            else:
+                check(torch.equal(m.sum(1), torch.clamp(deg, max=k)),
+                      f"baselines {name} hop {level}: the mask does not keep "
+                      f"min(deg, k) per row")
+        n = NODE_CALLS if name == "node" else BASE_CALLS
+        host, dev = timed_calls(torch, lambda: expand(name), n)
+        entry = {"host_ms": statistics.median(host), "host_range":
+                 [min(host), max(host)], "event_ms": statistics.median(dev),
+                 "event_range": [min(dev), max(dev)], "calls": n,
+                 "kept": [int(m.sum()) for _, _, m in out]}
+        entry["nodes_per_s"] = nodes / (entry["event_ms"] / 1e3)
+        if name == "node":
+            entry["launches"] = launched_ops(torch, lambda: expand(name))
+        res[name] = entry
+        print(f"[baselines {name}] {entry['event_ms']:.3f} ms by events "
+              f"(range {entry['event_range'][0]:.3f}-"
+              f"{entry['event_range'][1]:.3f}), {entry['host_ms']:.3f} ms by "
+              f"host clock ({entry['host_range'][0]:.3f}-"
+              f"{entry['host_range'][1]:.3f}), median of {n} after a warm "
+              f"call; {entry['nodes_per_s']:,.0f} padded nodes/s; kept "
+              f"{entry['kept']}"
+              + (f"; {entry['launches']} launches per call ({max_deg} "
+                 f"serial steps per hop)" if name == "node" else ""))
+    for other in ("sql", "node"):
+        res[f"edge_vs_{other}"] = res[other]["event_ms"] / res["edge"][
+            "event_ms"]
+        res[f"edge_vs_{other}_host"] = res[other]["host_ms"] / res["edge"][
+            "host_ms"]
+    print(f"[baselines] edge-centric speedup over SQL-like "
+          f"{res['edge_vs_sql']:.1f}x by events "
+          f"({res['edge_vs_sql_host']:.1f}x by host clock; the paper: 27x), "
+          f"over node-centric {res['edge_vs_node']:.1f}x "
+          f"({res['edge_vs_node_host']:.1f}x)")
+    del hop_draws
+    # the reference's --scale task: edge-centric alone
+    g, (indptr, indices, _, _) = graph(SCALE_NODES)
+    seeds = torch.arange(SCALE_SEEDS, dtype=torch.int32, device=DEVICE)
+    gen.manual_seed(7)
+    sdraws = [base.edge_centric_draws(gen, SCALE_SEEDS, BASE_FANOUTS[0],
+                                      DEVICE),
+              base.edge_centric_draws(gen, SCALE_SEEDS * BASE_FANOUTS[0],
+                                      BASE_FANOUTS[1], DEVICE)]
+
+    def expand_scale():
+        frontier, out = seeds, []
+        for level, k in enumerate(BASE_FANOUTS):
+            ids, m = base.edge_centric_sample(indptr, indices, frontier, k,
+                                              *sdraws[level])
+            out.append((frontier, ids, m))
+            frontier = ids.reshape(-1)
+        return out
+
+    for level, (frontier, ids, m) in enumerate(expand_scale()):
+        check(csr_members(torch, indptr, indices, frontier, ids, m),
+              f"baselines scale hop {level}: a kept id is not an "
+              f"out-neighbour")
+    host, dev = timed_calls(torch, expand_scale, BASE_CALLS)
+    nodes = SCALE_SEEDS * slots_per_seed(BASE_FANOUTS)
+    res["scale"] = {"nodes_per_iter": nodes,
+                    "event_ms": statistics.median(dev),
+                    "event_range": [min(dev), max(dev)],
+                    "host_ms": statistics.median(host),
+                    "host_range": [min(host), max(host)],
+                    "nodes_per_s": nodes / (statistics.median(dev) / 1e3)}
+    print(f"[baselines scale] edge-centric at {SCALE_NODES} nodes, "
+          f"{SCALE_SEEDS} seeds ({nodes:,} padded nodes per iteration): "
+          f"{res['scale']['event_ms']:.3f} ms by events (range "
+          f"{min(dev):.3f}-{max(dev):.3f}), {res['scale']['host_ms']:.3f} ms "
+          f"by host clock; {res['scale']['nodes_per_s']:,.0f} padded "
+          f"nodes/s")
+    return res
+
+
+#: the recovery run (examples/distributed_pipeline.py's): nodes, feature
+#: dim, classes, batch per worker, fanouts; the failure, the checkpoint
+#: cadence and the end
+REC_N, REC_DIM, REC_CLASSES, REC_B, REC_FANOUTS = 20_000, 64, 8, 16, (8, 4)
+REC_FAILED, REC_FAIL_AT, REC_CKPT_EVERY, REC_TOTAL = (3, 6), 20, 10, 40
+
+
+def phase_recovery(torch):
+    """Phase 16: the counterpart of ``examples/distributed_pipeline.py`` on
+    the port: 20 000 nodes, dim 64, 8 classes, b 16, fanouts (8, 4), a
+    tiered cache (1 024 rows, admit 2, 2-way, a 128-row L1, promote 2) at
+    W = 8, checkpoints every 10 steps; two ``FailureInjector``s lose
+    workers 3 and 6 at step 20; ``recover_assignment`` deals the pool
+    over the 6 survivors, the butterfly merge's power of two takes 4 of
+    them, the generator is rebuilt at W = 4 with a cold cache, the latest
+    checkpoint restored, and the run resumes to step 40.  Gates: the
+    resume starts at the checkpoint's step; the survivors' table deals
+    equal shares; every loss finite; at both widths the L1 gather probe,
+    the compact probe round and fanout_mean / fanout_mean_bwd launched."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (adam_state_from_numpy,
+                                     adam_state_to_numpy,
+                                     gcn_params_from_numpy,
+                                     gcn_params_to_numpy)
+    from repro_torch.core.balance import balance_table, load_skew
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.core.feature_cache import CacheConfig
+    from repro_torch.core.generation import (SeededDraws,
+                                             make_distributed_generator)
+    from repro_torch.core.partition import partition_edges
+    from repro_torch.core.pipeline import pipelined_loop
+    from repro_torch.graph.synthetic import node_features, powerlaw_graph
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_gcn_train_fn
+    from repro_torch.models.gcn import init_gcn
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import (FailureInjector, WorkerFailure,
+                                         recover_assignment)
+    from repro_torch.train.optimizer import init_adam
+
+    graph = powerlaw_graph(REC_N, avg_degree=8, n_hot=20, hot_degree=1000,
+                           seed=0)
+    feats = node_features(REC_N, REC_DIM)
+    labels = np.argmax(feats @ np.random.default_rng(0).standard_normal(
+        (REC_DIM, REC_CLASSES)), 1).astype(np.int32)
+    cfg = dataclasses.replace(get_config("graphgen-gcn"), gcn_in_dim=REC_DIM,
+                              n_classes=REC_CLASSES, gcn_hidden=128,
+                              fanouts=REC_FANOUTS)
+    cache_cfg = CacheConfig(n_rows=1024, admit=2, assoc=2, mode="tiered",
+                            l1_rows=128, l1_promote=2).validated()
+    train_fn = make_gcn_train_fn(TrainConfig(learning_rate=3e-3,
+                                             warmup_steps=0, total_steps=60))
+    draws = SeededDraws(REC_FANOUTS, 1, DEVICE)
+    injectors = [FailureInjector(fail_worker=f, fail_at_step=REC_FAIL_AT)
+                 for f in REC_FAILED]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recovery")
+    losses, widths = {}, {}
+
+    def run(workers, table, start, model, opt):
+        """Train steps ``start .. REC_TOTAL - 1`` at ``workers`` from a cold
+        cache; returns the lost workers (and the step) on a failure."""
+        gen_fn, dargs, cache = make_distributed_generator(
+            partition_edges(graph, workers), feats, labels,
+            fanouts=REC_FANOUTS, cache_cfg=cache_cfg, device=DEVICE)
+        per = table.per_worker
+        sched = np.stack([per[:, (np.arange(REC_B) + t * REC_B)
+                              % per.shape[1]]
+                          for t in range(start, REC_TOTAL)])
+        lost = []
+
+        def before(i, carry, gen):
+            for inj in injectors:
+                try:
+                    inj.check(start + i)
+                except WorkerFailure as e:
+                    lost.append(e)
+            if lost:
+                raise lost[0]
+            return carry, gen
+
+        def after(i, carry, loss):
+            t = start + i
+            losses[t] = float(loss)
+            if (t + 1) % REC_CKPT_EVERY == 0:
+                ckpt.save(tmp, t + 1, (gcn_params_to_numpy(carry[0]),
+                                       adam_state_to_numpy(carry[1])), keep=3)
+                print(f"[recovery W={workers}] step {t + 1}: loss "
+                      f"{losses[t]:.4f}, cache hit rate "
+                      f"{carry[2].cache_hit_rate():.3f} [checkpointed]")
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            pipelined_loop(gen_fn, train_fn, dargs, sched, model, opt,
+                           lambda i, *a: draws(start + i, *a), cache=cache,
+                           before_step=before, after_step=after)
+        except WorkerFailure:
+            pass
+        torch.cuda.synchronize()
+        widths[workers] = {"launches": ops.launch_counts(),
+                           "wall_s": time.perf_counter() - t0,
+                           "steps": len([t for t in losses if t >= start])}
+        return sorted(e.worker for e in lost), (lost[0].step if lost else None)
+
+    try:
+        table8 = balance_table(np.arange(REC_N), 8, seed=0)
+        model = init_gcn(cfg, 0, device=DEVICE)
+        lost, at_step = run(8, table8, 0, model, init_adam(model.leaves()))
+        check(lost == sorted(REC_FAILED) and at_step == REC_FAIL_AT,
+              f"recovery: lost {lost} at step {at_step}")
+        table6 = recover_assignment(table8, failed=lost)
+        shares = table6.per_worker.shape[1]
+        check(table6.n_workers == 8 - len(lost)
+              and load_skew(np.full(table6.n_workers, shares)) == 1.0
+              and table6.n_discarded < table6.n_workers
+              and set(table6.per_worker.reshape(-1).tolist())
+              <= set(table8.per_worker.reshape(-1).tolist()),
+              f"recovery: survivors' table {table6.per_worker.shape}, "
+              f"{table6.n_discarded} discarded")
+        # the butterfly merge needs a power-of-two worker axis: 4 of the 6
+        # survivors run, the pool re-dealt over them
+        table4 = recover_assignment(table6, failed=[4, 5], seed=2)
+        restore = ckpt.latest_step(tmp)
+        check(restore == REC_FAIL_AT, f"recovery: latest checkpoint "
+              f"{restore}, expected {REC_FAIL_AT}")
+        like = init_gcn(cfg, 0, device=DEVICE)
+        params_np, opt_np = ckpt.restore(
+            tmp, restore, (gcn_params_to_numpy(like),
+                           adam_state_to_numpy(init_adam(like.leaves()))))
+        resumed = gcn_params_from_numpy(params_np, device=DEVICE)
+        for t in [t for t in losses if t >= restore]:
+            del losses[t]
+        print(f"[recovery] workers {lost} lost at step {at_step}; survivors' "
+              f"table {table6.n_workers} x {shares} (discarded "
+              f"{table6.n_discarded}), rebuilt at W=4 x "
+              f"{table4.per_worker.shape[1]}; resuming from checkpoint "
+              f"{restore}")
+        lost2, _ = run(4, table4, restore, resumed,
+                       adam_state_from_numpy(opt_np, device=DEVICE))
+        check(lost2 == [], f"recovery: a second failure {lost2}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = sorted(losses)
+    check(steps == list(range(REC_TOTAL)), f"recovery: trained steps {steps}")
+    check(all(map(math.isfinite, losses.values())),
+          "recovery: a loss is not finite")
+    for w, rec in widths.items():
+        c = rec["launches"]
+        check(c["cache_probe_gather"] > 0 and c["cache_probe_compact"] > 0
+              and c["fanout_mean"] == 3 * rec["steps"]
+              and c["fanout_mean_bwd"] == rec["steps"],
+              f"recovery W={w}: launches {c} over {rec['steps']} steps")
+        print(f"[recovery W={w}] {rec['steps']} steps in {rec['wall_s']:.3f} "
+              f"s; launches {c}")
+    print(f"[recovery] resumed at step {REC_FAIL_AT} on 4 workers; losses "
+          f"{[round(losses[t], 4) for t in steps]}")
+    launches = {}
+    for rec in widths.values():
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "losses": [losses[t] for t in steps],
+            "widths": {w: {k: r[k] for k in ("steps", "wall_s")}
+                       for w, r in widths.items()},
+            "resumed_at": REC_FAIL_AT}
 
 
 #: flash_attention checks on the card: (B, Hq, Hkv, Lq, Lk, Dh, causal,
@@ -3012,7 +3767,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a first bring-up)")
+    ap.add_argument("--first-step", action="store_true",
+                    help="print the split of a fresh process's first train "
+                         "step (run by the autotune phase)")
     opts = ap.parse_args()
+    if opts.first_step:
+        first_step_split()
+        return
 
     import torch
     if not torch.cuda.is_available():
@@ -3055,6 +3816,10 @@ def main():
     merge_res = phase_merge(torch)
     offline_res = phase_offline(torch, host_res)
     ckpt_res = phase_ckpt(torch)
+    autotune_res = phase_autotune(torch)
+    agree_at = phase_autotune_agree(torch)
+    baselines = phase_baselines(torch)
+    recovery = phase_recovery(torch)
     phase_flash(torch, dev)
     phase_ssd_kernels(torch, dev)
     prefill = phase_lm_prefill(torch)
@@ -3065,6 +3830,8 @@ def main():
     runs = (list(serve_res.values()) + list(train_res.values())
             + list(host_res.values()) + [merge_res]
             + list(offline_res.values()) + [ckpt_res]
+            + [r for k, r in autotune_res.items() if k != "first_step"]
+            + [agree_at, recovery]
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
@@ -3083,7 +3850,7 @@ def main():
     print(json.dumps({"train": {arch: {
         "workers": TRAIN_RUNS[arch][0], "nodes_per_iter": r["nodes_per_iter"],
         "window_nodes_per_s": r["window_nodes_per_s"],
-        "startup_s": r["startup_s"],
+        "startup_s": r["startup_s"], "profiler_s": r["profiler_s"],
         "warm_nodes_per_s": r["warm_nodes_per_s"],
         "median_step_ms": r["median_step_ms"],
         "step_times_ms": r["step_times_ms"], "traced_step_ms": r["traced_ms"],
@@ -3103,6 +3870,15 @@ def main():
             f"{arch} W={w} {store}": {k: r[k] for k in (
                 "t_gen", "t_train", "launches")}
             for (arch, w, store), r in offline_res.items()}}))
+    print(json.dumps({"autotune": {
+        label: {**r["autotune_summary"], **{k: r[k] for k in (
+                    "warm_nodes_per_s", "median_step_ms", "idle_share",
+                    "wall_s", "startup_s", "profiler_s", "capacity_slack",
+                    "n_dropped")},
+                "fanouts": list(r["fanouts"]), "launches": r["launches"]}
+        for label, r in autotune_res.items() if label != "first_step"},
+        "first_step": autotune_res["first_step"],
+        "baselines": baselines, "recovery": recovery}))
     print(json.dumps({"lm": {"arch": LM_ARCH, "prefill": {
         "batch": PREFILL_B, "seq": PREFILL_S, **{k: prefill[k] for k in (
             "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",

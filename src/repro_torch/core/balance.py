@@ -5,8 +5,9 @@
 The coordinator builds a *balance table* mapping seed nodes to workers:
 seeds are shuffled, assigned round-robin, and the remainder
 ``|S| mod |W|`` is **discarded** so every worker owns exactly
-``floor(|S|/|W|)`` seeds.  Failure rebalancing and the skew metric wait
-for the fleet slice.
+``floor(|S|/|W|)`` seeds.  ``rebalance_on_failure`` re-deals the table
+over the workers that survive a failure, and ``load_skew`` is the
+balance metric (bit-equal copies of the reference's).
 """
 from __future__ import annotations
 
@@ -50,3 +51,22 @@ def balance_table(seeds: np.ndarray, n_workers: int,
     per_worker = kept.reshape(per, n_workers).T.copy()
     return BalanceTable(per_worker=per_worker,
                         n_discarded=len(shuffled) - max_i, seed_order=kept)
+
+
+def rebalance_on_failure(table: BalanceTable, failed: list[int],
+                         seed: int = 1) -> BalanceTable:
+    """Rebuild the balance table over the surviving workers (Algorithm 1
+    re-run with ``|W| - |failed|``): every seed of the table, the failed
+    workers' included, is re-dealt round-robin."""
+    survivors = [w for w in range(table.n_workers) if w not in set(failed)]
+    if not survivors:
+        raise RuntimeError("all workers failed")
+    all_seeds = table.per_worker.reshape(-1)
+    return balance_table(all_seeds, len(survivors), seed=seed)
+
+
+def load_skew(per_worker_work: np.ndarray) -> float:
+    """max/mean worker load — the balance metric of the paper's §3
+    (``inf`` when the mean load is 0)."""
+    m = float(np.mean(per_worker_work))
+    return float(np.max(per_worker_work)) / m if m > 0 else float("inf")

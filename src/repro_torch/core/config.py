@@ -6,14 +6,16 @@ fanouts and the cache policy, with the same construction-time validation
 (``cache_rows`` is rounded UP to a power of two); the LM's dims, rope and
 norm constants and its flash switch; the Mamba-2 SSM dims (state, heads,
 head dim, expansion, chunk, conv width), each with the reference's
-defaults; and the optimizer's schedule.  The MoE/MLA/hybrid/VLM/audio
-fields, the shape/mesh configs and the hardware constants wait for the
+defaults; the optimizer's schedule; the autotuner's ``TuneCandidate``
+and ``ModelConfig.with_candidate``; and the roofline constants of the
+card the port runs on (an NVIDIA H100, not the reference's TPU).  The
+MoE/MLA/hybrid/VLM/audio fields and the shape/mesh configs wait for the
 slices that need them (ROADMAP Queue 1 items 6-7).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,6 +25,20 @@ VALID_CACHE_ASSOC = (1, 2, 4)
 VALID_CACHE_MODES = ("replicated", "sharded", "tiered")
 VALID_CACHE_WIRES = ("dense", "compact")
 VALID_FEATURE_STORES = ("device", "host")
+
+# Roofline constants of the card the port runs on: one NVIDIA H100 80GB
+# HBM3 (SXM) at a 700.00 W power limit.  The autotuner's cost model
+# (``launch/autotune.py``) reads them through ``launch/roofline.py``.
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 tensor cores (data
+                                # sheet; chip_smoke.py's bound uses it too)
+HBM_BW = 3.35e12                # bytes/s, HBM3 (data sheet)
+PCIE_BW = 53e9                  # bytes/s host -> device: the pinned L3
+                                # staging copies measured on this card
+                                # (55.5 MB in 1.04 ms; PERF.md section 6)
+# The collective term: the W simulated workers of the stacked worker axis
+# share one card, so their all_to_all "wire" is a device-memory copy, not
+# a link between chips; it moves at the HBM rate.
+WIRE_BW = HBM_BW
 
 
 def resolve_device(device) -> torch.device:
@@ -83,6 +99,7 @@ class ModelConfig:
     cache_l1_promote: int = 3   # tiered mode: observations before promotion
     cache_wire: str = "compact"
     cache_hit_cap: int = 0      # compact wire payload rows (0 = auto)
+    capacity_slack: Optional[float] = None  # None = the launcher sizes it
     feature_store: str = "device"
     host_gather_depth: int = 2  # host store: 2 overlaps the gather, 1 blocks
     use_flash_attention: bool = False
@@ -128,6 +145,16 @@ class ModelConfig:
                 f"host_gather_depth must be 1 (synchronous) or 2 "
                 f"(double-buffered), got {self.host_gather_depth}")
 
+    def with_candidate(self, cand: "TuneCandidate") -> "ModelConfig":
+        """Self with an autotuner ``TuneCandidate`` applied: the fanouts,
+        cache sizes, associativity, hit cap and capacity slack replaced,
+        everything else kept; ``__post_init__`` re-validates, so an
+        infeasible candidate raises here."""
+        return dataclasses.replace(
+            self, fanouts=tuple(cand.fanouts), cache_rows=cand.cache_rows,
+            cache_l1_rows=cand.l1_rows, cache_assoc=cand.assoc,
+            cache_hit_cap=cand.hit_cap, capacity_slack=cand.capacity_slack)
+
     @property
     def resolved_head_dim(self) -> int:
         """Per-head attention dim: ``head_dim`` when set explicitly,
@@ -135,6 +162,19 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+
+class TuneCandidate(NamedTuple):
+    """One point of the autotuner's joint search space (fields and order
+    of ``repro.core.config.TuneCandidate``): applying one to a
+    ``ModelConfig`` (``with_candidate``) or a ``CacheConfig``
+    (``autotune.candidate_cache_cfg``) is the rebuild seam."""
+    fanouts: Tuple[int, ...]    # per-hop fanout shape
+    cache_rows: int             # main-tier (L2) cache slots per worker
+    l1_rows: int                # tiered mode: replicated L1 slots (0 else)
+    assoc: int                  # cache ways per set, in VALID_CACHE_ASSOC
+    hit_cap: int                # compact-wire payload bound (0 = auto)
+    capacity_slack: float       # exchange-capacity slack factor
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,10 @@ float32 ``= -log(u)``.  Production makes them with ``sample_draws`` from
 a seeded ``torch.Generator``; the parity tests feed ``repro``'s own
 draws, and the keys ``e / max(deg / k, 1e-30)`` then agree bit for bit.
 
-Waiting for a later slice: the ``collect_stats`` trace seam.
+**Telemetry.** ``collect_stats=True`` (the autotuner's trace seam) makes
+every generator return grow a ``(FetchStats, CacheStats)`` tail with a
+``[W]`` leading axis: the feature shuffle's per-worker counters, equal
+to the reference's on the same draws.
 """
 from __future__ import annotations
 
@@ -799,7 +802,8 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
                      cache_cfg: Optional[CacheConfig] = None,
                      fetch_capacity: Optional[int] = None,
                      feature_store: str = "device",
-                     feat_dim: Optional[int] = None, host_admit=None):
+                     feat_dim: Optional[int] = None, host_admit=None,
+                     collect_stats: bool = False):
     """One L-hop generation round of every worker.
 
     ``indptr [W, N+1]``, ``indices [W, E]``, ``x [W, rows, D]``,
@@ -817,7 +821,14 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
     the width), the misses are staged for the L3 gather and the returns
     grow a ``HostMissRequest`` tail — ``(batch, cache, req)`` or
     ``(batch, req)``; ``host_admit`` is the previous step's landed
-    ``(ids, rows)``."""
+    ``(ids, rows)``.
+
+    With ``collect_stats`` the return grows a ``(FetchStats, CacheStats)``
+    tail (``[W]`` each).  An uncached run ships a synthesized
+    ``CacheStats`` whose only nonzero field is the conservation remainder
+    (``n_misses`` for the device store, ``n_l3_hits`` for the host
+    store), so ``n_l1 + n_local + n_shard + n_l3 + n_misses`` counts the
+    distinct ids in every traced configuration."""
     if merge_mode not in MERGE_MODES:
         raise ValueError(f"merge_mode must be one of {MERGE_MODES}, "
                          f"got {merge_mode!r}")
@@ -871,6 +882,12 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
     else:
         feats, fstats, *tail = fetch_rows(x, need, **kw)
         n_hits, n_misses, n_demoted = z, fstats.n_unique, z
+        host = feature_store == "host"
+        cstats = CacheStats(
+            n_hits=z, n_misses=z if host else fstats.n_unique, n_inserted=z,
+            bytes_saved=z, n_local_hits=z, n_shard_hits=z, n_l1_hits=z,
+            n_probe_demoted=z, probe_hit_peak=z,
+            n_l3_hits=fstats.n_unique if host else z)
     req = tail[0] if tail else None
     d = feats.shape[-1]
     x_seed = feats[:, :b]
@@ -896,7 +913,8 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         n_cache_hits=n_hits, n_cache_misses=n_misses,
         n_probe_demoted=n_demoted)
     out = (batch,) + ((cache,) if cache is not None else ()) \
-        + ((req,) if req is not None else ())
+        + ((req,) if req is not None else ()) \
+        + (((fstats, cstats),) if collect_stats else ())
     return out if len(out) > 1 else batch
 
 
@@ -917,7 +935,8 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
                       cache_cfg: Optional[CacheConfig] = None,
                       fetch_capacity: Optional[int] = None,
                       feature_store: str = "device",
-                      feat_dim: Optional[int] = None):
+                      feat_dim: Optional[int] = None,
+                      collect_stats: bool = False):
     """The generator function, without data.
 
     ``gen_fn(device_args, seeds [W, b], draws) -> SubgraphBatch`` where
@@ -933,7 +952,11 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
     uncached, ``gen_fn(device_args, seeds, draws, cache, admit_ids
     [W, S], admit_rows [W, S, D]) -> (batch, cache, req)`` cached, where
     ``admit_*`` is the previous step's landed gather
-    (``host_store.empty_admit`` for the first)."""
+    (``host_store.empty_admit`` for the first).
+
+    With ``collect_stats`` every form's return grows the stacked
+    ``(FetchStats, CacheStats)`` tail (see ``_worker_generate``); the
+    frozen serve form refuses it."""
     if not fanouts:
         raise ValueError("fanouts must name at least one hop, got ()")
     if merge_mode not in MERGE_MODES:
@@ -952,6 +975,10 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
         raise ValueError('a frozen (read-mostly serve) cache cannot ride '
                          'the L3 staging path — build the serve generator '
                          'with feature_store="device"')
+    if frozen and collect_stats:
+        raise ValueError('collect_stats instruments the training-path '
+                         'generator; the frozen serve form ships answers, '
+                         'not telemetry — trace before serve_view()')
     if cached:
         # the generator's feature_store is authoritative
         cache_cfg = cache_cfg.validated()._replace(store=feature_store)
@@ -960,7 +987,7 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
         capacity_slack=capacity_slack,
         cache_cfg=cache_cfg if cached else None,
         fetch_capacity=fetch_capacity, feature_store=feature_store,
-        feat_dim=feat_dim)
+        feat_dim=feat_dim, collect_stats=collect_stats)
 
     if host and cached:
         def gen_fn(device_args, seeds, draws, cache, admit_ids, admit_rows):
@@ -993,6 +1020,7 @@ def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
                                fetch_capacity: Optional[int] = None,
                                feature_store: str = "device",
                                host_gather_depth: int = 2,
+                               collect_stats: bool = False,
                                device="cuda"):
     """Place the graph, features and labels on ``device`` and build the
     generator: ``(gen_fn, device_args)``, or with a ``cache_cfg``
@@ -1002,7 +1030,8 @@ def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
     (unsharded) behind a ``HostFeatureStore`` of depth
     ``host_gather_depth``; only the graph and the labels go to the
     device, and the returns are ``(gen_fn, device_args, store)`` and
-    ``(gen_fn, device_args, store, cache0)``."""
+    ``(gen_fn, device_args, store, cache0)``.  ``collect_stats`` builds
+    the instrumented generator (``make_generator_fn``)."""
     dev = resolve_device(device)
     w = part.n_workers
     host = feature_store == "host"
@@ -1016,7 +1045,8 @@ def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
                                cache_cfg=cache_cfg,
                                fetch_capacity=fetch_capacity,
                                feature_store=feature_store,
-                               feat_dim=d if host else None)
+                               feat_dim=d if host else None,
+                               collect_stats=collect_stats)
     cached = cache_cfg is not None and cache_cfg.n_rows > 0
     cache0 = (init_cache_state(cache_cfg.validated(), d, w, device=dev)
               if cached else None)

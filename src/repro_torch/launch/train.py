@@ -22,9 +22,16 @@ cache), and ``--export-serve DIR`` saves the trained params and the warm
 cache for ``repro_torch.launch.serve --warm-from DIR``.  ``offline_gcn``
 runs the same setup through the GraphGen baseline (``offline_loop``).
 
-Waiting for later slices, and not accepted by this parser: the profile
-autotuner (``--autotune``) and the LM archs.  ``--device`` is the one
-flag the reference lacks.
+``--autotune`` (``--autotune-steps N``, default 8) replaces the ladders
+with one instrumented trace window, an offline search against a cost
+model fit from it, and a live validation of the best picks
+(``launch/autotune.py``); a rejected or unfit trace falls back to the
+ladders with a warning.  The validator sees a few rounds only, so a
+trained batch that an accepted pick's exchange drops requests from is
+regenerated at the traced slack, which the run then keeps.
+
+Waiting for a later slice, and not accepted by this parser: the LM
+archs.  ``--device`` is the one flag the reference lacks.
 
 Examples::
 
@@ -192,7 +199,8 @@ def _model_config(args):
 
 def build_gcn_run(args) -> dict:
     """Everything ``train_gcn`` sets up before its loop, from ``args``:
-    the graph and tables, the calibrated slack and cache policy, the
+    the graph and tables, the calibrated (or autotuned) slack and cache
+    policy, the ``AutotuneResult`` (None without ``--autotune``), the
     generator (``gen_fn``, ``device_args``, the L3 ``store`` in host mode
     or None, the empty ``cache`` or None), the model at its seeded init,
     the AdamW ``train_fn``, ``seeds_np(t)`` and ``draws(t, W, b)``."""
@@ -217,7 +225,6 @@ def build_gcn_run(args) -> dict:
     table = balance_table(np.arange(graph.n_nodes), w, args.seed)
 
     b = args.batch_per_worker
-    draws = SeededDraws(fanouts, args.seed + 1, dev)
 
     def seeds_np(t):
         sw = table.per_worker
@@ -226,15 +233,46 @@ def build_gcn_run(args) -> dict:
     def seeds_for(t):
         return torch.from_numpy(np.ascontiguousarray(seeds_np(t))).to(dev)
 
+    res = autotuned = None
+    if args.autotune:
+        # one trace and an offline search replace the ladders; they stay
+        # as the fallback when the validator rejects the pick
+        from .autotune import autotune_gcn, candidate_cache_cfg
+        res = autotune_gcn(
+            dev, part, feats, labels, fanouts=fanouts, cache_cfg=cache_cfg,
+            feature_store=cfg.feature_store, batch_per_worker=b,
+            seeds_for=seeds_for,
+            draws_for=lambda fo: SeededDraws(fo, args.seed + 2, dev),
+            steps=args.autotune_steps,
+            slack=(args.capacity_slack or cfg.capacity_slack or 2.0))
+        if res.accepted:
+            autotuned = res
+            cfg = cfg.with_candidate(res.candidate)
+            fanouts = cfg.fanouts
+            if cached:
+                cache_cfg = candidate_cache_cfg(cache_cfg, res.candidate)
+            print(f"autotune: accepted (measured "
+                  f"{res.measured_step_s * 1e3:.1f} ms/step warm)")
+        else:
+            print(f"autotune: WARNING — falling back to the calibration "
+                  f"ladders ({res.reason})")
+    # the training draws follow the final fanouts
+    draws = SeededDraws(fanouts, args.seed + 1, dev)
+
     ladders = []
     store = cache = None
     if host:
         # the L3 staging path replaces the owner exchange, and its default
         # staging size never drops: no ladder probes a generator this run
         # does not build
-        slack = args.capacity_slack if args.capacity_slack is not None \
-            else 2.0
-        if w > 1 and args.capacity_slack is None:
+        if args.capacity_slack is not None:
+            slack = args.capacity_slack
+        elif cfg.capacity_slack is not None:
+            slack = cfg.capacity_slack
+        else:
+            slack = 2.0
+        if w > 1 and args.capacity_slack is None \
+                and cfg.capacity_slack is None:
             print("capacity_slack fixed at 2.0 (--feature-store host skips "
                   "the drop-aware ladder: misses stage to the L3 store "
                   "instead of the owner exchange)")
@@ -254,7 +292,8 @@ def build_gcn_run(args) -> dict:
         need_hit_cap = (cached and w > 1 and cache_cfg.mode != "replicated"
                         and cache_cfg.wire == "compact"
                         and cache_cfg.hit_cap == 0
-                        and args.probe_hit_cap is None)
+                        and args.probe_hit_cap is None
+                        and autotuned is None)
         # the graph and the tables are placed once; every rung of both
         # ladders runs against the same placement
         _, device_args = make_distributed_generator(
@@ -263,6 +302,8 @@ def build_gcn_run(args) -> dict:
                   for t in range(CALIBRATION_PROBES)]
         if args.capacity_slack is not None:
             slack = args.capacity_slack
+        elif cfg.capacity_slack is not None:
+            slack = cfg.capacity_slack   # pinned, or the autotuned pick
         elif w == 1:
             slack = 2.0      # the W = 1 fetch is a local gather
         else:
@@ -296,7 +337,8 @@ def build_gcn_run(args) -> dict:
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        checkpoint_every=args.ckpt_every)
     return {"dev": dev, "w": w, "b": b, "cfg": cfg, "cache_cfg": cache_cfg,
-            "slack": slack, "ladders": ladders, "gen_fn": gen_fn,
+            "slack": slack, "ladders": ladders, "autotune": res,
+            "gen_fn": gen_fn,
             "device_args": device_args, "store": store, "cache": cache,
             "model": init_gcn(cfg, args.seed, device=dev),
             "train_fn": make_gcn_train_fn(tcfg), "tcfg": tcfg,
@@ -345,25 +387,53 @@ def train_gcn(args, step_hook=None) -> dict:
     n_dropped = 0
     miss_peak = 0
     wide_gen = None   # pre-recalibration generator, kept for rollback
+    # the autotuner's validator measured its pick on a few rounds only: a
+    # trained batch whose exchange that pick drops requests from is
+    # regenerated at the traced slack, which the run then keeps
+    # (zero-filled features must never train)
+    tuned = run["autotune"]
+    traced_gen = None
+    autotune_rollback = None
+    if (tuned is not None and tuned.accepted and run["store"] is None
+            and w > 1):
+        traced_gen = make_generator_fn(
+            fanouts=run["cfg"].fanouts,
+            capacity_slack=tuned.trace.config.capacity_slack,
+            cache_cfg=cache_cfg)
     # only the second half of the warm window counts toward the miss peak
     warm_from = start + max(args.warm_recalibrate // 2, 1)
     t0 = time.perf_counter()
 
+    def regenerate(gen, t, carry):
+        """Batch ``t`` generated again by ``gen`` into the carry."""
+        with torch.no_grad():
+            if cached:
+                batch, cache_now = gen(device_args, seeds_for(t),
+                                       draws(t, w, b), carry[3])
+                return (carry[0], carry[1], batch, cache_now)
+            return (carry[0], carry[1],
+                    gen(device_args, seeds_for(t), draws(t, w, b)))
+
     def before_step(i, carry, gen_fn):
-        nonlocal miss_peak, wide_gen, n_dropped, t0
+        nonlocal miss_peak, wide_gen, traced_gen, autotune_rollback
+        nonlocal n_dropped, t0
         t = start + i
         if i == 0:
             t0 = time.perf_counter()   # batch `start` is generated
         if cached and args.warm_recalibrate and t >= warm_from:
             miss_peak = max(miss_peak, int(carry[2].n_cache_misses.max()))
+        if traced_gen is not None and int(carry[2].n_dropped.sum()) > 0:
+            gen_fn, traced_gen = traced_gen, None
+            carry = regenerate(gen_fn, t, carry)
+            autotune_rollback = t
+            print(f"step {t}: the autotuned exchange dropped requests — "
+                  f"regenerated the batch at the traced slack "
+                  f"{tuned.trace.config.capacity_slack} and kept it")
         # rollback check first: carry[2] was generated by the shrunken
         # generator only once the shrink below has been installed
         if wide_gen is not None and int(carry[2].n_dropped.sum()) > 0:
             gen_fn, wide_gen = wide_gen, None
-            with torch.no_grad():
-                batch, cache_now = gen_fn(device_args, seeds_for(t),
-                                          draws(t, w, b), carry[3])
-            carry = (carry[0], carry[1], batch, cache_now)
+            carry = regenerate(gen_fn, t, carry)
             print(f"step {t}: shrunken capacity dropped requests — "
                   f"regenerated the batch and rolled back to the "
                   f"calibrated width")
@@ -437,7 +507,10 @@ def train_gcn(args, step_hook=None) -> dict:
     nodes_per_iter = (b * w * slots_per_seed(run["cfg"].fanouts))
     out = {"losses": losses, "nodes_per_iter": nodes_per_iter, "wall_s": dt,
            "capacity_slack": slack, "ladders": run["ladders"],
-           "n_dropped": n_dropped, "cache_cfg": cache_cfg, "model": model,
+           "n_dropped": n_dropped, "cache_cfg": cache_cfg,
+           "fanouts": run["cfg"].fanouts, "autotune": run["autotune"],
+           "autotune_rollback": autotune_rollback,
+           "model": model,
            "cache": cache, "batch": final["batch"], "start": start,
            **_store_stats(run)}
     if run["store"] is not None:
@@ -471,8 +544,8 @@ def offline_gcn(args) -> dict:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The GCN training flags (``repro``'s, minus ``--autotune`` and the
-    LM flags, plus ``--device``)."""
+    """The GCN training flags (``repro``'s, minus the LM flags and
+    ``--cache-probe-impl``, plus ``--device``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="graphgen-gcn")
     ap.add_argument("--device", default="cuda",
@@ -519,6 +592,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="host store gather pipeline depth: 2 overlaps the "
                          "gather with the train step (default), 1 gathers "
                          "synchronously")
+    ap.add_argument("--autotune", action="store_true",
+                    help="replace the calibration ladders with one "
+                         "instrumented trace window + an offline cost-model "
+                         "search over (fanouts, cache_rows, l1_rows, assoc, "
+                         "hit_cap, capacity_slack); a live validator "
+                         "accepts the pick or falls back to the ladders")
+    ap.add_argument("--autotune-steps", type=int, default=8,
+                    help="instrumented steps the autotune trace records "
+                         "(the cold half is excluded from the fit; fewer "
+                         "than 4 falls back to the calibration ladders)")
     ap.add_argument("--warm-recalibrate", type=int, default=0,
                     help="after N warm steps, shrink the owner-exchange "
                          "capacity to the observed steady-state miss peak "

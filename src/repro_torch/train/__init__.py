@@ -1,1 +1,2 @@
-"""Training substrate of the port: the optimizer."""
+"""Training substrate of the port: the optimizer, checkpoints and failure
+recovery."""
