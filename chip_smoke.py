@@ -131,6 +131,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
               step, equal shares, finite losses, and at both widths the L1
               gather probe, the compact probe and fanout_mean(_bwd)
               launched.
+   dist     — graphgen-gcn's train cell (20 000 nodes, batch 32 per
+              worker, 20 steps, both ladders) as ``train --dist gloo`` with
+              W = 2 and W = 4 worker processes, all on the one card (gloo
+              stages every collective's blocks through host memory), each
+              beside the stacked run of the same flags in this process,
+              both with ``--report``.  Gates: every rank picks the stacked
+              run's slack and hit cap; its first three rounds' batch and
+              cache digests and its FetchStats / CacheStats equal the
+              stacked run's worker block; its losses within rtol 1e-5; the
+              parameters and Adam moments bit-equal across ranks and
+              within rtol 1e-5 / atol 1e-7 of the stacked run's; every rank
+              launched cache_probe_compact once a round and fanout_mean /
+              fanout_mean_bwd 3 / 1 times a step (printed per rank); a
+              failed or hung rank fails the run.  Records: the median step
+              of each backend, each rank's bytes and calls per round by
+              collective, the compact probe wire's bytes per round beside
+              the dense wire's, the shares of a step in the gloo transport
+              and in its host staging, and the phase's seconds.
+   nccl     — the process backend's collectives over NCCL at world size 1
+              (all_to_all, all_gather, all_reduce sum and max on the
+              generator's int32 ids and words, bool masks, float32 rows,
+              seeds and keys), each equal to the stacked backend's; the
+              dist phase's cells over NCCL, with all its gates, at each
+              width with that many visible cards (``scripts/
+              dist_cards.py`` runs both phases on four), else a line
+              saying why not.
 6. LM       — the dense LM (smollm-135m, full width: 30 layers, d_model
               576, 9 query heads over 3 KV heads, head_dim 64, vocab
               49 152, random weights from a seed):
@@ -1188,6 +1214,7 @@ def train_probe_round(torch, res, w):
     its last batch's deduplicated requests routed to their shard holders
     at the run's calibrated slack, against its warm cache; returns
     ``(keys, rows, recv, hit_cap)`` with the calibrated hit cap."""
+    from repro_torch.core.collectives import StackedGroup
     from repro_torch.core.generation import (dedup_requests, probe_hit_cap,
                                              probe_round_capacity, probe_send)
     batch, cache, cfg = res["batch"], res["cache"], res["cache_cfg"]
@@ -1195,7 +1222,7 @@ def train_probe_round(torch, res, w):
         h.reshape(w, -1) for h in batch.hops], dim=1)
     uniq, _, valid, _ = dedup_requests(need)
     cap = probe_round_capacity(need.shape[1], w, res["capacity_slack"])
-    recv = probe_send(uniq, valid, cap, w)[1]
+    recv = probe_send(uniq, valid, cap, StackedGroup(w, uniq.device))[1]
     return cache.keys, cache.rows, recv, probe_hit_cap(cfg, cap)
 
 
@@ -2251,6 +2278,268 @@ def phase_recovery(torch):
             "widths": {w: {k: r[k] for k in ("steps", "wall_s")}
                        for w, r in widths.items()},
             "resumed_at": REC_FAIL_AT}
+
+
+#: the dist phase: graphgen-gcn's train cell (20 000 nodes, batch 32 per
+#: worker, 20 steps) with one process per worker over gloo on the one
+#: card, at these widths, each beside the stacked run of the same flags
+DIST_WORKERS = (2, 4)
+DIST_TIMEOUT_S = 300         # the launcher's wait for its ranks
+#: kernels every rank must launch on the dist phase's path
+DIST_KERNELS = ("cache_probe_compact", "fanout_mean", "fanout_mean_bwd")
+
+
+def read_report(path, name):
+    """A ``train --report`` run's ``(meta, arrays)`` for ``name``
+    (``stacked`` or ``rank<r>``)."""
+    import numpy as np
+    with open(os.path.join(path, name + ".json")) as f:
+        meta = json.load(f)
+    return meta, dict(np.load(os.path.join(path, name + ".npz")))
+
+
+def dist_compare(stacked, ranks, world):
+    """The dist phase's gates for one width: the rungs, the first rounds'
+    batch and cache digests and their FetchStats / CacheStats per
+    worker, the losses (rtol 1e-5), and the parameters and Adam moments
+    bit-equal across ranks and within rtol 1e-5 / atol 1e-7 of the
+    stacked run's.  Returns the largest differences."""
+    import numpy as np
+    want, want_np = stacked
+    check(len(want["rounds"]) == 3, f"dist W={world}: the stacked report "
+          f"holds {len(want['rounds'])} rounds")
+    loss_rel = param_abs = param_rel = 0.0
+    for r, (meta, arrays) in enumerate(ranks):
+        for key in ("capacity_slack", "hit_cap", "wire", "ladders"):
+            check(meta[key] == want[key], f"dist W={world} rank {r}: {key} "
+                  f"{meta[key]} against the stacked run's {want[key]}")
+        for t, (a, b) in enumerate(zip(want["rounds"], meta["rounds"])):
+            check(a["batch"][str(r)] == b["batch"][str(r)]
+                  and a["cache"][str(r)] == b["cache"][str(r)],
+                  f"dist W={world} rank {r}: round {t}'s batch or cache "
+                  f"differs from the stacked worker block")
+            for name, v in a["stats"].items():
+                check(b["stats"][name] == [v[r]],
+                      f"dist W={world} rank {r}: round {t} {name} "
+                      f"{b['stats'][name]} against {v[r]}")
+        lw, lg = np.asarray(want["losses"]), np.asarray(meta["losses"])
+        check(np.allclose(lg, lw, rtol=1e-5, atol=0),
+              f"dist W={world} rank {r}: losses {lg} against {lw}")
+        loss_rel = max(loss_rel, float(np.max(np.abs(lg - lw) / np.abs(lw))))
+        for name, a in want_np.items():
+            if name[0] not in "pmv":
+                continue
+            got = arrays[name]
+            check(got.tobytes() == ranks[0][1][name].tobytes(),
+                  f"dist W={world}: {name} differs between rank {r} and 0")
+            check(np.allclose(got, a, rtol=1e-5, atol=1e-7),
+                  f"dist W={world}: {name} beyond rtol 1e-5 / atol 1e-7 of "
+                  f"the stacked run (max abs {np.max(np.abs(got - a))})")
+            diff = np.abs(got - a)
+            param_abs = max(param_abs, float(diff.max()))
+            param_rel = max(param_rel, float(
+                (diff / np.maximum(np.abs(a), 1e-30)).max()))
+    return {"loss_max_rel": loss_rel, "state_max_abs": param_abs,
+            "state_max_rel": param_rel}
+
+
+def dist_records(stacked, ranks, world):
+    """Records of one width (no gate): the median step of each backend
+    (steps 2 on), each rank's bytes per round by collective, the compact
+    probe wire's bytes per round beside what the dense wire would ship,
+    and the shares of a step in the transport and in gloo's staging."""
+    from repro_torch.core.generation import probe_round_capacity
+    from repro_torch.graph.subgraph import slots_per_seed
+    want = stacked[0]
+    steps = len(want["step_s"])
+    out = {"stacked_median_step_ms":
+           statistics.median(want["step_s"][2:]) * 1e3}
+    per_rank = []
+    for meta, _ in ranks:
+        coll = meta["collectives"]
+        loop_s = sum(meta["step_s"])
+        per_rank.append({
+            "median_step_ms": statistics.median(meta["step_s"][2:]) * 1e3,
+            "bytes_per_round": {k: v["bytes"] / steps
+                                for k, v in coll.items()},
+            "calls_per_round": {k: v["calls"] / steps
+                                for k, v in coll.items()},
+            "transport_share": sum(v["seconds"] for v in coll.values())
+            / loop_s,
+            "staging_share": sum(v["staging_s"] for v in coll.values())
+            / loop_s,
+            "launches": meta["launches"]})
+    out["ranks"] = per_rank
+    out["process_median_step_ms"] = per_rank[0]["median_step_ms"]
+    compact = ranks[0][0]["rounds"][0]["stats"]["fetch.probe_round_bytes"][0]
+    cap = probe_round_capacity(TRAIN_BATCH * slots_per_seed((40, 20)), world,
+                               want["capacity_slack"])
+    out["probe_wire_bytes_per_round"] = {
+        "compact": compact,
+        "dense": world * cap * 4 + world * cap + world * cap * 128 * 4}
+    return out
+
+
+def dist_cell(torch, w, backend, tmp, launches):
+    """One width of the dist phase over ``backend``: the stacked run in
+    this process, then ``train --dist backend`` as ``w`` processes, both
+    with ``--report``; every gate of ``dist_compare`` and the per-rank
+    launch counts (each rank's loop: the compact probe once a round,
+    fanout_mean / fanout_mean_bwd 3 / 1 times a step).  Adds both runs'
+    launches to ``launches``; returns the records and differences."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    tag = f"dist W={w} {backend}"
+    flags = ["--arch", "graphgen-gcn", "--workers", str(w),
+             "--device", DEVICE, "--nodes", str(N_NODES),
+             "--batch-per-worker", str(TRAIN_BATCH), "--steps",
+             str(TRAIN_STEPS), "--log-every", "10"]
+    sdir, pdir = (os.path.join(tmp, f"{k}{w}") for k in ("stacked", backend))
+    ops.reset_launch_counts()
+    train.train_gcn(train.parse_args(flags + ["--report", sdir]))
+    torch.cuda.synchronize()
+    for k, v in ops.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *flags,
+         "--dist", backend, "--report", pdir, "--dist-timeout",
+         str(DIST_TIMEOUT_S)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=DIST_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines()[:2]:
+        print(f"[{tag}] {line}")
+    check(proc.returncode == 0, f"{tag}: the process run exited "
+          f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    stacked = read_report(sdir, "stacked")
+    ranks = [read_report(pdir, f"rank{r}") for r in range(w)]
+    diffs = dist_compare(stacked, ranks, w)
+    rec = dist_records(stacked, ranks, w)
+    for r, (meta, _) in enumerate(ranks):
+        c = meta["launches"]
+        check(c["cache_probe_compact"] == TRAIN_STEPS
+              and c["fanout_mean"] == 3 * TRAIN_STEPS
+              and c["fanout_mean_bwd"] == TRAIN_STEPS,
+              f"{tag} rank {r}: launches {c} over {TRAIN_STEPS} steps")
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        rr = rec["ranks"][r]
+        print(f"[{tag} rank {r}] on {meta['device']}: launches "
+              f"{ {k: c[k] for k in DIST_KERNELS} }; median step "
+              f"{rr['median_step_ms']:.3f} ms; bytes per round "
+              f"{rr['bytes_per_round']}; transport "
+              f"{100 * rr['transport_share']:.1f}% and staging "
+              f"{100 * rr['staging_share']:.1f}% of the loop")
+    print(f"[{tag}] rungs slack {stacked[0]['capacity_slack']} hit_cap "
+          f"{stacked[0]['hit_cap']} on both backends; median step stacked "
+          f"{rec['stacked_median_step_ms']:.3f} ms, {backend} processes "
+          f"{rec['process_median_step_ms']:.3f} ms; probe wire per round "
+          f"{rec['probe_wire_bytes_per_round']}; largest differences "
+          f"{diffs}; the {backend} command took {wall:.1f} s")
+    return {**rec, **diffs, "command_s": wall,
+            "losses": ranks[0][0]["losses"],
+            "stacked_losses": stacked[0]["losses"]}
+
+
+def phase_dist(torch):
+    """Phase 17: graphgen-gcn's train cell with one process per worker
+    over gloo (on one card every rank shares it, the collectives staged
+    through host memory) at W = 2 and 4, each beside the stacked run of
+    the same flags in this process (``dist_cell``'s gates); a failed or
+    hung rank fails the phase.  Records (``dist_records``): median
+    steps, bytes per round, transport and staging shares."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist")
+    launches = {}
+    try:
+        results = {w: dist_cell(torch, w, "gloo", tmp, launches)
+                   for w in DIST_WORKERS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[dist] phase took {seconds:.1f} s")
+    return {"launches": launches, "widths": results, "seconds": seconds}
+
+
+def nccl_cases(torch, dev):
+    """The generator's dtype and shape families at the W = 4 train round's
+    sizes, one worker's block (``[1, ...]``): routed ids, packed bitmap
+    words, bool masks, float32 feature rows, the frontier's seeds and the
+    candidates' float32 keys."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    return {
+        "ids": torch.randint(-1, N_NODES, (1, 1, 6736), generator=gen,
+                             device=dev, dtype=torch.int32),
+        "words": torch.randint(-2**31, 2**31 - 1, (1, 1, 211),
+                               generator=gen, device=dev, dtype=torch.int32),
+        "mask": torch.rand((1, 1, 6736), generator=gen, device=dev) < 0.5,
+        "rows": torch.randn((1, 1, 842, 128), generator=gen, device=dev),
+        "seeds": torch.randint(0, N_NODES, (1, 32), generator=gen,
+                               device=dev, dtype=torch.int32),
+        "keys": torch.rand((1, 1280, 20), generator=gen, device=dev)}
+
+
+def phase_nccl(torch):
+    """Phase 18: the process backend's transport over NCCL at world size 1
+    on the card: every collective the generator and the trainer call
+    (all_to_all, all_gather, all_reduce sum and max) on each dtype and
+    shape family (``nccl_cases``), equal to the stacked backend's; a
+    world-1 ``ppermute`` is a local copy (torch refuses a send to its
+    own rank).  The dist phase's cells over NCCL (``dist_cell``, every
+    gate) run at each width with as many visible cards; otherwise a line
+    says why not."""
+    import shutil
+    import tempfile
+    from repro_torch.core.collectives import StackedGroup
+    from repro_torch.launch import mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl")
+    group = mesh.make_group("nccl", 1, 0, DEVICE,
+                            f"file://{os.path.join(tmp, 'store')}")
+    try:
+        stacked = StackedGroup(1, group.device)
+        n = 0
+        for name, x in nccl_cases(torch, group.device).items():
+            ops = [("all_to_all", ()), ("all_gather", ()),
+                   ("ppermute", ([(0, 0)],))]
+            if x.dtype != torch.bool:
+                ops += [("all_reduce", ("sum",)), ("all_reduce", ("max",))]
+            if name in ("seeds", "keys"):
+                ops = [o for o in ops if o[0] != "all_to_all"]
+            for op, extra in ops:
+                got = getattr(group, op)(x, *extra)
+                want = getattr(stacked, op)(x, *extra)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"nccl: {op}{extra} on {name} {tuple(x.shape)} "
+                      f"differs from the stacked backend")
+                n += 1
+        calls = {k: v["calls"] for k, v in group.stats.items()}
+        print(f"[nccl] world size 1 on {group.device}: {n} collective "
+              f"calls equal to the stacked backend's ({calls}; ppermute "
+              f"at world 1 is a local copy)")
+    finally:
+        mesh.close(group)
+    cells, launches = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_cells")
+    try:
+        for w in DIST_WORKERS:
+            if torch.cuda.device_count() >= w:
+                cells[w] = dist_cell(torch, w, "nccl", tmp, launches)
+            else:
+                print(f"[nccl] W={w} over NCCL not run: "
+                      f"{torch.cuda.device_count()} card(s) visible, and "
+                      f"NCCL refuses two ranks of one communicator on one "
+                      f"card")
+                cells[w] = "not run: fewer cards than workers"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"world1_calls": n, "launches": launches,
+            "widths": {f"W={w}": c for w, c in cells.items()}}
 
 
 #: flash_attention checks on the card: (B, Hq, Hkv, Lq, Lk, Dh, causal,
@@ -3514,6 +3803,7 @@ def request_items(torch, server, batch, w):
     probe on the request's probe round at the serve slack (2.0) and hit
     cap."""
     from repro_torch.configs import get_config
+    from repro_torch.core.collectives import StackedGroup
     from repro_torch.core.feature_cache import CacheConfig
     from repro_torch.core.generation import (dedup_requests, probe_hit_cap,
                                              probe_round_capacity, probe_send)
@@ -3526,7 +3816,7 @@ def request_items(torch, server, batch, w):
     hidden = torch.randn(batch.x_hops[0].shape[:-1] + (cfg.gcn_hidden,),
                          generator=gen, device=need.device)
     cap = probe_round_capacity(need.shape[1], w, 2.0)
-    _, recv = probe_send(uniq, valid, cap, w)
+    _, recv = probe_send(uniq, valid, cap, StackedGroup(w, uniq.device))
     hc = probe_hit_cap(CacheConfig.from_model(cfg), cap)
     return [
         ("fanout_mean", (batch.x_hops[1].reshape(-1, k2, cfg.gcn_in_dim),
@@ -3767,6 +4057,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a first bring-up)")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="stop after the kernel checks and the process "
+                         "backend's phases (a first bring-up)")
     ap.add_argument("--first-step", action="store_true",
                     help="print the split of a fresh process's first train "
                          "step (run by the autotune phase)")
@@ -3803,6 +4096,11 @@ def main():
     phase_build_report(lib_path)
 
     phase_kernels(torch, dev)
+    if opts.dist_only:
+        phase_dist(torch)
+        phase_nccl(torch)
+        print("[dist-only] stopping after the process backend's phases")
+        return
     if opts.kernels_only:
         phase_flash(torch, dev)
         phase_ssd_kernels(torch, dev)
@@ -3820,6 +4118,8 @@ def main():
     agree_at = phase_autotune_agree(torch)
     baselines = phase_baselines(torch)
     recovery = phase_recovery(torch)
+    dist_res = phase_dist(torch)
+    nccl_res = phase_nccl(torch)
     phase_flash(torch, dev)
     phase_ssd_kernels(torch, dev)
     prefill = phase_lm_prefill(torch)
@@ -3831,7 +4131,7 @@ def main():
             + list(host_res.values()) + [merge_res]
             + list(offline_res.values()) + [ckpt_res]
             + [r for k, r in autotune_res.items() if k != "first_step"]
-            + [agree_at, recovery]
+            + [agree_at, recovery, dist_res, nccl_res]
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
@@ -3879,6 +4179,10 @@ def main():
         for label, r in autotune_res.items() if label != "first_step"},
         "first_step": autotune_res["first_step"],
         "baselines": baselines, "recovery": recovery}))
+    print(json.dumps({"dist": {f"W={w}": r
+                               for w, r in dist_res["widths"].items()},
+                      "dist_seconds": dist_res["seconds"],
+                      "nccl": nccl_res}))
     print(json.dumps({"lm": {"arch": LM_ARCH, "prefill": {
         "batch": PREFILL_B, "seq": PREFILL_S, **{k: prefill[k] for k in (
             "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",

@@ -1,2 +1,3 @@
-"""Core of the port: config, partitioning, the stacked worker axis and its
-collectives, the feature cache and the distributed subgraph generator."""
+"""Core of the port: config, partitioning, the worker groups (the stacked
+axis and one process per worker) and their collectives, the feature
+cache and the distributed subgraph generator."""

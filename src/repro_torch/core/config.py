@@ -25,6 +25,8 @@ VALID_CACHE_ASSOC = (1, 2, 4)
 VALID_CACHE_MODES = ("replicated", "sharded", "tiered")
 VALID_CACHE_WIRES = ("dense", "compact")
 VALID_FEATURE_STORES = ("device", "host")
+#: how the workers' gradients are summed (``TrainConfig.grad_sync``)
+GRAD_SYNC_MODES = ("psum", "tree")
 
 # Roofline constants of the card the port runs on: one NVIDIA H100 80GB
 # HBM3 (SXM) at a 700.00 W power limit.  The autotuner's cost model
@@ -35,9 +37,9 @@ HBM_BW = 3.35e12                # bytes/s, HBM3 (data sheet)
 PCIE_BW = 53e9                  # bytes/s host -> device: the pinned L3
                                 # staging copies measured on this card
                                 # (55.5 MB in 1.04 ms; PERF.md section 6)
-# The collective term: the W simulated workers of the stacked worker axis
-# share one card, so their all_to_all "wire" is a device-memory copy, not
-# a link between chips; it moves at the HBM rate.
+# The collective term: the W workers of the stacked worker axis (the
+# default backend) share one card, so their all_to_all "wire" is a
+# device-memory copy, not a link between chips; it moves at the HBM rate.
 WIRE_BW = HBM_BW
 
 
@@ -179,9 +181,10 @@ class TuneCandidate(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """AdamW with linear warmup, cosine decay and a global-norm clip, and
-    the checkpoint cadence (the fields of ``repro.core.config.TrainConfig``
-    that the GCN trainer reads, with the same defaults)."""
+    """AdamW with linear warmup, cosine decay and a global-norm clip, the
+    checkpoint cadence and the gradient sync (the fields of
+    ``repro.core.config.TrainConfig`` that the GCN trainer reads, with
+    the same defaults)."""
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     beta1: float = 0.9
@@ -192,3 +195,11 @@ class TrainConfig:
     total_steps: int = 1000
     checkpoint_every: int = 100
     keep_checkpoints: int = 3
+    grad_sync: str = "psum"     # psum | tree (explicit butterfly tree
+                                # reduction); read where each worker runs
+                                # in its own process (train/train_loop.py)
+
+    def __post_init__(self):
+        if self.grad_sync not in GRAD_SYNC_MODES:
+            raise ValueError(f"grad_sync must be one of {GRAD_SYNC_MODES}, "
+                             f"got {self.grad_sync!r}")

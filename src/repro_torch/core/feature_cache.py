@@ -246,7 +246,8 @@ def hash_slots(ids: torch.Tensor, n_sets: int) -> torch.Tensor:
 
 
 def shard_of(ids: torch.Tensor, n_workers: int) -> torch.Tensor:
-    """Cache-shard owner of each id: worker ``mix(id) mod W``."""
+    """Cache-shard owner of each id: worker ``mix(id) mod W`` (``W`` the
+    group's whole world, whatever this process holds)."""
     if n_workers <= 1:
         return torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
     h = _mul_u32(ids, _SHARD_K) >> 16
@@ -333,7 +334,9 @@ def expand_hit_rows(kept: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
 
 def init_cache_state(cfg: CacheConfig, dim: int, n_workers: int,
                      dtype=torch.float32, device="cuda"):
-    """Empty ``[W, ...]`` cache state on ``device`` for ``cfg``: a
+    """Empty ``[n_workers, ...]`` cache state on ``device`` for ``cfg``
+    (``n_workers`` the workers this process holds: all ``W`` on the
+    stacked axis, 1 per process, whose state is then its own shard): a
     ``FeatureCache`` in the flat modes, a ``TieredCache`` in tiered mode."""
     device = resolve_device(device)
     if cfg.mode == "tiered":

@@ -1,15 +1,20 @@
-"""Distributed subgraph generation (paper §2 step 3) on a stacked worker
-axis — the port of ``repro/core/generation.py``.
+"""Distributed subgraph generation (paper §2 step 3) over a worker
+group — the port of ``repro/core/generation.py``.
 
 ``repro`` runs one ``shard_map`` instance per worker.  Here every
-per-worker array carries a leading ``[W, ...]`` axis and the ``lax``
-collectives become re-indexings of it (``core/collectives.py``), so a
-``W``-worker round runs in one process, on one CPU or one GPU.  The
-per-worker primitives (``local_candidates``, ``merge_topk``,
-``dedup_requests``, ``_route_plan``, the wire codec) take arbitrary
-leading axes; the cache state is per worker, so its probe and insert run
-per worker — except the shard holders' compact probe, which is one
-kernel launch over every holder.
+per-worker array carries a leading axis of the ``L`` workers this
+process holds, and the ``lax`` collectives are a ``WorkerGroup``'s
+(``core/collectives.py``).  On the stacked group (the default) ``L = W``
+and a ``W``-worker round runs in one process, on one CPU or one GPU; on
+a process group ``L = 1`` and each worker runs in its own process on its
+own device.  ``world`` (``W``, the destinations of every exchange)
+and ``L`` (the loops over held workers) are kept apart throughout, so
+the two backends run the same code.  The per-worker primitives
+(``local_candidates``, ``merge_topk``, ``dedup_requests``,
+``_route_plan``, the wire codec) take arbitrary leading axes; the cache
+state is per worker, so its probe and insert run per held worker —
+except the shard holders' compact probe, which is one kernel launch
+over every held holder.
 
 Flow per round, per hop: broadcast the frontier (``all_gather``), sample
 ``k`` weighted candidates per frontier node from each worker's local
@@ -32,9 +37,12 @@ float32 ``= -log(u)``.  Production makes them with ``sample_draws`` from
 a seeded ``torch.Generator``; the parity tests feed ``repro``'s own
 draws, and the keys ``e / max(deg / k, 1e-30)`` then agree bit for bit.
 
+A process draws the whole ``[W, ...]`` round too and keeps its own row
+(``group.block``), so its bits equal the stacked run's worker block.
+
 **Telemetry.** ``collect_stats=True`` (the autotuner's trace seam) makes
-every generator return grow a ``(FetchStats, CacheStats)`` tail with a
-``[W]`` leading axis: the feature shuffle's per-worker counters, equal
+every generator return grow a ``(FetchStats, CacheStats)`` tail with an
+``[L]`` leading axis: the feature shuffle's per-worker counters, equal
 to the reference's on the same draws.
 """
 from __future__ import annotations
@@ -47,7 +55,7 @@ import torch
 
 from ..graph.subgraph import SubgraphBatch
 from ..kernels import ops
-from .collectives import all_gather, all_to_all, axis_index
+from .collectives import StackedGroup, WorkerGroup, stacked
 from .config import resolve_device
 from .feature_cache import (CacheConfig, CacheStats, FeatureCache,
                             TieredCache, cache_insert, cache_probe,
@@ -73,7 +81,7 @@ class Candidates(NamedTuple):
 
 
 class FetchStats(NamedTuple):
-    """Per-worker telemetry of one ``fetch_rows`` (``[W]`` int32 each);
+    """Per-worker telemetry of one ``fetch_rows`` (``[L]`` int32 each);
     fields match ``repro.core.generation.FetchStats``."""
     n_requests: torch.Tensor
     n_unique: torch.Tensor
@@ -107,19 +115,35 @@ class SeededDraws:
     ``(seed, round index)`` — the port's ``fold_in(PRNGKey(seed), n)``:
     rounds are reproducible and independent of each other and of global
     RNG state.  ``draws(n, n_workers, batch)`` returns round ``n``'s
-    draws (see ``sample_draws``)."""
+    draws (see ``sample_draws``).
 
-    def __init__(self, fanouts: Sequence[int], seed: int, device):
+    With a ``group`` the round is drawn for all ``group.world`` workers
+    (``n_workers`` is then the held count and only checked) and the held
+    workers' rows are returned: a process gets exactly its worker block
+    of the stacked round, at ``W`` times the RNG work of its own rows."""
+
+    def __init__(self, fanouts: Sequence[int], seed: int, device,
+                 group: Optional[WorkerGroup] = None):
         self.fanouts = tuple(fanouts)
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.group = group
 
     def __call__(self, index: int, n_workers: int, batch: int) -> tuple:
         """Draws of round ``index`` for ``n_workers`` x ``batch`` seeds."""
         state = np.random.SeedSequence([self.seed, int(index)]).generate_state(1)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(state[0]))
-        return sample_draws(gen, n_workers, batch, self.fanouts, self.device)
+        if self.group is None:
+            return sample_draws(gen, n_workers, batch, self.fanouts,
+                                self.device)
+        if n_workers != self.group.local:
+            raise ValueError(f"draws for {n_workers} workers from a group "
+                             f"holding {self.group.local}")
+        full = sample_draws(gen, self.group.world, batch, self.fanouts,
+                            self.device)
+        return tuple((self.group.block(o), self.group.block(e))
+                     for o, e in full)
 
 
 def local_candidates(indptr: torch.Tensor, indices: torch.Tensor,
@@ -261,28 +285,30 @@ def _from_wire(buf: torch.Tensor, plan: _RoutePlan) -> torch.Tensor:
 
 
 def _routed_fetch(table: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-                  cap: int, w: int, rows: int):
+                  cap: int, group: WorkerGroup, rows: int):
     """One routed all_to_all round trip serving ``ids[valid]`` from the
-    row-sharded ``table [W, rows, D]`` (global row ``i`` on worker
-    ``i // rows``).  Returns ``(rows [W, R, D], served [W, R])``; invalid
+    row-sharded ``table [L, rows, D]`` (global row ``i`` on worker
+    ``i // rows``).  Returns ``(rows [L, R, D], served [L, R])``; invalid
     slots and slots beyond ``cap`` per destination get zero rows and
     ``served=False``."""
+    w = group.world
     owner = torch.clamp(torch.div(ids, rows, rounding_mode="floor"), 0, w - 1)
     owner = torch.where(valid, owner, torch.full_like(owner, w))
     plan = _route_plan(owner, cap, w)
     send = _to_wire(plan, _take(ids, plan.order), w, cap, 0)
-    recv = all_to_all(send)                                # [W, w, cap]
-    me = axis_index(w, device=ids.device)[:, None, None]
+    recv = group.all_to_all(send)                          # [L, w, cap]
+    me = group.axis_index(ids.device)[:, None, None]
     local = torch.clamp(recv - me * rows, 0, rows - 1).to(torch.int64)
-    served = table[torch.arange(w, device=ids.device)[:, None, None], local]
-    resp = all_to_all(served)                              # [W, w, cap, D]
+    held = torch.arange(ids.shape[0], device=ids.device)[:, None, None]
+    served = table[held, local]
+    resp = group.all_to_all(served)                        # [L, w, cap, D]
     got = torch.where(plan.ok[..., None], _from_wire(resp, plan), 0)
     return _unsort(got, plan.order), _unsort(plan.ok, plan.order)
 
 
 class _WireStats(NamedTuple):
     """Holder-side probe-round telemetry: ``n_demoted``/``hit_peak`` are
-    ``[W]`` int32, ``probe_bytes`` the static per-worker bytes shipped."""
+    ``[L]`` int32, ``probe_bytes`` the static per-worker bytes shipped."""
     n_demoted: torch.Tensor
     hit_peak: torch.Tensor
     probe_bytes: int
@@ -294,28 +320,31 @@ def probe_hit_cap(cfg: CacheConfig, cap: int) -> int:
     return max(min(cfg.hit_cap or max(cap // 2, 1), cap), 1)
 
 
-def probe_send(ids: torch.Tensor, valid: torch.Tensor, cap: int, w: int):
+def probe_send(ids: torch.Tensor, valid: torch.Tensor, cap: int,
+               group: WorkerGroup):
     """Routing half of the shard-probe round: each valid id rides to its
-    cache-shard holder.  Returns ``(plan, recv [W_holder, W_src, cap])``,
+    cache-shard holder.  Returns ``(plan, recv [L_holder, W_src, cap])``,
     empty probe slots carrying -1."""
+    w = group.world
     dest = torch.where(valid, shard_of(ids, w),
                        torch.full_like(ids, w))
     plan = _route_plan(dest, cap, w)
     send = _to_wire(plan, _take(ids, plan.order), w, cap, -1)
-    return plan, all_to_all(send)
+    return plan, group.all_to_all(send)
 
 
 def _shard_probe(cache: FeatureCache, cfg: CacheConfig, ids: torch.Tensor,
-                 valid: torch.Tensor, cap: int, w: int):
+                 valid: torch.Tensor, cap: int, group: WorkerGroup):
     """Stage-1 routing: probe each id against its CACHE-SHARD worker.
 
     The response rides the wire ``cfg.wire`` selects: ``dense`` ships a
     hit flag and a row for every probe slot; ``compact`` ships the packed
     kept bitmap plus at most ``probe_hit_cap`` rows per destination,
     encoded on the holders by one ``cache_probe_compact`` launch and
-    re-expanded by the requesters.  Returns ``(hit [W, R],
-    rows [W, R, D], plan, recv, wire)``."""
-    plan, recv = probe_send(ids, valid, cap, w)
+    re-expanded by the requesters.  Returns ``(hit [L, R],
+    rows [L, R, D], plan, recv, wire)``."""
+    w = group.world
+    plan, recv = probe_send(ids, valid, cap, group)
     d = cache.rows.shape[-1]
     item = cache.rows.element_size()
     probe_bytes = w * cap * 4                    # ids up, int32
@@ -330,11 +359,11 @@ def _shard_probe(cache: FeatureCache, cfg: CacheConfig, ids: torch.Tensor,
             n_demoted=(raw_hit & ~kept).sum((1, 2)).to(torch.int32),
             hit_peak=raw_hit.sum(2).amax(1).to(torch.int32),
             probe_bytes=probe_bytes + w * n_words * 4 + w * hc * d * item)
-        hit_b = unpack_hit_bitmap(all_to_all(words), cap)
-        rows_b = expand_hit_rows(hit_b, all_to_all(payload))
+        hit_b = unpack_hit_bitmap(group.all_to_all(words), cap)
+        rows_b = expand_hit_rows(hit_b, group.all_to_all(payload))
     else:
         hits, rows = [], []
-        for h in range(w):
+        for h in range(ids.shape[0]):
             flat = recv[h].reshape(-1)
             hit_f, rows_f = cache_probe(cache.worker(h), flat,
                                         valid=flat >= 0, cfg=cfg)
@@ -342,11 +371,12 @@ def _shard_probe(cache: FeatureCache, cfg: CacheConfig, ids: torch.Tensor,
             rows.append(rows_f.reshape(w, cap, d))
         hit2 = torch.stack(hits)
         wire = _WireStats(
-            n_demoted=torch.zeros(w, dtype=torch.int32, device=ids.device),
+            n_demoted=torch.zeros(ids.shape[0], dtype=torch.int32,
+                                  device=ids.device),
             hit_peak=hit2.sum(2).amax(1).to(torch.int32),
             probe_bytes=probe_bytes + w * cap * 1 + w * cap * d * item)
-        hit_b = all_to_all(hit2)
-        rows_b = all_to_all(torch.stack(rows))
+        hit_b = group.all_to_all(hit2)
+        rows_b = group.all_to_all(torch.stack(rows))
     got_hit = _from_wire(hit_b, plan) & plan.ok
     got_rows = torch.where(got_hit[..., None], _from_wire(rows_b, plan), 0)
     return (_unsort(got_hit, plan.order), _unsort(got_rows, plan.order),
@@ -355,18 +385,19 @@ def _shard_probe(cache: FeatureCache, cfg: CacheConfig, ids: torch.Tensor,
 
 def _shard_admit(cache: FeatureCache, cfg: CacheConfig, plan: _RoutePlan,
                  recv_ids: torch.Tensor, fetched: torch.Tensor,
-                 should: torch.Tensor, w: int):
+                 should: torch.Tensor, group: WorkerGroup):
     """Stage-2 write-back: offer owner-fetched rows to their shard holders
     over the probe round's slot assignment, so each holder pairs a row
-    with the id it probed there.  Returns ``(new_cache, n_inserted [W])``."""
+    with the id it probed there.  Returns ``(new_cache, n_inserted [L])``."""
+    w = group.world
     cap = recv_ids.shape[-1]
     d = fetched.shape[-1]
-    recv_rows = all_to_all(_to_wire(plan, _take(fetched, plan.order), w, cap,
-                                    0))
-    recv_should = all_to_all(_to_wire(plan, _take(should, plan.order), w, cap,
-                                      False))
+    recv_rows = group.all_to_all(
+        _to_wire(plan, _take(fetched, plan.order), w, cap, 0))
+    recv_should = group.all_to_all(
+        _to_wire(plan, _take(should, plan.order), w, cap, False))
     states, counts = [], []
-    for h in range(w):
+    for h in range(recv_ids.shape[0]):
         ids_f = recv_ids[h].reshape(-1)
         offer = recv_should[h].reshape(-1) & (ids_f >= 0)
         new, n = cache_insert(cache.worker(h), ids_f,
@@ -378,7 +409,8 @@ def _shard_admit(cache: FeatureCache, cfg: CacheConfig, plan: _RoutePlan,
 
 class _TierProbe(NamedTuple):
     """What a cache-mode strategy's probe stage hands back to ``fetch_rows``
-    (stacked ``[W, ...]``); ``ctx`` is private to the matching admit."""
+    (per held worker, ``[L, ...]``); ``ctx`` is private to the matching
+    admit."""
     hit: torch.Tensor
     rows: torch.Tensor
     l1_hit: torch.Tensor
@@ -387,8 +419,8 @@ class _TierProbe(NamedTuple):
     ctx: tuple
 
 
-def _no_wire(w: int, device) -> _WireStats:
-    z = torch.zeros(w, dtype=torch.int32, device=device)
+def _no_wire(n_held: int, device) -> _WireStats:
+    z = torch.zeros(n_held, dtype=torch.int32, device=device)
     return _WireStats(z, z, 0)
 
 
@@ -396,19 +428,20 @@ class _ReplicatedTier:
     """mode="replicated": local probe, local admission."""
 
     @staticmethod
-    def probe(cache, cfg, ids, valid, cap, w):
+    def probe(cache, cfg, ids, valid, cap, group):
         """Each worker probes its own cache."""
+        n = ids.shape[0]
         hits, rows = zip(*(cache_probe(cache.worker(i), ids[i], valid[i],
-                                       cfg=cfg) for i in range(w)))
+                                       cfg=cfg) for i in range(n)))
         hit = torch.stack(hits)
         return _TierProbe(hit, torch.stack(rows), torch.zeros_like(hit), hit,
-                          _no_wire(w, ids.device), ())
+                          _no_wire(n, ids.device), ())
 
     @staticmethod
-    def admit(cache, cfg, probe, ids, fetched, should, w):
+    def admit(cache, cfg, probe, ids, fetched, should, group):
         """Each worker offers its served misses to its own cache."""
         out = [cache_insert(cache.worker(i), ids[i], fetched[i], should[i],
-                            cfg) for i in range(w)]
+                            cfg) for i in range(ids.shape[0])]
         return (FeatureCache.stack([s for s, _ in out]),
                 torch.stack([n for _, n in out]))
 
@@ -418,25 +451,25 @@ class _ShardedTier:
     routed back on the same plan; W == 1 degenerates to replicated."""
 
     @staticmethod
-    def probe(cache, cfg, ids, valid, cap, w):
+    def probe(cache, cfg, ids, valid, cap, group):
         """Local probe at W == 1, else the shard-probe round."""
-        if w == 1:
-            return _ReplicatedTier.probe(cache, cfg, ids, valid, cap, w)
+        if group.world == 1:
+            return _ReplicatedTier.probe(cache, cfg, ids, valid, cap, group)
         hit, rows, plan, recv, wire = _shard_probe(cache, cfg, ids, valid,
-                                                   cap, w)
-        local = hit & (shard_of(ids, w)
-                       == axis_index(w, device=ids.device)[:, None])
+                                                   cap, group)
+        local = hit & (shard_of(ids, group.world)
+                       == group.axis_index(ids.device)[:, None])
         return _TierProbe(hit, rows, torch.zeros_like(hit), local, wire,
                           (plan, recv))
 
     @staticmethod
-    def admit(cache, cfg, probe, ids, fetched, should, w):
+    def admit(cache, cfg, probe, ids, fetched, should, group):
         """Local admission at W == 1, else routed to the shard holders."""
-        if w == 1:
+        if group.world == 1:
             return _ReplicatedTier.admit(cache, cfg, probe, ids, fetched,
-                                         should, w)
+                                         should, group)
         plan, recv = probe.ctx
-        return _shard_admit(cache, cfg, plan, recv, fetched, should, w)
+        return _shard_admit(cache, cfg, plan, recv, fetched, should, group)
 
 
 class _TieredTier:
@@ -446,46 +479,47 @@ class _TieredTier:
     requester's L1 (installed after ``l1_promote`` observations)."""
 
     @staticmethod
-    def probe(cache, cfg, ids, valid, cap, w):
+    def probe(cache, cfg, ids, valid, cap, group):
         """The fused two-tier probe at W == 1; else each worker's L1
         probe, then the shard-probe round for the L1 misses."""
-        if w == 1:
+        n = ids.shape[0]
+        if group.world == 1:
             l1_hit, l2_hit, rows = tiered_probe(cache.worker(0), ids[0],
                                                 valid[0], cfg=cfg)
             l1_hit, l2_hit, rows = l1_hit[None], l2_hit[None], rows[None]
             return _TierProbe(l1_hit | l2_hit, rows, l1_hit, l2_hit,
-                              _no_wire(w, ids.device), (None, None, l2_hit))
+                              _no_wire(n, ids.device), (None, None, l2_hit))
         l1_cfg = cfg.l1_config()
         l1_hit, l1_rows = (torch.stack(t) for t in zip(*(
             cache_probe(cache.l1.worker(i), ids[i], valid[i], cfg=l1_cfg)
-            for i in range(w))))
+            for i in range(n))))
         # only L1 misses enter the probe round
         l2_valid = valid & ~l1_hit
         l2_hit, l2_rows, plan, recv, wire = _shard_probe(
-            cache.l2, cfg.l2_config(), ids, l2_valid, cap, w)
+            cache.l2, cfg.l2_config(), ids, l2_valid, cap, group)
         rows = torch.where(l1_hit[..., None], l1_rows, l2_rows)
-        local = l2_hit & (shard_of(ids, w)
-                          == axis_index(w, device=ids.device)[:, None])
+        local = l2_hit & (shard_of(ids, group.world)
+                          == group.axis_index(ids.device)[:, None])
         return _TierProbe(l1_hit | l2_hit, rows, l1_hit, local, wire,
                           (plan, recv, l2_hit))
 
     @staticmethod
-    def admit(cache, cfg, probe, ids, fetched, should, w):
+    def admit(cache, cfg, probe, ids, fetched, should, group):
         """The L2 insert (local at W == 1, routed to the shard holders
         otherwise), then the L1 offered the probe's rows under ``l2_hit``;
-        returns ``(TieredCache, n_l2 + n_l1 [W])``."""
+        returns ``(TieredCache, n_l2 + n_l1 [L])``."""
         plan, recv, l2_hit = probe.ctx
         l2_cfg = cfg.l2_config()
-        if w == 1:
+        if group.world == 1:
             new_l2, n_l2 = cache_insert(cache.l2.worker(0), ids[0],
                                         fetched[0], should[0], l2_cfg)
             new_l2, n_l2 = FeatureCache.stack([new_l2]), n_l2[None]
         else:
             new_l2, n_l2 = _shard_admit(cache.l2, l2_cfg, plan, recv,
-                                        fetched, should, w)
+                                        fetched, should, group)
         l1_cfg = cfg.l1_config()
         out = [cache_insert(cache.l1.worker(i), ids[i], probe.rows[i],
-                            l2_hit[i], l1_cfg) for i in range(w)]
+                            l2_hit[i], l1_cfg) for i in range(ids.shape[0])]
         new_l1 = FeatureCache.stack([s for s, _ in out])
         n_l1 = torch.stack([n for _, n in out])
         return TieredCache(l1=new_l1, l2=new_l2), n_l2 + n_l1
@@ -503,13 +537,14 @@ class _FrozenTier:
     def __init__(self, base):
         self._base = base
 
-    def probe(self, cache, cfg, ids, valid, cap, w):
+    def probe(self, cache, cfg, ids, valid, cap, group):
         """Delegate to the base mode's probe stage unchanged."""
-        return self._base.probe(cache, cfg, ids, valid, cap, w)
+        return self._base.probe(cache, cfg, ids, valid, cap, group)
 
-    def admit(self, cache, cfg, probe, ids, fetched, should, w):
+    def admit(self, cache, cfg, probe, ids, fetched, should, group):
         """Identity: the cache state passes through untouched."""
-        return cache, torch.zeros(w, dtype=torch.int32, device=ids.device)
+        return cache, torch.zeros(ids.shape[0], dtype=torch.int32,
+                                  device=ids.device)
 
 
 def _cache_tier(cfg: CacheConfig):
@@ -522,14 +557,15 @@ def _cache_tier(cfg: CacheConfig):
 
 
 def _host_admit(cache, cfg: CacheConfig, adm_ids: torch.Tensor,
-                adm_rows: torch.Tensor, w: int):
+                adm_rows: torch.Tensor, group: WorkerGroup):
     """Deferred admission: offer the PREVIOUS step's landed L3 rows
-    (``adm_ids [W, S]``, ``adm_rows [W, S, D]``) to the cache.
+    (``adm_ids [L, S]``, ``adm_rows [L, S, D]``) to the cache.
 
     Sharded and tiered stores at W > 1 route each row to its cache-shard
     holder in one ``all_to_all`` round first (never overflowing: a
     holder's slots per source equal ``S``); tiered stores admit into the
-    L2.  Returns ``(new_cache, n_inserted [W], admit_round_bytes)``."""
+    L2.  Returns ``(new_cache, n_inserted [L], admit_round_bytes)``."""
+    w, n = group.world, adm_ids.shape[0]
     s, d = adm_ids.shape[-1], adm_rows.shape[-1]
     if cfg.mode == "tiered":
         target, tcfg = cache.l2, cfg.l2_config()
@@ -537,18 +573,18 @@ def _host_admit(cache, cfg: CacheConfig, adm_ids: torch.Tensor,
         target, tcfg = cache, cfg
     if w == 1 or cfg.mode == "replicated":
         out = [cache_insert(target.worker(i), adm_ids[i], adm_rows[i],
-                            adm_ids[i] >= 0, tcfg) for i in range(w)]
+                            adm_ids[i] >= 0, tcfg) for i in range(n)]
         adm_bytes = 0
     else:
         dest = torch.where(adm_ids >= 0, shard_of(adm_ids, w),
                            torch.full_like(adm_ids, w))
         plan = _route_plan(dest, s, w)
-        recv_ids = all_to_all(_to_wire(plan, _take(adm_ids, plan.order),
-                                       w, s, -1))
-        recv_rows = all_to_all(_to_wire(plan, _take(adm_rows, plan.order),
-                                        w, s, 0))
+        recv_ids = group.all_to_all(
+            _to_wire(plan, _take(adm_ids, plan.order), w, s, -1))
+        recv_rows = group.all_to_all(
+            _to_wire(plan, _take(adm_rows, plan.order), w, s, 0))
         out = []
-        for h in range(w):
+        for h in range(n):
             flat = recv_ids[h].reshape(-1)
             out.append(cache_insert(target.worker(h), flat,
                                     recv_rows[h].reshape(-1, d), flat >= 0,
@@ -562,7 +598,7 @@ def _host_admit(cache, cfg: CacheConfig, adm_ids: torch.Tensor,
 
 
 def _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg, host_admit,
-                d, dtype, w):
+                d, dtype, group):
     """The ``store="host"`` fetch body: probe the tiers, then STAGE the
     misses into a per-worker ``[S]`` id buffer for the L3 gather.
 
@@ -571,21 +607,22 @@ def _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg, host_admit,
     and counted.  Returns ``(out, stats, req)``, or with a cache ``(out,
     new_cache, stats, cstats, req)`` where ``cstats.n_l3_hits`` counts
     the staged ids and ``n_misses`` the overflow."""
-    r = ids.shape[-1]
+    n, r = ids.shape[0], ids.shape[-1]
     dev = ids.device
     s = capacity if capacity is not None \
         else probe_round_capacity(r, 1, capacity_slack)
     s = max(int(s), 1)
     req_ids, inverse, req_valid, _ = dedup_requests(ids)
-    z = torch.zeros(w, dtype=torch.int32, device=dev)
+    z = torch.zeros(n, dtype=torch.int32, device=dev)
     n_adm, adm_bytes = z, 0
     if cache is not None and host_admit is not None:
         cache, n_adm, adm_bytes = _host_admit(cache, cache_cfg, *host_admit,
-                                              w)
+                                              group)
     tier = _cache_tier(cache_cfg) if cache is not None else None
     if tier is not None:
-        probe = tier.probe(cache, cache_cfg, req_ids, req_valid,
-                           probe_round_capacity(r, w, capacity_slack), w)
+        probe = tier.probe(
+            cache, cache_cfg, req_ids, req_valid,
+            probe_round_capacity(r, group.world, capacity_slack), group)
         hit = probe.hit
     else:
         probe = None
@@ -595,7 +632,7 @@ def _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg, host_admit,
     cs = torch.cumsum(miss.to(torch.int32), dim=-1)
     staged = miss & (cs <= s)
     slot_u = cs - 1
-    miss_ids = torch.full((w, s + 1), -1, dtype=torch.int32, device=dev)
+    miss_ids = torch.full((n, s + 1), -1, dtype=torch.int32, device=dev)
     miss_ids.scatter_(1, torch.where(staged, slot_u, s).to(torch.int64),
                       torch.where(staged, req_ids, -1))
     miss_ids = miss_ids[:, :s].contiguous()
@@ -614,10 +651,10 @@ def _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg, host_admit,
     item = torch.empty((), dtype=dtype).element_size()
     probe_bytes = probe.wire.probe_bytes if tier is not None else 0
     stats = FetchStats(
-        torch.full((w,), r, dtype=torch.int32, device=dev), n_staged, dropped,
-        torch.full((w,), probe_bytes + adm_bytes, dtype=torch.int32,
+        torch.full((n,), r, dtype=torch.int32, device=dev), n_staged, dropped,
+        torch.full((n,), probe_bytes + adm_bytes, dtype=torch.int32,
                    device=dev),
-        torch.full((w,), s * (4 + d * item), dtype=torch.int32, device=dev))
+        torch.full((n,), s * (4 + d * item), dtype=torch.int32, device=dev))
     if tier is None:
         return out, stats, req
     # tiered L1 promotion still happens at probe time (L2-served rows)
@@ -626,7 +663,7 @@ def _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg, host_admit,
         l2_hit = probe.ctx[2]
         l1_cfg = cache_cfg.l1_config()
         l1 = [cache_insert(cache.l1.worker(i), req_ids[i], probe.rows[i],
-                           l2_hit[i], l1_cfg) for i in range(w)]
+                           l2_hit[i], l1_cfg) for i in range(n)]
         new_cache = TieredCache(l1=FeatureCache.stack([c for c, _ in l1]),
                                 l2=cache.l2)
         n_ins = n_ins + torch.stack([n for _, n in l1])
@@ -648,14 +685,17 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
                cache: Optional[FeatureCache] = None,
                cache_cfg: Optional[CacheConfig] = None,
                store: Optional[str] = None, feat_dim: Optional[int] = None,
-               host_admit=None):
-    """Routed row fetch (the MapReduce shuffle) for every worker at once.
+               host_admit=None, group: Optional[WorkerGroup] = None):
+    """Routed row fetch (the MapReduce shuffle) for every held worker at
+    once.
 
-    ``table [W, rows, D]`` is the row-sharded table (global row ``i`` on
-    worker ``i // rows``); ``ids [W, R]`` are each worker's requests.
-    Returns ``(out [W, R, D], FetchStats)``, or with a ``cache`` (the
-    stacked state, and its ``cache_cfg``, which is required)
-    ``(out, new_cache, FetchStats, CacheStats)``.
+    ``table [L, rows, D]`` is this process's blocks of the row-sharded
+    table (global row ``i`` on worker ``i // rows``); ``ids [L, R]`` are
+    each held worker's requests; ``group`` is the worker group (default:
+    the stacked group of ``ids``' leading axis, ``L = W``).  Returns
+    ``(out [L, R, D], FetchStats)``, or with a ``cache`` (the held
+    workers' state, and its ``cache_cfg``, which is required) ``(out,
+    new_cache, FetchStats, CacheStats)``.
 
     With ``dedup`` each distinct id takes one wire slot and its row is
     scattered back to every slot that asked for it.  Cached, distinct ids
@@ -669,8 +709,8 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
     else ``"device"``).  With ``store="host"`` they are staged for the L3
     gather instead (``_host_fetch``): the return grows a
     ``HostMissRequest`` tail, the staged rows are zero holes until
-    ``host_store.patch_batch`` fills them, ``host_admit=(ids [W, S], rows
-    [W, S, D])`` feeds the previous step's landed rows to the cache, and
+    ``host_store.patch_batch`` fills them, ``host_admit=(ids [L, S], rows
+    [L, S, D])`` feeds the previous step's landed rows to the cache, and
     ``table`` may be ``None`` when ``feat_dim`` gives the row width."""
     if cache is not None and not dedup:
         raise ValueError("the cache front end requires dedup=True")
@@ -693,25 +733,28 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
         raise ValueError('fetch_rows(store="device") requires a table')
     if not host and host_admit is not None:
         raise ValueError('host_admit only applies to store="host"')
-    w, r = ids.shape[0], ids.shape[-1]
+    if group is None:
+        group = stacked(ids)
+    w = group.world
+    n, r = ids.shape[0], ids.shape[-1]
     d = table.shape[-1] if table is not None else feat_dim
     dtype = table.dtype if table is not None else torch.float32
     dev = ids.device
-    z = torch.zeros(w, dtype=torch.int32, device=dev)
+    z = torch.zeros(n, dtype=torch.int32, device=dev)
     if r == 0:
-        out = torch.zeros((w, 0, d), dtype=dtype, device=dev)
+        out = torch.zeros((n, 0, d), dtype=dtype, device=dev)
         stats = FetchStats(z, z, z, z, z)
         if host:
             # a landed buffer may be pending even when nothing is requested
             n_adm = z
             if cache is not None and host_admit is not None:
                 cache, n_adm, _ = _host_admit(cache, cache_cfg, *host_admit,
-                                              w)
+                                              group)
             s0 = max(int(capacity), 1) if capacity is not None else 1
             req = HostMissRequest(
-                torch.full((w, s0), -1, dtype=torch.int32, device=dev),
-                torch.zeros((w, 0), dtype=torch.int32, device=dev),
-                torch.zeros((w, 0), dtype=torch.bool, device=dev))
+                torch.full((n, s0), -1, dtype=torch.int32, device=dev),
+                torch.zeros((n, 0), dtype=torch.int32, device=dev),
+                torch.zeros((n, 0), dtype=torch.bool, device=dev))
             if cache is not None:
                 return out, cache, stats, CacheStats(
                     z, z, n_adm, z, z, z, z, z, z, z), req
@@ -721,9 +764,9 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
         return out, stats
     if host:
         return _host_fetch(ids, capacity_slack, capacity, cache, cache_cfg,
-                           host_admit, d, dtype, w)
+                           host_admit, d, dtype, group)
     rows = table.shape[1]
-    n_req = torch.full((w,), r, dtype=torch.int32, device=dev)
+    n_req = torch.full((n,), r, dtype=torch.int32, device=dev)
     if w == 1 and cache is None:
         out = table[0][torch.clamp(ids[0], 0, rows - 1).to(torch.int64)][None]
         n_unique = dedup_requests(ids)[3] if dedup else n_req
@@ -742,7 +785,8 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
         n_unique = n_req
     tier = _cache_tier(cache_cfg) if cache is not None else None
     if tier is not None:
-        probe = tier.probe(cache, cache_cfg, req_ids, req_valid, slack_cap, w)
+        probe = tier.probe(cache, cache_cfg, req_ids, req_valid, slack_cap,
+                           group)
         route_valid = req_valid & ~probe.hit
     else:
         probe = None
@@ -754,7 +798,7 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
         served_r = route_valid
     else:
         fetched, served_r = _routed_fetch(table, req_ids, route_valid, cap,
-                                          w, rows)
+                                          group, rows)
     n_routed = route_valid.sum(-1).to(torch.int32)
     new_cache = cstats = None
     probe_bytes = 0
@@ -763,7 +807,7 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
         served_u = probe.hit | served_r
         should = route_valid & served_r
         new_cache, n_ins = tier.admit(cache, cache_cfg, probe, req_ids,
-                                      fetched, should, w)
+                                      fetched, should, group)
         n_hits = probe.hit.sum(-1).to(torch.int32)
         n_l1 = probe.l1_hit.sum(-1).to(torch.int32)
         n_local = probe.local.sum(-1).to(torch.int32)
@@ -786,7 +830,7 @@ def fetch_rows(table: Optional[torch.Tensor], ids: torch.Tensor, *,
         dropped = (~served_u).sum(-1)
     stats = FetchStats(n_req, n_unique.to(torch.int32),
                        dropped.to(torch.int32),
-                       torch.full((w,), probe_bytes, dtype=torch.int32,
+                       torch.full((n,), probe_bytes, dtype=torch.int32,
                                   device=dev), z)
     if cache is not None:
         return out, new_cache, stats, cstats
@@ -803,19 +847,23 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
                      fetch_capacity: Optional[int] = None,
                      feature_store: str = "device",
                      feat_dim: Optional[int] = None, host_admit=None,
-                     collect_stats: bool = False):
-    """One L-hop generation round of every worker.
+                     collect_stats: bool = False,
+                     group: Optional[WorkerGroup] = None):
+    """One L-hop generation round of every held worker.
 
-    ``indptr [W, N+1]``, ``indices [W, E]``, ``x [W, rows, D]``,
-    ``y [W, rows, 1]``, ``seeds [W, b]`` and the round's ``draws``.  Per
+    ``indptr [L, N+1]``, ``indices [L, E]``, ``x [L, rows, D]``,
+    ``y [L, rows, 1]``, ``seeds [L, b]`` and the round's ``draws`` (the
+    held workers' rows), over ``group`` (default: the stacked group of
+    ``seeds``' leading axis).  Per
     hop: broadcast the frontier, sample local candidates, merge them
     (``merge_mode``: the butterfly, then this worker's rows; or the
     reduce-scatter of this worker's segment, then an ``all_gather`` of the
     global frontier); masks chain so a padded parent's subtree stays
     padded.  Then one deduplicated feature fetch (cache-probed first when
     a cache is threaded in) and the label fetch.  Returns the
-    ``SubgraphBatch`` (global leading axis), and the new cache state when
-    a cache is given.
+    ``SubgraphBatch`` (the held workers' seeds, ``L * b`` rows: the
+    global batch on the stacked group, the rank's own on a process), and
+    the new cache state when a cache is given.
 
     With ``feature_store="host"`` ``x`` is ``None`` (``feat_dim`` gives
     the width), the misses are staged for the L3 gather and the returns
@@ -824,7 +872,7 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
     ``(ids, rows)``.
 
     With ``collect_stats`` the return grows a ``(FetchStats, CacheStats)``
-    tail (``[W]`` each).  An uncached run ships a synthesized
+    tail (``[L]`` each).  An uncached run ships a synthesized
     ``CacheStats`` whose only nonzero field is the conservation remainder
     (``n_misses`` for the device store, ``n_l3_hits`` for the host
     store), so ``n_l1 + n_local + n_shard + n_l3 + n_misses`` counts the
@@ -832,11 +880,13 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
     if merge_mode not in MERGE_MODES:
         raise ValueError(f"merge_mode must be one of {MERGE_MODES}, "
                          f"got {merge_mode!r}")
-    w, b = seeds.shape
+    if group is None:
+        group = stacked(seeds)
+    held, b = seeds.shape
     dev = seeds.device
-    frontier = all_gather(seeds)                           # [W, W*b]
+    frontier = group.all_gather(seeds)                     # [L, W*b]
     parent_mask = torch.ones(frontier.shape, dtype=torch.bool, device=dev)
-    me = axis_index(w, device=dev).to(torch.int64)
+    me = group.axis_index(dev).to(torch.int64)
     hops, masks = [], []
     shape = (b,)
     local_rows = b
@@ -846,14 +896,15 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         cand = Candidates(ids=cand.ids, keys=torch.where(
             parent_mask[..., None], cand.keys, float("inf")))
         if merge_mode == "reduce_scatter":
-            seg = tree_reduce_scatter(cand, merge_topk)    # [W, rows_l, k]
+            seg = tree_reduce_scatter(cand, merge_topk,
+                                      group)               # [L, rows_l, k]
             m = torch.isfinite(seg.keys)
             h = torch.where(m, seg.ids, 0)
             # the next frontier is still global: every worker scans its
             # local edges against all hop-l nodes
-            h_all, m_all = all_gather(h), all_gather(m)
+            h_all, m_all = group.all_gather(h), group.all_gather(m)
         else:
-            merged = tree_allreduce(cand, merge_topk)      # [W, F, k]
+            merged = tree_allreduce(cand, merge_topk, group)   # [L, F, k]
             m_all = torch.isfinite(merged.keys)
             h_all = torch.where(m_all, merged.ids, 0)
             mine = (me[:, None] * local_rows
@@ -861,18 +912,19 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
             h = _take(h_all, mine)
             m = _take(m_all, mine)
         shape = shape + (k,)
-        hops.append(h.reshape((w,) + shape))
-        masks.append(m.reshape((w,) + shape))
-        frontier = h_all.reshape(w, -1)
-        parent_mask = m_all.reshape(w, -1)
+        hops.append(h.reshape((held,) + shape))
+        masks.append(m.reshape((held,) + shape))
+        frontier = h_all.reshape(held, -1)
+        parent_mask = m_all.reshape(held, -1)
         local_rows *= k
     for level in range(1, len(masks)):
         masks[level] = masks[level] & masks[level - 1][..., None]
 
-    need = torch.cat([seeds] + [h.reshape(w, -1) for h in hops], dim=1)
-    z = torch.zeros(w, dtype=torch.int32, device=dev)
+    need = torch.cat([seeds] + [h.reshape(held, -1) for h in hops], dim=1)
+    z = torch.zeros(held, dtype=torch.int32, device=dev)
     kw = dict(capacity_slack=capacity_slack, capacity=fetch_capacity,
-              store=feature_store, feat_dim=feat_dim, host_admit=host_admit)
+              store=feature_store, feat_dim=feat_dim, host_admit=host_admit,
+              group=group)
     if cache is not None:
         # the host store's fetch returns its HostMissRequest as the tail
         feats, cache, fstats, cstats, *tail = fetch_rows(
@@ -899,11 +951,11 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         x_hops.append(xh * masks[level][..., None])
         off += n
     ys, ystats = fetch_rows(y, seeds, capacity_slack=capacity_slack,
-                            dedup=False, store="device")
+                            dedup=False, store="device", group=group)
     labels = ys[..., 0].to(torch.int32)
 
     def glob(t):
-        return t.reshape((w * b,) + tuple(t.shape[2:]))
+        return t.reshape((held * b,) + tuple(t.shape[2:]))
 
     batch = SubgraphBatch(
         seeds=glob(seeds), hops=tuple(map(glob, hops)),
@@ -936,13 +988,16 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
                       fetch_capacity: Optional[int] = None,
                       feature_store: str = "device",
                       feat_dim: Optional[int] = None,
-                      collect_stats: bool = False):
+                      collect_stats: bool = False,
+                      group: Optional[WorkerGroup] = None):
     """The generator function, without data.
 
-    ``gen_fn(device_args, seeds [W, b], draws) -> SubgraphBatch`` where
-    ``device_args = (indptr [W, N+1], indices [W, E], x [W, rows, D],
-    y [W, rows, 1])``.  With a ``cache_cfg`` it threads the stacked cache
-    state: ``gen_fn(device_args, seeds, draws, cache) -> (batch, cache)``;
+    ``gen_fn(device_args, seeds [L, b], draws) -> SubgraphBatch`` where
+    ``device_args = (indptr [L, N+1], indices [L, E], x [L, rows, D],
+    y [L, rows, 1])`` are the held workers' blocks (``L = W`` on the
+    stacked group, the default; 1 on a process ``group``).  With a
+    ``cache_cfg`` it threads the held workers' cache state: ``gen_fn(
+    device_args, seeds, draws, cache) -> (batch, cache)``;
     with a FROZEN ``cache_cfg`` (``serve_view()``) the cache is a
     read-only input and only the batch comes back.
 
@@ -950,11 +1005,11 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
     table never reaches the device: ``device_args = (indptr, indices,
     y)``, and ``gen_fn(device_args, seeds, draws) -> (batch, req)``
     uncached, ``gen_fn(device_args, seeds, draws, cache, admit_ids
-    [W, S], admit_rows [W, S, D]) -> (batch, cache, req)`` cached, where
+    [L, S], admit_rows [L, S, D]) -> (batch, cache, req)`` cached, where
     ``admit_*`` is the previous step's landed gather
     (``host_store.empty_admit`` for the first).
 
-    With ``collect_stats`` every form's return grows the stacked
+    With ``collect_stats`` every form's return grows the per-worker
     ``(FetchStats, CacheStats)`` tail (see ``_worker_generate``); the
     frozen serve form refuses it."""
     if not fanouts:
@@ -987,7 +1042,7 @@ def make_generator_fn(*, fanouts: Tuple[int, ...] = (40, 20),
         capacity_slack=capacity_slack,
         cache_cfg=cache_cfg if cached else None,
         fetch_capacity=fetch_capacity, feature_store=feature_store,
-        feat_dim=feat_dim, collect_stats=collect_stats)
+        feat_dim=feat_dim, collect_stats=collect_stats, group=group)
 
     if host and cached:
         def gen_fn(device_args, seeds, draws, cache, admit_ids, admit_rows):
@@ -1021,10 +1076,17 @@ def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
                                feature_store: str = "device",
                                host_gather_depth: int = 2,
                                collect_stats: bool = False,
-                               device="cuda"):
+                               device="cuda",
+                               group: Optional[WorkerGroup] = None):
     """Place the graph, features and labels on ``device`` and build the
     generator: ``(gen_fn, device_args)``, or with a ``cache_cfg``
-    ``(gen_fn, device_args, cache0)`` with an empty stacked cache state.
+    ``(gen_fn, device_args, cache0)`` with an empty cache state.
+
+    On a process ``group`` only the rank's own blocks go to the device
+    (``group.device``; ``device`` is ignored): its row of the partition's
+    ``indptr``/``indices``, its feature and label shards and its cache
+    shard.  The host arrays are the whole ``W``-worker ones every rank
+    builds from the seed.
 
     With ``feature_store="host"`` the feature table stays in host RAM
     (unsharded) behind a ``HostFeatureStore`` of depth
@@ -1032,13 +1094,20 @@ def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
     device, and the returns are ``(gen_fn, device_args, store)`` and
     ``(gen_fn, device_args, store, cache0)``.  ``collect_stats`` builds
     the instrumented generator (``make_generator_fn``)."""
-    dev = resolve_device(device)
     w = part.n_workers
+    if group is None:
+        group = StackedGroup(w, resolve_device(device))
+    elif group.world != w:
+        raise ValueError(f"the partition has {w} workers, the group "
+                         f"{group.world}")
+    dev = group.device
     host = feature_store == "host"
+
+    def place(a):
+        return torch.from_numpy(np.ascontiguousarray(group.block(a))).to(dev)
     y = shard_rows(labels.reshape(-1, 1).astype(np.float32), w)
-    graph = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                  for a in (part.indptr, part.indices))
-    labels_t = torch.from_numpy(np.ascontiguousarray(y)).to(dev)
+    graph = (place(part.indptr), place(part.indices))
+    labels_t = place(y)
     d = int(features.shape[1])
     gen_fn = make_generator_fn(fanouts=fanouts, merge_mode=merge_mode,
                                capacity_slack=capacity_slack,
@@ -1046,10 +1115,10 @@ def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
                                fetch_capacity=fetch_capacity,
                                feature_store=feature_store,
                                feat_dim=d if host else None,
-                               collect_stats=collect_stats)
+                               collect_stats=collect_stats, group=group)
     cached = cache_cfg is not None and cache_cfg.n_rows > 0
-    cache0 = (init_cache_state(cache_cfg.validated(), d, w, device=dev)
-              if cached else None)
+    cache0 = (init_cache_state(cache_cfg.validated(), d, group.local,
+                               device=dev) if cached else None)
     if host:
         table = (features if features.dtype == np.float32
                  else features.astype(np.float32))
@@ -1057,5 +1126,5 @@ def make_distributed_generator(part: PartitionedGraph, features: np.ndarray,
                HostFeatureStore(table, depth=host_gather_depth))
     else:
         x = shard_rows(features.astype(np.float32), w)
-        out = (gen_fn, graph + (torch.from_numpy(x).to(dev), labels_t))
+        out = (gen_fn, graph + (place(x), labels_t))
     return out + ((cache0,) if cached else ())

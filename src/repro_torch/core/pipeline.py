@@ -90,9 +90,12 @@ def _host_generate(gen_fn, device_args, seeds, draws, cache, admit):
 def pipelined_loop(gen_fn, train_fn, device_args, seed_schedule: np.ndarray,
                    params, opt_state, draws, cache=None, before_step=None,
                    after_step=None, host_store=None):
-    """Run the pipeline over ``seed_schedule [steps, W, b]``.
+    """Run the pipeline over ``seed_schedule [steps, L, b]`` (the ``L``
+    workers the generator holds: all ``W`` on the stacked group, the
+    rank's own one in a process per worker, where every rank runs this
+    loop over its own seeds and the train step syncs the gradients).
 
-    Batch *t* is generated from ``seed_schedule[t]`` and ``draws(t, W,
+    Batch *t* is generated from ``seed_schedule[t]`` and ``draws(t, L,
     b)``; the final iteration trains only.  ``before_step(t, carry,
     gen_fn) -> (carry, gen_fn)``, when given, runs before step *t* trains
     on the carried batch *t*: it may replace that batch and the generator

@@ -14,6 +14,9 @@ A batch of ``B`` seeds with fanouts ``(k_1, ..., k_L)`` is:
 
 ``B`` is the global batch: worker ``w``'s seeds are rows
 ``w * b .. (w + 1) * b``, the layout ``repro``'s sharded outputs have.
+Where each worker runs in its own process (``core/collectives.py``'s
+``ProcessWorkers``) a batch holds that worker's ``b`` rows and its
+counters ``[1]``.
 """
 from __future__ import annotations
 

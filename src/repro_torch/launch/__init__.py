@@ -1,1 +1,2 @@
-"""Launchers of the port (the graph-serving tier)."""
+"""Launchers of the port: training, the graph-serving tier, the
+autotuner, and the worker groups and their process launcher."""

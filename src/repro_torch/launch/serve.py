@@ -251,13 +251,24 @@ def build_server(args):
     return server, head_order
 
 
+def _refuse_dist(args, what: str) -> None:
+    """Raise for ``--dist gloo|nccl``: the serving tier has no process
+    backend yet (ROADMAP Queue 1 item 7.3)."""
+    if args.dist != "none":
+        raise NotImplementedError(
+            f"--dist {args.dist}: {what} runs in one process only (--dist "
+            f"none); its process backend is ROADMAP Queue 1 item 7.3")
+
+
 def serve_gcn(args, built=None) -> dict:
     """Graph-serving driver: build the server (or take ``built``, a
     ``build_server(args)`` result), run the ladder once, then drain
     ``args.requests`` synthetic Zipf requests through a
     ``args.queue_depth``-bounded queue fed by a producer thread.  Returns
     p50/p99 end-to-end latency (ms), QPS and the step-shape counts (the
-    request path must add none)."""
+    request path must add none).  Runs on the stacked worker axis only:
+    ``--dist gloo|nccl`` raises."""
+    _refuse_dist(args, "serve_gcn")
     server, head_order = build_server(args) if built is None else built
     n_classes = server.n_classes
     server.warmup()
@@ -330,6 +341,7 @@ def serve_lm(args, step_hook=None) -> dict:
     ``step_hook(i)``, if given, runs after the ``i``-th timed step is
     enqueued.  Returns ``tok_s``, the timed loop's ``wall_s`` and the
     generated ``tokens [B, gen_len]`` (int32 numpy)."""
+    _refuse_dist(args, "serve_lm")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -394,7 +406,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen-len", type=int, default=16)
     # --- graph-serving flags
     ap.add_argument("--workers", type=int, default=1,
-                    help="simulated workers on the stacked worker axis")
+                    help="workers on the stacked worker axis of this "
+                         "process (the serving tier's only backend)")
+    ap.add_argument("--dist", default="none",
+                    choices=["none", "gloo", "nccl"],
+                    help="worker backend; the serving tier runs on the "
+                         "stacked axis only (none): gloo and nccl raise")
     ap.add_argument("--nodes", type=int, default=20_000)
     ap.add_argument("--avg-degree", type=float, default=10.0)
     ap.add_argument("--buckets", default="8,16,32",

@@ -3,7 +3,25 @@
 
 Synthetic power-law graph -> edge partition -> balance table ->
 synchronized subgraph generation + in-memory GCN training (the GraphGen+
-pipeline) on the stacked worker axis.  Before the loop the drop-aware
+pipeline) over ``--workers W`` workers.  ``--dist none`` (the default)
+runs them on the stacked worker axis of one process; ``--dist gloo`` or
+``nccl`` runs one process per worker (``launch/mesh.py``): this command
+spawns the ``W`` ranks itself, or joins a group ``torchrun`` set up
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``).  Every rank builds the
+graph and tables on the host from the seed and places only its own
+shard; its loss is the mean over its own seeds, and the gradients are
+averaged over the ranks (``--grad-sync psum|tree``,
+``train/train_loop.py``) before AdamW's global-norm clip.  Every value a
+rank branches on (the ladders' drop and demotion counts, the warm miss
+peak, the rollback checks, the logged totals) is reduced over the group
+first, so every rank picks the stacked run's rungs; rank 0 alone logs
+and writes checkpoints.  ``--autotune``, ``--feature-store host``, the
+tiered cache, ``--export-serve`` and ``offline_gcn`` run on the stacked
+axis only for now and refuse ``--dist`` (ROADMAP Queue 1 item 7.3).
+``--report DIR`` writes each rank's (or the stacked run's) losses,
+parameters, Adam moments, chosen rungs, first rounds' batch digests and
+stats, kernel launches, step times and collective counters to ``DIR``.
+Before the loop the drop-aware
 capacity ladder and the compact-wire hit-cap ladder calibrate the
 exchange buffers (each rung from a cold cache), and ``--warm-recalibrate
 N`` shrinks the owner exchange to the warm miss peak after ``N`` steps,
@@ -37,6 +55,8 @@ Examples::
 
     python -m repro_torch.launch.train --arch graphgen-gcn-deep
     python -m repro_torch.launch.train --arch graphgen-gcn --workers 4
+    python -m repro_torch.launch.train --arch graphgen-gcn --workers 4 \
+        --dist gloo
     python -m repro_torch.launch.train --arch graphgen-gcn-deep --smoke \\
         --device cpu --nodes 2000 --steps 6 --feature-store host
 """
@@ -44,7 +64,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import json
 import os
+import sys
 import tempfile
 import time
 
@@ -53,7 +76,8 @@ import torch
 
 from ..configs import get_config, smoke_config
 from ..core.balance import balance_table
-from ..core.config import TrainConfig, resolve_device
+from ..core.collectives import ProcessWorkers, StackedGroup, WorkerGroup
+from ..core.config import TrainConfig
 from ..convert import (adam_state_from_numpy, adam_state_to_numpy,
                        gcn_params_from_numpy, gcn_params_to_numpy)
 from ..core.feature_cache import CacheConfig, init_cache_state
@@ -63,9 +87,12 @@ from ..core.partition import partition_edges
 from ..core.pipeline import offline_loop, pipelined_loop
 from ..graph.subgraph import slots_per_seed
 from ..graph.synthetic import node_features, node_labels, powerlaw_graph
+from ..kernels import ops
 from ..models.gcn import gcn_loss, init_gcn
 from ..train import checkpoint as ckpt
 from ..train.optimizer import adam_update, init_adam
+from ..train.train_loop import make_step_sync
+from . import mesh
 
 #: ascending slack ladder probed by the drop-aware capacity calibration
 SLACK_LADDER = (0.25, 0.5, 1.0, 1.5, 2.0)
@@ -73,88 +100,139 @@ SLACK_LADDER = (0.25, 0.5, 1.0, 1.5, 2.0)
 CALIBRATION_PROBES = 3
 #: ascending hit-cap ladder (fractions of the probe-round capacity)
 HIT_CAP_LADDER = (0.125, 0.25, 0.5)
+#: generation rounds whose batches and stats ``--report`` records
+REPORT_ROUNDS = 3
 
 
-def make_gcn_train_fn(tcfg: TrainConfig):
+def make_gcn_train_fn(tcfg: TrainConfig, group: WorkerGroup = None):
     """``train_fn(model, opt_state, batch) -> (model, opt_state, loss)``:
     the GCN loss, its gradient with respect to every parameter (in
     ``GCN.leaves()`` order, the optimizer state's), and one
-    ``adam_update``, written back into the model's parameters in place."""
+    ``adam_update``, written back into the model's parameters in place.
+
+    On a process ``group`` (one worker per process) the batch is the
+    rank's own seeds: the gradients and the loss are averaged over the
+    ranks (``tcfg.grad_sync``) before ``adam_update`` clips the global
+    gradient, and the loss returned is the global mean."""
+    sync = None
+    if group is not None and group.local < group.world:
+        sync = make_step_sync(group, tcfg.grad_sync)
+
     def train_fn(model, opt_state, batch):
         params = model.leaves()
         loss = gcn_loss(model, batch)
         grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        if sync is not None:
+            grads, loss = sync(grads, loss)
         new, opt_state, _ = adam_update(tcfg, params, grads, opt_state)
         with torch.no_grad():
             for p, n in zip(params, new):
                 p.copy_(n)
-        return model, opt_state, loss.detach()
+        return model, opt_state, loss
     return train_fn
 
 
+def _group_of(device_args, group):
+    """``group``, or the stacked group of the placed arrays."""
+    if group is not None:
+        return group
+    return StackedGroup(device_args[0].shape[0], device_args[0].device)
+
+
+def group_total(group: WorkerGroup, counts: torch.Tensor,
+                op: str = "sum") -> int:
+    """A per-worker ``[L]`` counter reduced over every worker of the group
+    (``op`` "sum" or "max"): the value every rank branches on."""
+    return int(group.all_reduce(counts, op)[0])
+
+
+def group_hit_rate(group: WorkerGroup, batch) -> float:
+    """``SubgraphBatch.cache_hit_rate`` over every worker of the group."""
+    hits = float(group_total(group, batch.n_cache_hits))
+    total = hits + float(group_total(group, batch.n_cache_misses))
+    return hits / total if total else 0.0
+
+
+def _say(group: WorkerGroup, msg: str) -> None:
+    """Print on the process that holds worker 0 only."""
+    if group.lead:
+        print(msg)
+
+
 def calibrate_capacity_slack(device_args, fanouts, probes,
-                             ladder=SLACK_LADDER, cache_cfg=None) -> float:
+                             ladder=SLACK_LADDER, cache_cfg=None,
+                             group: WorkerGroup = None) -> float:
     """Drop-aware capacity calibration: the smallest slack of ``ladder``
     whose batches drop no request over every probe ``(seeds, draws)``.
     With ``cache_cfg`` the ladder probes the cached generator, each rung
     from a cold cache (the cold-start miss burst is the heaviest owner
-    traffic), the cache threading across a rung's probes."""
-    w = device_args[0].shape[0]
+    traffic), the cache threading across a rung's probes.  The drops are
+    counted over every worker of ``group`` (default: the stacked group of
+    ``device_args``)."""
+    group = _group_of(device_args, group)
+    held = device_args[0].shape[0]
     feat_dim = device_args[2].shape[-1]
     dev = device_args[0].device
     cached = cache_cfg is not None and cache_cfg.n_rows > 0
     with torch.no_grad():
         for slack in ladder:
             gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
-                                       cache_cfg=cache_cfg if cached else None)
+                                       cache_cfg=cache_cfg if cached else None,
+                                       group=group)
             if cached:
-                cache = init_cache_state(cache_cfg, feat_dim, w, device=dev)
+                cache = init_cache_state(cache_cfg, feat_dim, held,
+                                         device=dev)
             dropped = 0
             for seeds, draws in probes:
                 if cached:
                     batch, cache = gen_fn(device_args, seeds, draws, cache)
                 else:
                     batch = gen_fn(device_args, seeds, draws)
-                dropped += int(batch.n_dropped.sum())
+                dropped += group_total(group, batch.n_dropped)
             if dropped == 0:
                 return slack
-            print(f"calibration: slack={slack} dropped {dropped} requests "
-                  f"over {len(probes)} probes")
-    print(f"calibration: even slack={ladder[-1]} drops requests; keeping it")
+            _say(group, f"calibration: slack={slack} dropped {dropped} "
+                        f"requests over {len(probes)} probes")
+    _say(group, f"calibration: even slack={ladder[-1]} drops requests; "
+                f"keeping it")
     return ladder[-1]
 
 
 def calibrate_probe_hit_cap(device_args, fanouts, probes, slack, cache_cfg,
-                            ladder=HIT_CAP_LADDER) -> CacheConfig:
+                            ladder=HIT_CAP_LADDER,
+                            group: WorkerGroup = None) -> CacheConfig:
     """Compact-wire hit-cap calibration: the ``CacheConfig`` of the
     smallest rung (a fraction of the probe-round capacity) whose probes
     demote no hit, each rung from a cold cache; the dense wire when every
-    rung demotes."""
-    w = device_args[0].shape[0]
+    rung demotes.  Demotions are counted over every worker of ``group``."""
+    group = _group_of(device_args, group)
+    held = device_args[0].shape[0]
     feat_dim = device_args[2].shape[-1]
     dev = device_args[0].device
     b = probes[0][0].shape[1]
-    cap = probe_round_capacity(b * slots_per_seed(fanouts), w, slack)
+    cap = probe_round_capacity(b * slots_per_seed(fanouts), group.world,
+                               slack)
     with torch.no_grad():
         for frac in ladder:
             hc = max(int(cap * frac), 1)
             cfg = cache_cfg._replace(wire="compact", hit_cap=hc)
             gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
-                                       cache_cfg=cfg)
-            cache = init_cache_state(cfg, feat_dim, w, device=dev)
+                                       cache_cfg=cfg, group=group)
+            cache = init_cache_state(cfg, feat_dim, held, device=dev)
             demoted = 0
             for seeds, draws in probes:
                 batch, cache = gen_fn(device_args, seeds, draws, cache)
-                demoted += int(batch.n_probe_demoted.sum())
+                demoted += group_total(group, batch.n_probe_demoted)
             if demoted == 0:
-                print(f"probe hit-cap auto-sized to {hc} rows/destination "
-                      f"({frac:.0%} of the {cap}-slot probe round; override "
-                      f"with --probe-hit-cap)")
+                _say(group, f"probe hit-cap auto-sized to {hc} "
+                            f"rows/destination ({frac:.0%} of the {cap}-slot "
+                            f"probe round; override with --probe-hit-cap)")
                 return cfg
-            print(f"hit-cap calibration: hit_cap={hc} demoted {demoted} "
-                  f"hits over {len(probes)} probes")
-    print(f"hit-cap calibration: even {ladder[-1]:.0%} of the probe round "
-          f"demotes hits; falling back to the dense wire")
+            _say(group, f"hit-cap calibration: hit_cap={hc} demoted "
+                        f"{demoted} hits over {len(probes)} probes")
+    _say(group, f"hit-cap calibration: even {ladder[-1]:.0%} of the probe "
+                f"round demotes hits; falling back to the dense wire")
     return cache_cfg._replace(wire="dense", hit_cap=0)
 
 
@@ -197,18 +275,51 @@ def _model_config(args):
     return cfg
 
 
-def build_gcn_run(args) -> dict:
+def refuse_dist(args, cfg=None) -> None:
+    """Raise for a ``--dist`` run of a path that runs on the stacked axis
+    only for now (each names the ROADMAP item that ports it)."""
+    if args.dist == "none":
+        return
+    cfg = _model_config(args) if cfg is None else cfg
+    item = "ROADMAP Queue 1 item 7.3"
+    unported = (
+        (args.autotune, "--autotune (the profile autotuner)"),
+        (cfg.feature_store == "host", "--feature-store host (the L3 "
+                                      "host store)"),
+        (cfg.cache_rows > 0 and cfg.cache_mode == "tiered",
+         f"the tiered cache ({cfg.name})"),
+        (bool(args.export_serve),
+         "--export-serve (the serving tier)"))
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(
+                f"--dist {args.dist}: {what} runs on the stacked worker "
+                f"axis only (--dist none); its process backend is {item}")
+
+
+def build_gcn_run(args, group: WorkerGroup = None) -> dict:
     """Everything ``train_gcn`` sets up before its loop, from ``args``:
     the graph and tables, the calibrated (or autotuned) slack and cache
     policy, the ``AutotuneResult`` (None without ``--autotune``), the
     generator (``gen_fn``, ``device_args``, the L3 ``store`` in host mode
     or None, the empty ``cache`` or None), the model at its seeded init,
-    the AdamW ``train_fn``, ``seeds_np(t)`` and ``draws(t, W, b)``."""
-    dev = resolve_device(args.device)
+    the AdamW ``train_fn``, ``seeds_np(t)`` (every worker's ``[W, b]``
+    seeds of batch ``t``), ``seeds_for(t)`` and ``draws(t, L, b)`` (the
+    held workers' rows) and the worker ``group`` (default: the stacked
+    group of ``--workers``)."""
     w = args.workers
+    if group is None:
+        group = mesh.make_local_group(w, args.device)
+    elif group.world != w:
+        raise ValueError(f"--workers {w}, but the group has {group.world}")
+    dev = group.device
     cfg = _model_config(args)
+    refuse_dist(args, cfg)
     fanouts = cfg.fanouts
     host = cfg.feature_store == "host"
+    if host and args.report:
+        raise ValueError("--report records the device store's rounds; "
+                         "drop --feature-store host")
     if host and args.warm_recalibrate:
         raise SystemExit("--warm-recalibrate shrinks the owner-exchange "
                          "buffers, which --feature-store host replaces "
@@ -231,7 +342,8 @@ def build_gcn_run(args) -> dict:
         return sw[:, (np.arange(b) + t * b) % sw.shape[1]]
 
     def seeds_for(t):
-        return torch.from_numpy(np.ascontiguousarray(seeds_np(t))).to(dev)
+        return torch.from_numpy(
+            np.ascontiguousarray(group.block(seeds_np(t)))).to(dev)
 
     res = autotuned = None
     if args.autotune:
@@ -257,7 +369,7 @@ def build_gcn_run(args) -> dict:
             print(f"autotune: WARNING — falling back to the calibration "
                   f"ladders ({res.reason})")
     # the training draws follow the final fanouts
-    draws = SeededDraws(fanouts, args.seed + 1, dev)
+    draws = SeededDraws(fanouts, args.seed + 1, dev, group=group)
 
     ladders = []
     store = cache = None
@@ -297,8 +409,8 @@ def build_gcn_run(args) -> dict:
         # the graph and the tables are placed once; every rung of both
         # ladders runs against the same placement
         _, device_args = make_distributed_generator(
-            part, feats, labels, fanouts=fanouts, device=dev)
-        probes = [(seeds_for(t), draws(t, w, b))
+            part, feats, labels, fanouts=fanouts, device=dev, group=group)
+        probes = [(seeds_for(t), draws(t, group.local, b))
                   for t in range(CALIBRATION_PROBES)]
         if args.capacity_slack is not None:
             slack = args.capacity_slack
@@ -309,19 +421,21 @@ def build_gcn_run(args) -> dict:
         else:
             # the cached generator, a cold cache per rung
             slack = calibrate_capacity_slack(device_args, fanouts, probes,
-                                             cache_cfg=cache_cfg)
+                                             cache_cfg=cache_cfg, group=group)
             ladders.append("slack")
-            print(f"capacity_slack auto-sized to {slack} "
-                  f"(override with --capacity-slack)")
+            _say(group, f"capacity_slack auto-sized to {slack} "
+                        f"(override with --capacity-slack)")
         if need_hit_cap:
             cache_cfg = calibrate_probe_hit_cap(device_args, fanouts, probes,
-                                                slack, cache_cfg)
+                                                slack, cache_cfg, group=group)
             ladders.append("hit_cap")
         del probes
         gen_fn = make_generator_fn(fanouts=fanouts, capacity_slack=slack,
-                                   cache_cfg=cache_cfg)
+                                   cache_cfg=cache_cfg, group=group,
+                                   collect_stats=bool(args.report))
         if cached:
-            cache = init_cache_state(cache_cfg, cfg.gcn_in_dim, w, device=dev)
+            cache = init_cache_state(cache_cfg, cfg.gcn_in_dim, group.local,
+                                     device=dev)
     if cached:
         line = (f"hot-node cache: {cache_cfg.n_rows} rows/worker "
                 f"({cache_cfg.assoc}-way, {cache_cfg.mode}), "
@@ -333,15 +447,16 @@ def build_gcn_run(args) -> dict:
             line += f", {cache_cfg.wire} probe wire"
             if cache_cfg.wire == "compact" and cache_cfg.hit_cap:
                 line += f" (hit_cap {cache_cfg.hit_cap})"
-        print(line)
+        _say(group, line)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
-                       checkpoint_every=args.ckpt_every)
+                       checkpoint_every=args.ckpt_every,
+                       grad_sync=args.grad_sync)
     return {"dev": dev, "w": w, "b": b, "cfg": cfg, "cache_cfg": cache_cfg,
             "slack": slack, "ladders": ladders, "autotune": res,
-            "gen_fn": gen_fn,
+            "gen_fn": gen_fn, "group": group,
             "device_args": device_args, "store": store, "cache": cache,
             "model": init_gcn(cfg, args.seed, device=dev),
-            "train_fn": make_gcn_train_fn(tcfg), "tcfg": tcfg,
+            "train_fn": make_gcn_train_fn(tcfg, group), "tcfg": tcfg,
             "seeds_np": seeds_np, "seeds_for": seeds_for, "draws": draws,
             "table_bytes": feats.nbytes}
 
@@ -356,21 +471,126 @@ def _store_stats(run: dict) -> dict:
             "table_bytes": run["table_bytes"], "depth": store.depth}
 
 
-def train_gcn(args, step_hook=None) -> dict:
+class _RoundRecorder:
+    """``--report``'s view of the training generator (built with
+    ``collect_stats``): passes each round's ``(batch[, cache])`` on, and
+    keeps the first ``REPORT_ROUNDS`` rounds' batch, ``FetchStats``,
+    ``CacheStats`` and cache state, in call order."""
+
+    def __init__(self, gen_fn, cached: bool):
+        self.gen_fn, self.cached, self.rounds = gen_fn, cached, []
+
+    def __call__(self, *args):
+        out = self.gen_fn(*args)
+        batch, (fstats, cstats) = out[0], out[-1]
+        cache = out[1] if self.cached else None
+        if len(self.rounds) < REPORT_ROUNDS:
+            self.rounds.append((batch, fstats, cstats, cache))
+        return (batch, cache) if self.cached else batch
+
+
+def _digest(t: torch.Tensor) -> str:
+    """Short sha256 of a tensor's bytes (its bit pattern)."""
+    return hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:20]
+
+
+def _round_report(group: WorkerGroup, b: int, batch, fstats, cstats,
+                  cache) -> dict:
+    """One recorded round, per held worker ``j`` (global index): digests
+    of its batch block and cache state, and its stats counters."""
+    out = {"batch": {}, "cache": {}, "stats": {}}
+    fields = [("seeds", batch.seeds), ("x_seed", batch.x_seed),
+              ("labels", batch.labels)]
+    for name in ("hops", "masks", "x_hops"):
+        fields += [(f"{name}{l}", a)
+                   for l, a in enumerate(getattr(batch, name))]
+    for i in range(group.local):
+        j = group.rank + i
+        out["batch"][str(j)] = {n: _digest(a[i * b:(i + 1) * b])
+                                for n, a in fields}
+        if cache is not None:
+            out["cache"][str(j)] = {n: _digest(a[i])
+                                    for n, a in zip(cache._fields, cache)}
+    for name in ("n_dropped", "n_cache_hits", "n_cache_misses",
+                 "n_probe_demoted"):
+        out["stats"]["batch." + name] = getattr(batch, name).tolist()
+    for prefix, st in (("fetch.", fstats), ("cache.", cstats)):
+        for name, a in zip(st._fields, st):
+            out["stats"][prefix + name] = a.tolist()
+    return out
+
+
+def _write_report(args, run: dict, res: dict, opt, recorder, step_s,
+                  launches) -> None:
+    """``--report DIR``: ``DIR/{rank<r>|stacked}.json`` (losses, rungs,
+    the recorded rounds, launches, step times, collective counters) and
+    ``.npz`` (losses, parameters, Adam moments and step)."""
+    group = run["group"]
+    name = (f"rank{group.rank}" if isinstance(group, ProcessWorkers)
+            else "stacked")
+    os.makedirs(args.report, exist_ok=True)
+    cache_cfg = run["cache_cfg"]
+    meta = {
+        "world": group.world, "rank": group.rank, "local": group.local,
+        "backend": getattr(group, "backend", "stacked"),
+        "staged": getattr(group, "staged", False),
+        "device": str(group.device), "losses": res["losses"],
+        "capacity_slack": run["slack"], "ladders": run["ladders"],
+        "wire": cache_cfg.wire if cache_cfg is not None else None,
+        "hit_cap": cache_cfg.hit_cap if cache_cfg is not None else None,
+        "rounds": [_round_report(group, run["b"], *r)
+                   for r in recorder.rounds] if recorder else [],
+        "launches": launches, "step_s": step_s,
+        "collectives": getattr(group, "stats", None)}
+    with open(os.path.join(args.report, name + ".json"), "w") as f:
+        json.dump(meta, f)
+    arrays = {"losses": np.asarray(res["losses"], np.float64),
+              "step": opt.step.cpu().numpy()}
+    for i, p in enumerate(res["model"].leaves()):
+        arrays[f"p{i}"] = p.detach().cpu().numpy()
+        arrays[f"m{i}"] = opt.m[i].cpu().numpy()
+        arrays[f"v{i}"] = opt.v[i].cpu().numpy()
+    np.savez(os.path.join(args.report, name + ".npz"), **arrays)
+
+
+def _check_replicas(group: WorkerGroup, model) -> None:
+    """Raise unless every rank holds the same parameters (bit for bit)."""
+    flat = torch.cat([p.detach().reshape(-1) for p in model.leaves()])
+    every = group.all_gather(flat[None])[0].reshape(group.world, -1)
+    if not all(torch.equal(every[r], flat) for r in range(group.world)):
+        raise RuntimeError("the ranks' initial parameters differ: every "
+                           "rank must build the model from the same seed")
+
+
+def train_gcn(args, step_hook=None, group: WorkerGroup = None) -> dict:
     """Train a GCN arch for ``args.steps`` pipelined steps; returns the
     losses, the padded nodes per iteration, the wall time, the slack, the
     calibration ladders that ran, the requests dropped by the trained
     batches, the final cache hit rate, the L3 store's telemetry in host
     mode, and the trained model, the cache state and the last batch.
     ``step_hook(t)``, when given, runs after step ``t``'s loss has
-    reached the host (a profiler's step marker)."""
-    run = build_gcn_run(args)
+    reached the host (a profiler's step marker).
+
+    ``group`` is the worker group: the stacked group of ``--workers``
+    when None (``--dist none``), or the rank's ``ProcessWorkers``
+    (``main`` joins it for ``--dist gloo|nccl``).  On a process group the
+    losses, the dropped count and the hit rate are every worker's, the
+    model and cache the rank's own."""
+    if group is None and args.dist != "none":
+        raise ValueError(f"--dist {args.dist} runs one process per worker: "
+                         f"start it through main(), which launches or joins "
+                         f"the ranks, or pass their group")
+    run = build_gcn_run(args, group)
+    group = run["group"]
     dev, w, b = run["dev"], run["w"], run["b"]
     cache_cfg, slack = run["cache_cfg"], run["slack"]
     cached = cache_cfg is not None
     device_args, draws, seeds_for = (run["device_args"], run["draws"],
                                      run["seeds_for"])
     model = run["model"]
+    if isinstance(group, ProcessWorkers):
+        _check_replicas(group, model)
     opt = init_adam(model.leaves())
     start = 0
     if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
@@ -380,7 +600,7 @@ def train_gcn(args, step_hook=None) -> dict:
             (gcn_params_to_numpy(model), adam_state_to_numpy(opt)))
         model = gcn_params_from_numpy(params_np, device=dev)
         opt = adam_state_from_numpy(opt_np, device=dev)
-        print(f"resumed from step {start}")
+        _say(group, f"resumed from step {start}")
 
     losses = []
     final = {"batch": None}     # the last trained batch
@@ -402,17 +622,22 @@ def train_gcn(args, step_hook=None) -> dict:
             cache_cfg=cache_cfg)
     # only the second half of the warm window counts toward the miss peak
     warm_from = start + max(args.warm_recalibrate // 2, 1)
-    t0 = time.perf_counter()
+    recorder = None
+    gen_fn = run["gen_fn"]
+    if args.report:
+        recorder = gen_fn = _RoundRecorder(gen_fn, cached)
+    step_s = []
+    t0 = t_step = time.perf_counter()
 
     def regenerate(gen, t, carry):
         """Batch ``t`` generated again by ``gen`` into the carry."""
         with torch.no_grad():
             if cached:
                 batch, cache_now = gen(device_args, seeds_for(t),
-                                       draws(t, w, b), carry[3])
+                                       draws(t, group.local, b), carry[3])
                 return (carry[0], carry[1], batch, cache_now)
             return (carry[0], carry[1],
-                    gen(device_args, seeds_for(t), draws(t, w, b)))
+                    gen(device_args, seeds_for(t), draws(t, group.local, b)))
 
     def before_step(i, carry, gen_fn):
         nonlocal miss_peak, wide_gen, traced_gen, autotune_rollback
@@ -421,7 +646,8 @@ def train_gcn(args, step_hook=None) -> dict:
         if i == 0:
             t0 = time.perf_counter()   # batch `start` is generated
         if cached and args.warm_recalibrate and t >= warm_from:
-            miss_peak = max(miss_peak, int(carry[2].n_cache_misses.max()))
+            miss_peak = max(miss_peak, group_total(
+                group, carry[2].n_cache_misses, "max"))
         if traced_gen is not None and int(carry[2].n_dropped.sum()) > 0:
             gen_fn, traced_gen = traced_gen, None
             carry = regenerate(gen_fn, t, carry)
@@ -431,12 +657,13 @@ def train_gcn(args, step_hook=None) -> dict:
                   f"{tuned.trace.config.capacity_slack} and kept it")
         # rollback check first: carry[2] was generated by the shrunken
         # generator only once the shrink below has been installed
-        if wide_gen is not None and int(carry[2].n_dropped.sum()) > 0:
+        if wide_gen is not None and group_total(group,
+                                                carry[2].n_dropped) > 0:
             gen_fn, wide_gen = wide_gen, None
             carry = regenerate(gen_fn, t, carry)
-            print(f"step {t}: shrunken capacity dropped requests — "
-                  f"regenerated the batch and rolled back to the "
-                  f"calibrated width")
+            _say(group, f"step {t}: shrunken capacity dropped requests — "
+                        f"regenerated the batch and rolled back to the "
+                        f"calibrated width")
         if (args.warm_recalibrate and cached and w > 1
                 and t == start + args.warm_recalibrate
                 and t + 1 < args.steps):
@@ -446,46 +673,55 @@ def train_gcn(args, step_hook=None) -> dict:
             gen_fn = make_generator_fn(fanouts=run["cfg"].fanouts,
                                        capacity_slack=slack,
                                        cache_cfg=cache_cfg,
-                                       fetch_capacity=new_cap)
-            print(f"warm re-calibration at step {t}: owner-exchange "
-                  f"capacity -> {new_cap} slots/destination "
-                  f"(peak warm per-worker misses {miss_peak})")
-        n_dropped += int(carry[2].n_dropped.sum())
+                                       fetch_capacity=new_cap, group=group)
+            _say(group, f"warm re-calibration at step {t}: owner-exchange "
+                        f"capacity -> {new_cap} slots/destination "
+                        f"(peak warm per-worker misses {miss_peak})")
+        n_dropped += group_total(group, carry[2].n_dropped)
         return carry, gen_fn
 
     def after_step(i, carry, loss):
+        nonlocal t_step
         t = start + i
         losses.append(float(loss))
+        now = time.perf_counter()
+        step_s.append(now - t_step)
+        t_step = now
         if step_hook is not None:
             step_hook(i)
-        if (t + 1) % args.ckpt_every == 0:
+        if (t + 1) % args.ckpt_every == 0 and group.lead:
             ckpt.save(args.ckpt_dir, t + 1,
                       (gcn_params_to_numpy(carry[0]),
                        adam_state_to_numpy(carry[1])),
                       keep=run["tcfg"].keep_checkpoints)
         if (t + 1) % args.log_every == 0:
+            # every rank takes part in the reductions; rank 0 prints
             line = f"step {t + 1}: loss={losses[-1]:.4f}"
             nb = carry[2]
             if cached:
-                line += f" cache_hit_rate={nb.cache_hit_rate():.3f}"
-            dropped = int(nb.n_dropped.sum())
+                line += f" cache_hit_rate={group_hit_rate(group, nb):.3f}"
+            dropped = group_total(group, nb.n_dropped)
             if dropped:
                 line += f" DROPPED={dropped}"
             if cached:
-                demoted = int(nb.n_probe_demoted.sum())
+                demoted = group_total(group, nb.n_probe_demoted)
                 if demoted:
                     line += f" demoted={demoted}"
-            print(line)
+            _say(group, line)
         final["batch"] = carry[2]
 
     cache = run["cache"]
+    launches0 = ops.launch_counts()
+    if isinstance(group, ProcessWorkers):
+        group.reset_stats()
     if start < args.steps:
         # batch t comes from seeds_np(t) and draws(t): a resumed run
         # primes the pipeline at `start`
-        schedule = np.stack([run["seeds_np"](t)
+        schedule = np.stack([group.block(run["seeds_np"](t))
                              for t in range(start, args.steps)])
-        model, _, _, *rest = pipelined_loop(
-            run["gen_fn"], run["train_fn"], device_args, schedule, model,
+        t_step = time.perf_counter()
+        model, opt, _, *rest = pipelined_loop(
+            gen_fn, run["train_fn"], device_args, schedule, model,
             opt, lambda i, *a: draws(start + i, *a), cache=cache,
             before_step=before_step, after_step=after_step,
             host_store=run["store"])
@@ -494,6 +730,7 @@ def train_gcn(args, step_hook=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    launches = {k: v - launches0[k] for k, v in ops.launch_counts().items()}
     if args.export_serve:
         if not cached:
             raise SystemExit("--export-serve checkpoints params + the warm "
@@ -510,18 +747,22 @@ def train_gcn(args, step_hook=None) -> dict:
            "n_dropped": n_dropped, "cache_cfg": cache_cfg,
            "fanouts": run["cfg"].fanouts, "autotune": run["autotune"],
            "autotune_rollback": autotune_rollback,
-           "model": model,
+           "model": model, "opt": opt, "step_s": step_s,
+           "launches": launches,
            "cache": cache, "batch": final["batch"], "start": start,
            **_store_stats(run)}
     if run["store"] is not None:
         print(f"L3 host gathers shipped {out['host_gather_bytes'] / 1e6:.1f} "
               f"MB ({out['n_l3_hits']} rows)")
-    print(f"trained {n_run} steps in {dt:.1f}s "
-          f"({nodes_per_iter} padded nodes/iter, "
-          f"{n_run * nodes_per_iter / max(dt, 1e-9):,.0f} nodes/s)")
+    _say(group, f"trained {n_run} steps in {dt:.1f}s "
+                f"({nodes_per_iter} padded nodes/iter, "
+                f"{n_run * nodes_per_iter / max(dt, 1e-9):,.0f} nodes/s)")
     if cached and final["batch"] is not None:
-        out["cache_hit_rate"] = final["batch"].cache_hit_rate()
-        print(f"steady-state cache hit rate: {out['cache_hit_rate']:.3f}")
+        out["cache_hit_rate"] = group_hit_rate(group, final["batch"])
+        _say(group, f"steady-state cache hit rate: "
+                    f"{out['cache_hit_rate']:.3f}")
+    if args.report:
+        _write_report(args, run, out, opt, recorder, step_s, launches)
     return out
 
 
@@ -529,7 +770,13 @@ def offline_gcn(args) -> dict:
     """The GraphGen baseline on ``train_gcn``'s setup: ``offline_loop``
     over the same seeds and draws for ``args.steps`` batches.  Returns the
     losses, ``t_gen`` and ``t_train`` (seconds), the trained model and
-    the L3 store's telemetry in host mode."""
+    the L3 store's telemetry in host mode.  Runs on the stacked worker
+    axis only (``--dist`` raises)."""
+    if args.dist != "none":
+        raise NotImplementedError(
+            f"--dist {args.dist}: offline_gcn (the GraphGen baseline) runs "
+            f"on the stacked worker axis only (--dist none); its process "
+            f"backend is ROADMAP Queue 1 item 7.3")
     run = build_gcn_run(args)
     model = run["model"]
     schedule = np.stack([run["seeds_np"](t) for t in range(args.steps)])
@@ -608,7 +855,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(0 disables; needs the cache and W > 1)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--workers", type=int, default=1,
-                    help="simulated workers on the stacked worker axis")
+                    help="workers W: on the stacked worker axis of one "
+                         "process (--dist none), or one process each "
+                         "(--dist gloo|nccl)")
+    ap.add_argument("--dist", default="none", choices=mesh.DIST_BACKENDS,
+                    help="worker backend: none = the stacked axis in this "
+                         "process; gloo = one process per worker (on a "
+                         "card every collective stages through host "
+                         "memory); nccl = one process per card (needs W "
+                         "visible cards)")
+    ap.add_argument("--grad-sync", default="psum", choices=["psum", "tree"],
+                    help="--dist: average the ranks' gradients by the "
+                         "group's all_reduce or by an explicit butterfly")
+    ap.add_argument("--dist-timeout", type=float, default=3600,
+                    help="--dist: seconds the launcher waits for its ranks "
+                         "before ending them and failing")
+    ap.add_argument("--report", default=None, metavar="DIR",
+                    help="write the run's (each rank's) losses, params, "
+                         "Adam moments, rungs, first rounds' digests and "
+                         "stats, launches and timings to DIR")
     ap.add_argument("--nodes", type=int, default=20_000)
     ap.add_argument("--avg-degree", type=float, default=10.0)
     ap.add_argument("--batch-per-worker", type=int, default=32)
@@ -631,11 +896,38 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> None:
-    """CLI entry: train a GCN arch."""
+    """CLI entry: train a GCN arch.  With ``--dist gloo|nccl`` it spawns
+    the ``--workers`` ranks (``launch/mesh.py``) and exits non-zero if
+    any fails or outlives ``--dist-timeout``; a rank (or a ``torchrun``
+    worker) joins the group and trains."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if get_config(args.arch).family != "gcn":
         raise SystemExit(f"{args.arch}: only GCN archs are ported")
-    train_gcn(args)
+    if args.dist == "none":
+        train_gcn(args)
+        return
+    refuse_dist(args)
+    mesh.check_backend(args.dist, args.workers, args.device)
+    if mesh.launched():
+        group = mesh.join_from_env(args.dist, args.device, world=args.workers)
+        try:
+            train_gcn(args, group=group)
+        finally:
+            mesh.close(group)
+        return
+    staged = args.dist == "gloo" and torch.device(args.device).type == "cuda"
+    print(f"--dist {args.dist}: {args.workers} worker processes on "
+          f"{args.device}"
+          + ("; gloo stages every collective's CUDA blocks through host "
+             "memory" if staged else ""), flush=True)
+    if torch.device(args.device).type == "cuda":
+        from ..kernels import _build
+        _build.build()          # once, before the ranks load it
+    rc = mesh.spawn(["-m", "repro_torch.launch.train", *argv], args.workers,
+                    args.dist_timeout)
+    if rc:
+        raise SystemExit(f"--dist {args.dist}: a rank failed (exit {rc})")
 
 
 if __name__ == "__main__":

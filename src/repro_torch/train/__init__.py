@@ -1,2 +1,2 @@
-"""Training substrate of the port: the optimizer, checkpoints and failure
-recovery."""
+"""Training substrate of the port: the optimizer, the workers' gradient
+sync, checkpoints and failure recovery."""

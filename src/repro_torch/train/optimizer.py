@@ -7,7 +7,10 @@ Plain functions over a sequence of parameter tensors (a GCN's
 the reference divides by ``sqrt(v / bc2) + eps`` (torch by
 ``sqrt(v) / sqrt(bc2) + eps``), applies the weight decay to every
 parameter inside the same ``lr * (...)`` term, and clips by the global
-norm of all gradients.  The schedule and the bias corrections are float32
+norm of all gradients (where each worker runs in its own process, the
+gradients reach it already averaged over the ranks: ``launch/train.py``
+syncs them first, so the clip sees the global gradient, as the
+reference's does).  The schedule and the bias corrections are float32
 tensor arithmetic, as in the reference, where Python floats would round
 differently.
 """
