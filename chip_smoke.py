@@ -149,6 +149,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
               collective, the compact probe wire's bytes per round beside
               the dense wire's, the shares of a step in the gloo transport
               and in its host staging, and the phase's seconds.
+   dist paths — (PR 23) every other graph path with one process per worker
+              over gloo on the card, at W = 2 and 4, one spawn of the ranks
+              per width shared by its cells, each cell beside the stacked
+              run of the same flags in this process: serve (graphgen-gcn,
+              64 Zipf requests: every prediction and each rank's warm
+              cache block equal to the stacked server's, no request-path
+              step shape on any rank, the stop header ending every rank's
+              loop); the tiered cache (graphgen-gcn-deep, 20 steps) and the
+              L3 host store (graphgen-gcn, depth 2, --capacity-slack 2.0
+              --probe-hit-cap 0) under the dist phase's gates, plus the L3
+              rows and bytes summed over the ranks equal to the stacked
+              run's; and at W = 4 the deep run's --export-serve file (cache
+              leaves byte-equal to the stacked run's, parameters within
+              rtol 1e-5 / atol 1e-7), a server warm-started from it
+              (predictions equal to a stacked server warm-started from the
+              same file), --offline (losses within rtol 1e-5, the first
+              rounds equal) and --autotune (the trace reduced over the
+              ranks equal to the stacked one in every field but the wall
+              time, the ranking bit-equal; the validator's verdicts
+              printed).  Every rank launches its path's kernels (exact
+              counts per step in the train cells; never the W = 1 tiered
+              probe).  Records: each rank's median step or request and the
+              transport's share, and the phase's seconds.
    nccl     — the process backend's collectives over NCCL at world size 1
               (all_to_all, all_gather, all_reduce sum and max on the
               generator's int32 ids and words, bool masks, float32 rows,
@@ -2298,17 +2321,28 @@ def read_report(path, name):
     return meta, dict(np.load(os.path.join(path, name + ".npz")))
 
 
-def dist_compare(stacked, ranks, world):
+def dist_compare(stacked, ranks, world, split=None):
     """The dist phase's gates for one width: the rungs, the first rounds'
     batch and cache digests and their FetchStats / CacheStats per
     worker, the losses (rtol 1e-5), and the parameters and Adam moments
     bit-equal across ranks and within rtol 1e-5 / atol 1e-7 of the
-    stacked run's.  Returns the largest differences."""
+    stacked run's.  Returns the largest differences.
+
+    With ``split`` (the ``(meta, arrays)`` of the stacked run with
+    ``--per-worker-loss``: the ranks' arithmetic in one process) the
+    final parameters and moments are held to that bound against the
+    split run instead, and the split run's own distance from the stacked
+    run is recorded (``split_rel_norm``, each leaf's norm share): the
+    drift that averaging per-worker mean gradients alone makes.  The
+    state after the first step (``p<i>@1``, ...) is always held to the
+    stacked run: a gradient summed, scaled or clipped wrongly shows
+    there at once."""
     import numpy as np
     want, want_np = stacked
     check(len(want["rounds"]) == 3, f"dist W={world}: the stacked report "
           f"holds {len(want['rounds'])} rounds")
     loss_rel = param_abs = param_rel = 0.0
+    split_rel, stacked_rel, n_split_equal = {}, {}, 0
     for r, (meta, arrays) in enumerate(ranks):
         for key in ("capacity_slack", "hit_cap", "wire", "ladders"):
             check(meta[key] == want[key], f"dist W={world} rank {r}: {key} "
@@ -2332,15 +2366,34 @@ def dist_compare(stacked, ranks, world):
             got = arrays[name]
             check(got.tobytes() == ranks[0][1][name].tobytes(),
                   f"dist W={world}: {name} differs between rank {r} and 0")
-            check(np.allclose(got, a, rtol=1e-5, atol=1e-7),
-                  f"dist W={world}: {name} beyond rtol 1e-5 / atol 1e-7 of "
-                  f"the stacked run (max abs {np.max(np.abs(got - a))})")
-            diff = np.abs(got - a)
+            ref, by = a, "stacked run"
+            if split is not None and "@" not in name:
+                ref, by = split[1][name], "--per-worker-loss stacked run"
+                if r == 0:
+                    split_rel[name] = rel_norm(ref, a)
+                    stacked_rel[name] = rel_norm(got, a)
+                    n_split_equal += got.tobytes() == ref.tobytes()
+            diff = np.abs(got - ref)
+            check(np.allclose(got, ref, rtol=1e-5, atol=1e-7),
+                  f"dist W={world}: {name} beyond rtol 1e-5 / atol 1e-7 "
+                  f"of the {by} (max abs {np.max(diff)})")
             param_abs = max(param_abs, float(diff.max()))
             param_rel = max(param_rel, float(
-                (diff / np.maximum(np.abs(a), 1e-30)).max()))
-    return {"loss_max_rel": loss_rel, "state_max_abs": param_abs,
-            "state_max_rel": param_rel}
+                (diff / np.maximum(np.abs(ref), 1e-30)).max()))
+    out = {"loss_max_rel": loss_rel, "state_max_abs": param_abs,
+           "state_max_rel": param_rel}
+    if split is not None:
+        out["split_rel_norm"] = max(split_rel.values())
+        out["stacked_rel_norm"] = max(stacked_rel.values())
+        out["split_worst_leaf"] = max(split_rel, key=split_rel.get)
+        out["split_bit_equal_leaves"] = f"{n_split_equal}/{len(split_rel)}"
+    return out
+
+
+def rel_norm(a, b):
+    """``||a - b|| / ||b||``."""
+    import numpy as np
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
 def dist_records(stacked, ranks, world):
@@ -2464,6 +2517,409 @@ def phase_dist(torch):
     seconds = time.perf_counter() - t_phase
     print(f"[dist] phase took {seconds:.1f} s")
     return {"launches": launches, "widths": results, "seconds": seconds}
+
+
+#: the dist-paths phase (PR 23): every other graph path as one process per
+#: worker over gloo on the one card, one spawn per width shared by all of
+#: its cells, each cell beside the stacked run of the same flags
+DIST_PATHS_TIMEOUT_S = 900
+#: kernels every rank of each cell must launch on its path; the tiered
+#: probe is the W = 1 fused probe and is not on a W > 1 path: there the
+#: L1 is the gather probe and the L2 the compact probe round
+DIST_PATH_KERNELS = {
+    "serve": ("cache_probe_compact", "fanout_mean"),
+    "deep": ("cache_probe_gather", "cache_probe_compact", "fanout_mean",
+             "fanout_mean_bwd"),
+    "host": ("cache_probe_compact", "fanout_mean", "fanout_mean_bwd"),
+    "warm": ("cache_probe_gather", "cache_probe_compact", "fanout_mean"),
+    "offline": ("cache_probe_compact", "fanout_mean", "fanout_mean_bwd"),
+    "autotune": ("cache_probe_compact", "fanout_mean", "fanout_mean_bwd"),
+}
+
+
+def dist_path_cases(w, out):
+    """The dist-paths phase's cells at ``W = w``: ``{cell: (driver
+    module, argv)}``, each reporting to ``out/<cell>``.  W = 2: serve,
+    deep train, host train; W = 4 adds the deep run's export, offline
+    and autotune (the warm-started server is ``warm_path_case``).  The
+    deep cell averages its gradients by the butterfly at W = 4
+    (``--grad-sync tree``): gloo's ring all-reduce sums each segment of
+    the gradient in its own rank order, which one process cannot
+    reproduce, and its final state is held to a one-process run of the
+    ranks' arithmetic (``split_case``).  At W = 2 both modes make one
+    addition."""
+    base = ["--workers", str(w), "--device", DEVICE, "--nodes",
+            str(N_NODES)]
+    served = ["--warmup-sweeps", "8", "--buckets", "8,16,32", "--requests",
+              str(N_REQUESTS)]
+    trained = ["--batch-per-worker", str(TRAIN_BATCH), "--steps",
+               str(TRAIN_STEPS), "--log-every", "10"]
+
+    def rep(cell):
+        return ["--report", os.path.join(out, cell)]
+    cells = {
+        "serve": ("serve", ["--arch", "graphgen-gcn", *base, *served,
+                            *rep("serve")]),
+        "deep": ("train", ["--arch", "graphgen-gcn-deep", *base, *trained,
+                           *rep("deep")] + (
+            ["--grad-sync", "tree", "--export-serve",
+             os.path.join(out, "export")] if w == 4 else [])),
+        "host": ("train", ["--arch", "graphgen-gcn", *base, *trained,
+                           "--feature-store", "host", "--host-gather-depth",
+                           "2", "--capacity-slack", "2.0", "--probe-hit-cap",
+                           "0", *rep("host")]),
+    }
+    if w == 4:
+        cells["offline"] = ("train", ["--arch", "graphgen-gcn", *base,
+                                      *trained, "--offline",
+                                      *rep("offline")])
+        cells["autotune"] = ("train", ["--arch", "graphgen-gcn", *base,
+                                       *trained, "--autotune",
+                                       "--autotune-steps",
+                                       str(AUTOTUNE_STEPS),
+                                       *rep("autotune")])
+    return cells
+
+
+def split_case(w, out):
+    """The deep cell on the stacked group with ``--per-worker-loss``:
+    each worker's mean loss differentiated on its own rows and the
+    gradients averaged as the ranks average them, reporting to
+    ``out/deep_split`` (and at W = 4 exporting to ``out/export_split``)."""
+    module, argv = dist_path_cases(w, out)["deep"]
+    argv = list(argv) + ["--per-worker-loss"]
+    argv[argv.index("--report") + 1] = os.path.join(out, "deep_split")
+    if "--export-serve" in argv:
+        argv[argv.index("--export-serve") + 1] = os.path.join(
+            out, "export_split")
+    return module, argv
+
+
+def warm_path_case(w, out, export):
+    """The warm-started server: graphgen-gcn-deep served from ``export``
+    (the W = 4 ``--dist`` train run's file) instead of sweeping."""
+    return ("serve", ["--arch", "graphgen-gcn-deep", "--workers", str(w),
+                      "--device", DEVICE, "--nodes", str(N_NODES),
+                      "--buckets", "8,16,32", "--requests", str(N_REQUESTS),
+                      "--warm-from", export, "--report",
+                      os.path.join(out, "warm")])
+
+
+def run_path_case(case, group=None):
+    """One cell through its driver: in this process on the stacked group,
+    or as this rank of a process ``group``."""
+    from repro_torch.launch import serve, train
+    module, argv = case
+    mod = serve if module == "serve" else train
+    fn = (mod.serve_gcn if module == "serve" else
+          train.offline_gcn if "--offline" in argv else train.train_gcn)
+    if group is None:
+        return fn(mod.parse_args(argv))
+    return fn(mod.parse_args(argv + ["--dist", "gloo"]), group=group)
+
+
+#: the module settings a rank of the dist-paths phase takes from the
+#: parent (a rehearsal on the CPU shrinks them)
+PATH_SETTINGS = ("DEVICE", "N_NODES", "N_REQUESTS", "TRAIN_STEPS",
+                 "TRAIN_BATCH", "AUTOTUNE_STEPS")
+
+
+def dist_paths_battery(group, out, settings):
+    """A rank's share of the dist-paths phase (``launch.mesh``'s target):
+    the parent's ``settings``, then every cell at its width, in order,
+    then at W = 4 the server warm-started from this run's export."""
+    import torch
+    globals().update(settings)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for case in dist_path_cases(group.world, out).values():
+        run_path_case(case, group)
+    if group.world == 4:
+        run_path_case(warm_path_case(4, out, os.path.join(out, "export")),
+                      group)
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def path_reports(pdir, sdir, cell, w):
+    """``(stacked, [rank r])`` reports of one cell (json only)."""
+    return (read_json(os.path.join(sdir, cell, "stacked.json")),
+            [read_json(os.path.join(pdir, cell, f"rank{r}.json"))
+             for r in range(w)])
+
+
+def check_path_launches(cell, w, ranks, per_step=None):
+    """Every rank of a cell launched every kernel of its path (exactly
+    ``per_step`` x steps where given); the tiered probe never at W > 1."""
+    for r, meta in enumerate(ranks):
+        c = meta["launches"]
+        for name in DIST_PATH_KERNELS[cell]:
+            want = per_step.get(name) if per_step else None
+            check(c[name] > 0 if want is None else c[name] == want,
+                  f"dist paths W={w} {cell} rank {r}: {name} launched "
+                  f"{c[name]} times" + (f", expected {want}" if want else ""))
+        check(c["cache_probe_tiered"] == 0, f"dist paths W={w} {cell} rank "
+              f"{r}: the W = 1 tiered probe ran on a W > 1 path")
+        if cell in ("serve", "warm"):
+            check(c["fanout_mean_bwd"] == 0, f"dist paths W={w} {cell} rank "
+                  f"{r}: serving ran a backward kernel")
+
+
+def serve_path_gates(pdir, sdir, cell, w):
+    """Serve gates: every prediction equal to the stacked server's, the
+    warm cache blocks bit-equal, no request-path step shape on any rank,
+    the stop header ending every rank's loop, the path's launches on
+    every rank; returns the records."""
+    want, ranks = path_reports(pdir, sdir, cell, w)
+    tag = f"dist paths W={w} {cell}"
+    check(want["n_requests"] == N_REQUESTS and want["request_path_compiles"]
+          == 0, f"{tag}: the stacked server served {want['n_requests']} "
+          f"requests with {want['request_path_compiles']} new shapes")
+    rec = {"stacked_p50_ms": want["p50_ms"], "stacked_qps": want["qps"],
+           "stacked_gen_median_ms": want["gen_median_ms"],
+           "stacked_fwd_median_ms": want["fwd_median_ms"], "ranks": []}
+    for r, meta in enumerate(ranks):
+        check(meta["requests"] == want["requests"]
+              and meta["predictions"] == want["predictions"],
+              f"{tag} rank {r}: predictions differ from the stacked "
+              f"server's")
+        check(meta["cache"][str(r)] == want["cache"][str(r)],
+              f"{tag} rank {r}: its warm cache block differs from the "
+              f"stacked worker block")
+        check(meta["request_path_compiles"] == 0 and meta["n_requests"]
+              == N_REQUESTS, f"{tag} rank {r}: {meta['n_requests']} "
+              f"requests, {meta['request_path_compiles']} new step shapes")
+        coll = meta["collectives_per_request"]
+        check(round(coll["broadcast"]["calls"] * N_REQUESTS)
+              == N_REQUESTS + 1, f"{tag} rank {r}: "
+              f"{coll['broadcast']['calls'] * N_REQUESTS} headers for "
+              f"{N_REQUESTS} requests and the stop")
+        rec["ranks"].append({
+            "gen_median_ms": meta["gen_median_ms"],
+            "fwd_median_ms": meta["fwd_median_ms"],
+            "transport_share": sum(v["seconds"] for v in coll.values())
+            * meta["n_requests"] / meta["wall_s"],
+            "bytes_per_request": {k: v["bytes"] for k, v in coll.items()},
+            "calls_per_request": {k: v["calls"] for k, v in coll.items()},
+            "launches": meta["launches"]})
+    rec["p50_ms"], rec["p99_ms"], rec["qps"] = (
+        ranks[0]["p50_ms"], ranks[0]["p99_ms"], ranks[0]["qps"])
+    check_path_launches(cell, w, ranks)
+    return rec
+
+
+def train_path_gates(pdir, sdir, cell, w, per_step, split=False):
+    """Train gates: PR 22's ``dist_compare`` (rungs, three rounds per
+    worker in every tier, losses, parameters and moments; with ``split``
+    the final state against ``split_case``'s run) and the exact launches
+    per rank; returns the records."""
+    stacked = read_report(os.path.join(sdir, cell), "stacked")
+    ranks = [read_report(os.path.join(pdir, cell), f"rank{r}")
+             for r in range(w)]
+    diffs = dist_compare(stacked, ranks, w, split=read_report(
+        os.path.join(sdir, cell + "_split"), "stacked") if split else None)
+    for r, (meta, _) in enumerate(ranks):
+        check(meta["n_dropped"] == 0, f"dist paths W={w} {cell} rank {r}: "
+              f"{meta['n_dropped']} requests dropped")
+    check_path_launches(cell, w, [m for m, _ in ranks],
+                        {k: v * TRAIN_STEPS for k, v in per_step.items()})
+    rec = {"stacked_median_step_ms":
+           statistics.median(stacked[0]["step_s"][2:]) * 1e3, "ranks": [],
+           **diffs}
+    for meta, _ in ranks:
+        coll = meta["collectives"]
+        loop_s = sum(meta["step_s"])
+        rec["ranks"].append({
+            "median_step_ms": statistics.median(meta["step_s"][2:]) * 1e3,
+            "transport_share": sum(v["seconds"] for v in coll.values())
+            / loop_s,
+            "staging_share": sum(v["staging_s"] for v in coll.values())
+            / loop_s, "launches": meta["launches"]})
+    return rec
+
+
+def export_gates(pdir, sdir):
+    """The W = 4 ``--dist`` run's ``--export-serve`` file against the
+    stacked runs': cache leaves byte-equal to the stacked run's file;
+    parameters within rtol 1e-5 / atol 1e-7 of the ``--per-worker-loss``
+    run's file (``split_case``: the ranks' arithmetic, as
+    ``dist_compare`` holds the deep run's final state).  Returns the
+    largest parameter difference and each file's largest norm share
+    from the stacked run's parameters."""
+    import glob
+    import numpy as np
+
+    def arrays(d, name="export"):
+        [f] = glob.glob(os.path.join(d, name, "step_*", "arrays.npz"))
+        return np.load(f)
+    got, want = arrays(pdir), arrays(sdir)
+    split = arrays(sdir, "export_split")
+    check(sorted(got.files) == sorted(want.files) == sorted(split.files),
+          "dist paths export: the files hold different leaves")
+    worst, n_cache, rel = 0.0, 0, {"gloo": 0.0, "split": 0.0}
+    for key in want.files:
+        if key.startswith("cache/"):
+            n_cache += 1
+            check(got[key].shape[0] == 4 and got[key].tobytes()
+                  == want[key].tobytes(), f"dist paths export: {key} differs "
+                  f"from the stacked run's")
+            continue
+        diff = float(np.max(np.abs(got[key] - split[key])))
+        check(np.allclose(got[key], split[key], rtol=1e-5, atol=1e-7),
+              f"dist paths export: {key} beyond rtol 1e-5 / atol 1e-7 of "
+              f"the --per-worker-loss run's (max abs {diff})")
+        worst = max(worst, diff)
+        rel["gloo"] = max(rel["gloo"], rel_norm(got[key], want[key]))
+        rel["split"] = max(rel["split"], rel_norm(split[key], want[key]))
+    return {"cache_leaves_byte_equal": n_cache, "param_max_abs": worst,
+            "stacked_rel_norm": rel}
+
+
+def dist_paths_cell(torch, w, tmp, launches):
+    """One width of the dist-paths phase: ``dist_paths_battery`` as ``w``
+    processes (``launch.mesh``, ranks on ``cuda:r`` with ``w`` cards, else
+    ``cuda:0``), then every cell on the stacked group in this process,
+    then every gate.  Adds the stacked runs' and each rank's launches to
+    ``launches``; returns the records per cell."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    pdir, sdir = (os.path.join(tmp, f"{k}{w}") for k in ("gloo", "stacked"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, os.path.join(ROOT, "src"), env.get("PYTHONPATH"))
+        if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.mesh", "--workers",
+         str(w), "--dist", "gloo", "--device", DEVICE, "--timeout",
+         str(DIST_PATHS_TIMEOUT_S), "chip_smoke:dist_paths_battery",
+         json.dumps({"out": pdir, "settings": {
+             k: globals()[k] for k in PATH_SETTINGS}})],
+        cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=DIST_PATHS_TIMEOUT_S + 60)
+    spawn_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dist paths W={w}: the ranks exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    cases = dist_path_cases(w, sdir)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for case in cases.values():
+        run_path_case(case, None)
+    run_path_case(split_case(w, sdir))
+    if w == 4:
+        run_path_case(warm_path_case(w, sdir, os.path.join(pdir, "export")))
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    for k, v in ops.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    from repro_torch.configs import get_config
+    deep = len(get_config("graphgen-gcn-deep").fanouts)
+    recs = {"serve": serve_path_gates(pdir, sdir, "serve", w)}
+    recs["deep"] = train_path_gates(pdir, sdir, "deep", w, {
+        "cache_probe_gather": 1, "cache_probe_compact": 1,
+        "fanout_mean": deep * (deep + 1) // 2,
+        "fanout_mean_bwd": deep * (deep - 1) // 2}, split=True)
+    recs["host"] = train_path_gates(pdir, sdir, "host", w, {
+        "cache_probe_compact": 1, "fanout_mean": 3, "fanout_mean_bwd": 1})
+    want, ranks = path_reports(pdir, sdir, "host", w)
+    for key in ("n_l3_hits", "host_gather_bytes"):
+        check(want["store"][key] > 0 and all(
+            m["store"][key] == want["store"][key] for m in ranks)
+              and sum(m["store"]["rank_" + key] for m in ranks)
+              == want["store"][key], f"dist paths W={w} host: {key} summed "
+              f"over the ranks {[m['store'] for m in ranks]} against the "
+              f"stacked run's {want['store'][key]}")
+    recs["host"]["l3_rows"] = want["store"]["n_l3_hits"]
+    recs["host"]["l3_bytes"] = want["store"]["host_gather_bytes"]
+    if w == 4:
+        recs["export"] = export_gates(pdir, sdir)
+        recs["warm"] = serve_path_gates(pdir, sdir, "warm", w)
+        want, ranks = path_reports(pdir, sdir, "offline", w)
+        for r, meta in enumerate(ranks):
+            lw, lg = np.asarray(want["losses"]), np.asarray(meta["losses"])
+            check(np.allclose(lg, lw, rtol=1e-5, atol=0),
+                  f"dist paths offline rank {r}: losses {lg} against {lw}")
+            for t, (a, b) in enumerate(zip(want["rounds"], meta["rounds"])):
+                check(a["batch"][str(r)] == b["batch"][str(r)]
+                      and a["cache"][str(r)] == b["cache"][str(r)],
+                      f"dist paths offline rank {r}: round {t} differs")
+        check_path_launches("offline", w, ranks, {
+            k: v * TRAIN_STEPS for k, v in (
+                ("cache_probe_compact", 1), ("fanout_mean", 3),
+                ("fanout_mean_bwd", 1))})
+        recs["offline"] = {"stacked": {k: want[k] for k in ("t_gen",
+                                                            "t_train")},
+                           "gloo": {k: ranks[0][k] for k in ("t_gen",
+                                                             "t_train")}}
+        want, ranks = path_reports(pdir, sdir, "autotune", w)
+        a = want["autotune"]
+        check(len(a["records"]) == AUTOTUNE_STEPS and a["ranking"],
+              f"dist paths autotune: the stacked trace has "
+              f"{len(a['records'])} records")
+        for r, meta in enumerate(ranks):
+            b = meta["autotune"]
+            check(b["records"] == a["records"], f"dist paths autotune rank "
+                  f"{r}: the reduced trace differs from the stacked one")
+            check(b["ranking"] == a["ranking"], f"dist paths autotune rank "
+                  f"{r}: the ranking differs from the stacked one")
+            check(b["picks"] == ranks[0]["autotune"]["picks"],
+                  f"dist paths autotune rank {r}: its verdicts differ from "
+                  f"rank 0's")
+        check_path_launches("autotune", w, ranks)
+        recs["autotune"] = {
+            "searched": len(a["ranking"]),
+            "verdicts": {"stacked": [(p["candidate"], p["accepted"],
+                                      round(p["measured_ms"], 3))
+                                     for p in a["picks"]],
+                         "gloo": [(p["candidate"], p["accepted"],
+                                   round(p["measured_ms"], 3))
+                                  for p in ranks[0]["autotune"]["picks"]]},
+            "accepted": {"stacked": a["accepted"],
+                         "gloo": ranks[0]["autotune"]["accepted"]}}
+    n_rank_reports = 0
+    for cell in ("serve", "deep", "host", "warm", "offline", "autotune"):
+        if cell not in recs:
+            continue
+        _, ranks = path_reports(pdir, sdir, cell, w)
+        for meta in ranks:
+            n_rank_reports += 1
+            for k, v in meta["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for cell, rec in recs.items():
+        print(f"[dist paths W={w} {cell}] {json.dumps(rec)}")
+    print(f"[dist paths W={w}] every gate held; the {w} ranks took "
+          f"{spawn_s:.1f} s (their start included), the stacked runs "
+          f"{stacked_s:.1f} s; {n_rank_reports} rank reports")
+    return {**recs, "spawn_s": spawn_s, "stacked_s": stacked_s}
+
+
+def phase_dist_paths(torch):
+    """Phase 17b (PR 23): every other graph path with one process per
+    worker over gloo on the card (every rank on ``cuda:0``, the
+    collectives staged through host memory) at W = 2 and 4, each cell
+    beside the stacked run of the same flags in this process: serve
+    (graphgen-gcn, 64 Zipf requests), the tiered cache (graphgen-gcn-deep,
+    20 steps), the L3 host store (graphgen-gcn at depth 2), and at W = 4
+    the deep run's ``--export-serve`` file, a server warm-started from
+    it, ``--offline`` and ``--autotune``.  Gates: ``dist_paths_cell``'s.
+    Records: each rank's median step or request and the transport's
+    share, and the phase's seconds."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_paths")
+    launches = {}
+    try:
+        widths = {w: dist_paths_cell(torch, w, tmp, launches)
+                  for w in DIST_WORKERS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[dist paths] phase took {seconds:.1f} s")
+    return {"launches": launches, "widths": widths, "seconds": seconds}
 
 
 def nccl_cases(torch, dev):
@@ -4098,6 +4554,7 @@ def main():
     phase_kernels(torch, dev)
     if opts.dist_only:
         phase_dist(torch)
+        phase_dist_paths(torch)
         phase_nccl(torch)
         print("[dist-only] stopping after the process backend's phases")
         return
@@ -4119,6 +4576,7 @@ def main():
     baselines = phase_baselines(torch)
     recovery = phase_recovery(torch)
     dist_res = phase_dist(torch)
+    paths_res = phase_dist_paths(torch)
     nccl_res = phase_nccl(torch)
     phase_flash(torch, dev)
     phase_ssd_kernels(torch, dev)
@@ -4131,7 +4589,7 @@ def main():
             + list(host_res.values()) + [merge_res]
             + list(offline_res.values()) + [ckpt_res]
             + [r for k, r in autotune_res.items() if k != "first_step"]
-            + [agree_at, recovery, dist_res, nccl_res]
+            + [agree_at, recovery, dist_res, paths_res, nccl_res]
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
@@ -4182,6 +4640,9 @@ def main():
     print(json.dumps({"dist": {f"W={w}": r
                                for w, r in dist_res["widths"].items()},
                       "dist_seconds": dist_res["seconds"],
+                      "dist_paths": {f"W={w}": r for w, r in
+                                     paths_res["widths"].items()},
+                      "dist_paths_seconds": paths_res["seconds"],
                       "nccl": nccl_res}))
     print(json.dumps({"lm": {"arch": LM_ARCH, "prefill": {
         "batch": PREFILL_B, "seq": PREFILL_S, **{k: prefill[k] for k in (

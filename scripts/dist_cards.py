@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The process backend on as many cards as workers: ``chip_smoke.py``'s
-``dist`` and ``nccl`` phases alone.
+``dist``, ``dist paths`` and ``nccl`` phases alone.
 
 With four cards visible, rank ``r`` of a W-worker run takes ``cuda:r``,
 so the ``dist`` phase's gloo cells (W = 2, 4) stage through host memory
@@ -8,7 +8,10 @@ from separate cards, and the ``nccl`` phase runs the same cells over NCCL
 (NVLink between the cards) after its world-size-1 check; every cell is
 held to the stacked run of the same flags on ``cuda:0`` by all of
 ``chip_smoke.dist_cell``'s gates, and prints its median step, bytes per
-round and transport share.  Card only, from the repository root (four
+round and transport share; the ``dist paths`` phase's cells (serve,
+the tiered cache, the L3 host store, the export and a warm-started
+server, offline, autotune) run the same way, ranks on ``cuda:r``.
+Card only, from the repository root (four
 cards for the NCCL cells; with fewer it says which it did not run):
 ``python3 scripts/dist_cards.py``.
 """
@@ -38,9 +41,12 @@ def main() -> None:
     _build.build()
     _build.library()
     dist = cs.phase_dist(torch)
+    paths = cs.phase_dist_paths(torch)
     nccl = cs.phase_nccl(torch)
     print(json.dumps({"dist": {f"W={w}": r for w, r in
                                dist["widths"].items()},
+                      "dist_paths": {f"W={w}": r for w, r in
+                                     paths["widths"].items()},
                       "nccl": nccl["widths"], "cards": smi}))
 
 

@@ -3,7 +3,8 @@
 ``repro`` runs each worker as one ``shard_map`` instance and moves data
 between them with ``lax`` collectives.  The port has two backends for
 the same five operations (``axis_index``, ``all_gather``, ``all_to_all``,
-``ppermute``, ``all_reduce``):
+``ppermute``, ``all_reduce``), plus a ``broadcast`` from worker 0 that
+the serving loop's request header rides:
 
 * ``StackedGroup`` (``--dist none``, the default): all ``W`` workers live
   in one process, every per-worker array carries a leading ``[W, ...]``
@@ -31,6 +32,8 @@ import time
 from typing import Dict, Sequence, Tuple
 
 import torch
+
+from .config import resolve_device
 
 #: ``all_reduce`` operations
 REDUCE_OPS = ("sum", "max")
@@ -86,16 +89,24 @@ class WorkerGroup:
         ``[L, ...]``, every worker holding the reduction over all ``W``."""
         raise NotImplementedError
 
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Worker 0's block to every worker: ``x [L, ...]`` -> ``[L, ...]``,
+        each row worker 0's row (``lax`` has no such op: the serving loop's
+        request header, which only worker 0 holds, rides it)."""
+        raise NotImplementedError
+
 
 class StackedGroup(WorkerGroup):
-    """All ``world`` workers in this process, on the stacked axis."""
+    """All ``world`` workers in this process, on the stacked axis, on the
+    card unless ``device`` says otherwise (``resolve_device`` raises where
+    no card is present)."""
 
-    def __init__(self, world: int, device=None):
+    def __init__(self, world: int, device="cuda"):
         if world < 1:
             raise ValueError(f"need at least one worker, got {world}")
         self.world = self.local = int(world)
         self.rank = 0
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
 
     def all_gather(self, x):
         w = x.shape[0]
@@ -121,6 +132,9 @@ class StackedGroup(WorkerGroup):
             else x.amax(0, keepdim=True)
         return red.to(x.dtype).expand(x.shape)
 
+    def broadcast(self, x):
+        return x[:1].expand(x.shape)
+
 
 def stacked(x: torch.Tensor) -> StackedGroup:
     """The stacked group of a ``[W, ...]`` per-worker array (the default
@@ -140,7 +154,8 @@ class ProcessWorkers(WorkerGroup):
     holds the work that produced its block); ``reset_stats`` zeroes
     them."""
 
-    KINDS = ("all_gather", "all_to_all", "ppermute", "all_reduce")
+    KINDS = ("all_gather", "all_to_all", "ppermute", "all_reduce",
+             "broadcast")
 
     def __init__(self, backend: str, world: int, rank: int, device):
         import torch.distributed as dist
@@ -171,12 +186,14 @@ class ProcessWorkers(WorkerGroup):
         self._staging += time.perf_counter() - t0
         return h
 
-    def _in(self, t: torch.Tensor, dtype) -> torch.Tensor:
-        """A received block back on the device in its own dtype."""
-        if self.staged:
+    def _in(self, t: torch.Tensor, dtype, device=None) -> torch.Tensor:
+        """A received block back on ``device`` (default: the group's) in
+        its own dtype."""
+        device = self.device if device is None else device
+        if self.staged and device.type == "cuda":
             t0 = time.perf_counter()
-            t = t.to(self.device)
-            torch.cuda.current_stream(self.device).synchronize()
+            t = t.to(device)
+            torch.cuda.current_stream(device).synchronize()
             self._staging += time.perf_counter() - t0
         return t.view(torch.bool) if dtype == torch.bool else t
 
@@ -266,3 +283,12 @@ class ProcessWorkers(WorkerGroup):
             return self._in(t, x.dtype)[None]
         return self._run("all_reduce", go, x, x[0].nbytes)
 
+    def broadcast(self, x):
+        self._check(x)
+
+        def go(x):
+            t = self._out(x[0]).clone()
+            self._dist.broadcast(t, src=0)
+            return self._in(t, x.dtype, x.device)[None]
+        sent = x[0].nbytes * (self.world - 1) if self.rank == 0 else 0
+        return self._run("broadcast", go, x, sent)

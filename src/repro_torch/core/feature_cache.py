@@ -206,6 +206,23 @@ class TieredCache(NamedTuple):
         return TieredCache(self.l1.worker(w), self.l2.worker(w))
 
 
+def state_leaves(state, prefix: str = ""):
+    """``(name, tensor)`` pairs of a cache state, flat or tiered
+    (``"l1.keys"``, ...), in field order."""
+    for name, leaf in zip(state._fields, state):
+        if isinstance(leaf, tuple):
+            yield from state_leaves(leaf, f"{prefix}{name}.")
+        else:
+            yield prefix + name, leaf
+
+
+def map_state(fn, state):
+    """The cache state (flat or tiered) with ``fn`` applied to every
+    leaf."""
+    return type(state)(*(map_state(fn, leaf) if isinstance(leaf, tuple)
+                         else fn(leaf) for leaf in state))
+
+
 class CacheStats(NamedTuple):
     """Per-worker telemetry of one cached fetch (``[W]`` int32 tensors);
     fields match ``repro.core.feature_cache.CacheStats`` (the host-store

@@ -224,7 +224,8 @@ def _sync(device) -> None:
 
 
 def offline_loop(gen_fn, train_fn, device_args, seed_schedule: np.ndarray,
-                 params, opt_state, draws, cache=None, host_store=None):
+                 params, opt_state, draws, cache=None, host_store=None,
+                 group=None):
     """The GraphGen baseline: generate every batch, store it, read it all
     back, train.
 
@@ -238,7 +239,9 @@ def offline_loop(gen_fn, train_fn, device_args, seed_schedule: np.ndarray,
     host buffer; the train phase patches the holes on load.  Returns
     ``(params, opt_state, losses, {"t_gen", "t_train"})``, with the cache
     last when one is given; the times are seconds of the host clock, each
-    phase ending with the card idle."""
+    phase ending with the card idle.  On a process ``group`` (one worker
+    per process, ``seed_schedule [steps, 1, b]`` its own seeds) each
+    time is the max over the ranks."""
     cached = cache is not None
     n_steps, w, b = seed_schedule.shape
     dev = device_args[0].device
@@ -282,6 +285,9 @@ def offline_loop(gen_fn, train_fn, device_args, seed_schedule: np.ndarray,
         losses.append(loss)
     _sync(dev)
     t_train = time.perf_counter() - t0
+    if group is not None and group.local < group.world:
+        t = torch.tensor([[t_gen, t_train]], dtype=torch.float64, device=dev)
+        t_gen, t_train = group.all_reduce(t, "max")[0].tolist()
     stats = {"t_gen": t_gen, "t_train": t_train}
     if cached:
         return params, opt_state, torch.stack(losses), stats, cache

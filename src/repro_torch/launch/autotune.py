@@ -33,9 +33,17 @@ bit-identical :class:`Prediction` s and rankings.  Where the reference
 takes PRNG keys, the port takes the draws seam: ``draws_for(fanouts)``
 returns a ``SeededDraws`` (a candidate may permute the fanouts, which
 changes the draw shapes).
+
+On a process group (``--dist gloo|nccl``) every rank traces its own
+worker and reduces each step's counters over the group (sums, the
+probe-hit peak by max) and its wall time by max, so every rank holds the
+stacked run's records (wall times apart) and one trace; every rank then
+fits, searches and validates alike, and the ranks check that their picks
+are equal.
 """
 from __future__ import annotations
 
+import hashlib
 import itertools
 import math
 import time
@@ -529,19 +537,46 @@ def search(model: CostModel, grid=None):
     return ranked[0], ranked
 
 
-def _sum_stats(stats) -> dict:
-    """Host-side reduction of one step's stacked ``(FetchStats,
-    CacheStats)``: every per-worker counter summed (the probe-hit peak:
-    its max) into Python ints."""
+def _sum_stats(stats, group=None) -> dict:
+    """Host-side reduction of one step's ``(FetchStats, CacheStats)``
+    (``[L]`` each): every per-worker counter summed (the probe-hit peak:
+    its max) into Python ints, over the held workers and, on a process
+    ``group``, over the ranks."""
     fs, cs = stats
-    out = {f: int(v.sum()) for f, v in zip(fs._fields, fs)}
-    for f, v in zip(cs._fields, cs):
-        out[f] = int(v.max()) if f == "probe_hit_peak" else int(v.sum())
-    return out
+    names = list(fs._fields) + list(cs._fields)
+    vals = torch.stack([v.to(torch.int64) for v in (*fs, *cs)], dim=-1)
+    peak = names.index("probe_hit_peak")
+    total, top = vals.sum(0, keepdim=True), vals.amax(0, keepdim=True)
+    if group is not None and group.local < group.world:
+        total, top = group.all_reduce(total), group.all_reduce(top, "max")
+    total, top = total[0].tolist(), top[0].tolist()
+    return {f: top[i] if i == peak else total[i]
+            for i, f in enumerate(names)}
+
+
+def _group_max(group, x: float) -> float:
+    """``x`` reduced by max over the ranks of a process ``group``."""
+    if group is None or group.local == group.world:
+        return x
+    t = torch.tensor([[x]], dtype=torch.float64, device=group.device)
+    return float(group.all_reduce(t, "max")[0, 0])
+
+
+def _check_agree(group, what: str, value) -> None:
+    """Raise unless every rank of a process ``group`` holds the same
+    ``value`` (compared by a digest of its ``repr``)."""
+    if group is None or group.local == group.world:
+        return
+    h = int.from_bytes(hashlib.sha256(repr(value).encode()).digest()[:7],
+                       "little")
+    t = torch.tensor([[h]], dtype=torch.int64, device=group.device)
+    every = group.all_gather(t)[0]
+    if not bool((every == every[0]).all()):
+        raise RuntimeError(f"autotune: the ranks' {what} differ")
 
 
 def record_trace(gen_fn, device_args, probes, traced: TracedConfig, *,
-                 cache=None, store=None) -> Trace:
+                 cache=None, store=None, group=None) -> Trace:
     """Run the instrumented window and build the :class:`Trace`.
 
     ``gen_fn`` must be the ``collect_stats=True`` generator for the
@@ -551,7 +586,9 @@ def record_trace(gen_fn, device_args, probes, traced: TracedConfig, *,
     step), so ``host_gather_bytes`` enters the records.  A step whose
     telemetry breaches the tier-sum identity ends the window early (the
     short trace then fails :meth:`CostModel.fit`); the in-flight gather
-    is drained on every exit."""
+    is drained on every exit.  On a process ``group`` the ``probes`` are
+    the rank's own rows and each record is reduced over the ranks (wall
+    time by max)."""
     from ..core.host_store import empty_admit
 
     host = traced.store == "host"
@@ -559,6 +596,7 @@ def record_trace(gen_fn, device_args, probes, traced: TracedConfig, *,
         raise ValueError('record_trace on a store="host" trace needs the '
                          'HostFeatureStore to drive the gather pipeline')
     dev = device_args[0].device
+    held = group.local if group is not None else traced.n_workers
     records = []
     pending = None
     prev_req = None
@@ -569,7 +607,7 @@ def record_trace(gen_fn, device_args, probes, traced: TracedConfig, *,
                 if host and cache is not None:
                     if pending is None:
                         adm_ids, adm_rows = empty_admit(
-                            traced.n_workers, traced.feat_dim, device=dev)
+                            held, traced.feat_dim, device=dev)
                     else:
                         adm_ids, adm_rows = prev_req.ids, pending.rows()
                     batch, cache, req, stats = gen_fn(
@@ -588,8 +626,8 @@ def record_trace(gen_fn, device_args, probes, traced: TracedConfig, *,
                     batch, stats = gen_fn(device_args, seeds, draws)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-                wall = time.perf_counter() - t0
-                s = _sum_stats(stats)
+                wall = _group_max(group, time.perf_counter() - t0)
+                s = _sum_stats(stats, group)
                 rec = TraceRecord(
                     n_requests=s["n_requests"], n_unique=s["n_unique"],
                     n_dropped=s["n_dropped"],
@@ -626,6 +664,8 @@ class AutotuneResult(NamedTuple):
     picks: Tuple["ValidatedPick", ...] = ()
     #: candidates the offline search ranked
     n_searched: int = 0
+    #: the offline search's ranking, best first
+    ranking: Tuple[Prediction, ...] = ()
 
 
 class ValidatedPick(NamedTuple):
@@ -656,10 +696,10 @@ def _traced_config(fanouts, w, b, feat_dim, cache_cfg, slack,
 
 
 def _instrumented_run(device, part, feats, labels, tc: TracedConfig,
-                      cache_cfg, probes) -> Trace:
-    """Place the data on ``device``, build the ``collect_stats`` generator
-    for ``tc``, and record one trace window over ``probes`` (cold
-    cache)."""
+                      cache_cfg, probes, group=None) -> Trace:
+    """Place the data on ``device`` (a process ``group``: its own shard on
+    the group's device), build the ``collect_stats`` generator for
+    ``tc``, and record one trace window over ``probes`` (cold cache)."""
     from ..core.generation import make_distributed_generator
 
     cached = tc.mode is not None and tc.cache_rows > 0
@@ -667,7 +707,8 @@ def _instrumented_run(device, part, feats, labels, tc: TracedConfig,
         part, feats, labels, fanouts=tc.fanouts,
         capacity_slack=tc.capacity_slack,
         cache_cfg=cache_cfg if cached else None,
-        feature_store=tc.store, collect_stats=True, device=device)
+        feature_store=tc.store, collect_stats=True, device=device,
+        group=group)
     store = cache = None
     if tc.store == "host" and cached:
         gen_fn, device_args, store, cache = out
@@ -678,7 +719,7 @@ def _instrumented_run(device, part, feats, labels, tc: TracedConfig,
     else:
         gen_fn, device_args = out
     return record_trace(gen_fn, device_args, probes, tc,
-                        cache=cache, store=store)
+                        cache=cache, store=store, group=group)
 
 
 def autotune_gcn(device, part, feats, labels, *, fanouts, cache_cfg,
@@ -686,7 +727,7 @@ def autotune_gcn(device, part, feats, labels, *, fanouts, cache_cfg,
                  steps: int = 8, slack: float = 2.0,
                  validator_ratio: float = VALIDATOR_RATIO,
                  validator_probes: int = 3,
-                 validator_picks: int = 3) -> AutotuneResult:
+                 validator_picks: int = 3, group=None) -> AutotuneResult:
     """The full trace -> fit -> search -> validate pass for the GCN run.
 
     Records a ``steps``-long window at the configured point (round ``t``:
@@ -698,19 +739,25 @@ def autotune_gcn(device, part, feats, labels, *, fanouts, cache_cfg,
     demotes no hit and lands within ``validator_ratio`` of
     ``max(predicted, traced)`` step time is accepted; otherwise, or when
     the trace is too short or inconsistent to fit, the result says to
-    fall back to the calibration ladders."""
+    fall back to the calibration ladders.
+
+    On a process ``group`` ``seeds_for(t)`` and ``draws_for`` give the
+    rank's own rows; every rank runs this whole pass in lockstep (the
+    traces are reduced over the group) and only worker 0's rank prints."""
     w = part.n_workers
+    held = group.local if group is not None else w
     b = batch_per_worker
     feat_dim = int(feats.shape[1])
     tc = _traced_config(fanouts, w, b, feat_dim, cache_cfg, slack,
                         feature_store)
+    say = print if group is None or group.lead else (lambda *a: None)
 
     def probes_for(fo, n):
         draws = draws_for(tuple(fo))
-        return [(seeds_for(t), draws(t, w, b)) for t in range(n)]
+        return [(seeds_for(t), draws(t, held, b)) for t in range(n)]
 
     trace = _instrumented_run(device, part, feats, labels, tc, cache_cfg,
-                              probes_for(tc.fanouts, steps))
+                              probes_for(tc.fanouts, steps), group)
     try:
         model = CostModel.fit(trace)
     except (TraceTooShort, TraceInconsistent) as e:
@@ -722,7 +769,8 @@ def autotune_gcn(device, part, feats, labels, *, fanouts, cache_cfg,
                                      "demotion-floor and validity filters",
                               trace=trace)
     best, ranked = search(model, grid)
-    print(f"autotune: searched {len(ranked)} candidates offline; best "
+    _check_agree(group, "rankings", [p.candidate for p in ranked])
+    say(f"autotune: searched {len(ranked)} candidates offline; best "
           f"predicted {best.step_time_s * 1e3:.1f} ms/step vs traced "
           f"{model.wall_mean_s * 1e3:.1f}")
     # live validation: the ladders' acceptance rules, walked down the
@@ -731,7 +779,7 @@ def autotune_gcn(device, part, feats, labels, *, fanouts, cache_cfg,
     picks = []
     for pred in ranked[:max(validator_picks, 1)]:
         cand = pred.candidate
-        print(f"autotune: validating fanouts={cand.fanouts} "
+        say(f"autotune: validating fanouts={cand.fanouts} "
               f"rows={cand.cache_rows} l1={cand.l1_rows} "
               f"assoc={cand.assoc} hit_cap={cand.hit_cap} "
               f"slack={cand.capacity_slack} "
@@ -744,7 +792,8 @@ def autotune_gcn(device, part, feats, labels, *, fanouts, cache_cfg,
                     if cand_tc.mode is not None else cache_cfg)
         vtrace = _instrumented_run(device, part, feats, labels, cand_tc,
                                    cand_cfg,
-                                   probes_for(cand.fanouts, validator_probes))
+                                   probes_for(cand.fanouts, validator_probes),
+                                   group)
         vwarm = vtrace.warm_records() or vtrace.records
         dropped = sum(r.n_dropped for r in vtrace.records)
         demoted = sum(r.n_probe_demoted for r in vtrace.records)
@@ -752,24 +801,26 @@ def autotune_gcn(device, part, feats, labels, *, fanouts, cache_cfg,
         bound = validator_ratio * max(pred.step_time_s, model.wall_mean_s)
         ok = not dropped and not demoted and measured <= bound
         picks.append(ValidatedPick(pred, measured, dropped, demoted, ok))
-        print(f"autotune: measured {measured * 1e3:.1f} ms/step warm "
+        _check_agree(group, "verdicts", (cand, ok))
+        say(f"autotune: measured {measured * 1e3:.1f} ms/step warm "
               f"(bound {bound * 1e3:.1f})")
         if ok:
             return AutotuneResult(True, "accepted", candidate=cand,
                                   prediction=pred, trace=trace,
                                   measured_step_s=measured,
                                   picks=tuple(picks),
-                                  n_searched=len(ranked))
+                                  n_searched=len(ranked),
+                                  ranking=tuple(ranked))
         last_reason = (
             f"dropped={dropped} demoted={demoted} "
             f"measured={measured * 1e3:.1f} ms > bound "
             f"{bound * 1e3:.1f} ms" if measured > bound else
             f"dropped={dropped} demoted={demoted}")
-        print(f"autotune: validator rejected the pick ({last_reason})")
+        say(f"autotune: validator rejected the pick ({last_reason})")
     return AutotuneResult(
         False,
         f"validator rejected {min(max(validator_picks, 1), len(ranked))} "
         f"ranked pick(s); last: {last_reason}",
         candidate=best.candidate, prediction=best, trace=trace,
         measured_step_s=measured, picks=tuple(picks),
-        n_searched=len(ranked))
+        n_searched=len(ranked), ranking=tuple(ranked))

@@ -17,11 +17,15 @@
 * ``python -m repro_torch.launch.mesh --workers W --dist gloo --device
   cpu module:function ['{"kwarg": ...}']`` runs ``function(group,
   **kwargs)`` on every rank (``run`` is the same from Python).
+* ``launch_or_join(module, argv, args, body)`` is the ``--dist`` half of
+  the train and serve launchers' ``main``: spawn the ranks, or, in a
+  rank, join the group and run ``body(group)``.
 
 Rank ``r`` takes ``cuda:r`` when at least ``W`` cards are visible and
 ``cuda:0`` otherwise (gloo only: NCCL refuses two ranks on one card, so
 ``--dist nccl`` with fewer cards than workers raises); ``--device cpu``
-keeps every rank on the CPU.  ``make_production_mesh`` waits for ROADMAP
+keeps every rank on the CPU.  Every entry point here takes the card
+unless its caller names the CPU.  ``make_production_mesh`` waits for ROADMAP
 Queue 1 item 7.4.
 """
 from __future__ import annotations
@@ -52,8 +56,10 @@ ENV_STORE = "REPRO_DIST_FILE"
 _SRC = str(Path(__file__).resolve().parents[2])
 
 
-def make_local_group(n_workers: int = 1, device="cpu") -> StackedGroup:
-    """The stacked group of ``n_workers`` workers in this process."""
+def make_local_group(n_workers: int = 1, device="cuda") -> StackedGroup:
+    """The stacked group of ``n_workers`` workers in this process, on the
+    card unless ``device`` says otherwise (``resolve_device`` raises where
+    no card is present: the group never drops to the CPU on its own)."""
     return StackedGroup(n_workers, resolve_device(device))
 
 
@@ -179,11 +185,42 @@ def spawn(argv, world: int, timeout_s: float, env=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run(target: str, world: int, backend: str = "gloo", device="cpu",
+def launch_or_join(module: str, argv, args, body) -> None:
+    """The ``--dist gloo|nccl`` half of a launcher's ``main``
+    (``args.dist``, ``args.workers``, ``args.device``,
+    ``args.dist_timeout``): in a rank (``launched()``) join the group and
+    call ``body(group)``; otherwise build the kernels once on a card and
+    spawn ``python -m module argv...`` once per rank, exiting non-zero if
+    any rank fails or outlives the timeout."""
+    check_backend(args.dist, args.workers, args.device)
+    if launched():
+        group = join_from_env(args.dist, args.device, world=args.workers)
+        try:
+            body(group)
+        finally:
+            close(group)
+        return
+    cuda = torch.device(args.device).type == "cuda"
+    print(f"--dist {args.dist}: {args.workers} worker processes on "
+          f"{args.device}"
+          + ("; gloo stages every collective's CUDA blocks through host "
+             "memory" if cuda and args.dist == "gloo" else ""), flush=True)
+    if cuda:
+        from ..kernels import _build
+        _build.build()          # once, before the ranks load it
+    rc = spawn(["-m", module, *argv], args.workers, args.dist_timeout)
+    if rc:
+        raise SystemExit(f"--dist {args.dist}: a rank failed (exit {rc})")
+
+
+def run(target: str, world: int, backend: str = "gloo", device="cuda",
         kwargs=None, timeout_s: float = 600, env=None) -> int:
     """``spawn`` of this module's runner: ``target`` (``module:function``)
     called as ``function(group, **kwargs)`` on every rank; returns the
-    launcher's code."""
+    launcher's code.  The ranks take the card unless ``device`` says
+    otherwise; ``resolve_device`` refuses ``cuda`` here, before any rank
+    starts, where no card is present."""
+    resolve_device(device)
     argv = ["-m", "repro_torch.launch.mesh", "--workers", str(world),
             "--dist", backend, "--device", str(device), target,
             json.dumps(kwargs or {})]

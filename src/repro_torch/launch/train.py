@@ -11,16 +11,24 @@ spawns the ``W`` ranks itself, or joins a group ``torchrun`` set up
 graph and tables on the host from the seed and places only its own
 shard; its loss is the mean over its own seeds, and the gradients are
 averaged over the ranks (``--grad-sync psum|tree``,
-``train/train_loop.py``) before AdamW's global-norm clip.  Every value a
+``train/train_loop.py``) before AdamW's global-norm clip.  On the stacked
+worker axis ``--per-worker-loss`` does the same arithmetic in one
+process: each worker's mean loss differentiated on its own rows, the
+gradients averaged by the stacked group's sync.  Every value a
 rank branches on (the ladders' drop and demotion counts, the warm miss
 peak, the rollback checks, the logged totals) is reduced over the group
 first, so every rank picks the stacked run's rungs; rank 0 alone logs
-and writes checkpoints.  ``--autotune``, ``--feature-store host``, the
-tiered cache, ``--export-serve`` and ``offline_gcn`` run on the stacked
-axis only for now and refuse ``--dist`` (ROADMAP Queue 1 item 7.3).
+and writes checkpoints.  Every path runs on either backend: the tiered
+cache, ``--feature-store host`` (each rank gathers its own staged misses
+from its own copy of the host table), ``--export-serve`` (rank 0 gathers
+every rank's cache shard and writes the stacked layout), ``--offline``
+and ``--autotune`` (every rank traces its own worker; the trace is
+reduced over the group, so every rank searches the stacked run's trace
+and picks alike).
 ``--report DIR`` writes each rank's (or the stacked run's) losses,
 parameters, Adam moments, chosen rungs, first rounds' batch digests and
-stats, kernel launches, step times and collective counters to ``DIR``.
+stats, kernel launches, step times, collective counters, the L3 store's
+telemetry and the autotuner's trace and ranking to ``DIR``.
 Before the loop the drop-aware
 capacity ladder and the compact-wire hit-cap ladder calibrate the
 exchange buffers (each rung from a cold cache), and ``--warm-recalibrate
@@ -38,7 +46,8 @@ or blocking (``1``).  ``--ckpt-dir``/``--ckpt-every`` checkpoint
 from the latest one (batch ``start``'s seeds and draws first, a cold
 cache), and ``--export-serve DIR`` saves the trained params and the warm
 cache for ``repro_torch.launch.serve --warm-from DIR``.  ``offline_gcn``
-runs the same setup through the GraphGen baseline (``offline_loop``).
+(``--offline``) runs the same setup through the GraphGen baseline
+(``offline_loop``).
 
 ``--autotune`` (``--autotune-steps N``, default 8) replaces the ladders
 with one instrumented trace window, an offline search against a cost
@@ -80,7 +89,8 @@ from ..core.collectives import ProcessWorkers, StackedGroup, WorkerGroup
 from ..core.config import TrainConfig
 from ..convert import (adam_state_from_numpy, adam_state_to_numpy,
                        gcn_params_from_numpy, gcn_params_to_numpy)
-from ..core.feature_cache import CacheConfig, init_cache_state
+from ..core.feature_cache import (CacheConfig, init_cache_state, map_state,
+                                  state_leaves)
 from ..core.generation import (SeededDraws, make_distributed_generator,
                                make_generator_fn, probe_round_capacity)
 from ..core.partition import partition_edges
@@ -91,7 +101,7 @@ from ..kernels import ops
 from ..models.gcn import gcn_loss, init_gcn
 from ..train import checkpoint as ckpt
 from ..train.optimizer import adam_update, init_adam
-from ..train.train_loop import make_step_sync
+from ..train.train_loop import make_grad_sync, make_step_sync
 from . import mesh
 
 #: ascending slack ladder probed by the drop-aware capacity calibration
@@ -104,7 +114,8 @@ HIT_CAP_LADDER = (0.125, 0.25, 0.5)
 REPORT_ROUNDS = 3
 
 
-def make_gcn_train_fn(tcfg: TrainConfig, group: WorkerGroup = None):
+def make_gcn_train_fn(tcfg: TrainConfig, group: WorkerGroup = None,
+                      per_worker: bool = False):
     """``train_fn(model, opt_state, batch) -> (model, opt_state, loss)``:
     the GCN loss, its gradient with respect to every parameter (in
     ``GCN.leaves()`` order, the optimizer state's), and one
@@ -113,16 +124,41 @@ def make_gcn_train_fn(tcfg: TrainConfig, group: WorkerGroup = None):
     On a process ``group`` (one worker per process) the batch is the
     rank's own seeds: the gradients and the loss are averaged over the
     ranks (``tcfg.grad_sync``) before ``adam_update`` clips the global
-    gradient, and the loss returned is the global mean."""
-    sync = None
+    gradient, and the loss returned is the global mean.  ``per_worker``
+    on the stacked ``group`` does the same in one process: worker ``w``'s
+    mean loss is differentiated on a copy of its rows alone, and the
+    ``[W, ...]`` gradients and losses are averaged by the stacked group's
+    sync (a ``--dist`` run's arithmetic; the default differentiates the
+    global mean in one pass)."""
+    sync = split = None
     if group is not None and group.local < group.world:
         sync = make_step_sync(group, tcfg.grad_sync)
+    elif per_worker:
+        if group is None:
+            raise ValueError("per_worker needs the stacked group")
+        split = make_grad_sync(group, tcfg.grad_sync)
+
+    def per_worker_grads(model, params, batch):
+        b = batch.batch_size // group.world
+        flats = []
+        for w in range(group.world):
+            loss = gcn_loss(model, _worker_rows(batch, w * b, b))
+            flats.append(torch.cat(
+                [g.reshape(-1) for g in torch.autograd.grad(loss, params)]
+                + [loss.detach().reshape(1)]))
+        out = split([torch.stack(flats)])[0][0]
+        parts = torch.split(out, [p.numel() for p in params] + [1])
+        return ([q.reshape(p.shape) for q, p in zip(parts, params)],
+                parts[-1][0])
 
     def train_fn(model, opt_state, batch):
         params = model.leaves()
-        loss = gcn_loss(model, batch)
-        grads = torch.autograd.grad(loss, params)
-        loss = loss.detach()
+        if split is not None:
+            grads, loss = per_worker_grads(model, params, batch)
+        else:
+            loss = gcn_loss(model, batch)
+            grads = torch.autograd.grad(loss, params)
+            loss = loss.detach()
         if sync is not None:
             grads, loss = sync(grads, loss)
         new, opt_state, _ = adam_update(tcfg, params, grads, opt_state)
@@ -131,6 +167,19 @@ def make_gcn_train_fn(tcfg: TrainConfig, group: WorkerGroup = None):
                 p.copy_(n)
         return model, opt_state, loss
     return train_fn
+
+
+def _worker_rows(batch, start: int, n: int):
+    """Seed rows ``start .. start + n`` of ``batch`` with their hops,
+    masks, features and labels, each copied into its own allocation (the
+    layout a rank's batch has)."""
+    def rows(a):
+        return a.narrow(0, start, n).clone()
+    return batch._replace(
+        seeds=rows(batch.seeds), x_seed=rows(batch.x_seed),
+        labels=rows(batch.labels),
+        **{k: tuple(rows(a) for a in getattr(batch, k))
+           for k in ("hops", "masks", "x_hops")})
 
 
 def _group_of(device_args, group):
@@ -275,28 +324,6 @@ def _model_config(args):
     return cfg
 
 
-def refuse_dist(args, cfg=None) -> None:
-    """Raise for a ``--dist`` run of a path that runs on the stacked axis
-    only for now (each names the ROADMAP item that ports it)."""
-    if args.dist == "none":
-        return
-    cfg = _model_config(args) if cfg is None else cfg
-    item = "ROADMAP Queue 1 item 7.3"
-    unported = (
-        (args.autotune, "--autotune (the profile autotuner)"),
-        (cfg.feature_store == "host", "--feature-store host (the L3 "
-                                      "host store)"),
-        (cfg.cache_rows > 0 and cfg.cache_mode == "tiered",
-         f"the tiered cache ({cfg.name})"),
-        (bool(args.export_serve),
-         "--export-serve (the serving tier)"))
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"--dist {args.dist}: {what} runs on the stacked worker "
-                f"axis only (--dist none); its process backend is {item}")
-
-
 def build_gcn_run(args, group: WorkerGroup = None) -> dict:
     """Everything ``train_gcn`` sets up before its loop, from ``args``:
     the graph and tables, the calibrated (or autotuned) slack and cache
@@ -314,12 +341,8 @@ def build_gcn_run(args, group: WorkerGroup = None) -> dict:
         raise ValueError(f"--workers {w}, but the group has {group.world}")
     dev = group.device
     cfg = _model_config(args)
-    refuse_dist(args, cfg)
     fanouts = cfg.fanouts
     host = cfg.feature_store == "host"
-    if host and args.report:
-        raise ValueError("--report records the device store's rounds; "
-                         "drop --feature-store host")
     if host and args.warm_recalibrate:
         raise SystemExit("--warm-recalibrate shrinks the owner-exchange "
                          "buffers, which --feature-store host replaces "
@@ -354,20 +377,22 @@ def build_gcn_run(args, group: WorkerGroup = None) -> dict:
             dev, part, feats, labels, fanouts=fanouts, cache_cfg=cache_cfg,
             feature_store=cfg.feature_store, batch_per_worker=b,
             seeds_for=seeds_for,
-            draws_for=lambda fo: SeededDraws(fo, args.seed + 2, dev),
+            draws_for=lambda fo: SeededDraws(fo, args.seed + 2, dev,
+                                             group=group),
             steps=args.autotune_steps,
-            slack=(args.capacity_slack or cfg.capacity_slack or 2.0))
+            slack=(args.capacity_slack or cfg.capacity_slack or 2.0),
+            group=group)
         if res.accepted:
             autotuned = res
             cfg = cfg.with_candidate(res.candidate)
             fanouts = cfg.fanouts
             if cached:
                 cache_cfg = candidate_cache_cfg(cache_cfg, res.candidate)
-            print(f"autotune: accepted (measured "
-                  f"{res.measured_step_s * 1e3:.1f} ms/step warm)")
+            _say(group, f"autotune: accepted (measured "
+                        f"{res.measured_step_s * 1e3:.1f} ms/step warm)")
         else:
-            print(f"autotune: WARNING — falling back to the calibration "
-                  f"ladders ({res.reason})")
+            _say(group, f"autotune: WARNING — falling back to the "
+                        f"calibration ladders ({res.reason})")
     # the training draws follow the final fanouts
     draws = SeededDraws(fanouts, args.seed + 1, dev, group=group)
 
@@ -385,18 +410,22 @@ def build_gcn_run(args, group: WorkerGroup = None) -> dict:
             slack = 2.0
         if w > 1 and args.capacity_slack is None \
                 and cfg.capacity_slack is None:
-            print("capacity_slack fixed at 2.0 (--feature-store host skips "
-                  "the drop-aware ladder: misses stage to the L3 store "
-                  "instead of the owner exchange)")
+            _say(group, "capacity_slack fixed at 2.0 (--feature-store host "
+                        "skips the drop-aware ladder: misses stage to the "
+                        "L3 store instead of the owner exchange)")
+        # every rank keeps its own store on the whole host table and
+        # gathers only its own row's staged misses
         gen_fn, device_args, store, *c0 = make_distributed_generator(
             part, feats, labels, fanouts=fanouts, capacity_slack=slack,
             cache_cfg=cache_cfg, feature_store="host",
-            host_gather_depth=cfg.host_gather_depth, device=dev)
+            host_gather_depth=cfg.host_gather_depth,
+            collect_stats=bool(args.report), group=group)
         cache = c0[0] if cached else None
-        print(f"L3 host feature store: {feats.shape[0]}x{feats.shape[1]} "
-              f"f32 table ({feats.nbytes / 1e6:.1f} MB) in host RAM, "
-              f"gather depth {cfg.host_gather_depth} "
-              f"({'overlapped' if cfg.host_gather_depth == 2 else 'synchronous'})")
+        depth = cfg.host_gather_depth
+        _say(group, f"L3 host feature store: {feats.shape[0]}x"
+                    f"{feats.shape[1]} f32 table ({feats.nbytes / 1e6:.1f} "
+                    f"MB) in host RAM, gather depth {depth} "
+                    f"({'overlapped' if depth == 2 else 'synchronous'})")
     else:
         # the compact probe wire needs a hit_cap: calibrate one unless the
         # config pins it or --probe-hit-cap was given (replicated mode
@@ -456,43 +485,63 @@ def build_gcn_run(args, group: WorkerGroup = None) -> dict:
             "gen_fn": gen_fn, "group": group,
             "device_args": device_args, "store": store, "cache": cache,
             "model": init_gcn(cfg, args.seed, device=dev),
-            "train_fn": make_gcn_train_fn(tcfg, group), "tcfg": tcfg,
+            "train_fn": make_gcn_train_fn(tcfg, group,
+                                          args.per_worker_loss),
+            "tcfg": tcfg,
             "seeds_np": seeds_np, "seeds_for": seeds_for, "draws": draws,
             "table_bytes": feats.nbytes}
 
 
 def _store_stats(run: dict) -> dict:
-    """The L3 store's telemetry of a run (empty for the device store)."""
+    """The L3 store's telemetry of a run (empty for the device store):
+    bytes shipped and rows gathered summed over the group, and this
+    process's own (``rank_*``)."""
     store = run["store"]
     if store is None:
         return {}
-    return {"host_gather_bytes": store.bytes_issued,
-            "n_l3_hits": store.rows_issued,
+    group = run["group"]
+    mine = torch.tensor([[store.bytes_issued, store.rows_issued]],
+                        dtype=torch.int64, device=group.device)
+    if group.local < group.world:
+        total = group.all_reduce(mine)[0].tolist()
+    else:
+        total = mine[0].tolist()
+    return {"host_gather_bytes": total[0], "n_l3_hits": total[1],
+            "rank_host_gather_bytes": store.bytes_issued,
+            "rank_n_l3_hits": store.rows_issued,
             "table_bytes": run["table_bytes"], "depth": store.depth}
 
 
 class _RoundRecorder:
     """``--report``'s view of the training generator (built with
-    ``collect_stats``): passes each round's ``(batch[, cache])`` on, and
-    keeps the first ``REPORT_ROUNDS`` rounds' batch, ``FetchStats``,
+    ``collect_stats``): passes each round's return on without its stats
+    tail, and keeps the first ``REPORT_ROUNDS`` rounds' batch (with the
+    host store: before its L3 rows are patched in), ``FetchStats``,
     ``CacheStats`` and cache state, in call order."""
 
     def __init__(self, gen_fn, cached: bool):
         self.gen_fn, self.cached, self.rounds = gen_fn, cached, []
 
     def __call__(self, *args):
-        out = self.gen_fn(*args)
-        batch, (fstats, cstats) = out[0], out[-1]
+        *out, (fstats, cstats) = self.gen_fn(*args)
         cache = out[1] if self.cached else None
         if len(self.rounds) < REPORT_ROUNDS:
-            self.rounds.append((batch, fstats, cstats, cache))
-        return (batch, cache) if self.cached else batch
+            self.rounds.append((out[0], fstats, cstats, cache))
+        return tuple(out) if len(out) > 1 else out[0]
 
 
 def _digest(t: torch.Tensor) -> str:
     """Short sha256 of a tensor's bytes (its bit pattern)."""
     return hashlib.sha256(
         t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:20]
+
+
+def cache_digests(group: WorkerGroup, cache) -> dict:
+    """Digests of every held worker's cache block (flat or tiered), keyed
+    by the global worker index."""
+    leaves = list(state_leaves(cache))
+    return {str(group.rank + i): {n: _digest(a[i]) for n, a in leaves}
+            for i in range(group.local)}
 
 
 def _round_report(group: WorkerGroup, b: int, batch, fstats, cstats,
@@ -509,9 +558,8 @@ def _round_report(group: WorkerGroup, b: int, batch, fstats, cstats,
         j = group.rank + i
         out["batch"][str(j)] = {n: _digest(a[i * b:(i + 1) * b])
                                 for n, a in fields}
-        if cache is not None:
-            out["cache"][str(j)] = {n: _digest(a[i])
-                                    for n, a in zip(cache._fields, cache)}
+    if cache is not None:
+        out["cache"] = cache_digests(group, cache)
     for name in ("n_dropped", "n_cache_hits", "n_cache_misses",
                  "n_probe_demoted"):
         out["stats"]["batch." + name] = getattr(batch, name).tolist()
@@ -521,11 +569,23 @@ def _round_report(group: WorkerGroup, b: int, batch, fstats, cstats,
     return out
 
 
+def _state_arrays(model, opt, suffix: str = "") -> dict:
+    """Host copies of the parameters and Adam moments, ``p<i>``, ``m<i>``
+    and ``v<i>`` in ``GCN.leaves()`` order (each name + ``suffix``)."""
+    out = {}
+    for i, p in enumerate(model.leaves()):
+        out[f"p{i}{suffix}"] = p.detach().cpu().numpy().copy()
+        out[f"m{i}{suffix}"] = opt.m[i].cpu().numpy().copy()
+        out[f"v{i}{suffix}"] = opt.v[i].cpu().numpy().copy()
+    return out
+
+
 def _write_report(args, run: dict, res: dict, opt, recorder, step_s,
-                  launches) -> None:
+                  launches, first_state) -> None:
     """``--report DIR``: ``DIR/{rank<r>|stacked}.json`` (losses, rungs,
     the recorded rounds, launches, step times, collective counters) and
-    ``.npz`` (losses, parameters, Adam moments and step)."""
+    ``.npz`` (losses, parameters, Adam moments and step, and the state
+    after the run's first step as ``p<i>@1``, ...)."""
     group = run["group"]
     name = (f"rank{group.rank}" if isinstance(group, ProcessWorkers)
             else "stacked")
@@ -542,16 +602,47 @@ def _write_report(args, run: dict, res: dict, opt, recorder, step_s,
         "rounds": [_round_report(group, run["b"], *r)
                    for r in recorder.rounds] if recorder else [],
         "launches": launches, "step_s": step_s,
-        "collectives": getattr(group, "stats", None)}
+        "collectives": getattr(group, "stats", None),
+        "store": {k: res[k] for k in (
+            "host_gather_bytes", "n_l3_hits", "rank_host_gather_bytes",
+            "rank_n_l3_hits") if k in res},
+        "autotune": autotune_report(run["autotune"]),
+        "n_dropped": res["n_dropped"]}
     with open(os.path.join(args.report, name + ".json"), "w") as f:
         json.dump(meta, f)
     arrays = {"losses": np.asarray(res["losses"], np.float64),
-              "step": opt.step.cpu().numpy()}
-    for i, p in enumerate(res["model"].leaves()):
-        arrays[f"p{i}"] = p.detach().cpu().numpy()
-        arrays[f"m{i}"] = opt.m[i].cpu().numpy()
-        arrays[f"v{i}"] = opt.v[i].cpu().numpy()
+              "step": opt.step.cpu().numpy(),
+              **_state_arrays(res["model"], opt), **first_state}
     np.savez(os.path.join(args.report, name + ".npz"), **arrays)
+
+
+def autotune_report(res) -> dict:
+    """``--report``'s record of an ``AutotuneResult`` (None without
+    ``--autotune``): the trace's records (``wall_time_s`` apart, which is
+    the host clock's), the ranking's candidates and costs, and the
+    validator's verdicts."""
+    if res is None:
+        return None
+    return {"accepted": res.accepted, "reason": res.reason,
+            "candidate": list(res.candidate) if res.candidate else None,
+            "records": [{k: v for k, v in r._asdict().items()
+                         if k != "wall_time_s"} for r in res.trace.records],
+            "wall_time_s": [r.wall_time_s for r in res.trace.records],
+            "ranking": [[list(p.candidate), p.cost_s] for p in res.ranking],
+            "picks": [{"candidate": list(p.prediction.candidate),
+                       "predicted_ms": p.prediction.step_time_s * 1e3,
+                       "measured_ms": p.measured_step_s * 1e3,
+                       "n_dropped": p.n_dropped, "n_demoted": p.n_demoted,
+                       "accepted": p.accepted} for p in res.picks]}
+
+
+def gather_state(group: WorkerGroup, cache):
+    """Every worker's cache state (``[W, ...]`` leaves) on every rank:
+    one ``all_gather`` per leaf on a process group, the state itself on
+    the stacked one."""
+    if group.local == group.world:
+        return cache
+    return map_state(lambda a: group.all_gather(a[None])[0], cache)
 
 
 def _check_replicas(group: WorkerGroup, model) -> None:
@@ -619,10 +710,11 @@ def train_gcn(args, step_hook=None, group: WorkerGroup = None) -> dict:
         traced_gen = make_generator_fn(
             fanouts=run["cfg"].fanouts,
             capacity_slack=tuned.trace.config.capacity_slack,
-            cache_cfg=cache_cfg)
+            cache_cfg=cache_cfg, group=group)
     # only the second half of the warm window counts toward the miss peak
     warm_from = start + max(args.warm_recalibrate // 2, 1)
     recorder = None
+    first_state = {}
     gen_fn = run["gen_fn"]
     if args.report:
         recorder = gen_fn = _RoundRecorder(gen_fn, cached)
@@ -648,13 +740,16 @@ def train_gcn(args, step_hook=None, group: WorkerGroup = None) -> dict:
         if cached and args.warm_recalibrate and t >= warm_from:
             miss_peak = max(miss_peak, group_total(
                 group, carry[2].n_cache_misses, "max"))
-        if traced_gen is not None and int(carry[2].n_dropped.sum()) > 0:
+        # every rank rolls back together: the drops are the group's
+        if traced_gen is not None and group_total(group,
+                                                  carry[2].n_dropped) > 0:
             gen_fn, traced_gen = traced_gen, None
             carry = regenerate(gen_fn, t, carry)
             autotune_rollback = t
-            print(f"step {t}: the autotuned exchange dropped requests — "
-                  f"regenerated the batch at the traced slack "
-                  f"{tuned.trace.config.capacity_slack} and kept it")
+            _say(group, f"step {t}: the autotuned exchange dropped "
+                        f"requests — regenerated the batch at the traced "
+                        f"slack {tuned.trace.config.capacity_slack} and "
+                        f"kept it")
         # rollback check first: carry[2] was generated by the shrunken
         # generator only once the shrink below has been installed
         if wide_gen is not None and group_total(group,
@@ -689,6 +784,8 @@ def train_gcn(args, step_hook=None, group: WorkerGroup = None) -> dict:
         t_step = now
         if step_hook is not None:
             step_hook(i)
+        if args.report and i == 0:
+            first_state.update(_state_arrays(carry[0], carry[1], "@1"))
         if (t + 1) % args.ckpt_every == 0 and group.lead:
             ckpt.save(args.ckpt_dir, t + 1,
                       (gcn_params_to_numpy(carry[0]),
@@ -736,10 +833,17 @@ def train_gcn(args, step_hook=None, group: WorkerGroup = None) -> dict:
             raise SystemExit("--export-serve checkpoints params + the warm "
                              "cache state; this run has no cache "
                              "(--cache-rows 0)")
-        ckpt.save_serving_state(args.export_serve, args.steps, model, cache,
-                                cache_cfg=cache_cfg)
-        print(f"exported serving state (params + warm cache) to "
-              f"{args.export_serve}")
+        # the stacked layout: the parameters once, every worker's cache
+        full = gather_state(group, cache)
+        if group.lead:
+            ckpt.save_serving_state(args.export_serve, args.steps, model,
+                                    full, cache_cfg=cache_cfg)
+            print(f"exported serving state (params + warm cache) to "
+                  f"{args.export_serve}")
+        # no rank goes on (to a --warm-from server, say) before the file
+        # is written
+        group.all_reduce(torch.zeros(group.local, 1, dtype=torch.int32,
+                                     device=dev))
     n_run = args.steps - start
     nodes_per_iter = (b * w * slots_per_seed(run["cfg"].fanouts))
     out = {"losses": losses, "nodes_per_iter": nodes_per_iter, "wall_s": dt,
@@ -752,8 +856,9 @@ def train_gcn(args, step_hook=None, group: WorkerGroup = None) -> dict:
            "cache": cache, "batch": final["batch"], "start": start,
            **_store_stats(run)}
     if run["store"] is not None:
-        print(f"L3 host gathers shipped {out['host_gather_bytes'] / 1e6:.1f} "
-              f"MB ({out['n_l3_hits']} rows)")
+        _say(group, f"L3 host gathers shipped "
+                    f"{out['host_gather_bytes'] / 1e6:.1f} MB "
+                    f"({out['n_l3_hits']} rows)")
     _say(group, f"trained {n_run} steps in {dt:.1f}s "
                 f"({nodes_per_iter} padded nodes/iter, "
                 f"{n_run * nodes_per_iter / max(dt, 1e-9):,.0f} nodes/s)")
@@ -762,32 +867,57 @@ def train_gcn(args, step_hook=None, group: WorkerGroup = None) -> dict:
         _say(group, f"steady-state cache hit rate: "
                     f"{out['cache_hit_rate']:.3f}")
     if args.report:
-        _write_report(args, run, out, opt, recorder, step_s, launches)
+        _write_report(args, run, out, opt, recorder, step_s, launches,
+                      first_state)
     return out
 
 
-def offline_gcn(args) -> dict:
+def offline_gcn(args, group: WorkerGroup = None) -> dict:
     """The GraphGen baseline on ``train_gcn``'s setup: ``offline_loop``
     over the same seeds and draws for ``args.steps`` batches.  Returns the
-    losses, ``t_gen`` and ``t_train`` (seconds), the trained model and
-    the L3 store's telemetry in host mode.  Runs on the stacked worker
-    axis only (``--dist`` raises)."""
-    if args.dist != "none":
-        raise NotImplementedError(
-            f"--dist {args.dist}: offline_gcn (the GraphGen baseline) runs "
-            f"on the stacked worker axis only (--dist none); its process "
-            f"backend is ROADMAP Queue 1 item 7.3")
-    run = build_gcn_run(args)
+    losses, ``t_gen`` and ``t_train`` (seconds; on a process group the
+    max over the ranks), the trained model and the L3 store's telemetry
+    in host mode.  ``group`` as in ``train_gcn``: on a process group each
+    rank generates, stores and trains on its own worker's batches, the
+    gradients averaged over the ranks.  ``--report DIR`` writes the
+    losses and times to ``DIR/{rank<r>|stacked}.json``."""
+    if group is None and args.dist != "none":
+        raise ValueError(f"--dist {args.dist} runs one process per worker: "
+                         f"start it through main(), which launches or joins "
+                         f"the ranks, or pass their group")
+    run = build_gcn_run(args, group)
+    group = run["group"]
     model = run["model"]
-    schedule = np.stack([run["seeds_np"](t) for t in range(args.steps)])
+    if isinstance(group, ProcessWorkers):
+        _check_replicas(group, model)
+    schedule = np.stack([group.block(run["seeds_np"](t))
+                         for t in range(args.steps)])
+    gen_fn = run["gen_fn"]
+    if args.report:
+        # the report's generator carries stats; the loop takes none
+        gen_fn = _RoundRecorder(gen_fn, run["cache"] is not None)
+    launches0 = ops.launch_counts()
     model, _, losses, stats, *_ = offline_loop(
-        run["gen_fn"], run["train_fn"], run["device_args"], schedule, model,
+        gen_fn, run["train_fn"], run["device_args"], schedule, model,
         init_adam(model.leaves()), run["draws"], cache=run["cache"],
-        host_store=run["store"])
-    print(f"offline: generated and stored {args.steps} batches in "
-          f"{stats['t_gen']:.3f}s, trained in {stats['t_train']:.3f}s")
-    return {"losses": [float(x) for x in losses], "model": model, **stats,
-            **_store_stats(run)}
+        host_store=run["store"], group=group)
+    _say(group, f"offline: generated and stored {args.steps} batches in "
+                f"{stats['t_gen']:.3f}s, trained in "
+                f"{stats['t_train']:.3f}s")
+    out = {"losses": [float(x) for x in losses], "model": model, **stats,
+           "launches": {k: v - launches0[k]
+                        for k, v in ops.launch_counts().items()},
+           **_store_stats(run)}
+    if args.report:
+        name = (f"rank{group.rank}" if isinstance(group, ProcessWorkers)
+                else "stacked")
+        os.makedirs(args.report, exist_ok=True)
+        meta = {k: v for k, v in out.items() if k != "model"}
+        meta["rounds"] = [_round_report(group, run["b"], *r)
+                          for r in gen_fn.rounds]
+        with open(os.path.join(args.report, name + ".json"), "w") as f:
+            json.dump(meta, f)
+    return out
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -865,8 +995,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "memory); nccl = one process per card (needs W "
                          "visible cards)")
     ap.add_argument("--grad-sync", default="psum", choices=["psum", "tree"],
-                    help="--dist: average the ranks' gradients by the "
-                         "group's all_reduce or by an explicit butterfly")
+                    help="--dist (or --per-worker-loss): average the "
+                         "workers' gradients by the group's all_reduce or "
+                         "by an explicit butterfly")
+    ap.add_argument("--per-worker-loss", action="store_true",
+                    help="stacked run: differentiate each worker's mean "
+                         "loss on its own rows and average the gradients "
+                         "as --dist ranks do (their arithmetic in one "
+                         "process); a --dist run always does")
     ap.add_argument("--dist-timeout", type=float, default=3600,
                     help="--dist: seconds the launcher waits for its ranks "
                          "before ending them and failing")
@@ -892,11 +1028,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--export-serve", default=None, metavar="DIR",
                     help="after training, save the params and the warm "
                          "cache for repro_torch.launch.serve --warm-from DIR")
+    ap.add_argument("--offline", action="store_true",
+                    help="run the GraphGen baseline (generate and store "
+                         "every batch, then train) instead of the pipeline")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
-    """CLI entry: train a GCN arch.  With ``--dist gloo|nccl`` it spawns
+    """CLI entry: train a GCN arch (``--offline``: through the GraphGen
+    baseline).  With ``--dist gloo|nccl`` it spawns
     the ``--workers`` ranks (``launch/mesh.py``) and exits non-zero if
     any fails or outlives ``--dist-timeout``; a rank (or a ``torchrun``
     worker) joins the group and trains."""
@@ -904,30 +1044,12 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if get_config(args.arch).family != "gcn":
         raise SystemExit(f"{args.arch}: only GCN archs are ported")
+    body = offline_gcn if args.offline else train_gcn
     if args.dist == "none":
-        train_gcn(args)
+        body(args)
         return
-    refuse_dist(args)
-    mesh.check_backend(args.dist, args.workers, args.device)
-    if mesh.launched():
-        group = mesh.join_from_env(args.dist, args.device, world=args.workers)
-        try:
-            train_gcn(args, group=group)
-        finally:
-            mesh.close(group)
-        return
-    staged = args.dist == "gloo" and torch.device(args.device).type == "cuda"
-    print(f"--dist {args.dist}: {args.workers} worker processes on "
-          f"{args.device}"
-          + ("; gloo stages every collective's CUDA blocks through host "
-             "memory" if staged else ""), flush=True)
-    if torch.device(args.device).type == "cuda":
-        from ..kernels import _build
-        _build.build()          # once, before the ranks load it
-    rc = mesh.spawn(["-m", "repro_torch.launch.train", *argv], args.workers,
-                    args.dist_timeout)
-    if rc:
-        raise SystemExit(f"--dist {args.dist}: a rank failed (exit {rc})")
+    mesh.launch_or_join("repro_torch.launch.train", argv, args,
+                        lambda group: body(args, group=group))
 
 
 if __name__ == "__main__":

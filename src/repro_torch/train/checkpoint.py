@@ -127,10 +127,10 @@ def _rebuild(like, leaf_fn, prefix=()):
     return leaf_fn("/".join(prefix), like)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, select=None) -> Any:
     """The tree saved at ``step``, in the structure of ``like``: each leaf
-    takes the saved array under its path, in ``like``'s leaf type, dtype
-    and device."""
+    takes the saved array under its path (or ``select(path, array)`` of
+    it, when given), in ``like``'s leaf type, dtype and device."""
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -140,6 +140,8 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
     missing = [k for k, _ in _items(like) if k not in arrays]
     if missing:
         raise KeyError(f"checkpoint {path} lacks {missing[:4]}")
+    if select is not None:
+        arrays = {k: select(k, a) for k, a in arrays.items()}
     return _rebuild(like, lambda key, leaf: _like_leaf(arrays[key],
                                                       key in ext, leaf))
 
@@ -159,12 +161,14 @@ def save_serving_state(ckpt_dir: str, step: int, model, cache, *,
 
 def restore_serving_state(ckpt_dir: str, model_like, cache_like, *,
                           step: Optional[int] = None,
-                          expect_cache_cfg=None) -> tuple:
+                          expect_cache_cfg=None, group=None) -> tuple:
     """``(model, cache)`` saved by :func:`save_serving_state` (by either
     package).  ``model_like`` (a ``GCN``) gives the shapes and the device
     of the returned ``GCN``, ``cache_like`` (an empty cache state) the
     structure, dtypes and device of the cache; ``step=None`` takes the
-    latest.  With ``expect_cache_cfg`` a state whose recorded ``n_rows``,
+    latest.  The file holds every worker's cache (``[W, ...]``); with a
+    worker ``group`` the cache returned is the held workers' block
+    (``group.block``: a process's own shard).  With ``expect_cache_cfg`` a state whose recorded ``n_rows``,
     ``assoc``, ``mode`` or ``l1_rows`` differ raises ``ValueError``: the
     state only probes correctly under the layout it was warmed with."""
     if step is None:
@@ -188,7 +192,15 @@ def restore_serving_state(ckpt_dir: str, model_like, cache_like, *,
                     f"(saved vs serving CacheConfig) — the cache state "
                     f"only probes correctly under the layout it was "
                     f"warmed with")
+    def select(key, arr):
+        if group is None or not key.startswith("cache/"):
+            return arr
+        if arr.shape[0] != group.world:
+            raise ValueError(f"serving checkpoint leaf {key} holds "
+                             f"{arr.shape[0]} workers' state, the group "
+                             f"{group.world}")
+        return group.block(arr)
     tree = restore(ckpt_dir, step, {"params": gcn_params_to_numpy(model_like),
-                                    "cache": cache_like})
+                                    "cache": cache_like}, select=select)
     device = model_like.w_out.device
     return gcn_params_from_numpy(tree["params"], device=device), tree["cache"]

@@ -211,7 +211,7 @@ def _run_autotune(monkeypatch, traces, **kw):
     queue = list(traces)
     monkeypatch.setattr(
         at, "_instrumented_run",
-        lambda device, part, feats, labels, tc, cache_cfg, probes:
+        lambda device, part, feats, labels, tc, cache_cfg, probes, group:
             queue.pop(0) if len(queue) > 1 else queue[0])
     tc = _ref_tc()
     return at.autotune_gcn(

@@ -273,7 +273,7 @@ def _die(group):
 def _spawn(w, tmp, **kwargs):
     out = tmp / f"w{w}"
     out.mkdir()
-    rc = mesh.run("test_torch_dist:_battery", w, kwargs=dict(
+    rc = mesh.run("test_torch_dist:_battery", w, device="cpu", kwargs=dict(
         out=str(out), **kwargs), timeout_s=_TIMEOUT, env=_env())
     assert rc == 0, f"W={w} battery failed (exit {rc})"
     return out
@@ -371,7 +371,7 @@ def test_collectives_bit_equal_to_stacked(ranks, w):
     and the butterfly's pairs) and ``all_reduce`` (sum, max) over gloo:
     each rank's result is its block of the stacked backend's, for int32
     ids and bitmap words, bool masks and float32 rows."""
-    want = _collectives(StackedGroup(w))
+    want = _collectives(StackedGroup(w, device="cpu"))
     _assert_blocks(ranks[w], want, want.keys())
 
 
@@ -380,7 +380,7 @@ def test_merges_bit_equal_to_stacked(ranks, w):
     """``tree_allreduce`` of ``merge_topk``, ``tree_reduce_scatter`` and
     ``tree_psum`` over gloo, on keys tied within and across workers and
     at ``+inf``: each rank's block bit-equal to the stacked merges'."""
-    want = _merges(StackedGroup(w))
+    want = _merges(StackedGroup(w, device="cpu"))
     keys = [k for k in want if not k.startswith("grad.")]
     _assert_blocks(ranks[w], want, keys)
 
@@ -393,7 +393,7 @@ def test_grad_sync_tree_equals_default(ranks, w):
     rank."""
     grads = (torch.arange(12, dtype=torch.float32).reshape(3, 4) / 7).numpy()
     if w == "stacked":
-        res = _merges(StackedGroup(4))
+        res = _merges(StackedGroup(4, device="cpu"))
         blocks = [{k: res[k][i].numpy() for k in ("grad.psum", "grad.tree")}
                   for i in range(4)]
     else:
@@ -420,7 +420,7 @@ def test_generation_rounds_bit_equal_to_stacked(ranks, case):
     ``CacheStats`` and its cache shard after every round equal the
     stacked run's worker block."""
     merge_mode, cache = GEN_CASES[case]
-    want = _rounds(StackedGroup(4), merge_mode, cache, case)
+    want = _rounds(StackedGroup(4, device="cpu"), merge_mode, cache, case)
     _assert_blocks(ranks[4], want, want.keys(), b=_B)
     last = f"{case}.{_ROUNDS - 1}."
     assert int(want[last + "n_cache_hits"].sum()) > 0
@@ -443,7 +443,7 @@ def test_sync_comes_before_the_clip(ranks):
     Adam moments, parameters and loss match the stacked step on the
     global batch (the ranks average their gradients, then AdamW clips
     the global one), and are bit-equal across ranks."""
-    want = _clipped_step(StackedGroup(4))
+    want = _clipped_step(StackedGroup(4, device="cpu"))
     for key, a in want.items():
         for r, res in enumerate(ranks[4]):
             got = res[key]
@@ -529,7 +529,8 @@ def test_launcher_fails_fast_on_dead_rank(tmp):
     """A rank that dies makes the launcher end the others and return its
     exit code, well inside its timeout; no rank outlives the call."""
     t0 = time.monotonic()
-    rc = mesh.run("test_torch_dist:_die", 2, timeout_s=_TIMEOUT, env=_env())
+    rc = mesh.run("test_torch_dist:_die", 2, device="cpu",
+                  timeout_s=_TIMEOUT, env=_env())
     assert rc == 3
     assert time.monotonic() - t0 < 60
 
@@ -538,29 +539,17 @@ _GCN = ["--smoke", "--device", "cpu", "--nodes", "300", "--workers", "2",
         "--dist", "gloo"]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--arch", "graphgen-gcn", "--autotune"], "autotune"),
-    (["--arch", "graphgen-gcn", "--feature-store", "host"], "host store"),
-    (["--arch", "graphgen-gcn-deep"], "tiered cache"),
-    (["--arch", "graphgen-gcn", "--export-serve", "x"], "serving tier"),
-])
-def test_unported_paths_refuse_dist(argv, match):
-    """Each path that runs on the stacked axis only raises under ``--dist``
-    before any rank starts, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=match) as err:
-        train.main(argv + _GCN)
-    assert "ROADMAP Queue 1 item 7.3" in str(err.value)
-
-
 def test_offline_and_serve_refuse_dist():
-    """``offline_gcn``, ``serve_gcn`` and ``serve_lm`` raise under
-    ``--dist``."""
+    """Called without a group, ``offline_gcn`` and ``serve_gcn`` refuse
+    ``--dist`` (it runs one process per worker, which ``main`` launches or
+    joins); ``serve_lm`` raises under ``--dist`` in any case."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="offline_gcn"):
+    with pytest.raises(ValueError, match="one process per worker"):
         train.offline_gcn(train.parse_args(_GCN))
-    for fn, arch in ((serve.serve_gcn, "graphgen-gcn"),
-                     (serve.serve_lm, "smollm-135m")):
-        with pytest.raises(NotImplementedError, match=fn.__name__):
+    for fn, arch, err in ((serve.serve_gcn, "graphgen-gcn", ValueError),
+                          (serve.serve_lm, "smollm-135m",
+                           NotImplementedError)):
+        with pytest.raises(err, match="one process"):
             fn(serve.parse_args(["--arch", arch, "--smoke", "--device",
                                  "cpu", "--nodes", "300", "--dist",
                                  "gloo"]))
