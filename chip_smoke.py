@@ -262,6 +262,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         floor; and the card's prefill of the same 256 tokens
                         against its decode at every position (within 1e-1:
                         decode keeps the conv history in bf16).
+   lm zoo   — the hybrid and MoE LMs at their published widths, random
+              float32 weights from a seed (drawn on the card): zamba2-1.2b
+              at full depth (38 Mamba layers, the shared attention at 6
+              sites, 32/32 heads of 64, SSM state 64), qwen3-moe-30b-a3b at
+              16 of 48 layers (128 experts top 8, 32/4 heads of 128, vocab
+              151 936) and deepseek-v2-236b at 4 of 60 (the dense layer and
+              3 MoE layers: 160 experts top 6, 2 shared, MLA with kv_lora
+              512 and 128 heads); the cuts are what one 80 GB card holds.
+              Each: ``forward_logits`` on 8 x 2048 tokens (DeepSeek 1 x
+              2048) with zeroed counters (per forward: zamba2 38
+              ``ssd_scan`` and 6 flash, qwen3 one flash a layer, DeepSeek
+              none; all on the tensor-core route), tokens/s, busy share and
+              peak memory; flash at the path's layer-0 q/k/v (qwen3's
+              layer 0, zamba2's first site) within ``flash_close``'s gate
+              and ``ssd_scan`` at zamba2's layer 0 within its bf16 gate,
+              each timed by events and device duration beside its bound
+              (flash also beside SDPA on the same views); ``serve_lm``
+              batch 8, prompt 128, gen 128 (tok/s, median step, busy share,
+              peak); the MoE dispatch's drop rate and the assignments the
+              slot ``cap - 1`` collision zeroes, at prefill and at decode;
+              and float32 decode card vs CPU on a cut of the same weights
+              (zamba2 one site and a tail layer, qwen3 2 layers, DeepSeek
+              the dense and one MoE layer: tokens equal but at near-ties,
+              logits up to each row's first difference, every cache leaf
+              of the rows that never differ, beside a one-ulp floor).
    gather   — ``gather_reduce`` (no model path) over 8 bucket-32 requests
               of the graphgen-gcn W = 1 server: the hop-2 level's mean from
               the 20 000 x 128 feature table, [1280, 20] ids and mask, 8
@@ -319,6 +344,7 @@ and ``nvidia-smi``'s line; the last line is ``{"ok": true, "device":
 Usage: ``python3 chip_smoke.py`` from the repository root.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -366,6 +392,24 @@ SSM_DECODE_ATOL = 2e-2         # logits, every step
 SSM_STATE_RTOL = 1e-2          # final float32 state, of its largest entry
 SSM_CONV_ATOL = 6.25e-2        # final bf16 conv history (entries up to ~4)
 SSM_PREFILL_DECODE_ATOL = 1e-1
+# the LM zoo's cells: depth on the card (None: all; qwen3 and DeepSeek
+# cut where one 80 GB card forces it: float32 weights of 2.49 and 15.9 GB
+# a layer; qwen3's prefill peaked at 79.8 GB with 20 layers, ~10 GB of
+# it float32 logits), prefill B x S (DeepSeek's plain attention holds
+# [B, 128, S, S] float32 scores), the float32 card-vs-CPU cut's layers
+# (zamba2: one site and a tail layer; DeepSeek: the dense layer and one
+# MoE layer) and its prompt and generated steps (the CPU reads the cut's
+# weights every step: 21 GB for DeepSeek's)
+ZOO_SEED = 0
+ZOO_DEPTH = {"zamba2-1.2b": None, "qwen3-moe-30b-a3b": 16,
+             "deepseek-v2-236b": 4}
+ZOO_PREFILL = {"zamba2-1.2b": (8, 2048), "qwen3-moe-30b-a3b": (8, 2048),
+               "deepseek-v2-236b": (1, 2048)}
+ZOO_CUT = {"zamba2-1.2b": 7, "qwen3-moe-30b-a3b": 2, "deepseek-v2-236b": 2}
+# steps, and whether the floor runs: nudging DeepSeek's 21 GB cut by an
+# ulp would draw 5.4G random signs on the host
+ZOO_AGREE = {"zamba2-1.2b": (64, 8, True), "qwen3-moe-30b-a3b": (8, 8, True),
+             "deepseek-v2-236b": (4, 4, False)}
 DEVICE = "cuda"                # the device every phase drives
 MIN_WHOLE_CALLS = 5            # device_ms: fewer whole calls: trace again
 
@@ -3118,33 +3162,39 @@ def first_call_operands(torch, name, forward):
     return calls[0]
 
 
-def run_prefill(torch, cfg, seed, kernel, label):
+def run_prefill(torch, cfg, seed, kernel, label, expect=None,
+                shape=(PREFILL_B, PREFILL_S)):
     """``forward_logits`` of ``cfg`` (random weights from ``seed``) over
-    ``PREFILL_B x PREFILL_S`` seeded tokens, ``1 + PREFILL_WARM`` times
-    with zeroed launch counters: exactly one ``kernel`` launch per layer
-    per forward and no other kernel, finite float32 logits over the padded
-    vocab; then one profiled forward.  Returns ``(model, batch, tokens,
-    res)``: ``res`` holds the init and first-forward seconds, the rate
-    over the whole warm window (all warm forwards' tokens over their summed
-    wall; the median is a per-forward statistic only), the launches, the
-    peak memory, and the device busy ms and ``kernel``'s ms of the traced
-    forward."""
+    ``shape`` (B x S, ``PREFILL_B x PREFILL_S`` by default) seeded tokens,
+    ``1 + PREFILL_WARM`` times with zeroed launch counters: exactly
+    ``expect[name]`` launches of each kernel per forward (by default one
+    ``kernel`` launch per layer) and no other kernel, every flash and
+    ssd_scan launch on the tensor-core route, finite float32 logits over
+    the padded vocab; then one profiled forward.  Returns ``(model, batch,
+    tokens, res)``: ``res`` holds the init and first-forward seconds, the
+    rate over the whole warm window (all warm forwards' tokens over their
+    summed wall; the median is a per-forward statistic only), the
+    launches, the peak memory, and the device busy ms and each expected
+    kernel's ms of the traced forward (``kernel_ms``: ``kernel``'s)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.models import zoo
     from repro_torch.models.layers import padded_vocab
     from torch.profiler import ProfilerActivity, profile
+    expect = {kernel: cfg.n_layers} if expect is None else expect
+    n_b, n_s = shape
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = zoo.build(cfg, DEVICE).init(seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     tokens = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S), dtype=np.int32)
+        0, cfg.vocab_size, (n_b, n_s), dtype=np.int32)
     batch = {"tokens": torch.from_numpy(tokens).to(DEVICE)}
     ops.reset_launch_counts()
     times = []
     for _ in range(1 + PREFILL_WARM):
+        logits = None                   # free the last logits first
         torch.cuda.synchronize()
         t = time.perf_counter()
         logits = zoo.forward_logits(cfg, model, batch)
@@ -3154,22 +3204,15 @@ def run_prefill(torch, cfg, seed, kernel, label):
     routes = ops.flash_route_counts()
     ssd_routes = ops.ssd_route_counts()
     n_fwd = len(times)
-    check(counts[kernel] == cfg.n_layers * n_fwd,
-          f"{label} launched {kernel} {counts[kernel]} times over {n_fwd} "
-          f"forwards, expected {cfg.n_layers} per forward")
-    check(all(n == 0 for name, n in counts.items() if name != kernel),
-          f"{label} launched another kernel: {counts}")
-    if kernel == "flash_attention":
-        check(routes == {"tensor_core": cfg.n_layers * n_fwd, "float32": 0},
-              f"{label}: flash_attention routes {routes}, expected every "
-              f"launch on the tensor-core route")
-    if kernel == "ssd_scan":
-        check(ssd_routes == {"tensor_core": cfg.n_layers * n_fwd,
-                             "float32": 0},
-              f"{label}: ssd_scan routes {ssd_routes}, expected every launch "
-              f"on the tensor-core route")
+    want = {name: expect.get(name, 0) * n_fwd for name in counts}
+    check(counts == want, f"{label} launched {counts} over {n_fwd} "
+          f"forwards, expected {expect} per forward and no other kernel")
+    check(routes == {"tensor_core": want["flash_attention"], "float32": 0}
+          and ssd_routes == {"tensor_core": want["ssd_scan"], "float32": 0},
+          f"{label}: flash_attention routes {routes}, ssd_scan routes "
+          f"{ssd_routes}, expected every launch on the tensor-core route")
     v_pad = padded_vocab(cfg)
-    check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, v_pad)
+    check(tuple(logits.shape) == (n_b, n_s, v_pad)
           and logits.dtype == torch.float32, f"{label} logits "
           f"{tuple(logits.shape)} {logits.dtype}")
     check(bool(torch.isfinite(logits).all()), f"{label} logits not finite")
@@ -3178,12 +3221,11 @@ def run_prefill(torch, cfg, seed, kernel, label):
     res = {"init_s": init_s, "first_forward_s": times[0],
            "warm_forward_ms": warm_ms,
            "forward_ms": [t * 1e3 for t in times],
-           "prefill_tok_s": PREFILL_B * PREFILL_S * PREFILL_WARM
-           / sum(times[1:]),
+           "prefill_tok_s": n_b * n_s * PREFILL_WARM / sum(times[1:]),
            "launches": counts, "flash_routes": routes,
            "ssd_routes": ssd_routes, "max_memory_gb":
            torch.cuda.max_memory_allocated() / 2 ** 30}
-    print(f"[{label}] B={PREFILL_B} S={PREFILL_S}: first forward "
+    print(f"[{label}] B={n_b} S={n_s}: first forward "
           f"{times[0]:.3f} s; {PREFILL_WARM} warm forwards at "
           f"{res['prefill_tok_s']:,.0f} tokens/s, median warm forward "
           f"{warm_ms:.3f} ms; forwards (ms) "
@@ -3197,14 +3239,18 @@ def run_prefill(torch, cfg, seed, kernel, label):
         traced_ms = (time.perf_counter() - t) * 1e3
     res["busy_ms"] = summarize_profile(torch, prof, 1, traced_ms,
                                        f"{label}, one traced forward")
-    res["kernel_ms"] = kernel_device_ms(torch, prof, kernel)
+    res["traced_ms"] = traced_ms
+    res["kernels_ms"] = {name: kernel_device_ms(torch, prof, name)
+                         for name, n in expect.items() if n}
+    res["kernel_ms"] = res["kernels_ms"].get(kernel, 0.0)
     res["copy_launches"] = copy_rows(torch, prof, label)
-    if res["busy_ms"]:
-        check(res["kernel_ms"] > 0, f"{label}: {kernel} launched but no "
-              f"profiler row holds its name")
-        print(f"[{label}] {kernel}: {res['kernel_ms']:.3f} ms of the traced "
-              f"forward's {res['busy_ms']:.3f} ms device time "
-              f"({100 * res['kernel_ms'] / res['busy_ms']:.1f}%)")
+    for name, ms in res["kernels_ms"].items():
+        if res["busy_ms"]:
+            check(ms > 0, f"{label}: {name} launched but no profiler row "
+                  f"holds its name")
+            print(f"[{label}] {name}: {ms:.3f} ms of the traced forward's "
+                  f"{res['busy_ms']:.3f} ms device time "
+                  f"({100 * ms / res['busy_ms']:.1f}%)")
     return model, batch, tokens, res
 
 
@@ -3360,48 +3406,48 @@ def nudge_weights(torch, model, seed):
             p.mul_(1 + sign.to(p) * 2.0 ** -23)
 
 
-def record_decode(torch, args, nudge=False, cfg=None, prep=None):
+def record_decode(torch, args, nudge=False, cfg=None, prep=None,
+                  model=None):
     """``serve_lm(args)`` with every decode step's float32 logits copied
     to the host (prompt fill and generation); returns the tokens, the
     stacked logits ``[steps, B, V_pad]``, the final cache on the host and
     the model served.  ``cfg`` replaces the arch's config (a depth cut),
-    ``prep(model)`` edits the freshly made model in place (the SSM's
-    carry init), and ``nudge`` moves every weight by one float32 ulp
-    after that, for the floor of the comparison."""
+    ``model`` replaces the seeded init (moved to the served device: a cut
+    carried across from another device), ``prep(model)`` edits the model
+    in place (the SSM's carry init), and ``nudge`` moves every weight by
+    one float32 ulp after that, for the floor of the comparison."""
     from repro_torch.launch import serve
-    from repro_torch.models import ssm, transformer
-    family = serve.get_config(args.arch).family
-    mod, cls, init_name = {
-        "dense": (transformer, transformer.DenseLM, "init_dense_lm"),
-        "ssm": (ssm, ssm.Mamba2LM, "init_mamba2")}[family]
-    real_init, real_cfg = getattr(mod, init_name), serve.get_config
-    real = cls.forward_decode
+    from repro_torch.models import zoo
+    real_lm_init = zoo._lm_init
     logits, last, made = [], {}, []
 
-    def init(cfg, seed=0, device="cuda"):
-        model = real_init(cfg, seed, device)
-        if prep is not None:
-            prep(model)
-        if nudge:
-            nudge_weights(torch, model, seed)
-        made.append(model)
-        return model
+    def lm_init(c):
+        def init(cfg, seed=0, device="cuda"):
+            m = (model.to(device) if model is not None
+                 else real_lm_init(c)(cfg, seed, device))
+            if prep is not None:
+                prep(m)
+            if nudge:
+                nudge_weights(torch, m, seed)
+            real = m.forward_decode
 
-    def record(self, cache, tokens, pos):
-        out, cache = real(self, cache, tokens, pos)
-        logits.append(out.float().cpu())
-        last.update(cache)
-        return out, cache
-    cls.forward_decode = record
-    setattr(mod, init_name, init)
-    if cfg is not None:
-        serve.get_config = lambda name: cfg
+            def record(cache, tokens, pos):
+                out, cache = real(cache, tokens, pos)
+                logits.append(out.float().cpu())
+                last.update(cache)
+                return out, cache
+            m.forward_decode = record
+            made.append(m)
+            return m
+        return init
+    zoo._lm_init = lm_init
     try:
-        toks = serve.serve_lm(args)["tokens"]
+        with served_config(cfg):
+            toks = serve.serve_lm(args)["tokens"]
     finally:
-        cls.forward_decode = real
-        setattr(mod, init_name, real_init)
-        serve.get_config = real_cfg
+        zoo._lm_init = real_lm_init
+        for m in made:
+            del m.forward_decode
     return (toks, torch.stack(logits), {k: v.cpu() for k, v in last.items()},
             made[0])
 
@@ -3650,16 +3696,41 @@ def ssm_serve_args(gen, device, prompt=LM_PROMPT):
         "--gen-len", str(gen)])
 
 
-def serve_and_time(torch, make_args, label, v_pad):
+@contextlib.contextmanager
+def served_config(cfg):
+    """``serve_lm`` builds ``cfg`` (a cut or a switched config) in place
+    of its arch's registered config inside the block (``cfg`` None: no
+    change)."""
+    from repro_torch.launch import serve
+    real = serve.get_config
+    if cfg is not None:
+        serve.get_config = lambda name: cfg
+    try:
+        yield
+    finally:
+        serve.get_config = real
+
+
+def serve_and_time(torch, make_args, label, v_pad, cfg=None, wrap=None):
     """``serve_lm(make_args())`` with zeroed launch counters (decode is
     plain torch: no kernel of the port may launch) and nothing else in the
     loop, for its tok/s, its tokens in ``[0, v_pad)``; then a second,
     instrumented run (CUDA events between steps, a profiler over 4 steps)
     that must generate the same tokens, for the median untraced step and
-    the device's busy share.  Returns the first run's result with those
-    added."""
+    the device's busy share.  ``cfg`` replaces the arch's config
+    (``served_config``); ``wrap()``, a context manager, runs around the
+    instrumented run only and what it yields is returned as
+    ``instrumented``.  Returns the first run's result with those added and
+    the peak memory of both runs."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    with served_config(cfg):
+        return _serve_and_time(torch, serve, ops, make_args, label, v_pad,
+                               wrap)
+
+
+def _serve_and_time(torch, serve, ops, make_args, label, v_pad, wrap):
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = serve.serve_lm(make_args())
@@ -3680,10 +3751,13 @@ def serve_and_time(torch, make_args, label, v_pad):
         events.append(ev)
         clock(step)
     try:
-        timed = serve.serve_lm(make_args(), step_hook=hook)
+        with (wrap() if wrap else contextlib.nullcontext()) as extra:
+            timed = serve.serve_lm(make_args(), step_hook=hook)
     finally:
         clock.close()
     torch.cuda.synchronize()
+    res["instrumented"] = extra
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     check((timed["tokens"] == toks).all(),
           f"{label}: the instrumented serve_lm run generated other tokens")
     steps = [events[i].elapsed_time(events[i + 1])
@@ -3805,14 +3879,15 @@ def carry_init_fn(torch):
 
 
 def decode_state_gap(torch, a, b, prompt_len):
-    """Gaps of two ``record_decode`` runs of the SSM, row by row up to
-    the first generated token where the two differ (a greedy near-tie may
-    go either way; the rows then decode other tokens).  Returns each row's
-    first differing generated step (``G`` if none) and the top-two logit
-    gap on both sides there (``ties``); the max abs logit gap over the
-    steps before it (and its worst step); and over the rows that never
-    differ, the final float32 state's and bf16 conv history's max abs
-    gap (with the state's scale over every row)."""
+    """Gaps of two ``record_decode`` runs, row by row up to the first
+    generated token where the two differ (a greedy near-tie may go either
+    way; the rows then decode other tokens).  Returns each row's first
+    differing generated step (``G`` if none) and the top-two logit gap on
+    both sides there (``ties``); the max abs logit gap over the steps
+    before it (per step and its worst step); and over the rows that never
+    differ, every final cache leaf's max abs gap with its scale over
+    every row and its dtype (``cache``; for the SSM also as ``ssm``,
+    ``ssm_scale`` and ``conv``)."""
     ta, tb = a[0], b[0]
     g = ta.shape[1]
     first = [int(r.argmax()) if r.any() else g for r in (ta != tb)]
@@ -3833,12 +3908,262 @@ def decode_state_gap(torch, a, b, prompt_len):
             return float("inf")
         return (a[2][name][:, same].float()
                 - b[2][name][:, same].float()).abs().max().item()
-    return {"first": first, "ties": ties, "n_same": len(same),
-            "logits": per_step.max().item(),
-            "worst_step": int(per_step.argmax()),
-            "ssm": state_gap("ssm"),
-            "ssm_scale": b[2]["ssm"].abs().max().item(),
-            "conv": state_gap("conv")}
+    out = {"first": first, "ties": ties, "n_same": len(same),
+           "logits": per_step.max().item(),
+           "worst_step": int(per_step.argmax()),
+           "per_step": per_step,
+           "cache": {name: (state_gap(name), w.float().abs().max().item(),
+                            w.dtype) for name, w in b[2].items()}}
+    if "ssm" in out["cache"]:
+        out.update(ssm=out["cache"]["ssm"][0],
+                   ssm_scale=out["cache"]["ssm"][1],
+                   conv=out["cache"]["conv"][0])
+    return out
+
+
+# ------------------------------------------------------------------ LM zoo
+
+def zoo_config(arch, n_layers=None):
+    """``arch`` at its published widths, flash switched on where its
+    attention takes the kernel (zamba2's and qwen3's one head dim; MLA's
+    192/128 heads take the plain path), ``n_layers`` cutting the depth."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, use_flash_attention=not cfg.kv_lora_rank)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def zoo_expect(cfg):
+    """Kernel launches per forward of ``cfg``: the hybrid one ``ssd_scan``
+    per Mamba layer and one flash per site, qwen3 one flash per layer,
+    DeepSeek none."""
+    from repro_torch.models import hybrid
+    if cfg.family == "hybrid":
+        return {"ssd_scan": cfg.n_layers,
+                "flash_attention": hybrid.grouped(cfg)[0]}
+    return {} if cfg.kv_lora_rank else {"flash_attention": cfg.n_layers}
+
+
+def zoo_serve_args(arch, gen, device, prompt=LM_PROMPT):
+    """``serve_lm`` flags for ``arch``: batch 8, the given prompt and
+    generation lengths."""
+    from repro_torch.launch import serve
+    return serve.parse_args([
+        "--arch", arch, "--device", device, "--seed", str(ZOO_SEED),
+        "--batch", str(LM_BATCH), "--prompt-len", str(prompt),
+        "--gen-len", str(gen)])
+
+
+def zoo_cut(torch, model, cut):
+    """The leaves of ``model`` that a model of config ``cut`` (a depth cut
+    of it) holds, copied to the host, as an LM of ``cut`` on the CPU (no
+    second copy of the weights: the module takes the host tensors)."""
+    shell = type(model)(cut, "meta")
+    full = model.state_dict()
+    shell.load_state_dict({k: full[k].detach().to("cpu")
+                           for k in shell.state_dict()}, assign=True)
+    return shell
+
+
+def zoo_layer0(torch, cfg, model, batch):
+    """The path's own kernel operands from one more forward: flash at the
+    first attention call (qwen3's layer 0, zamba2's first site) and, for
+    the hybrid, ``ssd_scan`` at layer 0 (``ssd_layer0``: the conv output's
+    bf16 views).  The MoE dispatch's counts over that forward come back
+    as ``dispatch``."""
+    from repro_torch.models import moe, zoo
+    out = {}
+    with moe.tally() as counts:
+        if cfg.use_flash_attention:
+            out["flash_attention"] = first_call_operands(
+                torch, "flash_attention",
+                lambda: zoo.forward_logits(cfg, model, batch))
+        else:
+            zoo.forward_logits(cfg, model, batch)
+    if cfg.family == "hybrid":
+        out["ssd_scan"] = ssd_layer0(torch, model, batch)[1]
+    return out, counts
+
+
+def zoo_kernels(torch, arch, cfg, operands):
+    """Each kernel at the path's own operands against its twin (flash:
+    ``flash_close``'s bf16 gate, through ``time_kernel``; ``ssd_scan``:
+    ``check_ssd_bf16``), on the tensor-core route, then timed (events and
+    device duration) beside its bound and, for flash, SDPA on the same
+    views.  Returns ``{kernel: entry}``."""
+    from repro_torch.kernels import ops
+    out = {}
+    for name, ins in operands.items():
+        ops.reset_launch_counts()
+        if name == "ssd_scan":
+            err, share, carry, _ = check_ssd_bf16(
+                torch, ins, cfg.ssm_chunk, f"{arch} layer 0's operands "
+                f"{[tuple(t.shape) for t in ins]},", tag="[lm zoo]")
+            routes = ops.ssd_route_counts()
+            kw = {"chunk": cfg.ssm_chunk}
+        else:
+            got = ops.flash_attention(*ins)
+            routes = ops.flash_route_counts()
+            err, share, carry = flash_sdpa_gap(torch, *ins, got), None, None
+            kw = {"causal": True}
+            del got
+        check(routes == {"tensor_core": 1, "float32": 0},
+              f"{arch}: {name} at the path's operands took routes {routes}")
+        entry = time_kernel(torch, name, ins, kw)
+        entry.update(shapes=[list(t.shape) for t in ins],
+                     strides=[list(t.stride()) for t in ins])
+        if name == "ssd_scan":
+            entry.update(gate_share=share, carry_share=carry)
+        else:
+            entry["sdpa_gap"] = err
+        print(f"[lm zoo] {arch} {name} at the path's operands "
+              f"{entry['shapes']}: max abs err {entry['max_abs_err']}; "
+              f"{entry['ms']:.4f} ms (events) {entry['device_ms']:.4f} ms "
+              f"(device), bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}), {entry['device_ms'] / entry['bound_ms']:.2f}x "
+              f"by device; library "
+              f"{entry['library_ms'] if entry['library_ms'] is None else round(entry['library_ms'], 4)} ms")
+        out[name] = entry
+    return out
+
+
+def zoo_agree(torch, arch, cut, model):
+    """Float32 decode of the cut ``model`` (on the CPU) on the card and on
+    the CPU, ``serve_lm`` at batch 8 over ``ZOO_AGREE[arch]`` prompt and
+    generated steps, beside the floor where ``ZOO_AGREE`` asks for it
+    (the CPU against itself with every weight one float32 ulp off),
+    compared as the SSM's decode is
+    (``decode_state_gap``): tokens equal but at greedy near-ties (top-two
+    gap within the logits bound; at least half the rows equal
+    throughout), logits within the bound up to each row's first
+    difference, and over the rows that never differ the final caches'
+    float32 leaves (the SSM state) within ``SSM_STATE_RTOL`` of their
+    largest entry, the conv history within ``SSM_CONV_ATOL`` and the
+    KV or latent caches within ``LM_CACHE_ATOL``.  The logits bound is
+    ``SSM_DECODE_ATOL`` for the hybrid (its conv history goes through
+    bf16 as the SSM's does) and ``LM_DECODE_ATOL`` for the MoE LMs.  The
+    model moves to the card and back (one copy of its weights)."""
+    from repro_torch.models import layers
+    prompt, gen, with_floor = ZOO_AGREE[arch]
+    atol = SSM_DECODE_ATOL if cut.family == "hybrid" else LM_DECODE_ATOL
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        runs = [record_decode(torch, zoo_serve_args(arch, gen, where, prompt),
+                              cfg=cut, model=model, nudge=nudge)
+                for where, nudge in ((DEVICE, False), ("cpu", False),
+                                     ("cpu", True))[:3 if with_floor else 2]]
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    card, cpu = runs[:2]
+    gap = decode_state_gap(torch, card, cpu, prompt)
+    fgap = (decode_state_gap(torch, runs[2], cpu, prompt) if with_floor
+            else {"logits": None, "n_same": None, "cache": {}})
+    over = (gap["per_step"] > 1e-3).nonzero()
+    res = {"prompt": prompt, "gen": gen, "layers": cut.n_layers,
+           "logits_max_abs_err": gap["logits"], "rows_same": gap["n_same"],
+           "first": gap["first"], "ties": gap["ties"],
+           "logits_scale": cpu[1].abs().max().item(),
+           "first_step_over_1e-3": int(over[0]) if len(over) else None,
+           "cache": {k: v[0] for k, v in gap["cache"].items()},
+           "cache_scale": {k: v[1] for k, v in gap["cache"].items()},
+           "floor_logits": fgap["logits"], "floor_rows_same": fgap["n_same"],
+           "floor_cache": {k: v[0] for k, v in fgap["cache"].items()}}
+    print(f"[lm zoo] {arch} float32, {cut.n_layers}-layer cut, {prompt} "
+          f"prompt + {gen} generated steps, card vs CPU: {gap['n_same']} of "
+          f"{LM_BATCH} rows generate the same tokens (first differing step "
+          f"per row {gap['first']}, top-two gaps there "
+          f"{[f'{t:.2e}' for t in gap['ties']]}); logits within "
+          f"{gap['logits']:.3e} up to each row's first difference (scale "
+          f"{res['logits_scale']:.3f}, worst step {gap['worst_step']}, "
+          f"first step over 1e-3 {res['first_step_over_1e-3']}); final "
+          f"cache of those rows "
+          f"{ {k: f'{v[0]:.3e} of {v[1]:.3f}' for k, v in gap['cache'].items()} }"
+          f". Floor, CPU with every weight one float32 ulp off: logits "
+          f"{fgap['logits']}, {fgap['n_same']} rows the same, caches "
+          f"{ {k: f'{v[0]:.3e}' for k, v in fgap['cache'].items()} }")
+    check(gap["n_same"] >= LM_BATCH // 2 and all(t <= atol
+                                                 for t in gap["ties"]),
+          f"{arch} float32 decode: tokens differ card vs CPU away from "
+          f"near-ties (rows the same {gap['n_same']}, gaps {gap['ties']}):"
+          f"\n{card[0]}\n{cpu[0]}")
+    check(card[1].shape == cpu[1].shape and bool(torch.isfinite(card[1]).all())
+          and gap["logits"] <= atol, f"{arch} float32 decode logits differ "
+          f"card vs CPU by {gap['logits']}, over {atol}")
+    for name, (g, scale, dtype) in gap["cache"].items():
+        bound = (SSM_STATE_RTOL * scale if dtype == torch.float32
+                 else SSM_CONV_ATOL if name == "conv" else LM_CACHE_ATOL)
+        check(g <= bound, f"{arch} float32 decode: final cache {name} "
+              f"differs card vs CPU by {g}, over {bound}")
+    return res
+
+
+def zoo_cell(torch, arch):
+    """One LM of the zoo at its published widths (``ZOO_DEPTH`` cuts the
+    depth where one card forces it): prefill with the launch gates, the
+    kernels at layer 0's own operands, ``serve_lm`` decode, the MoE
+    dispatch's drops and collisions at prefill and decode, and the
+    float32 card-vs-CPU decode on a cut of the same weights."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import padded_vocab
+    t0 = time.perf_counter()
+    cfg = zoo_config(arch, ZOO_DEPTH[arch])
+    expect = zoo_expect(cfg)
+    label = f"lm zoo {arch}"
+    model, batch, _, res = run_prefill(
+        torch, cfg, ZOO_SEED, "flash_attention", label, expect=expect,
+        shape=ZOO_PREFILL[arch])
+    res.update(n_layers=cfg.n_layers, expect=expect,
+               busy_share=(res["busy_ms"] / res["traced_ms"]
+                           if res["busy_ms"] else None),
+               weight_gb=sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 1e9)
+    operands, res["prefill_dispatch"] = zoo_layer0(torch, cfg, model, batch)
+    cut = zoo_config(arch, ZOO_CUT[arch])
+    cpu_model = zoo_cut(torch, model, cut)
+    del model, batch
+    torch.cuda.empty_cache()
+    res["kernels"] = zoo_kernels(torch, arch, cfg, operands)
+    del operands
+    torch.cuda.empty_cache()
+    res["serve"] = serve_and_time(
+        torch, lambda: zoo_serve_args(arch, LM_GEN, DEVICE),
+        f"lm zoo serve {arch}", padded_vocab(cfg), cfg=cfg,
+        wrap=moe.tally if cfg.family == "moe" else None)
+    res["decode_dispatch"] = res["serve"].pop("instrumented")
+    res["serve"].pop("tokens")
+    torch.cuda.empty_cache()
+    for stage in ("prefill", "decode"):
+        d = res[f"{stage}_dispatch"]
+        if d and d["calls"]:
+            print(f"[lm zoo] {arch} {stage} MoE dispatch over {d['calls']} "
+                  f"layer calls: {d['assignments']} assignments, "
+                  f"{d['dropped']} dropped by capacity (drop rate "
+                  f"{d['dropped'] / d['assignments']:.4f}, the reference's "
+                  f"moe_drop_rate), {d['zeroed']} kept but zeroed by the "
+                  f"slot cap - 1 collision")
+    res["agree"] = zoo_agree(torch, arch, cut, cpu_model)
+    del cpu_model
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[lm zoo] {arch}: {cfg.n_layers} layers on the card "
+          f"({res['weight_gb']:.2f} GB of float32 weights), prefill "
+          f"{ZOO_PREFILL[arch]} at {res['prefill_tok_s']:,.0f} tokens/s, "
+          f"busy {res['busy_share']}, peak {res['max_memory_gb']:.2f} GiB; "
+          f"decode {res['serve']['tok_s']:,.1f} tok/s, median step "
+          f"{res['serve']['median_step_ms']:.3f} ms, peak "
+          f"{res['serve']['max_memory_gb']:.2f} GiB; {res['seconds']:.1f} s")
+    return res
+
+
+def phase_lm_zoo(torch):
+    """The hybrid and mixture-of-experts LMs (``zoo_cell`` each):
+    zamba2-1.2b, qwen3-moe-30b-a3b and deepseek-v2-236b."""
+    t0 = time.perf_counter()
+    out = {arch: zoo_cell(torch, arch) for arch in ZOO_DEPTH}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[lm zoo] phase {out['seconds']:.1f} s")
+    return out
 
 
 def gather_levels(torch, server, head_order):
@@ -4516,6 +4841,9 @@ def main():
     ap.add_argument("--dist-only", action="store_true",
                     help="stop after the kernel checks and the process "
                          "backend's phases (a first bring-up)")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="stop after the build and the lm zoo phase (a "
+                         "first bring-up of the hybrid and MoE LMs)")
     ap.add_argument("--first-step", action="store_true",
                     help="print the split of a fresh process's first train "
                          "step (run by the autotune phase)")
@@ -4551,6 +4879,10 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     phase_build_report(lib_path)
 
+    if opts.zoo_only:
+        print(json.dumps({"lm_zoo": phase_lm_zoo(torch)}))
+        print("[zoo-only] stopping after the lm zoo phase")
+        return
     phase_kernels(torch, dev)
     if opts.dist_only:
         phase_dist(torch)
@@ -4584,13 +4916,16 @@ def main():
     lm_serve = phase_lm_serve(torch)
     ssm_prefill = phase_ssm_prefill(torch)
     ssm_serve = phase_ssm_serve(torch)
+    zoo_res = phase_lm_zoo(torch)
     gather = phase_gather_reduce(torch, serve_res)
     runs = (list(serve_res.values()) + list(train_res.values())
             + list(host_res.values()) + [merge_res]
             + list(offline_res.values()) + [ckpt_res]
             + [r for k, r in autotune_res.items() if k != "first_step"]
             + [agree_at, recovery, dist_res, paths_res, nccl_res]
-            + [prefill, lm_serve, ssm_prefill, ssm_serve, gather])
+            + [prefill, lm_serve, ssm_prefill, ssm_serve, gather]
+            + [r for arch in ZOO_DEPTH for r in (zoo_res[arch],
+                                                 zoo_res[arch]["serve"])])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
     # the float32 route of ssd_scan: its launches on the main path (0 in a
@@ -4673,6 +5008,17 @@ def main():
                                      "total_s", "agree", "launches")}},
         "gather_reduce": {"requests": GATHER_REQUESTS,
                           "launches": gather["launches"]}}}))
+    print(json.dumps({"lm_zoo": zoo_res}))
+    # the kernels at the zoo's own layer-0 operands, beside their rows
+    for entry in kernels:
+        rows = {arch: {k: zoo_res[arch]["kernels"][entry["name"]][k] for k in (
+            "shapes", "strides", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")}
+            for arch in ZOO_DEPTH
+            if entry["name"] in zoo_res[arch]["kernels"]}
+        if rows:
+            entry["zoo"] = rows
     print(json.dumps({"timing_floor": {"null_launch": "a 4-byte zero_()",
                                        **floor}}))
     print(json.dumps({"kernels": kernels}))

@@ -1,19 +1,21 @@
 """Config registry of the port: ``get_config(arch_id)`` and the reduced
-``smoke_config`` (the GCN archs, the dense LMs and the Mamba-2 SSM; the
-other LM families, the hybrid ``zamba2-1.2b`` first, wait for ROADMAP
-Queue 1 item 6)."""
+``smoke_config`` (the GCN archs, the dense LMs, the Mamba-2 SSM, the
+Zamba2 hybrid and the two mixture-of-experts LMs; the VLM and audio
+families wait for ROADMAP Queue 1 item 6)."""
 from __future__ import annotations
 
 import dataclasses
 
 from ..core.config import ModelConfig
-from . import (graphgen_gcn, graphgen_gcn_deep, graphgen_sage, mamba2_1p3b,
-               smollm_135m, smollm_360m)
+from . import (deepseek_v2_236b, graphgen_gcn, graphgen_gcn_deep,
+               graphgen_sage, mamba2_1p3b, qwen3_moe_30b_a3b, smollm_135m,
+               smollm_360m, zamba2_1p2b)
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (smollm_135m, smollm_360m, mamba2_1p3b, graphgen_gcn,
-              graphgen_sage, graphgen_gcn_deep)
+    for m in (smollm_135m, smollm_360m, qwen3_moe_30b_a3b, deepseek_v2_236b,
+              mamba2_1p3b, zamba2_1p2b, graphgen_gcn, graphgen_sage,
+              graphgen_gcn_deep)
 }
 
 
@@ -29,8 +31,12 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     when the full config enables it.  LM: 4 layers, d_model 64, vocab
     512; with attention, heads ``max(n // 4, 2)`` over ``max(kv // 4,
     1)`` and head_dim 16, without (ssm) heads, kv heads and head_dim 0;
-    d_ff 128 where the config has an FFN, else 0; ssm: state 16, head_dim
-    16, chunk 8."""
+    d_ff 128 where the config has an FFN, else 0; moe: 8 experts, top 2,
+    expert width 32, and with MLA (DeepSeek) latent ranks 24/32, head
+    dims 8 (rope) / 16 (nope, v), one dense layer of d_ff 64 before two
+    MoE layers, one shared expert; ssm and hybrid: state 16, head_dim 16,
+    chunk 8; hybrid: 5 layers, the shared block every 2 (two sites and a
+    tail layer)."""
     if cfg.family == "gcn":
         depth = max(len(cfg.fanouts), 1)
         small = ((4, 3) + (2,) * depth)[:depth]
@@ -38,7 +44,7 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
                                    n_classes=5, fanouts=small,
                                    cache_rows=min(cfg.cache_rows, 256),
                                    cache_l1_rows=min(cfg.cache_l1_rows, 32))
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"the port has no {cfg.family!r} family yet "
                          f"(ROADMAP Queue 1 item 6)")
     heads = max(cfg.n_heads // 4, 2) if cfg.n_heads else 0
@@ -49,6 +55,15 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     rep = dict(n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=heads,
                n_kv_heads=kv, head_dim=16 if heads else 0,
                d_ff=128 if cfg.d_ff else 0, vocab_size=512)
-    if cfg.family == "ssm":
+    if cfg.family == "moe":
+        rep.update(n_experts=8, top_k=2, d_ff_expert=32)
+        if cfg.kv_lora_rank:
+            rep.update(kv_lora_rank=24, q_lora_rank=32, qk_rope_head_dim=8,
+                       qk_nope_head_dim=16, v_head_dim=16,
+                       first_dense_layers=1, n_layers=3, n_shared_experts=1,
+                       d_ff=64)
+    if cfg.family in ("ssm", "hybrid"):
         rep.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    if cfg.family == "hybrid":
+        rep.update(n_layers=5, attn_every=2)
     return dataclasses.replace(cfg, **rep)

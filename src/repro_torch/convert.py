@@ -1,5 +1,6 @@
-"""Carry GCN, dense-LM and Mamba-2 weights, optimizer state, cache state,
-KV caches and SSM states from ``repro`` to the port.
+"""Carry GCN and LM weights (dense, Mamba-2, Zamba2 hybrid, Qwen3-MoE,
+DeepSeek-V2), optimizer state, cache state, KV caches, SSM states and
+MLA latent caches from ``repro`` to the port.
 
 Each function takes the reference's pytree as numpy arrays
 (``jax.tree.map(np.asarray, tree)`` on the caller's side — this module
@@ -9,8 +10,14 @@ holding the same weights, ``adam_state_from_numpy`` the port's
 ``cache_state_from_numpy`` a flat ``FeatureCache`` or a ``TieredCache``,
 ``lm_params_from_numpy`` a ``DenseLM`` and ``lm_cache_from_numpy`` its
 KV cache, ``mamba_params_from_numpy`` a ``Mamba2LM`` and
-``mamba_cache_from_numpy`` its recurrent state, so a run of the port can
-start from the reference's state mid-run.
+``mamba_cache_from_numpy`` its recurrent state, ``hybrid_params_from_
+numpy`` a ``Zamba2LM`` and ``hybrid_cache_from_numpy`` its state and
+per-site KV caches, ``moe_params_from_numpy`` a ``Qwen3MoeLM`` (its KV
+cache through ``moe_cache_from_numpy``), ``deepseek_params_from_numpy`` a
+``DeepSeekLM`` and ``deepseek_cache_from_numpy`` its latent cache, so a
+run of the port can start from the reference's state mid-run.  The
+reference stacks each kind of layer on a leading ``[n]`` axis; the port
+holds one module per layer (and one shared block in the hybrid).
 
 The other direction, ``gcn_params_to_numpy``, ``adam_state_to_numpy``
 and ``cache_state_to_numpy``, gives the port's GCN, AdamW and cache state
@@ -27,7 +34,10 @@ import torch
 
 from .core.config import ModelConfig, resolve_device
 from .core.feature_cache import FeatureCache, TieredCache
+from .models.deepseek import DeepSeekLM
 from .models.gcn import GCN
+from .models.hybrid import Zamba2LM
+from .models.moe import Qwen3MoeLM
 from .models.ssm import Mamba2LM
 from .models.transformer import DenseLM
 from .train.optimizer import AdamState
@@ -147,6 +157,43 @@ def _put(dst: torch.Tensor, a, cfg: ModelConfig) -> None:
     dst.copy_(torch.from_numpy(a))
 
 
+def _put_module(mod, names, tree, cfg: ModelConfig, i=None) -> None:
+    """``_put`` each named leaf of ``tree`` (its row ``i`` of a stacked
+    leaf when ``i`` is given) into the same-named parameter of ``mod``."""
+    for name in names:
+        a = tree[name] if i is None else tree[name][i]
+        _put(getattr(mod, name), a, cfg)
+
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_MLP = ("wg", "wu", "wd")
+_MAMBA = ("w_in", "conv_k", "a_log", "d_skip", "dt_bias", "w_out", "ln")
+_MLA = ("wdq", "wuq", "wdkv", "wkr", "wukv", "wo", "lnq", "lnkv")
+
+
+def _put_embed(model, embed, cfg: ModelConfig) -> None:
+    """``embed/tok``, ``embed/norm_f`` and, untied, ``embed/head``."""
+    _put(model.tok, embed["tok"], cfg)
+    _put(model.norm_f, embed["norm_f"], cfg)
+    if model.head is not None:
+        _put(model.head, embed["head"], cfg)
+
+
+def _put_moe(mod, stack, cfg: ModelConfig, i: int) -> None:
+    """Row ``i`` of the reference's stacked MoE leaves (``router``,
+    ``wg``, ``wu``, ``wd`` and the shared experts' ``shared`` MLP)."""
+    _put_module(mod, ("router",) + _MLP, stack, cfg, i)
+    if mod.shared is not None:
+        _put_module(mod.shared, _MLP, stack["shared"], cfg, i)
+
+
+def _bf16(a, device) -> torch.Tensor:
+    """A bfloat16 cache leaf on ``device`` (bfloat16 values pass through
+    float32 exactly)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(device,
+                                                          torch.bfloat16)
+
+
 def lm_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
                          ) -> DenseLM:
     """``transformer.init_lm``'s pytree of numpy arrays (``embed/tok``,
@@ -160,12 +207,9 @@ def lm_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
         _put(model.tok, params_np["embed"]["tok"], cfg)
         _put(model.norm_f, params_np["embed"]["norm_f"], cfg)
         for i, block in enumerate(model.layers):
-            for name in ("wq", "wk", "wv", "wo"):
-                _put(getattr(block.attn, name), stack["attn"][name][i], cfg)
-            for name in ("wg", "wu", "wd"):
-                _put(getattr(block.mlp, name), stack["mlp"][name][i], cfg)
-            _put(block.ln1, stack["ln1"][i], cfg)
-            _put(block.ln2, stack["ln2"][i], cfg)
+            _put_module(block.attn, _ATTN, stack["attn"], cfg, i)
+            _put_module(block.mlp, _MLP, stack["mlp"], cfg, i)
+            _put_module(block, ("ln1", "ln2"), stack, cfg, i)
     return model.to(device)
 
 
@@ -174,8 +218,7 @@ def lm_cache_from_numpy(cache_np, device="cuda") -> dict:
     (``[L, B, S, Hkv Dh]``, bfloat16 or float32) -> the port's bfloat16 KV
     cache on ``device`` (bfloat16 values pass through float32 exactly)."""
     device = resolve_device(device)
-    return {name: torch.from_numpy(np.asarray(cache_np[name], np.float32))
-            .to(device, torch.bfloat16) for name in ("k", "v")}
+    return {name: _bf16(cache_np[name], device) for name in ("k", "v")}
 
 
 def mamba_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
@@ -186,16 +229,10 @@ def mamba_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
     ``Mamba2LM`` for ``cfg`` on ``device`` holding the same weights
     (``[d_in, d_out]`` layout in both packages)."""
     model = Mamba2LM(cfg, device)
-    embed, stack = params_np["embed"], params_np["layers"]
     with torch.no_grad():
-        _put(model.tok, embed["tok"], cfg)
-        _put(model.norm_f, embed["norm_f"], cfg)
-        if model.head is not None:
-            _put(model.head, embed["head"], cfg)
+        _put_embed(model, params_np["embed"], cfg)
         for i, blk in enumerate(model.layers):
-            for name in ("w_in", "conv_k", "a_log", "d_skip", "dt_bias",
-                         "w_out", "ln"):
-                _put(getattr(blk, name), stack[name][i], cfg)
+            _put_module(blk, _MAMBA, params_np["layers"], cfg, i)
     return model
 
 
@@ -206,5 +243,85 @@ def mamba_cache_from_numpy(cache_np, device="cuda") -> dict:
     device = resolve_device(device)
     return {"ssm": torch.from_numpy(np.array(cache_np["ssm"], np.float32))
             .to(device),
-            "conv": torch.from_numpy(np.asarray(cache_np["conv"], np.float32))
-            .to(device, torch.bfloat16)}
+            "conv": _bf16(cache_np["conv"], device)}
+
+
+def hybrid_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
+                             ) -> Zamba2LM:
+    """``hybrid.init_zamba2``'s pytree of numpy arrays (``embed``,
+    ``mamba`` stacked on a leading ``[L]`` axis, and the one ``shared``
+    block's ``attn``, ``mlp``, ``ln1``, ``ln2``) -> a ``Zamba2LM`` for
+    ``cfg`` on ``device`` holding the same weights."""
+    model = Zamba2LM(cfg, device)
+    shared = params_np["shared"]
+    with torch.no_grad():
+        _put_embed(model, params_np["embed"], cfg)
+        for i, blk in enumerate(model.layers):
+            _put_module(blk, _MAMBA, params_np["mamba"], cfg, i)
+        _put_module(model.shared.attn, _ATTN, shared["attn"], cfg)
+        _put_module(model.shared.mlp, _MLP, shared["mlp"], cfg)
+        _put_module(model.shared, ("ln1", "ln2"), shared, cfg)
+    return model
+
+
+def hybrid_cache_from_numpy(cache_np, device="cuda") -> dict:
+    """``hybrid.init_cache``-shaped ``{"ssm" [L, B, H, P, N] float32,
+    "conv" [L, B, W - 1, C], "k"/"v" [sites, B, S, Hkv Dh]}`` of numpy
+    arrays -> the port's state (conv and KV in bfloat16) on ``device``."""
+    device = resolve_device(device)
+    out = mamba_cache_from_numpy(cache_np, device)
+    out.update({name: _bf16(cache_np[name], device) for name in ("k", "v")})
+    return out
+
+
+def moe_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
+                          ) -> Qwen3MoeLM:
+    """``moe.init_qwen3_moe``'s pytree of numpy arrays (``embed``, and
+    ``layers/attn|moe|ln1|ln2`` stacked on a leading ``[L]`` axis; the
+    experts ``[L, E, D, F]``) -> a ``Qwen3MoeLM`` for ``cfg`` on
+    ``device`` holding the same weights."""
+    model = Qwen3MoeLM(cfg, device)
+    stack = params_np["layers"]
+    with torch.no_grad():
+        _put_embed(model, params_np["embed"], cfg)
+        for i, blk in enumerate(model.layers):
+            _put_module(blk.attn, _ATTN, stack["attn"], cfg, i)
+            _put_moe(blk.moe, stack["moe"], cfg, i)
+            _put_module(blk, ("ln1", "ln2"), stack, cfg, i)
+    return model
+
+
+def moe_cache_from_numpy(cache_np, device="cuda") -> dict:
+    """The Qwen3-MoE KV cache: the dense LM's layout
+    (``lm_cache_from_numpy``)."""
+    return lm_cache_from_numpy(cache_np, device)
+
+
+def deepseek_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
+                               ) -> DeepSeekLM:
+    """``deepseek.init_deepseek``'s pytree of numpy arrays (``embed``;
+    ``dense/attn|mlp|ln1|ln2`` and ``layers/attn|moe|ln1|ln2`` each
+    stacked on a leading axis) -> a ``DeepSeekLM`` for ``cfg`` on
+    ``device`` holding the same weights."""
+    model = DeepSeekLM(cfg, device)
+    with torch.no_grad():
+        _put_embed(model, params_np["embed"], cfg)
+        for group, mods in (("dense", model.dense), ("layers", model.layers)):
+            stack = params_np[group]
+            for i, blk in enumerate(mods):
+                _put_module(blk.attn, _MLA, stack["attn"], cfg, i)
+                if blk.moe is not None:
+                    _put_moe(blk.moe, stack["moe"], cfg, i)
+                else:
+                    _put_module(blk.mlp, _MLP, stack["mlp"], cfg, i)
+                _put_module(blk, ("ln1", "ln2"), stack, cfg, i)
+    return model
+
+
+def deepseek_cache_from_numpy(cache_np, device="cuda") -> dict:
+    """``deepseek.init_cache``-shaped ``{"ckv_dense", "kr_dense", "ckv",
+    "kr"}`` of numpy arrays -> the port's bfloat16 latent cache on
+    ``device``."""
+    device = resolve_device(device)
+    return {name: _bf16(cache_np[name], device)
+            for name in ("ckv_dense", "kr_dense", "ckv", "kr")}

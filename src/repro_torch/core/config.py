@@ -1,16 +1,19 @@
-"""The GCN, cache, dense-LM and SSM fields of
+"""The GCN, cache, LM, MoE, MLA, SSM and hybrid fields of
 ``repro.core.config.ModelConfig``, and ``TrainConfig``.
 
 Only what the ported slices read is carried over: the GCN dims, the
 fanouts and the cache policy, with the same construction-time validation
 (``cache_rows`` is rounded UP to a power of two); the LM's dims, rope and
-norm constants and its flash switch; the Mamba-2 SSM dims (state, heads,
-head dim, expansion, chunk, conv width), each with the reference's
-defaults; the optimizer's schedule; the autotuner's ``TuneCandidate``
-and ``ModelConfig.with_candidate``; and the roofline constants of the
-card the port runs on (an NVIDIA H100, not the reference's TPU).  The
-MoE/MLA/hybrid/VLM/audio fields and the shape/mesh configs wait for the
-slices that need them (ROADMAP Queue 1 items 6-7).
+norm constants and its flash switch; the mixture-of-experts fields
+(experts, top-k, shared experts, expert width, leading dense layers),
+DeepSeek's multi-head latent attention ranks and head dims, the Mamba-2
+SSM dims (state, heads, head dim, expansion, chunk, conv width) and the
+hybrid's shared-attention period, each with the reference's defaults;
+the optimizer's schedule; the autotuner's ``TuneCandidate`` and
+``ModelConfig.with_candidate``; and the roofline constants of the card
+the port runs on (an NVIDIA H100, not the reference's TPU).  The VLM and
+audio fields and the shape/mesh configs wait for the slices that need
+them (ROADMAP Queue 1 items 6-7).
 """
 from __future__ import annotations
 
@@ -63,8 +66,9 @@ def _round_up_pow2(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A GCN architecture plus its distributed feature-fetch policy, a
-    dense decoder-only LM, or a Mamba-2 SSM LM.
+    """A GCN architecture plus its distributed feature-fetch policy, or
+    a decoder-only LM: dense, mixture-of-experts (Qwen3-MoE, DeepSeek-V2
+    with MLA), Mamba-2 SSM, or the Zamba2 hybrid.
 
     Field meanings and defaults match ``repro.core.config.ModelConfig``;
     see the reference for the long-form comments on each cache knob.
@@ -72,7 +76,7 @@ class ModelConfig:
     counterpart here: ``DenseLM`` holds one module per layer and keeps
     its activations (ROADMAP Queue 1 item 6)."""
     name: str
-    family: str                 # "gcn", "dense" or "ssm"
+    family: str                 # "gcn", "dense", "moe", "ssm", "hybrid"
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -83,12 +87,24 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    n_experts: int = 0          # MoE: routed experts
+    top_k: int = 0              # experts per token
+    n_shared_experts: int = 0   # always-on experts (one MLP of n x width)
+    d_ff_expert: int = 0        # per-expert FFN width
+    first_dense_layers: int = 0  # DeepSeek: leading dense-MLP layers
+    kv_lora_rank: int = 0       # MLA: the latent KV width (0: no MLA)
+    q_lora_rank: int = 0        # MLA: the latent query width
+    qk_rope_head_dim: int = 0   # MLA: the roped part of a q/k head
+    qk_nope_head_dim: int = 0   # MLA: the unroped part of a q/k head
+    v_head_dim: int = 0         # MLA: a value head's width
     ssm_state: int = 0          # N, the state width per head
     ssm_heads: int = 0          # 0 -> expand * d_model // ssm_head_dim
     ssm_head_dim: int = 0       # P (0 -> 64)
     ssm_expand: int = 2
     ssm_chunk: int = 128        # SSD chunk length Q
     conv_width: int = 4
+    attn_every: int = 0         # hybrid: the shared attention block runs
+                                # after every attn_every-th Mamba layer
     gcn_hidden: int = 0
     gcn_in_dim: int = 0
     n_classes: int = 0

@@ -38,6 +38,18 @@ def check_causal(lq: int, lk: int, causal: bool) -> None:
                          f"would see no key")
 
 
+def check_head_dims(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless q, k and v share one head dim: the
+    kernels (and the Pallas kernel, which reshapes v to q's head dim) take
+    one ``Dh`` for all three, so MLA's 192-wide q/k heads over 128-wide
+    values take the plain attention path."""
+    dims = (q.shape[-1], k.shape[-1], v.shape[-1])
+    if len(set(dims)) != 1:
+        raise ValueError(f"flash_attention needs one head dim for q, k and "
+                         f"v, got {dims[0]}, {dims[1]} and {dims[2]}")
+
+
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool) -> None:
     """Raise ``ValueError`` unless ``q [B, Hq, Lq, Dh]`` and ``k``/``v

@@ -17,7 +17,8 @@ import torch
 from . import ref
 from .cache_gather import (cache_probe_compact_cuda, cache_probe_gather_cuda,
                            cache_probe_tiered_cuda)
-from .flash_attention import check_causal, flash_attention_cuda
+from .flash_attention import (check_causal, check_head_dims,
+                              flash_attention_cuda)
 from .gather_reduce import (fanout_mean_bwd_cuda, fanout_mean_cuda,
                             gather_reduce_cuda)
 from .ssd_scan import check_dtypes, ssd_scan_cuda
@@ -129,6 +130,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the dense LM hands in its ``[B, L, H, Dh]`` tensors transposed) and the
     result is the ``[B, Hq, Lq, Dh]`` view of a contiguous ``[B, Lq, Hq,
     Dh]`` tensor; float32 operands are made contiguous by the wrapper.
+    One head dim for q, k and v on both devices (``ValueError``
+    otherwise: MLA's v is narrower than its q and k).
 
     Forward only, as in the reference (``jax.grad`` cannot pass through
     ``flash_attention_pallas``): an operand that requires grad under
@@ -139,6 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention has no backward yet: run it under "
             "torch.no_grad() (an LM training slice needs its own backward "
             "kernel, ROADMAP Queue 1 item 6)")
+    check_head_dims(q, k, v)
     check_causal(q.shape[-2], k.shape[-2], causal)
     if _on_cuda(q, k, v):
         return flash_attention_cuda(q, k, v, causal=causal)

@@ -526,7 +526,8 @@ def _sync(dev: torch.device) -> None:
 
 def serve_lm(args, step_hook=None) -> dict:
     """LM serving: batched greedy decode with the model's cache (the dense
-    LM's bfloat16 KV cache, the SSM's recurrent state).
+    and Qwen3-MoE LMs' bfloat16 KV cache, the SSM's recurrent state, the
+    hybrid's state and per-site KV caches, DeepSeek's latent cache).
 
     The prompt (``--prompt-len`` tokens drawn with numpy from ``--seed``)
     is filled token by token through the decode path; with
@@ -590,8 +591,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="graphgen-gcn",
                     help="a gcn arch (graphgen-gcn, graphgen-sage, "
                          "graphgen-gcn-deep) is served by the graph tier; "
-                         "a dense (smollm-135m, smollm-360m) or ssm "
-                         "(mamba2-1.3b) LM by the decode loop")
+                         "a dense (smollm-135m, smollm-360m), moe "
+                         "(qwen3-moe-30b-a3b, deepseek-v2-236b), ssm "
+                         "(mamba2-1.3b) or hybrid (zamba2-1.2b) LM by the "
+                         "decode loop")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",

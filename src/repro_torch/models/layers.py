@@ -136,6 +136,12 @@ def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
     return h @ p.wd.to(x.dtype)
 
 
+def draw(p: torch.Tensor, gen: torch.Generator, scale: float) -> None:
+    """Fill the weight ``p`` in place with normal draws x ``scale`` from
+    ``gen`` (a generator on ``p``'s device)."""
+    p.normal_(0.0, scale, generator=gen)
+
+
 def padded_vocab(cfg: ModelConfig, multiple: int = 256) -> int:
     """``vocab_size`` rounded up to a multiple of ``multiple``."""
     return -(-cfg.vocab_size // multiple) * multiple

@@ -1,0 +1,301 @@
+"""Mixture-of-experts layer and the qwen3-moe-30b-a3b LM (port of
+``repro/models/moe.py``): 48 layers of GQA attention and a 128-expert
+top-8 MoE MLP.
+
+``moe_forward`` is the reference's sort-based capacity dispatch: each
+token's top-k experts (softmax over the float32 router logits, the top-k
+weights renormalised), the assignments sorted by expert with a stable
+sort, each one's rank in its expert's queue, ranks past the capacity
+``max(int(T k / E * 1.25), 1)`` dropped, the ``[E, cap, D]`` buffer run
+through each expert's SwiGLU as batched products, and the weighted
+combine.  Three points follow the reference exactly, on both devices:
+
+* **top-k ties** go to the lower expert index, as ``lax.top_k`` gives
+  them: the port takes the first k of a stable descending sort;
+* **the sort** is stable (``jnp.argsort`` is; ``torch.argsort`` only
+  with ``stable=True``);
+* **slot cap - 1.**  The reference clips every dropped assignment's
+  rank to ``cap - 1`` and scatters its zeroed row there, after the kept
+  assignment of that rank; of colliding writes the last wins, so every
+  expert whose queue overflows ends with a zero row in slot ``cap - 1``
+  and its last kept assignment contributes nothing.  The port scatters
+  the kept rows only (no duplicate index) and then zeroes slot ``cap - 1``
+  of each overflowing expert: the reference's answer, deterministically.
+
+The combine adds each token's k contributions in the reference's order
+(ascending expert id, the order of the sorted scatter-add) one rounding
+at a time, with no atomics.  The expert-parallel all-to-all path
+(``moe_forward_ep``, the reference's ``MOE_IMPL = "ep_a2a"``) is a mesh
+path and waits for ROADMAP Queue 1 item 7.4.  ``tally()`` counts the
+dispatch's kept, dropped and collision-zeroed assignments while it is
+open (off by default).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.config import ModelConfig, resolve_device
+from . import layers as L
+from .transformer import MLP, Attention, kv_cache
+
+CAPACITY_FACTOR = 1.25
+
+_TALLY: Optional[list] = None
+
+
+def capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``t`` tokens: ``max(int(t k / E * 1.25), 1)``."""
+    return max(int(t * cfg.top_k / cfg.n_experts * CAPACITY_FACTOR), 1)
+
+
+class Dispatch(NamedTuple):
+    """The routing of ``T`` tokens, each of the ``T k`` assignments in
+    expert-sorted order (``order`` maps sorted -> flat token-major
+    index): its expert ``se``, rank in the expert's queue ``rank`` and
+    ``keep = rank < cap``; ``count [E]`` the assignments each expert
+    received; ``topv``/``topi [T, k]`` the renormalised weights and
+    experts."""
+    topv: torch.Tensor
+    topi: torch.Tensor
+    order: torch.Tensor
+    se: torch.Tensor
+    rank: torch.Tensor
+    keep: torch.Tensor
+    count: torch.Tensor
+    cap: int
+
+
+def route(router: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig
+          ) -> Dispatch:
+    """Top-k routing and the capacity plan of ``xf [T, D]``: router logits
+    in ``xf``'s dtype, then float32; softmax; the top k with ties to the
+    lower index (the first k of a stable descending sort, as
+    ``lax.top_k``); the weights renormalised; the flat expert ids sorted
+    stably and each assignment's rank in its expert's queue."""
+    t, k, e = xf.shape[0], cfg.top_k, cfg.n_experts
+    logits = (xf @ router.to(xf.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    count = torch.bincount(flat_e, minlength=e)
+    first = torch.cumsum(count, 0) - count          # each expert's start
+    rank = torch.arange(t * k, device=xf.device) - first[se]
+    cap = capacity(t, cfg)
+    return Dispatch(topv, topi, order, se, rank, rank < cap, count, cap)
+
+
+def _expert_swiglu(p, buf: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU on its rows: ``buf [E, cap, D]`` ->
+    ``[E, cap, D]`` as batched products in ``buf``'s dtype."""
+    h = F.silu(torch.bmm(buf, p.wg.to(buf.dtype)))
+    h = h * torch.bmm(buf, p.wu.to(buf.dtype))
+    return torch.bmm(h, p.wd.to(buf.dtype))
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE MLP of ``x [B, S, D]`` in ``x``'s dtype (``p`` holds
+    ``router [D, E]``, ``wg``/``wu [E, D, F]``, ``wd [E, F, D]`` and, with
+    shared experts, ``shared``): the reference's capacity dispatch and its
+    slot ``cap - 1`` collision (module docstring), the combine in its
+    order, plus the shared experts' MLP."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.top_k, cfg.n_experts
+    xf = x.reshape(t, d)
+    r = route(p.router, xf, cfg)
+    cap = r.cap
+    tok = r.order // k                             # sorted -> token
+    kept = torch.nonzero(r.keep).squeeze(1)
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    buf[r.se[kept], r.rank[kept]] = xf[tok[kept]]
+    over = r.count > cap
+    buf[over, cap - 1] = 0                         # the reference's collision
+    out = _expert_swiglu(p, buf)
+    # sorted -> flat: assignment i of token t sits at t k + i; its weight
+    # is zero where it was dropped (the reference reads slot cap - 1 there)
+    rank_c = torch.clamp(r.rank, max=cap - 1)
+    w = (r.topv.reshape(-1)[r.order] * r.keep).to(x.dtype)
+    contrib = torch.empty((t * k, d), dtype=x.dtype, device=x.device)
+    contrib[r.order] = out[r.se, rank_c] * w[:, None]
+    contrib = contrib.reshape(t, k, d)
+    # the reference's scatter-add visits a token's assignments in sorted
+    # (ascending expert) order, one rounding per add from a zero row
+    by_expert = torch.argsort(r.topi, dim=-1)
+    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        y = y + torch.gather(contrib, 1, by_expert[:, j, None, None]
+                             .expand(t, 1, d))[:, 0]
+    if _TALLY is not None:
+        _TALLY.append(torch.stack([r.keep.sum(), (~r.keep).sum(),
+                                   over.sum()]))
+    if p.shared is not None:
+        y = y + L.mlp_forward(p.shared, xf)
+    return y.reshape(b, s, d)
+
+
+def moe_drop_rate(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Share of the ``T k`` assignments dropped by capacity (the
+    reference's benchmark metric), a float32 scalar.  It does not count
+    the slot ``cap - 1`` collision (``tally`` does)."""
+    t = x.shape[0] * x.shape[1]
+    r = route(p.router, x.reshape(t, -1), cfg)
+    return (~r.keep).to(torch.float32).mean()
+
+
+@contextlib.contextmanager
+def tally():
+    """Count every ``moe_forward`` call's dispatch inside the block:
+    yields a dict that holds, on exit, ``calls``, ``assignments``,
+    ``dropped`` (past capacity) and ``zeroed`` (kept but zeroed by the
+    slot ``cap - 1`` collision).  The counts stay on the device until
+    the exit (no host sync per call)."""
+    global _TALLY
+    saved, _TALLY = _TALLY, []
+    out: dict = {}
+    try:
+        yield out
+    finally:
+        rows, _TALLY = _TALLY, saved
+        kept, dropped, zeroed = (torch.stack(rows).sum(0).tolist() if rows
+                                 else (0, 0, 0))
+        out.update(calls=len(rows), assignments=kept + dropped,
+                   dropped=dropped, zeroed=zeroed)
+
+
+class MoEMLP(nn.Module):
+    """``router [D, E]``, the experts' ``wg``/``wu [E, D, F]`` and ``wd
+    [E, F, D]``, and with shared experts ``shared``, one SwiGLU MLP of
+    width ``n_shared_experts x d_ff_expert``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+
+        def zeros(*shape):
+            return nn.Parameter(torch.zeros(shape, device=device))
+        self.router = zeros(d, e)
+        self.wg = zeros(e, d, f)
+        self.wu = zeros(e, d, f)
+        self.wd = zeros(e, f, d)
+        self.shared = (MLP(cfg, device, d_ff=cfg.n_shared_experts * f)
+                       if cfg.n_shared_experts else None)
+
+
+class MoEBlock(nn.Module):
+    """Pre-norm block: ``x + attn(norm(x))``, then ``x + moe(norm(x))``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.attn = Attention(cfg, device)
+        self.moe = MoEMLP(cfg, device)
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
+                cache=None, cache_pos=None):
+        """``(x', new_cache)`` for activations ``x [B, L, D]``."""
+        h, new_cache = L.attn_forward(
+            self.attn, L.rmsnorm(self.ln1, x, cfg.norm_eps), cfg, pos=pos,
+            cache=cache, cache_pos=cache_pos)
+        x = x + h
+        x = x + moe_forward(self.moe, L.rmsnorm(self.ln2, x, cfg.norm_eps),
+                            cfg)
+        return x, new_cache
+
+
+class Qwen3MoeLM(nn.Module):
+    """Token embedding ``tok [V_pad, D]``, ``n_layers`` MoE blocks, the
+    final norm ``norm_f`` and, untied (qwen3-moe), the read-out ``head
+    [D, V_pad]``; built on ``device`` (the card unless the caller asks for
+    the CPU).  The KV cache is the dense LM's."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        if cfg.family != "moe" or cfg.kv_lora_rank:
+            raise ValueError(f"Qwen3MoeLM needs a moe config without MLA, "
+                             f"got {cfg.name!r} ({cfg.family})")
+        device = resolve_device(device)
+        self.cfg = cfg
+        v, d = L.padded_vocab(cfg), cfg.d_model
+        self.tok = nn.Parameter(torch.zeros(v, d, device=device))
+        self.norm_f = nn.Parameter(torch.ones(d, device=device))
+        self.head = (None if cfg.tie_embeddings
+                     else nn.Parameter(torch.zeros(d, v, device=device)))
+        self.layers = nn.ModuleList(MoEBlock(cfg, device)
+                                    for _ in range(cfg.n_layers))
+
+    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward: ``tokens [B, S]`` -> float32 logits
+        ``[B, S, V_pad]``; with ``use_flash_attention`` each layer runs
+        ``ops.flash_attention`` once (both lengths multiples of 128)."""
+        b, s = tokens.shape
+        x = L.embed_tokens(self.tok, tokens)
+        pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        for block in self.layers:
+            x, _ = block(x, self.cfg, pos)
+        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``."""
+        return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
+
+    def init_cache(self, batch: int, seq: int) -> dict:
+        """Zeroed bfloat16 KV cache: ``k``/``v [L, B, S, Hkv Dh]``."""
+        return kv_cache(self.cfg, self.cfg.n_layers, batch, seq,
+                        self.tok.device)
+
+    def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int):
+        """One decode step: ``tokens [B, 1]`` at position ``pos`` ->
+        ``(logits [B, V_pad], cache)``; the cache is written in place."""
+        b = tokens.shape[0]
+        x = L.embed_tokens(self.tok, tokens)
+        qpos = torch.full((b, 1), pos, dtype=torch.int64, device=tokens.device)
+        for i, block in enumerate(self.layers):
+            x, _ = block(x, self.cfg, qpos,
+                         cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+        logits = L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+        return logits[:, 0], cache
+
+
+
+def init_moe_mlp(p: MoEMLP, gen: torch.Generator) -> None:
+    """The reference's MoE scales: router x 0.006, experts and the shared
+    MLP x 0.02."""
+    L.draw(p.router, gen, 0.006)
+    for w in (p.wg, p.wu, p.wd):
+        L.draw(w, gen, 0.02)
+    if p.shared is not None:
+        for w in (p.shared.wg, p.shared.wu, p.shared.wd):
+            L.draw(w, gen, 0.02)
+
+
+def init_qwen3_moe(cfg: ModelConfig, seed: int = 0, device="cuda"
+                   ) -> Qwen3MoeLM:
+    """A ``Qwen3MoeLM`` on ``device`` with the reference's init scales
+    (``tok`` and ``head`` x 0.01, attention and experts x 0.02, the router
+    x 0.006, norms 1), drawn in place from a generator on ``device``
+    seeded with ``seed``: the full config holds ~120 GB of float32
+    weights, so they are not drawn on the host.  One seed gives the same
+    weights on one device type, not across them (the draws also differ
+    from ``repro.models.moe.init_qwen3_moe``'s): use ``convert`` or a
+    state dict to share weights."""
+    model = Qwen3MoeLM(cfg, device)
+    gen = torch.Generator(device=model.tok.device).manual_seed(seed)
+    with torch.no_grad():
+        L.draw(model.tok, gen, 0.01)
+        if model.head is not None:
+            L.draw(model.head, gen, 0.01)
+        for block in model.layers:
+            for w in (block.attn.wq, block.attn.wk, block.attn.wv,
+                      block.attn.wo):
+                L.draw(w, gen, 0.02)
+            init_moe_mlp(block.moe, gen)
+    return model

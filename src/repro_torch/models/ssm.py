@@ -151,6 +151,19 @@ class MambaBlock(nn.Module):
         out = self._out(y, xh.to(x.dtype), z, cfg)
         return out[:, None], ssm, hist[:, 1:]
 
+    def decode_step(self, x: torch.Tensor, cfg: ModelConfig,
+                    ssm: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
+        """The residual step of the block: ``x + mamba_decode(norm(x))``
+        for ``x [B, 1, D]``, with the layer's cache views ``ssm [B, H, P,
+        N]`` float32 and ``conv [B, W - 1, C]`` bfloat16 updated in place
+        (the history read in ``x``'s dtype and stored back in bfloat16, as
+        the reference's cache does)."""
+        h, new_ssm, new_conv = self.mamba_decode(
+            L.rmsnorm(self.ln, x, cfg.norm_eps), cfg, ssm, conv.to(x.dtype))
+        ssm.copy_(new_ssm)
+        conv.copy_(new_conv.to(torch.bfloat16))
+        return x + h
+
 
 class Mamba2LM(nn.Module):
     """Token embedding ``tok [V_pad, D]``, ``n_layers`` mamba2 blocks, the
@@ -206,12 +219,8 @@ class Mamba2LM(nn.Module):
         interface: the recurrence needs no position)."""
         x = L.embed_tokens(self.tok, tokens)
         for i, blk in enumerate(self.layers):
-            h, ssm, conv = blk.mamba_decode(
-                L.rmsnorm(blk.ln, x, self.cfg.norm_eps), self.cfg,
-                cache["ssm"][i], cache["conv"][i].to(x.dtype))
-            x = x + h
-            cache["ssm"][i].copy_(ssm)
-            cache["conv"][i].copy_(conv.to(torch.bfloat16))
+            x = blk.decode_step(x, self.cfg, cache["ssm"][i],
+                                cache["conv"][i])
         logits = L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
         return logits[:, 0], cache
 

@@ -21,6 +21,15 @@ def _matrix(d_in: int, d_out: int, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(d_in, d_out, device=device))
 
 
+def kv_cache(cfg: ModelConfig, n: int, batch: int, seq: int,
+             device) -> dict:
+    """Zeroed bfloat16 ``k``/``v [n, B, S, Hkv Dh]`` for ``n`` attention
+    layers (or sites)."""
+    shape = (n, batch, seq, cfg.n_kv_heads * cfg.resolved_head_dim)
+    return {name: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+            for name in ("k", "v")}
+
+
 class Attention(nn.Module):
     """``wq [D, Hq Dh]``, ``wk``/``wv [D, Hkv Dh]``, ``wo [Hq Dh, D]``."""
 
@@ -34,13 +43,15 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU weights ``wg``/``wu [D, F]``, ``wd [F, D]``."""
+    """SwiGLU weights ``wg``/``wu [D, F]``, ``wd [F, D]``; ``F`` is
+    ``d_ff`` when given (the MoE's shared experts), else ``cfg.d_ff``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, d_ff: int = 0):
         super().__init__()
-        self.wg = _matrix(cfg.d_model, cfg.d_ff, device)
-        self.wu = _matrix(cfg.d_model, cfg.d_ff, device)
-        self.wd = _matrix(cfg.d_ff, cfg.d_model, device)
+        f = d_ff or cfg.d_ff
+        self.wg = _matrix(cfg.d_model, f, device)
+        self.wu = _matrix(cfg.d_model, f, device)
+        self.wd = _matrix(f, cfg.d_model, device)
 
 
 class Block(nn.Module):
@@ -98,11 +109,8 @@ class DenseLM(nn.Module):
 
     def init_cache(self, batch: int, seq: int) -> dict:
         """Zeroed bfloat16 KV cache: ``k``/``v [L, B, S, Hkv Dh]``."""
-        kvd = self.cfg.n_kv_heads * self.cfg.resolved_head_dim
-        shape = (self.cfg.n_layers, batch, seq, kvd)
-        dev = self.tok.device
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+        return kv_cache(self.cfg, self.cfg.n_layers, batch, seq,
+                        self.tok.device)
 
     def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int):
         """One decode step: ``tokens [B, 1]`` at position ``pos`` (the

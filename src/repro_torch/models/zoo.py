@@ -1,8 +1,9 @@
 """Model zoo of the port (``repro/models/zoo.py``'s ``build`` and
 ``forward_logits``) for the families ported so far: the paper's GCN, the
-dense LM and the Mamba-2 SSM LM.  The other LM families (hybrid, moe,
-vlm, audio) raise ``NotImplementedError`` naming ROADMAP Queue 1 item
-6."""
+dense LM, the mixture-of-experts LMs (Qwen3-MoE; DeepSeek-V2 with MLA,
+told apart by ``kv_lora_rank``), the Mamba-2 SSM LM and the Zamba2
+hybrid.  The VLM and audio families raise ``NotImplementedError`` naming
+ROADMAP Queue 1 item 6."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -10,17 +11,32 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..core.config import ModelConfig, resolve_device
-from . import gcn, ssm, transformer
+from . import deepseek, gcn, hybrid, moe, ssm, transformer
 
 _LATER = "is not ported yet (ROADMAP Queue 1 item 6)"
 #: the LM families ported so far
-LM_FAMILIES = ("dense", "ssm")
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: family key -> (module, name of its seeded initialiser)
+_INITS = {"dense": (transformer, "init_dense_lm"),
+          "moe_qwen": (moe, "init_qwen3_moe"),
+          "moe_deepseek": (deepseek, "init_deepseek"),
+          "ssm": (ssm, "init_mamba2"),
+          "hybrid": (hybrid, "init_zamba2")}
 
 
-def _lm_init(family: str) -> Callable:
-    """The seeded initialiser ``(cfg, seed, device) -> model`` of an LM
-    family, looked up when the model is made."""
-    return transformer.init_dense_lm if family == "dense" else ssm.init_mamba2
+def _family_key(cfg: ModelConfig) -> str:
+    """``cfg.family``, with ``moe`` split into ``moe_deepseek`` (MLA:
+    ``kv_lora_rank`` set) and ``moe_qwen``."""
+    if cfg.family == "moe":
+        return "moe_deepseek" if cfg.kv_lora_rank else "moe_qwen"
+    return cfg.family
+
+
+def _lm_init(cfg: ModelConfig) -> Callable:
+    """The seeded initialiser ``(cfg, seed, device) -> model`` of ``cfg``'s
+    LM family, looked up when the model is made."""
+    module, name = _INITS[_family_key(cfg)]
+    return getattr(module, name)
 
 
 class ModelAPI(NamedTuple):
@@ -44,7 +60,7 @@ def build(cfg: ModelConfig, device="cuda") -> ModelAPI:
     if cfg.family in LM_FAMILIES:
         return ModelAPI(
             cfg=cfg,
-            init=lambda seed: _lm_init(cfg.family)(cfg, seed, device),
+            init=lambda seed: _lm_init(cfg)(cfg, seed, device),
             loss=lambda m, batch: m.loss(batch),
             decode=lambda m, cache, tokens, pos: m.forward_decode(
                 cache, tokens, pos),
@@ -56,7 +72,10 @@ def forward_logits(cfg: ModelConfig, model, batch: dict) -> torch.Tensor:
     """Full-sequence forward (prefill) without an autograd graph: float32
     logits ``[B, S, V_pad]`` of ``batch["tokens"]``.  ``cfg`` must be the
     model's own config (the model reads its own, flash switch included).
-    The SSM family runs ``ops.ssd_scan`` in every layer."""
+    The SSM family runs ``ops.ssd_scan`` in every layer, the hybrid in
+    every Mamba layer and, with flash on, ``ops.flash_attention`` at every
+    site of its shared block; the dense and Qwen3-MoE families run flash
+    in every layer when it is on (DeepSeek's MLA takes the plain path)."""
     if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(f"forward_logits of family "
                                   f"{cfg.family!r} {_LATER}")

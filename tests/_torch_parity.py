@@ -225,3 +225,114 @@ def compact_edge(case: str, c: int = 256, d: int = 8, w: int = 3,
     elif case == "cap_is_r":
         hit_cap = r
     return keys, rows, ids, hit_cap
+
+
+# ------------------------------------------------------------ LM parity
+
+def lm_dtypes(name: str):
+    """``(torch dtype, jax dtype)`` of a compute dtype's name."""
+    import jax.numpy as jnp
+    import torch
+    return {"float32": (torch.float32, jnp.float32),
+            "bfloat16": (torch.bfloat16, jnp.bfloat16)}[name]
+
+
+def set_compute(monkeypatch, name: str) -> None:
+    """Set both packages' ``COMPUTE_DTYPE`` (as ``tests/test_torch_lm.py``
+    does: float32 where tokens must be equal)."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers
+    tdt, jdt = lm_dtypes(name)
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", tdt)
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jdt)
+
+
+def ref_params(init_fn, jcfg, seed: int = 0):
+    """The reference's init tree as writable numpy arrays."""
+    import jax
+    return jax.tree.map(np.array, init_fn(jcfg, jax.random.PRNGKey(seed)))
+
+
+def assert_cache_close(got: dict, want: dict) -> None:
+    """Every leaf of the port's cache against the reference's, within an
+    absolute floor of 1e-5 of the leaf's largest magnitude (a key written
+    to the bfloat16 cache and read back in the same step can round to the
+    neighbouring bf16 value, which moves the later layers' values by
+    float32 ulps of their largest entries; entries far below the largest,
+    from cancellation, carry those ulps as large relative errors) plus,
+    for bfloat16 leaves, one bf16 ulp (2^-7 relative: values one float32
+    ulp apart can round to neighbouring bf16 numbers)."""
+    import torch
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for name, w in want.items():
+        g = got[name]
+        w = np.asarray(w, np.float32)
+        assert tuple(g.shape) == w.shape, (name, g.shape, w.shape)
+        assert g.dtype in (torch.float32, torch.bfloat16), (name, g.dtype)
+        rtol = 2 ** -7 if g.dtype == torch.bfloat16 else 0
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+def check_lm_parity(jmod, jcfg, params, model, cache_from_numpy, *,
+                    batch: int = 2, seq: int = 16, prompt: int = 5,
+                    steps: int = 6, seed: int = 3) -> None:
+    """The port's ``model`` (holding the reference's ``params``) against
+    ``jmod`` (a ``repro.models`` family module) in the current compute
+    dtype (float32: set both with ``set_compute``):
+
+    * ``forward_logits`` on ``[batch, seq]`` seeded tokens against
+      ``forward_train``, rtol 1e-5 / atol 1e-6;
+    * the loss against ``loss_fn``, rtol 1e-4;
+    * ``prompt`` reference decode steps, then ``steps`` greedy steps, each
+      taken by the port from the reference's cache of that step (carried
+      across by ``cache_from_numpy``): the step's logits within rtol/atol
+      1e-5, its greedy tokens equal, and every leaf of the cache the port
+      wrote against the reference's (``assert_cache_close``).  Each step
+      starts from the reference's state because a bfloat16 cache entry
+      one float32 ulp apart can round to the neighbouring bf16 value (the
+      conv history's entries, 6.1e-5 apart), which moves the next steps'
+      logits by ~1e-5 in a free-running chain."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro_torch.models import zoo
+    cfg = model.cfg
+    jp = jax.tree.map(jnp.asarray, params)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    got = zoo.forward_logits(cfg, model, {"tokens": torch.from_numpy(tokens)})
+    want = jax.jit(lambda p, t: jmod.forward_train(jcfg, p, t))(
+        jp, jnp.asarray(tokens))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    with torch.no_grad():
+        loss = zoo.build(cfg, "cpu").loss(model, {
+            "tokens": torch.from_numpy(tokens),
+            "labels": torch.from_numpy(labels)})
+    jloss = jmod.loss_fn(jcfg, jp, {"tokens": jnp.asarray(tokens),
+                                    "labels": jnp.asarray(labels)})
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
+
+    decode = jax.jit(lambda p, c, t, pos: jmod.forward_decode(jcfg, p, c, t,
+                                                              pos))
+    jcache = jmod.init_cache(jcfg, batch, prompt + steps)
+    for p in range(prompt):
+        jl, jcache = decode(jp, jcache, jnp.asarray(tokens[:, p:p + 1]),
+                            jnp.int32(p))
+    with torch.no_grad():
+        for pos in range(prompt, prompt + steps):
+            jtok = jnp.argmax(jl, axis=-1)[:, None].astype(jnp.int32)
+            cache = cache_from_numpy(jax.tree.map(np.asarray, jcache),
+                                     device="cpu")
+            tl, cache = model.forward_decode(
+                cache, torch.from_numpy(np.array(jtok)), pos)
+            jl, jcache = decode(jp, jcache, jtok, jnp.int32(pos))
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"step {pos}")
+            np.testing.assert_array_equal(
+                torch.argmax(tl, dim=-1).numpy(),
+                np.asarray(jnp.argmax(jl, axis=-1)))
+            assert_cache_close(cache, jcache)

@@ -101,7 +101,7 @@ def test_lm_configs_match_reference():
                                                                  f.name)
             assert a.resolved_head_dim == b.resolved_head_dim
     with pytest.raises(ValueError, match="Queue 1 item 6"):
-        smoke_config(ModelConfig(name="x", family="moe"))
+        smoke_config(ModelConfig(name="x", family="vlm"))
 
 
 @pytest.mark.parametrize("vocab", [512, 1000, 49152, 50257])
@@ -387,7 +387,7 @@ def test_zoo_refuses_unported_families():
     """build and forward_logits name the ROADMAP item of a family the port
     lacks; the GCN family builds without a decode path."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        zoo.build(ModelConfig(name="x", family="hybrid"), device="cpu")
+        zoo.build(ModelConfig(name="x", family="vlm"), device="cpu")
     gcn_cfg = get_config("graphgen-gcn")
     api = zoo.build(gcn_cfg, device="cpu")
     assert api.decode is None and api.init_cache is None

@@ -110,7 +110,7 @@ def _ref_params(jcfg, init, seed=0):
 def test_ssm_configs_match_reference():
     """mamba2-1.3b and its smoke config carry the reference's values in
     every field the port has (heads, kv heads, head_dim and d_ff 0 for a
-    config without attention); the hybrid family still names its ROADMAP
+    config without attention); the VLM family still names its ROADMAP
     item."""
     for a, b in ((get_config(ARCH), jget_config(ARCH)), _smoke()):
         for f in dataclasses.fields(a):
@@ -120,7 +120,7 @@ def test_ssm_configs_match_reference():
     assert (small.n_heads, small.n_kv_heads, small.head_dim, small.d_ff) \
         == (0, 0, 0, 0)
     with pytest.raises(ValueError, match="Queue 1 item 6"):
-        smoke_config(jget_config("zamba2-1.2b"))
+        smoke_config(jget_config("llama-3.2-vision-11b"))
 
 
 # -------------------------------------------------------------- ssd twin
@@ -594,7 +594,7 @@ def test_zoo_builds_ssm_and_refuses_others():
         zoo.forward_logits(dataclasses.replace(cfg, ssm_chunk=4), model,
                            {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        zoo.build(ModelConfig(name="x", family="hybrid"), device="cpu")
+        zoo.build(ModelConfig(name="x", family="vlm"), device="cpu")
     with pytest.raises(ValueError, match="untied"):
         layers.lm_head(model.tok, model.norm_f, torch.zeros(1, 1, 64), cfg)
 
