@@ -287,6 +287,40 @@ Phases, each of which fails the run (nonzero exit, no result line):
               the dense and one MoE layer: tokens equal but at near-ties,
               logits up to each row's first difference, every cache leaf
               of the rows that never differ, beside a one-ulp floor).
+   lm train — ``train_lm`` (PR 25) at published widths through its
+              function, bf16 compute, the card by default: smollm-135m
+              whole (30 layers) 8 x 512 tokens, 8 steps, --microbatches
+              2; mamba2-1.3b whole (48 layers) and zamba2-1.2b whole (38)
+              4 x 512, 6 steps; qwen3-moe-30b-a3b at 2 of 48 layers 4 x
+              512, 4 steps (1.83 G float32 parameters: weights, gradients,
+              the clipped gradients, AdamW's moments and the new ones
+              ~58 GB at the update's peak).  Gates: finite losses (nan_guard
+              never fires: its predicate holds every step); ``ssd_scan``
+              launched once per Mamba layer per microbatch forward (mamba2
+              48, zamba2 38), all on the tensor-core route, its plain twin
+              called zero times; float32 card vs CPU (``COMPUTE_DTYPE``
+              float32) for each arch at 2 layers (zamba2 7: one site of
+              its shared block and a tail layer), full width, 1 x 256
+              tokens, one ``make_train_step`` from the same state: the
+              loss (rtol 1e-5), every reference leaf's gradient (within
+              1e-3 of its largest |g|) and the params after the step
+              (within 2 lr(1) + 2^-22, the most one AdamW step can move a
+              weight, and at most 1% of them apart by over lr(1) / 100),
+              beside a floor (the CPU with every weight one ulp up; not
+              for qwen3, whose second host state would not fit);
+              --microbatches 2
+              against 1 on smollm's first batch (bf16: loss rtol 1e-5,
+              every reference leaf's gradient within 2e-2 of its largest
+              |g|); 3 steps of smollm with ``compress_grads``: each
+              reference leaf's residual equal to ``g - dequantize(q,
+              scale)`` bit for bit; and ``ssd_scan`` against its twin at
+              mamba2's and zamba2's training shapes (B 4, L 512) under
+              the bf16 gate.  Prints per arch the median step,
+              tokens/s, peak memory, busy share (a device-only trace),
+              launches per step, ``ssd_scan`` device ms per step, a FLOP
+              lower bound, and ``adam_update`` and one layer's
+              ``SSDScan`` forward and backward timed at the cell's
+              shapes, each beside the card's name and power limit.
    gather   — ``gather_reduce`` (no model path) over 8 bucket-32 requests
               of the graphgen-gcn W = 1 server: the hop-2 level's mean from
               the 20 000 x 128 feature table, [1280, 20] ids and mask, 8
@@ -410,8 +444,49 @@ ZOO_CUT = {"zamba2-1.2b": 7, "qwen3-moe-30b-a3b": 2, "deepseek-v2-236b": 2}
 # ulp would draw 5.4G random signs on the host
 ZOO_AGREE = {"zamba2-1.2b": (64, 8, True), "qwen3-moe-30b-a3b": (8, 8, True),
              "deepseek-v2-236b": (4, 4, False)}
+# LM training (train_lm) at published widths: arch -> (layers on the
+# card, None for all; batch; seq; steps; microbatches).  qwen3 is cut to 2
+# of 48 layers: 1.83 G float32 parameters (2 x 0.60 G of experts, 0.62 G
+# of embedding and head) are ~58 GB with the gradients, the clipped
+# gradients, AdamW's moments and the new ones at the update's peak.
+# deepseek-v2-236b is held on the CPU only: one full-width MoE layer
+# (160 experts of 5120 x 1536 x 3) is 3.8 G parameters, ~60 GB with its
+# AdamW state and gradients.
+LM_TRAIN = {"smollm-135m": (None, 8, 512, 8, 2),
+            "mamba2-1.3b": (None, 4, 512, 6, 1),
+            "zamba2-1.2b": (None, 4, 512, 6, 1),
+            "qwen3-moe-30b-a3b": (2, 4, 512, 4, 1)}
+LM_TRAIN_SEED = 0
+# float32 card vs CPU, one train step on a cut at full width over 1 x 256
+# tokens (two SSD chunks), 2 layers (zamba2: 7, one site of its shared
+# block and a tail layer: its first site follows the 6th Mamba layer,
+# as the zoo's decode cut): the loss within rtol 1e-5, every
+# reference leaf's gradient within 1e-3 of its largest |g| (f32 sums in
+# another order give ~1e-6; a wrong backward moves a leaf by its scale),
+# and the params after the step within 2 lr(1) + 2^-22: at step 1 AdamW
+# moves a weight by lr (m / sqrt(v) = +-1) plus the decay both sides
+# share, so this is the most a sign flip of a near-zero gradient can
+# leave, with each side's rounding of a weight of at most 1 (the norms'
+# init); and
+# only where a gradient lies within the two devices' rounding of zero may
+# a weight move by more than lr(1) / 100 (at most LM_TRAIN_FLIP_SHARE of
+# them: a wrong bias correction or decay moves every weight)
+LM_TRAIN_CUT = {"smollm-135m": 2, "mamba2-1.3b": 2, "zamba2-1.2b": 7,
+                "qwen3-moe-30b-a3b": 2}
+LM_TRAIN_CUT_S = 256
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_RTOL = 1e-5, 1e-3
+LM_TRAIN_FLIP_SHARE = 1e-2
+# bf16, 2 microbatches against 1 on one batch: the forward is row for row
+# the same, so the loss within rtol 1e-5 (sums of 2 and 1 terms); the
+# weight gradients reduce over 2048 tokens instead of 4096 and each
+# half's is rounded to bf16 before the float32 mean, so every reference
+# leaf within 2e-2 of its largest |g| (~5 bf16 ulps; a dropped microbatch
+# or a wrong 1 / n moves a leaf by half its scale or more)
+LM_TRAIN_MICRO_RTOL, LM_TRAIN_MICRO_GRAD_RTOL = 1e-5, 2e-2
+LM_TRAIN_COMPRESS_STEPS = 3
 DEVICE = "cuda"                # the device every phase drives
 MIN_WHOLE_CALLS = 5            # device_ms: fewer whole calls: trace again
+MAX_TRACES = 6                 # device_ms: traces pooled before it fails
 
 KERNEL_META = {
     "fanout_mean": ("src/repro_torch/kernels/csrc/fanout_mean.cu",
@@ -573,28 +648,31 @@ def device_ms(torch, fn, reps=30):
     put on the card, from ``traced_calls``.  No launch gap lies inside a
     row, so this reading has no event-timing floor.  A trace can lose its
     last rows, or all of them (in a long process a few traces in a hundred
-    kept none, some 4-26 of 30 calls), so only calls with the usual number
-    of rows count, and a trace that keeps fewer than ``MIN_WHOLE_CALLS``
-    of them is taken again, up to three times; fails when three traces
-    record no device row or no whole call."""
+    kept none, some 4-26 of 30 calls; the tiered probe's kept 6-13 of 30
+    in PRs 23-25 and, once, none in three traces), so only calls with the
+    usual number of rows count, pooled over traces (each the same
+    function and inputs) until ``MIN_WHOLE_CALLS`` of them are kept, up
+    to ``MAX_TRACES``; fails when those record no device row or no whole
+    call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    seen = 0
-    for _ in range(3):
+    seen, per, whole = 0, 0, []
+    for _ in range(MAX_TRACES):
         calls = traced_calls(torch, fn, reps)
         seen += len(calls)
         sizes = [len(c) for c in calls if len(c) > 1]
-        per = max(set(sizes), key=sizes.count) if sizes else 0
-        whole = [sum(c[1:]) for c in calls if len(c) == per]
+        if not per and sizes:
+            per = max(set(sizes), key=sizes.count)
+        whole += [sum(c[1:]) for c in calls if len(c) == per]
         if len(whole) >= MIN_WHOLE_CALLS:
             break
-    check(seen > 0, "the profiler recorded no device row in three traces: "
-          "device durations cannot be measured on this machine")
+    check(seen > 0, f"the profiler recorded no device row in {MAX_TRACES} "
+          f"traces: device durations cannot be measured on this machine")
     check(len(whole) > 0, f"the profiler kept no whole call of {reps} in "
-          f"three traces")
-    if len(whole) < reps:
-        print(f"[timing] the trace kept {len(whole)} of {reps} calls whole "
+          f"{MAX_TRACES} traces")
+    if len(whole) < seen:
+        print(f"[timing] the traces kept {len(whole)} of {seen} calls whole "
               f"({per - 1} device rows each); the median is theirs")
     return statistics.median(whole) / 1e3
 
@@ -1062,15 +1140,21 @@ class StepClock:
     step ends with its loss on the host) and a ``torch.profiler`` trace of
     steps ``first .. first + n - 1``.  The profiler's own step calls are
     kept out of the step times and summed in ``prof_s`` (its warm-up
-    initializes the device tracer, seconds once per process)."""
+    initializes the device tracer, seconds once per process).
+    ``device_only`` records the device's activity alone (no host op
+    rows: a train step of ~20 000 launches otherwise costs the trace
+    seconds to process)."""
 
-    def __init__(self, torch, first, n):
+    def __init__(self, torch, first, n, device_only=False):
         from torch.profiler import ProfilerActivity, profile, schedule
         self.first, self.n = first, n
         self.times = []
         self.prof_s = 0.0
+        acts = [ProfilerActivity.CUDA]
+        if not device_only:
+            acts.insert(0, ProfilerActivity.CPU)
         self.prof = profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            activities=acts,
             schedule=schedule(wait=first - 1, warmup=1, active=n, repeat=1))
         self.prof.__enter__()
         self.t = time.perf_counter()
@@ -3442,7 +3526,7 @@ def record_decode(torch, args, nudge=False, cfg=None, prep=None,
         return init
     zoo._lm_init = lm_init
     try:
-        with served_config(cfg):
+        with launch_config(cfg):
             toks = serve.serve_lm(args)["tokens"]
     finally:
         zoo._lm_init = real_lm_init
@@ -3697,18 +3781,20 @@ def ssm_serve_args(gen, device, prompt=LM_PROMPT):
 
 
 @contextlib.contextmanager
-def served_config(cfg):
-    """``serve_lm`` builds ``cfg`` (a cut or a switched config) in place
-    of its arch's registered config inside the block (``cfg`` None: no
-    change)."""
-    from repro_torch.launch import serve
-    real = serve.get_config
+def launch_config(cfg, launcher=None):
+    """``launcher`` (a ``repro_torch.launch`` module: ``serve`` by
+    default, or ``train``) builds ``cfg`` (a cut or a switched config) in
+    place of its arch's registered config inside the block (``cfg``
+    None: no change)."""
+    if launcher is None:
+        from repro_torch.launch import serve as launcher
+    real = launcher.get_config
     if cfg is not None:
-        serve.get_config = lambda name: cfg
+        launcher.get_config = lambda name: cfg
     try:
         yield
     finally:
-        serve.get_config = real
+        launcher.get_config = real
 
 
 def serve_and_time(torch, make_args, label, v_pad, cfg=None, wrap=None):
@@ -3718,13 +3804,13 @@ def serve_and_time(torch, make_args, label, v_pad, cfg=None, wrap=None):
     instrumented run (CUDA events between steps, a profiler over 4 steps)
     that must generate the same tokens, for the median untraced step and
     the device's busy share.  ``cfg`` replaces the arch's config
-    (``served_config``); ``wrap()``, a context manager, runs around the
+    (``launch_config``); ``wrap()``, a context manager, runs around the
     instrumented run only and what it yields is returned as
     ``instrumented``.  Returns the first run's result with those added and
     the peak memory of both runs."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    with served_config(cfg):
+    with launch_config(cfg):
         return _serve_and_time(torch, serve, ops, make_args, label, v_pad,
                                wrap)
 
@@ -4163,6 +4249,468 @@ def phase_lm_zoo(torch):
     out = {arch: zoo_cell(torch, arch) for arch in ZOO_DEPTH}
     out["seconds"] = time.perf_counter() - t0
     print(f"[lm zoo] phase {out['seconds']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def twin_calls():
+    """Count the calls of ``ssd_scan``'s plain twin inside the block (the
+    main path on the card must make none)."""
+    from repro_torch.kernels import ref
+    real, calls = ref.ssd_scan_ref, {"ssd_scan_ref": 0}
+
+    def counted(*a, **kw):
+        calls["ssd_scan_ref"] += 1
+        return real(*a, **kw)
+    ref.ssd_scan_ref = counted
+    try:
+        yield calls
+    finally:
+        ref.ssd_scan_ref = real
+
+
+def lm_shell(cfg, device="meta"):
+    """An LM of ``cfg``'s family with no weights of its own (``meta``):
+    the shell ``train_loop.module_loss`` swaps tensors into, and the
+    source of ``convert.lm_leaves``' layout and the parameter counts."""
+    from repro_torch.models import deepseek, hybrid, moe, ssm, transformer
+    from repro_torch.models import zoo
+    cls = {"dense": transformer.DenseLM, "moe_qwen": moe.Qwen3MoeLM,
+           "moe_deepseek": deepseek.DeepSeekLM, "ssm": ssm.Mamba2LM,
+           "hybrid": hybrid.Zamba2LM}[zoo._family_key(cfg)]
+    return cls(cfg, device)
+
+
+def lm_train_flops(cfg, b, s):
+    """A FLOP lower bound of one train step (forward and backward) from
+    the shapes: ``6 N_active B S`` (every weight matrix once per token:
+    routed experts scaled by top_k / E, the hybrid's shared block once per
+    site, the embedding table only where tied, as the read-out) plus the
+    causal attention, ``6 B Hq S^2 Dh`` per attention layer or site (the
+    SSD's chunk products are left out).  Returns ``(flops, n_active,
+    n_total)``."""
+    from repro_torch.models import hybrid
+    model = lm_shell(cfg)
+    active = total = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        total += n
+        if name == "tok" and not cfg.tie_embeddings:
+            continue
+        if ".moe.w" in name:
+            n = n * cfg.top_k / cfg.n_experts
+        if name.startswith("shared."):
+            n *= hybrid.grouped(cfg)[0]
+        active += n
+    if cfg.family == "hybrid":
+        attn_layers = hybrid.grouped(cfg)[0]
+    elif cfg.family == "ssm":
+        attn_layers = 0
+    else:
+        attn_layers = cfg.n_layers
+    hd = cfg.resolved_head_dim if cfg.n_heads else 0
+    flops = 6 * active * b * s + 6 * b * cfg.n_heads * s * s * hd \
+        * attn_layers
+    return flops, active, total
+
+
+def lm_train_costs(torch, cfg, b, s):
+    """Two costs of a train step at the cell's shapes, on tensors made
+    here: one ``adam_update`` over parameters of ``cfg``'s shapes (device
+    ms by events behind a sleep, and host ms of one synchronized call),
+    and for the SSM families one layer's ``SSDScan`` forward (the
+    ``ssd_scan`` kernel) and backward (the vjp of ``ssd_chunked``), on
+    bf16 operands laid out as the layer's (``ssd_inputs``) and first held
+    against the twin under the bf16 gate (``check_ssd_bf16``)."""
+    from repro_torch import convert
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.models import ssm
+    from repro_torch.train.optimizer import adam_update, init_adam
+    shapes = [p.shape for p in convert.lm_leaves(lm_shell(cfg))[0]]
+    params = [torch.zeros(sh, device=DEVICE) for sh in shapes]
+    grads = [torch.full(sh, 1e-3, device=DEVICE) for sh in shapes]
+    opt = init_adam(params)
+    tcfg = TrainConfig()
+
+    def adam():
+        adam_update(tcfg, params, grads, opt)
+    out = {"adamw_tensors": len(shapes),
+           "adamw_device_ms": gpu_ms(torch, adam, reps=3)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    adam()
+    torch.cuda.synchronize()
+    out["adamw_host_ms"] = (time.perf_counter() - t) * 1e3
+    del params, grads, opt
+    if cfg.family in ("ssm", "hybrid"):
+        _, h, p, n = ssm.dims(cfg)
+        ins = ssd_inputs(torch, DEVICE, (b, s, h, p, n), "ref",
+                         seed=LM_TRAIN_SEED, dtype=torch.bfloat16)
+        err, share, _, _ = check_ssd_bf16(
+            torch, ins, cfg.ssm_chunk, f"{cfg.name} training shape "
+            f"{(b, s, h, p, n)} chunk {cfg.ssm_chunk}", tag="[lm train]")
+        out.update(ssd_twin_max_abs_err=err, ssd_twin_gate_share=share)
+        ins = [t.detach().requires_grad_() for t in ins]
+        with torch.no_grad():
+            out["ssd_fwd_ms"] = gpu_ms(
+                torch, lambda: ssm.SSDScan.apply(*ins, cfg.ssm_chunk))
+        y = ssm.SSDScan.apply(*ins, cfg.ssm_chunk)
+        gy = torch.ones_like(y)
+        out["ssd_bwd_ms"] = gpu_ms(torch, lambda: torch.autograd.grad(
+            y, ins, gy, retain_graph=True), reps=5)
+        del y, ins
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_args(arch, b, s, steps, micro, ckpt_dir):
+    """``train_lm`` flags: the card, ``LM_TRAIN_SEED``, the reference's lr,
+    a log line every step, no checkpoint inside the run."""
+    from repro_torch.launch import train
+    return train.parse_args([
+        "--arch", arch, "--device", DEVICE, "--seed", str(LM_TRAIN_SEED),
+        "--steps", str(steps), "--lm-batch", str(b), "--lm-seq", str(s),
+        "--microbatches", str(micro), "--log-every", "1",
+        "--ckpt-every", str(steps + 1), "--ckpt-dir", ckpt_dir])
+
+
+def lm_train_cell(torch, arch, smi, tmp):
+    """``train_lm`` of ``arch`` at ``LM_TRAIN[arch]`` with zeroed launch
+    counters, the twin's calls counted and the last step traced; the
+    launch and finiteness gates; the per-arch numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    depth, b, s, steps, micro = LM_TRAIN[arch]
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    label = f"lm train {arch}"
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    clock = StepClock(torch, first=steps - 1, n=1, device_only=True)
+    with launch_config(cfg, train), twin_calls() as twin:
+        res = train.train_lm(lm_train_args(arch, b, s, steps, micro, tmp),
+                             step_hook=clock)
+    clock.close()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    routes = ops.ssd_route_counts()
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    want = {name: 0 for name in counts}
+    want["ssd_scan"] = mamba * steps * micro
+    check(counts == want, f"{label}: launches {counts}, expected {want} "
+          f"({mamba} ssd_scan per microbatch forward, no other kernel)")
+    check(routes == {"tensor_core": want["ssd_scan"], "float32": 0},
+          f"{label}: ssd_scan routes {routes}")
+    check(twin["ssd_scan_ref"] == 0, f"{label}: the ssd_scan twin ran "
+          f"{twin['ssd_scan_ref']} times on the card")
+    check(len(res["losses"]) == steps
+          and all(map(math.isfinite, res["losses"])),
+          f"{label}: losses {res['losses']} (nan_guard would fire)")
+    warm = clock.times[1:max(steps - 2, 2)]
+    med = statistics.median(warm)
+    flops, active, total = lm_train_flops(cfg, b, s)
+    traced = clock.traced_ms()
+    busy = summarize_profile(torch, clock.prof, 1, traced,
+                             f"{label}, the traced last step")
+    out = {"n_layers": cfg.n_layers, "batch": b, "seq": s, "steps": steps,
+           "microbatches": micro, "losses": res["losses"],
+           "wall_s": res["wall_s"], "step_times_ms": [1e3 * t for t in
+                                                      clock.times],
+           "median_step_ms": med * 1e3, "tokens_per_s": b * s / med,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "traced_ms": traced, "busy_ms": busy,
+           "busy_share": None if busy is None else busy / traced,
+           "device_kernels_per_step": sum(
+               e.count for e in clock.prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and not e.key.startswith("ProfilerStep")),
+           "launches": counts, "launches_per_step": {
+               k: v / steps for k, v in counts.items() if v},
+           "ssd_routes": routes, "twin_calls": twin["ssd_scan_ref"],
+           "ssd_scan_device_ms_per_step": (
+               kernel_device_ms(torch, clock.prof, "ssd_scan") if mamba
+               else 0.0),
+           "flops_per_step": flops, "params_active": active,
+           "params_total": total,
+           "flop_bound_ms": flops / BF16_FLOPS * 1e3, "device": smi}
+    torch.cuda.empty_cache()
+    out["costs"] = lm_train_costs(torch, cfg, b // micro, s)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[{label}] {cfg.n_layers} layers, {b} x {s} tokens, {steps} "
+          f"steps, {micro} microbatch(es), {total / 1e9:.3f} G params "
+          f"({active / 1e9:.3f} G active): median step "
+          f"{out['median_step_ms']:.3f} ms of steps 1-{len(warm)} "
+          f"({out['tokens_per_s']:,.0f} tokens/s); peak "
+          f"{out['max_memory_gb']:.2f} GB; busy {out['busy_share']}; "
+          f"our kernels per step {out['launches_per_step']}, CUDA kernels "
+          f"per step {out['device_kernels_per_step']}; ssd_scan "
+          f"{out['ssd_scan_device_ms_per_step']:.3f} device ms per step; "
+          f"FLOP lower bound {flops / 1e12:.2f} TFLOP = "
+          f"{out['flop_bound_ms']:.2f} ms at 989 TFLOP/s bf16 "
+          f"({100 * out['flop_bound_ms'] / out['median_step_ms']:.1f}% of "
+          f"the step); losses {[round(x, 4) for x in res['losses']]}; "
+          f"{out['seconds']:.1f} s; card: {smi}")
+    c = out["costs"]
+    ssd = (f"; one layer's SSDScan at {b // micro} x {s}: forward (the "
+           f"kernel) {c['ssd_fwd_ms']:.3f} ms, backward (the vjp of "
+           f"ssd_chunked) {c['ssd_bwd_ms']:.3f} ms, x {mamba * micro} a "
+           f"step = {c['ssd_bwd_ms'] * mamba * micro:.1f} ms"
+           if mamba else "")
+    print(f"[{label}] costs at the cell's shapes: adam_update over "
+          f"{c['adamw_tensors']} tensors {c['adamw_device_ms']:.2f} device "
+          f"ms, {c['adamw_host_ms']:.2f} ms host-clocked{ssd}; card: {smi}")
+    return out
+
+
+def _nudged(torch, flat):
+    """Copies of ``flat`` with every weight one float32 ulp up (one
+    ``nextafter``: no random draw over the ~0.4 G weights of a cut)."""
+    inf = torch.tensor(float("inf"))
+    return [torch.nextafter(p, inf) for p in flat]
+
+
+def _leaf_gaps(torch, layout, a, b):
+    """Per reference leaf of two flat gradient lists (``a`` on any device,
+    ``b`` on the CPU or ``a``'s, moved to ``a``'s a tensor at a time): the
+    largest |a - b| as a share of b's largest |entry|; returns ``(worst
+    share, its path)``."""
+    worst = (0.0, None)
+    i = 0
+    for path, n, st in zip(layout.paths, layout.counts, layout.stacked):
+        err = scale = 0.0
+        for x, y in zip(a[i:i + n], b[i:i + n]):
+            y = y.to(x.device)
+            err = max(err, (x - y).abs().max().item())
+            scale = max(scale, y.abs().max().item())
+        i += n
+        share = err / max(scale, 1e-30)
+        if share > worst[0]:
+            worst = (share, "/".join(path))
+    return worst
+
+
+def lm_train_agree(torch, arch, smi):
+    """Float32 card vs CPU: one ``make_train_step`` (its two halves,
+    ``microbatch_grads`` and ``apply_grads``, to keep the gradients) of a
+    ``LM_TRAIN_CUT[arch]``-layer cut of ``arch`` at full width, from the same
+    state (the card's seeded init carried to the host through the
+    reference's numpy tree) and batch; the gates and floor of
+    ``LM_TRAIN_*``."""
+    import gc
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, zoo
+    from repro_torch.train import train_loop as TL
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_TRAIN_CUT[arch])
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=LM_TRAIN[arch][3])
+    api = zoo.build(cfg, DEVICE)
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    split = {}
+
+    def lap(name, since=[t0]):
+        now = time.perf_counter()
+        split[name] = now - since[0]
+        since[0] = now
+    try:
+        model = api.init(LM_TRAIN_SEED)
+        flat, layout = convert.lm_leaves(model)
+        host = [t.cpu() for t in flat]
+        lap("init_and_copy")
+        toks = np.random.default_rng(LM_TRAIN_SEED).integers(
+            0, cfg.vocab_size, (1, LM_TRAIN_CUT_S), dtype=np.int32)
+        batch = {"tokens": torch.from_numpy(toks),
+                 "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+        ops.reset_launch_counts()
+        with twin_calls() as twin:
+            card_fn = TL.module_loss(model, api.loss, layout.names)
+            state = TL.init_state(flat, tcfg, layout)
+            loss_c, grads_c = TL.microbatch_grads(
+                card_fn, state.params, {k: v.to(DEVICE)
+                                        for k, v in batch.items()}, 1)
+            new_c, _ = TL.apply_grads(tcfg, state, loss_c, grads_c, layout)
+            torch.cuda.synchronize()
+        lap("card_step")
+        counts = ops.launch_counts()
+        mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+        check(counts["ssd_scan"] == mamba and twin["ssd_scan_ref"] == 0
+              and ops.ssd_route_counts()["float32"] == mamba,
+              f"{arch} float32 step: ssd_scan launches {counts}, routes "
+              f"{ops.ssd_route_counts()}, twin calls {twin}")
+        # the card's gradients, initial and new params stay there and the
+        # comparisons run there, a tensor at a time: the host holds one
+        # state (qwen3's cut: 7.5 GB of weights, ~60 GB at the update's
+        # peak)
+        del state, card_fn, model
+        loss_c = loss_c.item()
+        torch.cuda.empty_cache()
+        cpu_fn = TL.module_loss(lm_shell(cfg), zoo.build(cfg, "cpu").loss,
+                                layout.names)
+        state = TL.init_state(host, tcfg, layout)
+        loss_h, grads_h = TL.microbatch_grads(cpu_fn, state.params, batch, 1)
+        lap("cpu_grads")
+        grad_gap = _leaf_gaps(torch, layout, grads_c, grads_h)
+        lap("grad_compare")
+        floor = None
+        if arch != "qwen3-moe-30b-a3b":
+            f_loss, f_grads = TL.microbatch_grads(
+                cpu_fn, _nudged(torch, host), batch, 1)
+            floor = {"loss": abs(f_loss.item() - loss_h.item()),
+                     "grad": _leaf_gaps(torch, layout, f_grads, grads_h)}
+            del f_grads
+            lap("floor")
+        del grads_c
+        gc.collect()
+        new_h, _ = TL.apply_grads(tcfg, state, loss_h, grads_h, layout)
+        del grads_h, state
+        lap("cpu_update")
+        lr1 = tcfg.learning_rate / tcfg.warmup_steps
+        param_bound = 2 * lr1 + 2.0 ** -22
+        param_gap = flips = n_weights = 0
+        for a, b in zip(new_c.params, new_h.params):
+            d = (a - b.to(a.device)).abs()
+            param_gap = max(param_gap, d.max().item())
+            flips += int((d > lr1 / 100).sum())
+            n_weights += d.numel()
+        moved = max((a - b).abs().max().item()
+                    for a, b in zip(new_c.params, flat))
+        del new_c, flat
+        lap("param_compare")
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    loss_gap = abs(loss_c - loss_h.item())
+    res = {"layers": cfg.n_layers, "tokens": LM_TRAIN_CUT_S,
+           "loss_card": loss_c, "loss_cpu": loss_h.item(),
+           "loss_abs_err": loss_gap, "grad_max_share": grad_gap[0],
+           "grad_worst_leaf": grad_gap[1], "param_max_abs_err": param_gap,
+           "param_bound": param_bound, "param_moved": moved,
+           "param_flips": flips, "param_flip_share": flips / n_weights,
+           "floor": floor,
+           "launches": counts, "device": smi,
+           "seconds": time.perf_counter() - t0, "split_s": split}
+    print(f"[lm train agree] {arch} float32, {cfg.n_layers}-layer cut, 1 x "
+          f"{LM_TRAIN_CUT_S} tokens, one step card vs CPU: loss "
+          f"{loss_c:.6f} vs {loss_h.item():.6f} (|d| {loss_gap:.3e}); "
+          f"gradients within {grad_gap[0]:.3e} of each leaf's largest |g| "
+          f"(worst {grad_gap[1]}; bound {LM_TRAIN_GRAD_RTOL}); params after "
+          f"the step within {param_gap:.3e} (bound 2 lr(1) + 2^-22 = "
+          f"{param_bound:.4e}; "
+          f"the step moved them up to {moved:.3e}), {flips} of {n_weights} "
+          f"apart by over lr(1) / 100 (share {flips / n_weights:.2e}, bound "
+          f"{LM_TRAIN_FLIP_SHARE}); floor, the CPU with "
+          f"every weight one ulp up: "
+          f"{'not run (host memory)' if floor is None else floor}; "
+          f"{res['seconds']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in split.items()} }); card: {smi}")
+    check(math.isfinite(loss_c) and loss_gap <= LM_TRAIN_LOSS_RTOL
+          * abs(loss_h.item()), f"{arch} float32 step: loss card "
+          f"{loss_c} vs CPU {loss_h.item()}")
+    check(grad_gap[0] <= LM_TRAIN_GRAD_RTOL, f"{arch} float32 step: "
+          f"gradient {grad_gap[1]} differs card vs CPU by {grad_gap[0]} of "
+          f"its scale, over {LM_TRAIN_GRAD_RTOL}")
+    check(param_gap <= param_bound and moved > 0, f"{arch} float32 step: "
+          f"params differ card vs CPU by {param_gap}, over {param_bound}")
+    check(flips <= LM_TRAIN_FLIP_SHARE * n_weights, f"{arch} float32 "
+          f"step: {flips} of {n_weights} params apart by over lr(1) / 100")
+    return res
+
+
+def lm_train_micro_compress(torch, smi):
+    """smollm-135m at full width on the card (bf16): ``--microbatches 2``
+    against 1 on the first ``train_lm`` batch (the loss within
+    ``LM_TRAIN_MICRO_RTOL``), then ``LM_TRAIN_COMPRESS_STEPS`` steps with
+    ``compress_grads``, each reference leaf's residual checked against
+    ``g + e - dequantize(quantize(g + e))`` bit for bit."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.train import compression
+    from repro_torch.train import train_loop as TL
+    arch = "smollm-135m"
+    _, b, s, _, _ = LM_TRAIN[arch]
+    cfg = get_config(arch)
+    api = zoo.build(cfg, DEVICE)
+    model = api.init(LM_TRAIN_SEED)
+    flat, layout = convert.lm_leaves(model)
+    fn = TL.module_loss(model, api.loss, layout.names)
+    rng = np.random.default_rng(LM_TRAIN_SEED)
+    batch = train.lm_batch(rng, cfg, b, s, DEVICE)
+    one, g_one = TL.microbatch_grads(fn, flat, batch, 1)
+    two, g_two = TL.microbatch_grads(fn, flat, batch, 2)
+    rel = abs(one.item() - two.item()) / abs(one.item())
+    grad_gap = _leaf_gaps(torch, layout, g_two, g_one)
+    del g_one, g_two
+    print(f"[lm train micro] {arch} bf16, {b} x {s} tokens: loss over 1 "
+          f"microbatch {one.item():.6f}, over 2 {two.item():.6f} (rel "
+          f"{rel:.3e}, bound {LM_TRAIN_MICRO_RTOL}); gradients within "
+          f"{grad_gap[0]:.3e} of each leaf's largest |g| (worst "
+          f"{grad_gap[1]}; bound {LM_TRAIN_MICRO_GRAD_RTOL}); card: {smi}")
+    check(rel <= LM_TRAIN_MICRO_RTOL, f"{arch}: 2 microbatches' loss "
+          f"{two.item()} vs 1's {one.item()}")
+    check(grad_gap[0] <= LM_TRAIN_MICRO_GRAD_RTOL, f"{arch}: 2 "
+          f"microbatches' gradient {grad_gap[1]} differs from 1's by "
+          f"{grad_gap[0]} of its scale, over {LM_TRAIN_MICRO_GRAD_RTOL}")
+    tcfg = TrainConfig(learning_rate=1e-3, compress_grads=True)
+    state = TL.init_state(flat, tcfg, layout)
+    shares = []
+    for t in range(LM_TRAIN_COMPRESS_STEPS):
+        batch = train.lm_batch(rng, cfg, b, s, DEVICE)
+        loss, grads = TL.microbatch_grads(fn, state.params, batch, 1)
+        prev = state.error
+        state, metrics = TL.apply_grads(tcfg, state, loss, grads, layout)
+        check(math.isfinite(metrics["loss"].item()),
+              f"{arch} compressed step {t}: loss not finite")
+        for path, g, e0, e in zip(layout.paths, layout.group(grads), prev,
+                                  state.error):
+            gf = g + e0
+            q, scale = compression.quantize(gf)
+            check(torch.equal(e, gf - compression.dequantize(q, scale)),
+                  f"{arch} compressed step {t}: the residual of "
+                  f"{'/'.join(path)} is not g - dequantize(q, s)")
+            shares.append((e.abs().max() / scale).item())
+        del grads
+    print(f"[lm train compress] {arch}: {LM_TRAIN_COMPRESS_STEPS} steps "
+          f"with compress_grads, {len(layout.paths)} reference leaves "
+          f"each: every residual equals g - dequantize(q, s) bit for bit; "
+          f"largest |residual| {max(shares):.3f} quantization steps; "
+          f"card: {smi}")
+    return {"loss_1": one.item(), "loss_2": two.item(), "micro_rel": rel,
+            "micro_grad_max_share": grad_gap[0],
+            "micro_grad_worst_leaf": grad_gap[1],
+            "compress_steps": LM_TRAIN_COMPRESS_STEPS,
+            "residual_max_steps": max(shares), "device": smi}
+
+
+def phase_lm_train(torch, smi):
+    """``train_lm`` at published widths (``lm_train_cell`` per arch of
+    ``LM_TRAIN``), the float32 card-vs-CPU step per arch
+    (``lm_train_agree``), and the microbatch and compression checks."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in LM_TRAIN:
+            out[arch] = lm_train_cell(torch, arch, smi, tmp)
+            torch.cuda.empty_cache()
+    out["micro_compress"] = lm_train_micro_compress(torch, smi)
+    torch.cuda.empty_cache()
+    out["agree"] = {}
+    for arch in LM_TRAIN:
+        out["agree"][arch] = lm_train_agree(torch, arch, smi)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[lm train] phase {out['seconds']:.1f} s")
     return out
 
 
@@ -4844,10 +5392,19 @@ def main():
     ap.add_argument("--zoo-only", action="store_true",
                     help="stop after the build and the lm zoo phase (a "
                          "first bring-up of the hybrid and MoE LMs)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="stop after the build and the lm train phase (a "
+                         "first bring-up of LM training)")
     ap.add_argument("--first-step", action="store_true",
                     help="print the split of a fresh process's first train "
                          "step (run by the autotune phase)")
     opts = ap.parse_args()
+    # host tensors of 2 MB and more on transparent huge pages (torch's
+    # CPU allocator madvises them): a fresh allocation's page faults cost
+    # as much as the pass that fills it, and the float32 CPU references
+    # (qwen3's AdamW over 1.87 G weights in the lm train phase, the CPU
+    # decodes) allocate fresh memory at every op
+    os.environ.setdefault("THP_MEM_ALLOC_ENABLE", "1")
     if opts.first_step:
         first_step_split()
         return
@@ -4868,11 +5425,22 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True
     ).stdout.strip().splitlines()[0]
+    try:
+        with open("/sys/kernel/mm/transparent_hugepage/enabled") as f:
+            thp = f.read().strip()
+    except OSError:
+        thp = "unknown"
     print(f"[device] {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}")
+          f"{torch.__version__}, CUDA {torch.version.cuda}; transparent huge "
+          f"pages {thp}, THP_MEM_ALLOC_ENABLE="
+          f"{os.environ.get('THP_MEM_ALLOC_ENABLE')}")
 
     t0 = time.perf_counter()
+
+    def stamp(name):
+        print(f"[time] {name} phase done {time.perf_counter() - t0:.1f} s "
+              f"after the build began")
     lib_path = _build.build(verbose=True)
     _build.library()
     print(f"[build] kernels built and loaded in "
@@ -4882,6 +5450,10 @@ def main():
     if opts.zoo_only:
         print(json.dumps({"lm_zoo": phase_lm_zoo(torch)}))
         print("[zoo-only] stopping after the lm zoo phase")
+        return
+    if opts.train_only:
+        print(json.dumps({"lm_train": phase_lm_train(torch, smi)}))
+        print("[train-only] stopping after the lm train phase")
         return
     phase_kernels(torch, dev)
     if opts.dist_only:
@@ -4896,28 +5468,53 @@ def main():
         print("[kernels-only] stopping after the kernel checks")
         return
     serve_res = phase_serve(torch)
+    stamp("serve")
     train_res = phase_train(torch)
+    stamp("train")
     phase_train_kernels(torch, train_res)
+    stamp("train_kernels")
     host_res = phase_host(torch)
+    stamp("host")
     phase_host_kernels(torch, host_res)
+    stamp("host_kernels")
     merge_res = phase_merge(torch)
+    stamp("merge")
     offline_res = phase_offline(torch, host_res)
+    stamp("offline")
     ckpt_res = phase_ckpt(torch)
+    stamp("ckpt")
     autotune_res = phase_autotune(torch)
+    stamp("autotune")
     agree_at = phase_autotune_agree(torch)
+    stamp("autotune_agree")
     baselines = phase_baselines(torch)
+    stamp("baselines")
     recovery = phase_recovery(torch)
+    stamp("recovery")
     dist_res = phase_dist(torch)
+    stamp("dist")
     paths_res = phase_dist_paths(torch)
+    stamp("dist_paths")
     nccl_res = phase_nccl(torch)
+    stamp("nccl")
     phase_flash(torch, dev)
+    stamp("flash")
     phase_ssd_kernels(torch, dev)
+    stamp("ssd_kernels")
     prefill = phase_lm_prefill(torch)
+    stamp("lm_prefill")
     lm_serve = phase_lm_serve(torch)
+    stamp("lm_serve")
     ssm_prefill = phase_ssm_prefill(torch)
+    stamp("ssm_prefill")
     ssm_serve = phase_ssm_serve(torch)
+    stamp("ssm_serve")
     zoo_res = phase_lm_zoo(torch)
+    stamp("lm_zoo")
+    lm_train = phase_lm_train(torch, smi)
+    stamp("lm_train")
     gather = phase_gather_reduce(torch, serve_res)
+    stamp("gather_reduce")
     runs = (list(serve_res.values()) + list(train_res.values())
             + list(host_res.values()) + [merge_res]
             + list(offline_res.values()) + [ckpt_res]
@@ -4925,7 +5522,8 @@ def main():
             + [agree_at, recovery, dist_res, paths_res, nccl_res]
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather]
             + [r for arch in ZOO_DEPTH for r in (zoo_res[arch],
-                                                 zoo_res[arch]["serve"])])
+                                                 zoo_res[arch]["serve"])]
+            + [lm_train[arch] for arch in LM_TRAIN])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
     # the float32 route of ssd_scan: its launches on the main path (0 in a
@@ -4933,10 +5531,13 @@ def main():
     launches["ssd_scan_f32"] = sum(r.get("ssd_routes", {}).get("float32", 0)
                                    for r in runs)
     phase_agree(torch, dev)
+    stamp("agree")
     phase_agree_train(torch, dev)
+    stamp("agree_train")
     kernels, floor = phase_timing(torch, serve_res, train_res, launches,
                            prefill["qkv"], ssm_prefill["ssd_inputs"],
                            gather["inputs"])
+    stamp("timing")
     print(json.dumps({"serve": {f"{arch} W={w}": {k: r[k] for k in (
         "p50_ms", "p99_ms", "qps", "n_requests", "wall_s", "launches")}
         for (arch, w), r in serve_res.items()}}))
@@ -5009,6 +5610,7 @@ def main():
         "gather_reduce": {"requests": GATHER_REQUESTS,
                           "launches": gather["launches"]}}}))
     print(json.dumps({"lm_zoo": zoo_res}))
+    print(json.dumps({"lm_train": lm_train}))
     # the kernels at the zoo's own layer-0 operands, beside their rows
     for entry in kernels:
         rows = {arch: {k: zoo_res[arch]["kernels"][entry["name"]][k] for k in (

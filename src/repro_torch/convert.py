@@ -24,10 +24,20 @@ and ``cache_state_to_numpy``, gives the port's GCN, AdamW and cache state
 back as numpy trees of the reference's structure — NamedTuples with the
 reference's field names — so ``train.checkpoint`` writes them under the
 reference's pytree paths.
+
+For the LMs, ``lm_leaves`` lists a model's parameters with their
+``LeafLayout``: the reference's leaves (dict paths in its flatten order,
+each layer kind stacked on a leading ``[n]`` axis) over the port's
+per-layer tensors.  ``flat_to_numpy`` gives any list in that order
+(parameters, gradients, Adam moments) as the reference's numpy tree,
+``flat_from_numpy`` reads one back, ``lm_params_to_numpy`` is the
+model's, and ``train_state_to_numpy`` / ``train_state_from_numpy`` carry
+a whole LM ``TrainState`` (params, ``AdamState(step, m, v)`` and the
+error-feedback residual, one per reference leaf) both ways.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Iterator, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +51,7 @@ from .models.moe import Qwen3MoeLM
 from .models.ssm import Mamba2LM
 from .models.transformer import DenseLM
 from .train.optimizer import AdamState
+from .train.train_loop import TrainState
 
 
 class GCNLayerParams(NamedTuple):
@@ -325,3 +336,180 @@ def deepseek_cache_from_numpy(cache_np, device="cuda") -> dict:
     device = resolve_device(device)
     return {name: _bf16(cache_np[name], device)
             for name in ("ckv_dense", "kr_dense", "ckv", "kr")}
+
+
+class LeafLayout(NamedTuple):
+    """The reference's pytree leaves of an LM over the port's tensors.
+
+    ``names`` are the model's parameter names in the port's flat order
+    (the order of ``lm_leaves``' tensors, the optimizer's moments and the
+    gradients); leaf ``j`` has the dict path ``paths[j]`` (sorted, the
+    order ``jax.tree`` flattens the reference's dicts in) and covers the
+    next ``counts[j]`` tensors of the flat order, stacked on a new
+    leading axis when ``stacked[j]`` (one per layer) or the one tensor
+    itself (the embedding, the final norm, the hybrid's shared block)."""
+    names: Tuple[str, ...]
+    paths: Tuple[Tuple[str, ...], ...]
+    counts: Tuple[int, ...]
+    stacked: Tuple[bool, ...]
+
+    def parts(self, flat: Sequence) -> Iterator[Tuple[Tuple[str, ...],
+                                                      list, bool]]:
+        """``(path, its tensors, stacked)`` for each leaf of ``flat``."""
+        if len(flat) != len(self.names):
+            raise ValueError(f"{len(flat)} tensors for a layout of "
+                             f"{len(self.names)}")
+        i = 0
+        for path, n, st in zip(self.paths, self.counts, self.stacked):
+            yield path, list(flat[i:i + n]), st
+            i += n
+
+    def group(self, flat: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The flat tensors as the reference's leaves (stacked copies
+        where a leaf covers layers)."""
+        return [torch.stack(ts) if st else ts[0]
+                for _, ts, st in self.parts(flat)]
+
+    def split(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The reference's leaves back in the flat order (views of
+        them)."""
+        out = []
+        for leaf, st in zip(leaves, self.stacked):
+            out.extend(leaf.unbind(0) if st else [leaf])
+        return out
+
+
+def _stacks(model):
+    """``({reference key: ModuleList attribute}, {reference key: shared
+    module attribute})`` of ``model``'s family."""
+    if isinstance(model, Zamba2LM):
+        return {"mamba": "layers"}, {"shared": "shared"}
+    if isinstance(model, DeepSeekLM):
+        return {"dense": "dense", "layers": "layers"}, {}
+    if isinstance(model, (DenseLM, Mamba2LM, Qwen3MoeLM)):
+        return {"layers": "layers"}, {}
+    raise TypeError(f"lm_leaves takes an LM of the port, got "
+                    f"{type(model).__name__}")
+
+
+def lm_leaves(model) -> Tuple[List[torch.Tensor], LeafLayout]:
+    """The parameters of an LM of the port (dense, SSM, hybrid, Qwen3-MoE,
+    DeepSeek) in the flat order of its ``LeafLayout``, and the layout.
+    The reference's keys are the port's attribute names: ``embed/tok``,
+    ``embed/norm_f``, ``embed/head`` (untied), then per layer kind the
+    block's own parameter names (``layers/attn/wq``, ``layers/moe/
+    shared/wg``, ``mamba/w_in``, ``shared/ln1`` ...)."""
+    stacks, singles = _stacks(model)
+    entries = [(("embed", n), [(n, getattr(model, n))], False)
+               for n in ("tok", "norm_f", "head")
+               if getattr(model, n, None) is not None]
+    for key, attr in stacks.items():
+        blocks = list(getattr(model, attr))
+        if not blocks:
+            continue
+        for name, _ in blocks[0].named_parameters():
+            entries.append(((key,) + tuple(name.split(".")),
+                            [(f"{attr}.{i}.{name}", b.get_parameter(name))
+                             for i, b in enumerate(blocks)], True))
+    for key, attr in singles.items():
+        for name, p in getattr(model, attr).named_parameters():
+            entries.append(((key,) + tuple(name.split(".")),
+                            [(f"{attr}.{name}", p)], False))
+    entries.sort(key=lambda e: e[0])
+    named = [nt for _, nts, _ in entries for nt in nts]
+    layout = LeafLayout(names=tuple(n for n, _ in named),
+                        paths=tuple(e[0] for e in entries),
+                        counts=tuple(len(e[1]) for e in entries),
+                        stacked=tuple(e[2] for e in entries))
+    return [t for _, t in named], layout
+
+
+def _nest(pairs) -> dict:
+    """``(path, value)`` pairs as nested dicts."""
+    tree: dict = {}
+    for path, value in pairs:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _leaf(tree: dict, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def flat_to_numpy(flat: Sequence[torch.Tensor], layout: LeafLayout) -> dict:
+    """Tensors in ``layout``'s flat order (parameters, gradients, Adam
+    moments) as the reference's numpy tree: nested dicts, each layer kind
+    stacked on its leading axis.  One leaf at a time reaches the host."""
+    return _nest((path, _numpy(torch.stack(ts) if st else ts[0]))
+                 for path, ts, st in layout.parts(flat))
+
+
+def leaves_to_numpy(leaves: Sequence[torch.Tensor],
+                    layout: LeafLayout) -> dict:
+    """Tensors already grouped as the reference's leaves (``layout.
+    group``; the error-feedback residual) as its numpy tree."""
+    return _nest((path, _numpy(t)) for path, t in zip(layout.paths, leaves))
+
+
+def flat_from_numpy(tree: dict, layout: LeafLayout, device="cuda"
+                    ) -> List[torch.Tensor]:
+    """The reference's numpy tree of an LM (parameters, gradients or
+    moments) as tensors on ``device`` in ``layout``'s flat order."""
+    device = resolve_device(device)
+    out = []
+    for path, n, st in zip(layout.paths, layout.counts, layout.stacked):
+        a = np.asarray(_leaf(tree, path))
+        if st and a.shape[0] != n:
+            raise ValueError(f"leaf {'/'.join(path)} stacks {a.shape[0]} "
+                             f"layers, the model {n}")
+        out.extend(_tensor(r, device) for r in (a if st else [a]))
+    return out
+
+
+def leaves_from_numpy(tree: dict, layout: LeafLayout, device="cuda"
+                      ) -> List[torch.Tensor]:
+    """The reference's numpy tree as tensors, one per reference leaf."""
+    device = resolve_device(device)
+    return [_tensor(_leaf(tree, path), device) for path in layout.paths]
+
+
+def lm_params_to_numpy(model) -> dict:
+    """An LM's weights as the reference's numpy params tree (the inverse of
+    the ``*_params_from_numpy`` converters)."""
+    return flat_to_numpy(*lm_leaves(model))
+
+
+def train_state_to_numpy(state: TrainState, layout: LeafLayout
+                         ) -> TrainState:
+    """An LM ``TrainState`` of the port as the reference's, with numpy
+    leaves: ``params``, ``opt = AdamState(step int32, m, v)`` and
+    ``error`` (one residual per reference leaf, or None)."""
+    opt = state.opt
+    return TrainState(
+        params=flat_to_numpy(state.params, layout),
+        opt=AdamState(step=np.asarray(_numpy(opt.step), np.int32),
+                      m=flat_to_numpy(opt.m, layout),
+                      v=flat_to_numpy(opt.v, layout)),
+        error=(None if state.error is None
+               else leaves_to_numpy(state.error, layout)))
+
+
+def train_state_from_numpy(tree: TrainState, layout: LeafLayout,
+                           device="cuda") -> TrainState:
+    """The reference's LM ``TrainState`` of numpy arrays as the port's on
+    ``device`` (the inverse of ``train_state_to_numpy``)."""
+    device = resolve_device(device)
+    params, (step, m, v), error = tree
+    return TrainState(
+        params=flat_from_numpy(params, layout, device),
+        opt=AdamState(step=torch.tensor(np.asarray(step),
+                                        dtype=torch.int32).to(device),
+                      m=flat_from_numpy(m, layout, device),
+                      v=flat_from_numpy(v, layout, device)),
+        error=(None if error is None
+               else leaves_from_numpy(error, layout, device)))

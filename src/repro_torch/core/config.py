@@ -196,11 +196,21 @@ class TuneCandidate(NamedTuple):
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """A workload shape (``repro.core.config.ShapeConfig``): its name,
+    kind (train, prefill or decode), sequence length and global batch."""
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """AdamW with linear warmup, cosine decay and a global-norm clip, the
-    checkpoint cadence and the gradient sync (the fields of
-    ``repro.core.config.TrainConfig`` that the GCN trainer reads, with
-    the same defaults)."""
+    gradient accumulation, the gradient sync, the int8 error-feedback
+    compression and the checkpoint cadence (``repro.core.config.
+    TrainConfig``'s fields, with the same defaults)."""
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     beta1: float = 0.9
@@ -209,11 +219,13 @@ class TrainConfig:
     grad_clip: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 1000
-    checkpoint_every: int = 100
-    keep_checkpoints: int = 3
+    microbatches: int = 1       # gradient accumulation
     grad_sync: str = "psum"     # psum | tree (explicit butterfly tree
                                 # reduction); read where each worker runs
                                 # in its own process (train/train_loop.py)
+    compress_grads: bool = False
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
 
     def __post_init__(self):
         if self.grad_sync not in GRAD_SYNC_MODES:

@@ -136,12 +136,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Forward only, as in the reference (``jax.grad`` cannot pass through
     ``flash_attention_pallas``): an operand that requires grad under
     autograd raises on both devices rather than leave the card's output
-    without a ``grad_fn``."""
+    without a ``grad_fn``.  LM training runs the plain attention in both
+    packages (``use_flash_attention`` off, the default)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention has no backward yet: run it under "
-            "torch.no_grad() (an LM training slice needs its own backward "
-            "kernel, ROADMAP Queue 1 item 6)")
+            "torch.no_grad(), or train with use_flash_attention off (the "
+            "default); a flash backward kernel is a later redesign, "
+            "ROADMAP Queue 2 item 6, not one of Queue 1 item 6's modules)")
     check_head_dims(q, k, v)
     check_causal(q.shape[-2], k.shape[-2], causal)
     if _on_cuda(q, k, v):
@@ -164,14 +166,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     Forward only, as the reference's Pallas kernel: an operand that
     requires grad under autograd raises on both devices rather than leave
-    the card's output without a ``grad_fn``.  ``L`` not a multiple of the
-    chunk raises ``ValueError`` (the Pallas kernel asserts it)."""
+    the card's output without a ``grad_fn``; the SSM's training forward
+    reaches it through ``models.ssm.SSDScan``, whose backward is the vjp
+    of ``ssd_chunked``.  ``L`` not a multiple of the chunk raises
+    ``ValueError`` (the Pallas kernel asserts it)."""
     operands = (x, dt, a, b_mat, c_mat)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise NotImplementedError(
-            "ssd_scan has no backward yet: run it under torch.no_grad() "
-            "(LM training needs its own SSD backward kernel, ROADMAP Queue "
-            "1 item 6)")
+            "ssd_scan has no backward yet: run it under torch.no_grad(), "
+            "or differentiate through models.ssm.SSDScan (the kernel "
+            "forward, the vjp of ssd_chunked backward; a backward kernel "
+            "is a later redesign, ROADMAP Queue 2 item 6, not one of Queue "
+            "1 item 6's modules)")
     check_dtypes(*operands)
     if _on_cuda(*operands):
         return ssd_scan_cuda(*operands, chunk=chunk)

@@ -1,5 +1,5 @@
-"""GCN training driver of the port (``repro/launch/train.py``'s
-``train_gcn``).
+"""Training driver of the port (``repro/launch/train.py``): ``train_gcn``
+for the GCN archs and ``train_lm`` for the LM families.
 
 Synthetic power-law graph -> edge partition -> balance table ->
 synchronized subgraph generation + in-memory GCN training (the GraphGen+
@@ -57,8 +57,15 @@ ladders with a warning.  The validator sees a few rounds only, so a
 trained batch that an accepted pick's exchange drops requests from is
 regenerated at the traced slack, which the run then keeps.
 
-Waiting for a later slice, and not accepted by this parser: the LM
-archs.  ``--device`` is the one flag the reference lacks.
+``train_lm`` (every LM arch the port serves: dense, SSM, hybrid and
+MoE) trains on the reference's synthetic batches (``np.random.
+default_rng(--seed)``, ``--lm-batch`` x ``--lm-seq`` tokens, labels the
+tokens rolled left by one) through ``train/train_loop.py``'s step, with
+``--microbatches``; it checkpoints the ``TrainState`` in the reference's
+layout (stacked layers) and ``--resume`` restores one written by either
+package.  It runs in one process: ``--dist`` with an LM arch raises (the
+LM paths' process backend is ROADMAP Queue 1 items 6 and 7.4).
+``--device`` is the one flag the reference lacks.
 
 Examples::
 
@@ -68,6 +75,8 @@ Examples::
         --dist gloo
     python -m repro_torch.launch.train --arch graphgen-gcn-deep --smoke \\
         --device cpu --nodes 2000 --steps 6 --feature-store host
+    python -m repro_torch.launch.train --arch smollm-135m --smoke \\
+        --device cpu --steps 3
 """
 from __future__ import annotations
 
@@ -86,9 +95,9 @@ import torch
 from ..configs import get_config, smoke_config
 from ..core.balance import balance_table
 from ..core.collectives import ProcessWorkers, StackedGroup, WorkerGroup
-from ..core.config import TrainConfig
+from ..core.config import TrainConfig, resolve_device
 from ..convert import (adam_state_from_numpy, adam_state_to_numpy,
-                       gcn_params_from_numpy, gcn_params_to_numpy)
+                       gcn_params_from_numpy, gcn_params_to_numpy, lm_leaves)
 from ..core.feature_cache import (CacheConfig, init_cache_state, map_state,
                                   state_leaves)
 from ..core.generation import (SeededDraws, make_distributed_generator,
@@ -98,10 +107,12 @@ from ..core.pipeline import offline_loop, pipelined_loop
 from ..graph.subgraph import slots_per_seed
 from ..graph.synthetic import node_features, node_labels, powerlaw_graph
 from ..kernels import ops
+from ..models import zoo
 from ..models.gcn import gcn_loss, init_gcn
 from ..train import checkpoint as ckpt
 from ..train.optimizer import adam_update, init_adam
-from ..train.train_loop import make_grad_sync, make_step_sync
+from ..train.train_loop import (init_state, make_grad_sync, make_step_sync,
+                                make_train_step, module_loss)
 from . import mesh
 
 #: ascending slack ladder probed by the drop-aware capacity calibration
@@ -920,9 +931,68 @@ def offline_gcn(args, group: WorkerGroup = None) -> dict:
     return out
 
 
+def lm_batch(rng: np.random.Generator, cfg, b: int, s: int, device) -> dict:
+    """The reference's next LM batch from ``rng``: ``[b, s]`` int32 tokens
+    uniform over the vocabulary and labels ``np.roll(tokens, -1, 1)``."""
+    toks = rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "labels": torch.from_numpy(np.roll(toks, -1, axis=1)).to(device)}
+
+
+def train_lm(args, step_hook=None) -> dict:
+    """Train an LM arch (``repro``'s ``train_lm`` line for line): the
+    seeded model of ``zoo.build`` on ``--device``, a ``TrainConfig`` of
+    ``--lr``, ``--steps`` and ``--microbatches``, the ``TrainState`` of
+    ``train_loop.init_state`` (the model keeps no weights of its own: it
+    is the step's ``meta`` shell), ``--resume`` from ``--ckpt-dir``,
+    saves every ``--ckpt-every`` steps, the log line every
+    ``--log-every``.  ``step_hook(t)``, when given, runs after step
+    ``t``'s loss reached the host.  Returns ``{"losses", "wall_s"}``."""
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    dev = resolve_device(args.device)
+    api = zoo.build(cfg, dev)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                       microbatches=args.microbatches)
+    model = api.init(args.seed)
+    params, layout = lm_leaves(model)
+    state = init_state(params, tcfg, layout)
+    del params
+    model.to_empty(device="meta")
+    step = make_train_step(module_loss(model, api.loss, layout.names), tcfg,
+                           layout)
+
+    start = 0
+    if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
+        start = ckpt.latest_step(args.ckpt_dir)
+        state = ckpt.restore_lm_state(args.ckpt_dir, start, state, layout)
+        print(f"resumed from step {start}")
+
+    rng = np.random.default_rng(args.seed)
+    b, s = args.lm_batch, args.lm_seq
+    losses = []
+    t0 = time.perf_counter()
+    for t in range(start, args.steps):
+        batch = lm_batch(rng, cfg, b, s, dev)
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if step_hook is not None:
+            step_hook(t)
+        if (t + 1) % args.ckpt_every == 0:
+            ckpt.save_lm_state(args.ckpt_dir, t + 1, state, layout,
+                               keep=tcfg.keep_checkpoints)
+        if (t + 1) % args.log_every == 0:
+            print(f"step {t+1}: loss={losses[-1]:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f}")
+    dt = time.perf_counter() - t0
+    print(f"trained {args.steps - start} steps in {dt:.1f}s")
+    return {"losses": losses, "wall_s": dt}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
-    """The GCN training flags (``repro``'s, minus the LM flags and
-    ``--cache-probe-impl``, plus ``--device``)."""
+    """The training flags (``repro``'s, minus ``--cache-probe-impl``,
+    plus ``--device`` and the process backend's)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="graphgen-gcn")
     ap.add_argument("--device", default="cuda",
@@ -1013,6 +1083,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--nodes", type=int, default=20_000)
     ap.add_argument("--avg-degree", type=float, default=10.0)
     ap.add_argument("--batch-per-worker", type=int, default=32)
+    ap.add_argument("--lm-batch", type=int, default=4)
+    ap.add_argument("--lm-seq", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -1036,14 +1109,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     """CLI entry: train a GCN arch (``--offline``: through the GraphGen
-    baseline).  With ``--dist gloo|nccl`` it spawns
+    baseline) or an LM arch (``train_lm``, one process: ``--dist`` raises
+    ``NotImplementedError``).  With ``--dist gloo|nccl`` it spawns
     the ``--workers`` ranks (``launch/mesh.py``) and exits non-zero if
     any fails or outlives ``--dist-timeout``; a rank (or a ``torchrun``
     worker) joins the group and trains."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if get_config(args.arch).family != "gcn":
-        raise SystemExit(f"{args.arch}: only GCN archs are ported")
+        if args.dist != "none":
+            raise NotImplementedError(
+                f"--dist {args.dist}: train_lm runs in one process only "
+                f"(--dist none); the LM paths' process backend (tensor "
+                f"parallelism) is ROADMAP Queue 1 items 6 and 7.4")
+        train_lm(args)
+        return
     body = offline_gcn if args.offline else train_gcn
     if args.dist == "none":
         body(args)

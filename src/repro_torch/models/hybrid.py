@@ -84,9 +84,11 @@ class Zamba2LM(nn.Module):
         return L.lm_head(self.tok, self.norm_f, x, cfg, self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
-        """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``.
-        Forward only on the kernel paths (``ops.ssd_scan`` and
-        ``ops.flash_attention`` have no backward yet)."""
+        """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``,
+        differentiable through every Mamba layer (``ssm.SSDScan``) and,
+        with ``use_flash_attention`` off (the training default, as in the
+        reference), at every site: ``ops.flash_attention`` is forward
+        only."""
         return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
 
     def init_cache(self, batch: int, seq: int) -> dict:

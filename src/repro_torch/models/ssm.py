@@ -7,12 +7,15 @@ scans over them; here each layer is its own ``MambaBlock`` in an
 in the reference's ``[d_in, d_out]`` layout, so
 ``repro_torch.convert.mamba_params_from_numpy`` copies them across.
 
-The full-sequence forward runs the SSD recurrence through
-``kernels.ops.ssd_scan``: the hand-written CUDA kernel on the card, its
-plain twin (``ref.ssd_scan_ref``, the chunked form of the reference's
-``ssd_chunked``) on the CPU.  Decode is the O(1)-state recurrence in
-plain ops, as in the reference, with the cache ``{"ssm" [L, B, H, P, N]
-float32, "conv" [L, B, W - 1, C] bfloat16}`` written in place.  The
+The full-sequence forward runs the SSD recurrence through ``SSDScan``,
+whose forward is ``kernels.ops.ssd_scan``: the hand-written CUDA kernel
+on the card, its plain twin (``ref.ssd_scan_ref``, the chunked form of
+the reference's ``ssd_chunked``) on the CPU.  Its backward is the
+reference's gradient: the vjp of ``ssd_chunked`` (ported here as plain
+torch, as ``jax.grad`` differentiates the reference's jnp form),
+recomputed from the saved inputs.  Decode is the O(1)-state recurrence
+in plain ops, as in the reference, with the cache ``{"ssm" [L, B, H, P,
+N] float32, "conv" [L, B, W - 1, C] bfloat16}`` written in place.  The
 casts follow the reference step by step: the input projection, the
 causal conv, ``silu`` and the skip in ``layers.COMPUTE_DTYPE``; ``dt``,
 the SSD operands and the state in float32.
@@ -60,6 +63,92 @@ def causal_conv(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         shifted = F.pad(x, (0, 0, i, 0))[:, :x.shape[1]]
         out = out + shifted * k[-1 - i]
     return out
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                bm: torch.Tensor, cm: torch.Tensor, chunk: int
+                ) -> torch.Tensor:
+    """Chunked SSD in plain torch, the reference's ``ssd_chunked`` step
+    by step: ``x [B, L, H, P]``, ``dt [B, L, H]`` (> 0), ``a [H]`` (< 0),
+    ``bm``/``cm [B, L, N]``, all float32 -> ``y [B, L, H, P]``.
+
+    Within a chunk of ``Q = min(chunk, L)`` rows: ``cum = cumsum(a dt)``,
+    the masked decay ``L = exp(cum_i - cum_j) dt_j`` for ``j <= i`` and
+    ``y = ((C B^T) * L) x``; each chunk's state summary ``(x w)^T B`` with
+    ``w = dt exp(cum_{Q-1} - cum)`` and decay ``exp(cum_{Q-1})``; the
+    inter-chunk scan (a loop over chunks: ``compose`` is associative, so
+    only the rounding order differs from ``lax.associative_scan``), its
+    exclusive shift, and ``(C exp(cum)) state^T`` added to each chunk's
+    rows.  One departure, which changes no finite value: the exponent of
+    the masked entries (``j > i``, where ``cum_i - cum_j > 0``) is set to
+    ``-inf`` before ``exp`` instead of zeroing ``exp`` after it, so that
+    no ``inf`` (a chunk whose decay passes e^88) meets a zero cotangent in
+    the backward; the reference's form gives NaN gradients there."""
+    bsz, l, h, p = x.shape
+    n = bm.shape[-1]
+    q = min(chunk, l)
+    if l % q:
+        raise ValueError(f"ssd_chunked needs L a multiple of the chunk: "
+                         f"L = {l}, chunk {q}")
+    nc = l // q
+    xr = x.reshape(bsz, nc, q, h, p)
+    dtr = dt.reshape(bsz, nc, q, h)
+    br = bm.reshape(bsz, nc, q, n)
+    cr = cm.reshape(bsz, nc, q, n)
+    adt = a[None, None, None, :] * dtr                          # [B,NC,Q,H]
+    cum = torch.cumsum(adt, dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [B,NC,Q,Q,H]
+    ii = torch.arange(q, device=x.device)
+    tri = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    l_mat = torch.exp(torch.where(tri, seg, -torch.inf)) \
+        * dtr[:, :, None, :, :]
+    scores = torch.einsum("bnqc,bnkc->bnqk", cr, br)[..., None] * l_mat
+    y = torch.einsum("bnqkh,bnkhp->bnqhp", scores, xr)
+    w = dtr * torch.exp(cum[:, :, -1:, :] - cum)                # [B,NC,Q,H]
+    s_c = torch.einsum("bnqhp,bnqk,bnqh->bnhpk", xr, br, w)     # [B,NC,H,P,N]
+    total = torch.exp(cum[:, :, -1, :])                         # [B,NC,H]
+    state = torch.zeros_like(s_c[:, 0])
+    prev = []
+    for c in range(nc):            # the state BEFORE chunk c
+        prev.append(state)
+        state = state * total[:, c, :, None, None] + s_c[:, c]
+    st_prev = torch.stack(prev, dim=1)
+    y = y + torch.einsum("bnqk,bnqh,bnhpk->bnqhp", cr, torch.exp(cum),
+                         st_prev)
+    return y.reshape(bsz, l, h, p)
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSM layer's SSD with the reference's gradient.
+
+    Forward: ``ops.ssd_scan`` on the operands as the layer hands them
+    (x, b and c in the compute dtype, dt and a float32): the CUDA kernel
+    on the card (bfloat16 to the tensor-core route, float32 to the SIMT
+    one), its twin on the CPU; the result in x's dtype.  Only the inputs
+    are saved.  Backward: ``ssd_chunked`` recomputed from them under
+    autograd, with the reference's casts (x, b and c to float32 in, the
+    cotangent to float32), and its vjp; the gradients of x, b and c come
+    back in their own dtype (the transpose of ``astype(float32)``), dt's
+    and a's in float32."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, chunk: int):
+        """``y [B, L, H, P]`` in x's dtype."""
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat)
+        ctx.chunk = chunk
+        return ops.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy):
+        """The vjp of ``ssd_chunked`` at the saved inputs; ``None`` for
+        the chunk."""
+        saved = ctx.saved_tensors
+        f32 = torch.float32
+        with torch.enable_grad():
+            ins = [t.detach().to(f32).requires_grad_() for t in saved]
+            y = ssd_chunked(*ins, ctx.chunk)
+            grads = torch.autograd.grad(y, ins, gy.to(f32))
+        return (*(g.to(t.dtype) for g, t in zip(grads, saved)), None)
 
 
 def ssd_operands(conv_out: torch.Tensor, heads: int, head_dim: int,
@@ -113,15 +202,15 @@ class MambaBlock(nn.Module):
 
     def mamba_train(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The block over a full sequence: ``x [B, L, D]`` -> ``[B, L, D]``
-        (the SSD through ``ops.ssd_scan`` on views of the conv output, in
-        the compute dtype; its result comes back in that dtype)."""
+        (the SSD through ``SSDScan`` on views of the conv output, in the
+        compute dtype; its result comes back in that dtype)."""
         _, h, pdim, n = dims(cfg)
         z, conv_in, dt = self._project(x, cfg)
         conv_out = silu(causal_conv(conv_in, self.conv_k.to(x.dtype)))
         xh, bmat, cmat = ssd_operands(conv_out, h, pdim, n)
         dt = softplus(dt.to(torch.float32) + self.dt_bias)
         a = -torch.exp(self.a_log)
-        y = ops.ssd_scan(xh, dt, a, bmat, cmat, chunk=cfg.ssm_chunk)
+        y = SSDScan.apply(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
         return self._out(y, xh, z, cfg)
 
     def mamba_decode(self, x: torch.Tensor, cfg: ModelConfig,
@@ -196,9 +285,8 @@ class Mamba2LM(nn.Module):
         return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
-        """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``.
-        Forward only: ``ops.ssd_scan`` has no backward yet and raises under
-        autograd."""
+        """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``,
+        differentiable on both devices (``SSDScan``)."""
         return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
 
     def init_cache(self, batch: int, seq: int = 0) -> dict:

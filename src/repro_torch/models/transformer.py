@@ -103,8 +103,9 @@ class DenseLM(nn.Module):
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``.
-        Forward only where the flash path runs: ``ops.flash_attention``
-        has no backward yet and raises under autograd."""
+        Differentiable with ``use_flash_attention`` off (the training
+        default, as in the reference): ``ops.flash_attention`` is forward
+        only and raises under autograd."""
         return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
 
     def init_cache(self, batch: int, seq: int) -> dict:

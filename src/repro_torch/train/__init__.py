@@ -1,2 +1,3 @@
-"""Training substrate of the port: the optimizer, the workers' gradient
-sync, checkpoints and failure recovery."""
+"""Training substrate of the port: the optimizer, the LM step builder and
+the workers' gradient sync, the int8 gradient compression, checkpoints
+and failure recovery."""

@@ -10,10 +10,14 @@ and tagged ``"bfloat16"``) and the caller's ``extra``.  A commit writes
 checkpoint; only the newest ``keep`` are retained.
 
 Trees are nested dicts, tuples and NamedTuples whose leaves are numpy
-arrays or torch tensors.  The port's GCN, AdamW and cache states go
-through ``convert``'s ``*_to_numpy`` / ``*_from_numpy`` functions, which
-give them the reference's structure — so a checkpoint written by either
-package restores in the other.  Reading needs numpy alone.
+arrays or torch tensors; a None holds no leaf (as in ``jax.tree``: the
+reference's ``TrainState.error`` unless compressing).  The port's GCN,
+AdamW and cache states go through ``convert``'s ``*_to_numpy`` /
+``*_from_numpy`` functions, which give them the reference's structure —
+so a checkpoint written by either package restores in the other.  An LM
+``TrainState`` (``save_lm_state``, ``restore_lm_state``) goes through
+``convert.train_state_to_numpy`` and its layout: stacked layers under the
+reference's dict keys.  Reading needs numpy alone.
 """
 from __future__ import annotations
 
@@ -25,7 +29,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..convert import gcn_params_from_numpy, gcn_params_to_numpy
+from ..convert import (LeafLayout, _nest, gcn_params_from_numpy,
+                       gcn_params_to_numpy, train_state_from_numpy,
+                       train_state_to_numpy)
+from .optimizer import AdamState
+from .train_loop import TrainState
 
 
 def _items(tree, prefix=()):
@@ -40,7 +48,7 @@ def _items(tree, prefix=()):
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
             yield from _items(v, prefix + (str(i),))
-    else:
+    elif tree is not None:
         yield "/".join(prefix), tree
 
 
@@ -124,7 +132,7 @@ def _rebuild(like, leaf_fn, prefix=()):
     if isinstance(like, (tuple, list)):
         return type(like)(_rebuild(v, leaf_fn, prefix + (str(i),))
                           for i, v in enumerate(like))
-    return leaf_fn("/".join(prefix), like)
+    return None if like is None else leaf_fn("/".join(prefix), like)
 
 
 def restore(ckpt_dir: str, step: int, like: Any, select=None) -> Any:
@@ -204,3 +212,49 @@ def restore_serving_state(ckpt_dir: str, model_like, cache_like, *,
                                     "cache": cache_like}, select=select)
     device = model_like.w_out.device
     return gcn_params_from_numpy(tree["params"], device=device), tree["cache"]
+
+
+def _lm_like(state: TrainState, layout: LeafLayout) -> TrainState:
+    """The reference's ``TrainState`` structure of ``state``, its leaves
+    float32 (int32 step) arrays of the stacked shapes, never written."""
+    def like(flat):
+        return _nest((path, np.empty(((len(ts),) if st else ())
+                                     + tuple(ts[0].shape), np.float32))
+                     for path, ts, st in layout.parts(flat))
+    err = None
+    if state.error is not None:
+        err = _nest((p, np.empty(tuple(e.shape), np.float32))
+                    for p, e in zip(layout.paths, state.error))
+    return TrainState(params=like(state.params),
+                      opt=AdamState(step=np.zeros((), np.int32),
+                                    m=like(state.opt.m), v=like(state.opt.v)),
+                      error=err)
+
+
+def save_lm_state(ckpt_dir: str, step: int, state: TrainState,
+                  layout: LeafLayout, *, keep: int = 3) -> str:
+    """Commit an LM ``TrainState`` as the reference's ``train_lm`` saves
+    its own: ``.params/...``, ``.opt/.step``, ``.opt/.m/...``,
+    ``.opt/.v/...`` and, when compressing, ``.error/...``, each layer kind
+    stacked.  Returns the committed path."""
+    return save(ckpt_dir, step, train_state_to_numpy(state, layout),
+                keep=keep)
+
+
+def restore_lm_state(ckpt_dir: str, step: int, like: TrainState,
+                     layout: LeafLayout) -> TrainState:
+    """The LM ``TrainState`` saved at ``step`` (by either package) in the
+    structure of ``like``, on ``like``'s device; a leaf whose shape
+    differs from ``like``'s raises ``ValueError``."""
+    tree = restore(ckpt_dir, step, _lm_like(like, layout))
+    out = train_state_from_numpy(tree, layout,
+                                 device=like.params[0].device)
+    for name, a, b in zip(("params", "m", "v"),
+                          (out.params, out.opt.m, out.opt.v),
+                          (like.params, like.opt.m, like.opt.v)):
+        for key, x, y in zip(layout.names, a, b):
+            if x.shape != y.shape:
+                raise ValueError(f"checkpoint {name} {key} of shape "
+                                 f"{tuple(x.shape)} does not fit "
+                                 f"{tuple(y.shape)}")
+    return out

@@ -79,13 +79,16 @@ def adam_update(cfg: TrainConfig, params: Sequence[torch.Tensor],
     sf = step.to(_F32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=_F32, device=sf.device), sf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=_F32, device=sf.device), sf)
-    new_m = [b1 * m + (1 - b1) * g.to(_F32) for m, g in zip(state.m, grads)]
-    new_v = [b2 * v + (1 - b2) * torch.square(g.to(_F32))
+    # the reference's expressions, op for op, with each temporary reused in
+    # place (the same roundings, half the allocations of a parameter's size)
+    new_m = [(b1 * m).add_((1 - b1) * g.to(_F32))
+             for m, g in zip(state.m, grads)]
+    new_v = [(b2 * v).add_(torch.square(g.to(_F32)).mul_(1 - b2))
              for v, g in zip(state.v, grads)]
     new_params = []
     for p, m, v in zip(params, new_m, new_v):
         pf = p.detach().to(_F32)
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * pf
-        new_params.append((pf - lr * upd).to(p.dtype))
+        upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+        upd.add_(cfg.weight_decay * pf)
+        new_params.append((pf - upd.mul_(lr)).to(p.dtype))
     return new_params, AdamState(step=step, m=new_m, v=new_v), gnorm
