@@ -8,7 +8,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build    — compile the CUDA kernels (``nvcc``, sm_90a, one process per
               source, all started together) from the sources in this
               checkout; print each tensor-core kernel's ptxas report
-              (registers, spills) per instantiation (flash: Dh 64 and 128;
+              (registers, spills) per instantiation (flash: Dh 64, 128
+              and 160;
               ssd_scan: chunk x state 64/128 x 64/128), its dynamic shared
               memory per CTA and its HGMMA / UTMALDG / UTMASTG counts from
               ``cuobjdump -sass`` of the built library (either of the first
@@ -187,14 +188,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         shape (B 8, Hq 9, Hkv 3, L 2048, Dh 64, causal,
                         bf16), contiguous and as the model's strided
                         [B, L, H, Dh] views, and at bf16 Lq < Lk causal,
-                        Dh 128 and tiles cut by Lq or Lk: bf16 (the
-                        tensor-core route) within 2^-8 * ref(q, k, |v|) +
-                        2^-7 * |twin| + 1e-5 (p rounded to bf16 before
-                        P V, as the reference's plain path does, plus one
-                        output rounding); f32 (the SIMT route) with
-                        Lq < Lk, Dh 64 and 128, within rtol/atol 1e-5;
-                        each prints its max and relative Frobenius error
-                        and its distance to SDPA;
+                        Dh 128 and 160 (stablelm-12b's heads) and tiles
+                        cut by Lq or Lk: bf16 (the tensor-core route)
+                        within 2^-8 * ref(q, k, |v|) + 2^-7 * |twin| +
+                        1e-5 (p rounded to bf16 before P V, as the
+                        reference's plain path does, plus one output
+                        rounding); f32 (the SIMT route) with Lq < Lk, Dh
+                        64, 128 and 160, within rtol/atol 1e-5; each
+                        prints its max and relative Frobenius error and
+                        its distance to SDPA; then the Dh 160 instance
+                        timed on both routes (bf16 at stablelm's layer-0
+                        shape 8 x 32/8 x 2048 as [B, L, H, Dh] views, f32
+                        at 2 x 32/8 x 1024) by events and device duration
+                        beside its bound, its twin and SDPA (the
+                        ``flash_dh160`` JSON line);
               prefill   ``forward_logits`` with flash attention on 8 x 2048
                         seeded tokens: 30 flash launches per forward, all
                         on the tensor-core route, finite logits, the first
@@ -213,9 +220,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         other places in cuBLAS and on the CPU);
               serve     ``serve_lm``, batch 8, prompt 128, gen 128: tokens in
                         [0, V_pad), decode tok/s over the timed loop of a
-                        run with nothing else in it; a second run with CUDA
-                        events between steps and a profiler over 4 steps
-                        gives the median untraced step and the busy share.
+                        run with nothing else in it; a second run of 32
+                        generated tokens (LM_PROFILE_GEN: its tokens the
+                        first run's) with CUDA events between steps and a
+                        profiler over 4 steps gives the median untraced
+                        step and the busy share.
                         Then float32 compute on the card against the CPU
                         port in float32 on the same weights, over the 128
                         prompt-fill steps and 8 generated steps: tokens
@@ -223,7 +232,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         (1e-2) and the final bf16 KV cache within
                         LM_CACHE_ATOL (6.25e-2), beside the floor of the
                         CPU against itself with every weight one float32
-                        ulp off (bf16 greedy tokens flip on near-ties, so
+                        ulp up (bf16 greedy tokens flip on near-ties, so
                         that gate is float32; random weights soon repeat
                         one token, so the logits carry the check).
    SSM      — mamba2-1.3b at full width and depth (48 layers, d_model
@@ -262,31 +271,53 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         floor; and the card's prefill of the same 256 tokens
                         against its decode at every position (within 1e-1:
                         decode keeps the conv history in bf16).
-   lm zoo   — the hybrid and MoE LMs at their published widths, random
-              float32 weights from a seed (drawn on the card): zamba2-1.2b
-              at full depth (38 Mamba layers, the shared attention at 6
-              sites, 32/32 heads of 64, SSM state 64), qwen3-moe-30b-a3b at
-              16 of 48 layers (128 experts top 8, 32/4 heads of 128, vocab
-              151 936) and deepseek-v2-236b at 4 of 60 (the dense layer and
-              3 MoE layers: 160 experts top 6, 2 shared, MLA with kv_lora
-              512 and 128 heads); the cuts are what one 80 GB card holds.
-              Each: ``forward_logits`` on 8 x 2048 tokens (DeepSeek 1 x
-              2048) with zeroed counters (per forward: zamba2 38
-              ``ssd_scan`` and 6 flash, qwen3 one flash a layer, DeepSeek
-              none; all on the tensor-core route), tokens/s, busy share and
-              peak memory; flash at the path's layer-0 q/k/v (qwen3's
-              layer 0, zamba2's first site) within ``flash_close``'s gate
-              and ``ssd_scan`` at zamba2's layer 0 within its bf16 gate,
-              each timed by events and device duration beside its bound
-              (flash also beside SDPA on the same views); ``serve_lm``
-              batch 8, prompt 128, gen 128 (tok/s, median step, busy share,
-              peak); the MoE dispatch's drop rate and the assignments the
-              slot ``cap - 1`` collision zeroes, at prefill and at decode;
-              and float32 decode card vs CPU on a cut of the same weights
-              (zamba2 one site and a tail layer, qwen3 2 layers, DeepSeek
-              the dense and one MoE layer: tokens equal but at near-ties,
-              logits up to each row's first difference, every cache leaf
-              of the rows that never differ, beside a one-ulp floor).
+   lm zoo   — the rest of the LM zoo at published widths, random float32
+              weights from a seed (drawn on the card): zamba2-1.2b at full
+              depth (38 Mamba layers, the shared attention at 6 sites,
+              32/32 heads of 64, SSM state 64), qwen3-moe-30b-a3b at 16 of
+              48 layers (128 experts top 8, 32/4 heads of 128, vocab
+              151 936), deepseek-v2-236b at 4 of 60 (the dense layer and 3
+              MoE layers: 160 experts top 6, 2 shared, MLA with kv_lora 512
+              and 128 heads), whisper-small whole (12 encoder layers over
+              1 500 stub frames of 768, 12 decoder layers, 12/12 heads of
+              64), llama-3.2-vision-11b whole (40 layers, 8 gated cross
+              sites over 1 600 stub vision tokens of 1 280, 32/8 heads of
+              128), stablelm-12b whole (40 layers, 32/8 heads of 160) and
+              llama3-405b at 3 of 126 (128/8 heads of 128, d_model
+              16 384); the cuts are what one 80 GB card holds.  Each:
+              ``forward_logits`` on 8 x 2048 tokens (DeepSeek 1 x 2048),
+              with the stub inputs, with zeroed counters (per forward:
+              zamba2 38 ``ssd_scan`` and 6 flash, DeepSeek none, the others
+              one flash per self-attention layer: whisper's 12 decoder
+              layers at Dh 64, the VLM's 40 and llama3's 3 at 128,
+              stablelm's 40 at 160; the encoder and the cross sites take
+              the plain path; all on the tensor-core route), tokens/s,
+              busy share and peak memory; flash at the path's layer-0
+              q/k/v (zamba2's first site) within ``flash_close``'s gate and
+              ``ssd_scan`` at zamba2's layer 0 within its bf16 gate, each
+              timed by events and device duration beside its bound (flash
+              also beside SDPA on the same views); for whisper, the VLM,
+              stablelm and llama3 a float32 prefill card vs CPU on a cut of
+              the same
+              weights, 2 x 256 tokens with the stub inputs (the VLM's
+              gates opened from the seed) within 1e-3, beside a one-ulp
+              floor (not llama3's 30 GB cut); float32 decode card vs CPU
+              on the cut (zamba2 one site and a tail layer, qwen3 2
+              layers, DeepSeek the dense and one MoE layer, whisper 2 + 2
+              layers, the VLM one layer and one cross site, stablelm and
+              llama3 one layer: tokens equal but at near-ties, logits up
+              to each row's first difference, every cache leaf of the rows
+              that never differ, the VLM's vis_k/vis_v and whisper's enc
+              among them, beside a one-ulp floor but for DeepSeek and
+              llama3); ``serve_lm`` batch 8, prompt 32, gen 64 (tok/s and
+              peak; for qwen3 and DeepSeek an instrumented run of 32
+              tokens gives the median step, busy share and the decode
+              dispatch's tally; the VLM and
+              whisper decode against zero cross caches, as the
+              reference's serve_lm); 3 warm prefill forwards and 5 timed
+              twin calls a reading (not 5 and 20); and the MoE
+              dispatch's drop rate and the assignments the slot ``cap -
+              1`` collision zeroes, at prefill and at decode.
    lm train — ``train_lm`` (PR 25) at published widths through its
               function, bf16 compute, the card by default: smollm-135m
               whole (30 layers) 8 x 512 tokens, 8 steps, --microbatches
@@ -294,13 +325,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
               4 x 512, 6 steps; qwen3-moe-30b-a3b at 2 of 48 layers 4 x
               512, 4 steps (1.83 G float32 parameters: weights, gradients,
               the clipped gradients, AdamW's moments and the new ones
-              ~58 GB at the update's peak).  Gates: finite losses (nan_guard
+              ~58 GB at the update's peak); whisper-small whole 4 x 512
+              with 1 500 frames, 6 steps; llama-3.2-vision-11b at 5 of 40
+              layers (one cross site) and stablelm-12b at 2 of 40, 4 x
+              512, 4 steps (llama3-405b does not train on one card: one
+              layer with its embedding and head is 7.4 G parameters, ~118
+              GB with its AdamW state).  Gates: finite losses (nan_guard
               never fires: its predicate holds every step); ``ssd_scan``
               launched once per Mamba layer per microbatch forward (mamba2
               48, zamba2 38), all on the tensor-core route, its plain twin
               called zero times; float32 card vs CPU (``COMPUTE_DTYPE``
               float32) for each arch at 2 layers (zamba2 7: one site of
-              its shared block and a tail layer), full width, 1 x 256
+              its shared block and a tail layer; whisper 2 + 2; the VLM
+              one layer and one cross site, gates opened; stablelm 1),
+              full width, 1 x 256
               tokens, one ``make_train_step`` from the same state: the
               loss (rtol 1e-5), every reference leaf's gradient (within
               1e-3 of its largest |g|) and the params after the step
@@ -401,7 +439,7 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_AGREE_GEN = 8, 128, 128, 8
 # residual stream is small, so a k/v entry that rounds to the neighbouring
 # bf16 value in the cache moves the normalised state by a few tenths of a
 # percent; the phase prints this floor (the CPU against itself with every
-# weight one float32 ulp off).  A misplaced rope position, an off-by-one
+# weight one float32 ulp up).  A misplaced rope position, an off-by-one
 # valid length or a dropped mask moves the logits by tenths and the cache
 # by units, far past both bounds.
 LM_DECODE_ATOL = 1e-2          # logits, every step
@@ -416,7 +454,7 @@ GATHER_REQUESTS = 8
 # Float32 decode over 256 steps carries a bf16 conv history, so a value
 # that rounds to the neighbouring bf16 number moves the next steps; the
 # phase prints the floor (the CPU against itself with every weight one
-# float32 ulp off).  The card's prefill against its own decode: the
+# float32 ulp up).  The card's prefill against its own decode: the
 # decode keeps the conv history in bf16, the prefill in float32.  A
 # dropped carry, a misplaced conv tap or a wrong decay moves the logits
 # by tenths to units.
@@ -426,24 +464,65 @@ SSM_DECODE_ATOL = 2e-2         # logits, every step
 SSM_STATE_RTOL = 1e-2          # final float32 state, of its largest entry
 SSM_CONV_ATOL = 6.25e-2        # final bf16 conv history (entries up to ~4)
 SSM_PREFILL_DECODE_ATOL = 1e-1
-# the LM zoo's cells: depth on the card (None: all; qwen3 and DeepSeek
-# cut where one 80 GB card forces it: float32 weights of 2.49 and 15.9 GB
-# a layer; qwen3's prefill peaked at 79.8 GB with 20 layers, ~10 GB of
-# it float32 logits), prefill B x S (DeepSeek's plain attention holds
-# [B, 128, S, S] float32 scores), the float32 card-vs-CPU cut's layers
-# (zamba2: one site and a tail layer; DeepSeek: the dense layer and one
-# MoE layer) and its prompt and generated steps (the CPU reads the cut's
-# weights every step: 21 GB for DeepSeek's)
+# the LM zoo's cells: depth on the card (None: all; qwen3, DeepSeek and
+# llama3 cut where one 80 GB card forces it: float32 weights of 2.49,
+# 15.9 and 12.75 GB a layer; qwen3's prefill peaked at 79.8 GB with 20
+# layers, ~10 GB of it float32 logits; llama3's 3 layers with its 16.8 GB
+# embedding and head are 55 GB, 4 would be 68 GB of weights and ~85 GB at
+# the read-out's peak of 8 x 2048 float32 and bf16 logits), prefill B x S
+# (DeepSeek's plain attention holds [B, 128, S, S] float32 scores), the
+# float32 card-vs-CPU cut as config overrides (zamba2: one site and a
+# tail layer; DeepSeek: the dense layer and one MoE layer; whisper: 2
+# encoder and 2 decoder layers; the VLM: one self layer followed by one
+# cross site; stablelm and llama3: one layer and the untied read-out) and
+# its prompt and generated steps (the CPU reads the cut's weights every
+# step: 21 GB for DeepSeek's, 30 GB for llama3's)
 ZOO_SEED = 0
 ZOO_DEPTH = {"zamba2-1.2b": None, "qwen3-moe-30b-a3b": 16,
-             "deepseek-v2-236b": 4}
+             "deepseek-v2-236b": 4, "whisper-small": None,
+             "llama-3.2-vision-11b": None, "stablelm-12b": None,
+             "llama3-405b": 3}
 ZOO_PREFILL = {"zamba2-1.2b": (8, 2048), "qwen3-moe-30b-a3b": (8, 2048),
-               "deepseek-v2-236b": (1, 2048)}
-ZOO_CUT = {"zamba2-1.2b": 7, "qwen3-moe-30b-a3b": 2, "deepseek-v2-236b": 2}
-# steps, and whether the floor runs: nudging DeepSeek's 21 GB cut by an
-# ulp would draw 5.4G random signs on the host
+               "deepseek-v2-236b": (1, 2048), "whisper-small": (8, 2048),
+               "llama-3.2-vision-11b": (8, 2048), "stablelm-12b": (8, 2048),
+               "llama3-405b": (8, 2048)}
+ZOO_CUT = {"zamba2-1.2b": {"n_layers": 7},
+           "qwen3-moe-30b-a3b": {"n_layers": 2},
+           "deepseek-v2-236b": {"n_layers": 2},
+           "whisper-small": {"n_layers": 2, "n_encoder_layers": 2},
+           "llama-3.2-vision-11b": {"n_layers": 1, "cross_attn_every": 1},
+           "stablelm-12b": {"n_layers": 1}, "llama3-405b": {"n_layers": 1}}
+# steps, and whether the floor runs: not over DeepSeek's 21 GB cut or
+# llama3's 30 GB (a third decode on the host, at ~0.5 s a step)
 ZOO_AGREE = {"zamba2-1.2b": (64, 8, True), "qwen3-moe-30b-a3b": (8, 8, True),
-             "deepseek-v2-236b": (4, 4, False)}
+             "deepseek-v2-236b": (4, 4, False), "whisper-small": (8, 8, True),
+             "llama-3.2-vision-11b": (8, 8, True),
+             "stablelm-12b": (8, 8, True), "llama3-405b": (4, 4, False)}
+# float32 prefill card vs CPU on the same cut (the configs of this slice,
+# whose cross-attention the decode path, with zero cross caches, cannot
+# reach): B x S tokens with the stub inputs, and whether the floor (the
+# CPU with every weight one ulp up, in place and back) runs; the VLM's
+# gates set from the seed to non-zero values first.  Float32 sums in
+# another order give ~1e-6; a wrong mask, rope or projection moves the
+# logits by tenths.
+ZOO_PREFILL_AGREE = {"whisper-small": (2, 256, True),
+                     "llama-3.2-vision-11b": (2, 256, True),
+                     "stablelm-12b": (2, 256, True),
+                     "llama3-405b": (2, 256, False)}
+ZOO_PREFILL_ATOL = 1e-3
+# the instrumented serve_lm run of each serve cell (median step, busy
+# share) generates this many tokens, not LM_GEN: its tokens must equal the
+# first LM_PROFILE_GEN of the timed run's
+LM_PROFILE_GEN = 32
+# the zoo's serve cells: batch 8, prompt ZOO_SERVE_PROMPT, gen ZOO_SERVE_GEN
+# (the smollm and mamba2 serve cells keep prompt 128, gen 128): the
+# prompt fills through the decode path one token a step, and the 40-layer
+# configs take 77-95 ms a step, host-paced
+ZOO_SERVE_PROMPT, ZOO_SERVE_GEN = 32, 64
+# timing-only work the zoo's cells cut to fit the script's budget: warm
+# prefill forwards and the plain twin's timed calls; and only the MoE
+# cells, whose decode dispatch it tallies, run the instrumented serve run
+ZOO_WARM, ZOO_PLAIN_REPS = 3, 5
 # LM training (train_lm) at published widths: arch -> (layers on the
 # card, None for all; batch; seq; steps; microbatches).  qwen3 is cut to 2
 # of 48 layers: 1.83 G float32 parameters (2 x 0.60 G of experts, 0.62 G
@@ -452,10 +531,20 @@ ZOO_AGREE = {"zamba2-1.2b": (64, 8, True), "qwen3-moe-30b-a3b": (8, 8, True),
 # deepseek-v2-236b is held on the CPU only: one full-width MoE layer
 # (160 experts of 5120 x 1536 x 3) is 3.8 G parameters, ~60 GB with its
 # AdamW state and gradients.
+# whisper-small trains whole (0.34 G parameters); llama-3.2-vision-11b
+# at 5 of 40 layers, one cross site (2.2 G: 10 layers, 3.3 G, would need
+# ~105 GB at the update's peak, by qwen3's ~32 B a parameter); stablelm-12b
+# at 2 of 40 (1.59 G, its embedding and head 1.03 G of them); llama3-405b
+# not at all: one layer with its embedding and head is 7.4 G parameters,
+# ~118 GB with the gradients and AdamW's moments (its smoke config trains
+# in the CPU tests).
 LM_TRAIN = {"smollm-135m": (None, 8, 512, 8, 2),
             "mamba2-1.3b": (None, 4, 512, 6, 1),
             "zamba2-1.2b": (None, 4, 512, 6, 1),
-            "qwen3-moe-30b-a3b": (2, 4, 512, 4, 1)}
+            "qwen3-moe-30b-a3b": (2, 4, 512, 4, 1),
+            "whisper-small": (None, 4, 512, 6, 1),
+            "llama-3.2-vision-11b": (5, 4, 512, 4, 1),
+            "stablelm-12b": (2, 4, 512, 4, 1)}
 LM_TRAIN_SEED = 0
 # float32 card vs CPU, one train step on a cut at full width over 1 x 256
 # tokens (two SSD chunks), 2 layers (zamba2: 7, one site of its shared
@@ -470,10 +559,24 @@ LM_TRAIN_SEED = 0
 # init); and
 # only where a gradient lies within the two devices' rounding of zero may
 # a weight move by more than lr(1) / 100 (at most LM_TRAIN_FLIP_SHARE of
-# them: a wrong bias correction or decay moves every weight)
-LM_TRAIN_CUT = {"smollm-135m": 2, "mamba2-1.3b": 2, "zamba2-1.2b": 7,
-                "qwen3-moe-30b-a3b": 2}
+# them: a wrong bias correction or decay moves every weight).  The cuts
+# are config overrides: whisper 2 encoder and 2 decoder layers, the VLM
+# one self layer and one cross site (its gates set from the seed to
+# non-zero values, so that the cross path gets a gradient), stablelm one
+# layer.
+LM_TRAIN_CUT = {"smollm-135m": {"n_layers": 2}, "mamba2-1.3b": {"n_layers": 2},
+                "zamba2-1.2b": {"n_layers": 7},
+                "qwen3-moe-30b-a3b": {"n_layers": 2},
+                "whisper-small": {"n_layers": 2, "n_encoder_layers": 2},
+                "llama-3.2-vision-11b": {"n_layers": 1,
+                                         "cross_attn_every": 1},
+                "stablelm-12b": {"n_layers": 1}}
 LM_TRAIN_CUT_S = 256
+# the archs whose training check also runs the floor (a second CPU pass
+# on a nudged copy of the cut): not qwen3's (host memory), nor the VLM's
+# and stablelm's 1.3 G-parameter cuts (~8 s of host time each)
+LM_TRAIN_FLOOR = ("smollm-135m", "mamba2-1.3b", "zamba2-1.2b",
+                  "whisper-small")
 LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_RTOL = 1e-5, 1e-3
 LM_TRAIN_FLIP_SHARE = 1e-2
 # bf16, 2 microbatches against 1 on one batch: the forward is row for row
@@ -699,7 +802,7 @@ def tensor_core_kernels(lib):
     shared memory of one, read from the loaded library ``lib``)."""
     return {
         "flash_attention_sm90_kernel": (
-            r"kernelILi(\d+)E", {("64",), ("128",)},
+            r"kernelILi(\d+)E", {("64",), ("128",), ("160",)},
             lambda k: lib.repro_flash_attention_sm90_smem(int(k[0]))),
         "ssd_scan_sm90_kernel": (
             r"kernelILi(\d+)ELi(\d+)E",
@@ -3141,7 +3244,12 @@ FLASH_CHECKS = ((8, 9, 3, 2048, 2048, 64, True, "bfloat16", "bhld"),
                 (2, 9, 3, 256, 1024, 64, True, "float32", "bhld"),
                 (2, 9, 3, 256, 1024, 64, True, "float32", "blhd"),
                 (1, 4, 2, 128, 384, 128, True, "float32", "bhld"),
-                (2, 6, 2, 256, 256, 128, False, "bfloat16", "bhld"))
+                (2, 6, 2, 256, 256, 128, False, "bfloat16", "bhld"),
+                (1, 4, 2, 320, 448, 160, True, "bfloat16", "blhd"),
+                (2, 32, 8, 256, 256, 160, True, "bfloat16", "blhd"),
+                (2, 6, 2, 256, 256, 160, False, "bfloat16", "bhld"),
+                (1, 4, 2, 128, 384, 160, True, "float32", "bhld"),
+                (2, 32, 8, 256, 256, 160, True, "float32", "blhd"))
 
 
 def flash_close(torch, q, k, v, got, want, causal=True):
@@ -3190,8 +3298,10 @@ def flash_operand(torch, shape, layout, dtype, gen, dev):
 
 def phase_flash(torch, dev):
     """``flash_attention`` against its twin on the card at the shapes and
-    layouts of ``FLASH_CHECKS``; each bf16 check must go through the
-    tensor-core route and each float32 one through the SIMT route."""
+    layouts of ``FLASH_CHECKS`` (head dims 64, 128 and 160); each bf16
+    check must go through the tensor-core route and each float32 one
+    through the SIMT route; then the Dh 160 instance timed on both routes.
+    Returns the Dh 160 timings."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(1)
     for b, hq, hkv, lq, lk, dh, causal, dtype, layout in FLASH_CHECKS:
@@ -3216,6 +3326,37 @@ def phase_flash(torch, dev):
               f"relative Frobenius {rel:.3e}; |kernel - SDPA| max "
               f"{flash_sdpa_gap(torch, q, k, v, got, causal)})")
     torch.cuda.synchronize()
+    # the Dh 160 instance (stablelm-12b's heads) on both routes, timed by
+    # events and device duration beside its bound, its twin and SDPA:
+    # bf16 at stablelm's layer-0 shape as the model's [B, L, H, Dh] views,
+    # float32 at (2, 32/8, 1024)
+    out = {}
+    for dtype, (b, hq, hkv, l) in (("bfloat16", (8, 32, 8, 2048)),
+                                   ("float32", (2, 32, 8, 1024))):
+        dt = getattr(torch, dtype)
+        q, k, v = (flash_operand(torch, (b, h, l, 160), "blhd", dt, gen, dev)
+                   for h in (hq, hkv, hkv))
+        ops.reset_launch_counts()
+        entry = time_kernel(torch, "flash_attention", (q, k, v),
+                            {"causal": True})
+        route = "tensor_core" if dt == torch.bfloat16 else "float32"
+        routes = ops.flash_route_counts()
+        check(routes[route] > 0 and sum(routes.values()) == routes[route],
+              f"flash_attention Dh 160 {dtype} took routes {routes}")
+        out[dtype] = {"shape": [b, hq, hkv, l, 160], "route": route,
+                      **{key: entry[key] for key in (
+                          "max_abs_err", "ms", "device_ms", "plain_ms",
+                          "plain_device_ms", "bound_ms", "bound_by",
+                          "library_ms", "library_device_ms")}}
+        print(f"[flash] Dh 160 {dtype} ({route} route) at "
+              f"{(b, hq, hkv, l, 160)} causal: {entry['ms']:.4f} ms "
+              f"(events) {entry['device_ms']:.4f} ms (device), bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), SDPA "
+              f"{entry['library_ms']:.4f} ms, twin {entry['plain_ms']:.4f} "
+              f"ms; max abs err {entry['max_abs_err']}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def lm_config(n_layers=None):
@@ -3247,10 +3388,13 @@ def first_call_operands(torch, name, forward):
 
 
 def run_prefill(torch, cfg, seed, kernel, label, expect=None,
-                shape=(PREFILL_B, PREFILL_S)):
+                shape=(PREFILL_B, PREFILL_S), warm=PREFILL_WARM):
     """``forward_logits`` of ``cfg`` (random weights from ``seed``) over
-    ``shape`` (B x S, ``PREFILL_B x PREFILL_S`` by default) seeded tokens,
-    ``1 + PREFILL_WARM`` times with zeroed launch counters: exactly
+    ``shape`` (B x S, ``PREFILL_B x PREFILL_S`` by default) seeded tokens
+    (``train.lm_batch``: with the VLM's vision or Whisper's frame
+    embeddings),
+    ``1 + warm`` times (``PREFILL_WARM`` by default) with zeroed launch
+    counters: exactly
     ``expect[name]`` launches of each kernel per forward (by default one
     ``kernel`` launch per layer) and no other kernel, every flash and
     ssd_scan launch on the tensor-core route, finite float32 logits over
@@ -3262,6 +3406,7 @@ def run_prefill(torch, cfg, seed, kernel, label, expect=None,
     kernel's ms of the traced forward (``kernel_ms``: ``kernel``'s)."""
     import numpy as np
     from repro_torch.kernels import ops
+    from repro_torch.launch import train
     from repro_torch.models import zoo
     from repro_torch.models.layers import padded_vocab
     from torch.profiler import ProfilerActivity, profile
@@ -3272,12 +3417,13 @@ def run_prefill(torch, cfg, seed, kernel, label, expect=None,
     model = zoo.build(cfg, DEVICE).init(seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (n_b, n_s), dtype=np.int32)
-    batch = {"tokens": torch.from_numpy(tokens).to(DEVICE)}
+    batch = train.lm_batch(np.random.default_rng(seed), cfg, n_b, n_s,
+                           DEVICE)
+    del batch["labels"]
+    tokens = batch["tokens"].cpu().numpy()
     ops.reset_launch_counts()
     times = []
-    for _ in range(1 + PREFILL_WARM):
+    for _ in range(1 + warm):
         logits = None                   # free the last logits first
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3305,12 +3451,12 @@ def run_prefill(torch, cfg, seed, kernel, label, expect=None,
     res = {"init_s": init_s, "first_forward_s": times[0],
            "warm_forward_ms": warm_ms,
            "forward_ms": [t * 1e3 for t in times],
-           "prefill_tok_s": n_b * n_s * PREFILL_WARM / sum(times[1:]),
+           "prefill_tok_s": n_b * n_s * warm / sum(times[1:]),
            "launches": counts, "flash_routes": routes,
            "ssd_routes": ssd_routes, "max_memory_gb":
            torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"[{label}] B={n_b} S={n_s}: first forward "
-          f"{times[0]:.3f} s; {PREFILL_WARM} warm forwards at "
+          f"{times[0]:.3f} s; {warm} warm forwards at "
           f"{res['prefill_tok_s']:,.0f} tokens/s, median warm forward "
           f"{warm_ms:.3f} ms; forwards (ms) "
           f"{[round(t, 3) for t in res['forward_ms']]}; init {init_s:.2f} s; "
@@ -3480,14 +3626,14 @@ def lm_serve_args(gen, device):
         "--gen-len", str(gen)])
 
 
-def nudge_weights(torch, model, seed):
-    """Move every weight of ``model`` by one float32 ulp, with a seeded
-    random sign (the floor of a card-vs-CPU comparison)."""
-    gen = torch.Generator().manual_seed(seed + 1)
+def nudge_weights(torch, model):
+    """Move every weight of ``model`` one float32 ulp up, in place
+    (``nextafter``: the floor of a card-vs-CPU comparison, with no random
+    draw over a large cut's weights)."""
+    inf = torch.tensor(float("inf"))
     with torch.no_grad():
         for p in model.parameters():
-            sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
-            p.mul_(1 + sign.to(p) * 2.0 ** -23)
+            p.copy_(torch.nextafter(p, inf))
 
 
 def record_decode(torch, args, nudge=False, cfg=None, prep=None,
@@ -3498,8 +3644,9 @@ def record_decode(torch, args, nudge=False, cfg=None, prep=None,
     the model served.  ``cfg`` replaces the arch's config (a depth cut),
     ``model`` replaces the seeded init (moved to the served device: a cut
     carried across from another device), ``prep(model)`` edits the model
-    in place (the SSM's carry init), and ``nudge`` moves every weight by
-    one float32 ulp after that, for the floor of the comparison."""
+    in place (the SSM's carry init), and ``nudge`` moves every weight one
+    float32 ulp up after that (``nudge_weights``), for the floor of the
+    comparison."""
     from repro_torch.launch import serve
     from repro_torch.models import zoo
     real_lm_init = zoo._lm_init
@@ -3512,7 +3659,7 @@ def record_decode(torch, args, nudge=False, cfg=None, prep=None,
             if prep is not None:
                 prep(m)
             if nudge:
-                nudge_weights(torch, m, seed)
+                nudge_weights(torch, m)
             real = m.forward_decode
 
             def record(cache, tokens, pos):
@@ -3560,19 +3707,25 @@ def phase_lm_serve(torch):
     from repro_torch.models import layers
     from repro_torch.models.layers import padded_vocab
     v_pad = padded_vocab(lm_config())
-    res = serve_and_time(torch, lambda: lm_serve_args(LM_GEN, DEVICE),
+    t0 = time.perf_counter()
+    res = serve_and_time(torch, lambda gen: lm_serve_args(gen, DEVICE),
                          f"lm serve {LM_ARCH}", v_pad)
     toks = res["tokens"]
+    t1 = time.perf_counter()
 
+    # the card's seeded init (drawn on the card) carried to the CPU runs
     saved = layers.COMPUTE_DTYPE
     layers.COMPUTE_DTYPE = torch.float32
     try:
         card = record_decode(torch, lm_serve_args(LM_AGREE_GEN, DEVICE))
-        cpu = record_decode(torch, lm_serve_args(LM_AGREE_GEN, "cpu"))
+        cpu = record_decode(torch, lm_serve_args(LM_AGREE_GEN, "cpu"),
+                            model=card[3])
         floor = record_decode(torch, lm_serve_args(LM_AGREE_GEN, "cpu"),
-                              nudge=True)
+                              nudge=True, model=card[3])
     finally:
         layers.COMPUTE_DTYPE = saved
+    print(f"[lm serve] serve cell {t1 - t0:.1f} s, float32 card and CPU "
+          f"decodes {time.perf_counter() - t1:.1f} s")
     check((card[0] == cpu[0]).all(), f"float32 decode tokens differ card "
           f"vs CPU:\n{card[0]}\n{cpu[0]}")
     lg, lc = card[1], cpu[1]
@@ -3588,7 +3741,7 @@ def phase_lm_serve(torch):
           f"within {kv['k'][0]:.3e} / {kv['v'][0]:.3e}, "
           f"{100 * kv['k'][1]:.2f}% / {100 * kv['v'][1]:.2f}% of entries "
           f"more than one bf16 ulp apart. Floor, CPU with every weight one "
-          f"float32 ulp off: logits {floor_step.max().item():.3e} (median "
+          f"float32 ulp up: logits {floor_step.max().item():.3e} (median "
           f"step {floor_step.median().item():.3e}), caches "
           f"{floor_kv['k'][0]:.3e} / {floor_kv['v'][0]:.3e}, "
           f"{100 * floor_kv['k'][1]:.2f}% / {100 * floor_kv['v'][1]:.2f}% "
@@ -3797,13 +3950,17 @@ def launch_config(cfg, launcher=None):
         launcher.get_config = real
 
 
-def serve_and_time(torch, make_args, label, v_pad, cfg=None, wrap=None):
-    """``serve_lm(make_args())`` with zeroed launch counters (decode is
-    plain torch: no kernel of the port may launch) and nothing else in the
-    loop, for its tok/s, its tokens in ``[0, v_pad)``; then a second,
-    instrumented run (CUDA events between steps, a profiler over 4 steps)
-    that must generate the same tokens, for the median untraced step and
-    the device's busy share.  ``cfg`` replaces the arch's config
+def serve_and_time(torch, make_args, label, v_pad, cfg=None, wrap=None,
+                   gen=LM_GEN, prompt=LM_PROMPT, profile=True):
+    """``serve_lm(make_args(gen))`` (``gen`` generated tokens after a
+    ``prompt``-token prompt) with zeroed launch counters (decode is plain
+    torch: no kernel of the port may launch) and nothing else in the loop,
+    for its tok/s, its tokens in ``[0, v_pad)``; then a second,
+    instrumented run of ``LM_PROFILE_GEN`` generated tokens (CUDA events
+    between steps, a profiler over 4 steps) that must generate the first
+    ``LM_PROFILE_GEN`` of the same tokens, for the median untraced step and
+    the device's busy share (with ``profile`` off, no second run: tok/s
+    and the peak memory only).  ``cfg`` replaces the arch's config
     (``launch_config``); ``wrap()``, a context manager, runs around the
     instrumented run only and what it yields is returned as
     ``instrumented``.  Returns the first run's result with those added and
@@ -3812,24 +3969,33 @@ def serve_and_time(torch, make_args, label, v_pad, cfg=None, wrap=None):
     from repro_torch.launch import serve
     with launch_config(cfg):
         return _serve_and_time(torch, serve, ops, make_args, label, v_pad,
-                               wrap)
+                               wrap, gen, prompt, profile)
 
 
-def _serve_and_time(torch, serve, ops, make_args, label, v_pad, wrap):
+def _serve_and_time(torch, serve, ops, make_args, label, v_pad, wrap, gen,
+                    prompt, profile):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve.serve_lm(make_args())
+    res = serve.serve_lm(make_args(gen))
     res["total_s"] = time.perf_counter() - t0
     res["launches"] = ops.launch_counts()
     check(all(n == 0 for n in res["launches"].values()),
           f"{label}: decode launched a kernel: {res['launches']}")
     toks = res["tokens"]
-    check(toks.shape == (LM_BATCH, LM_GEN) and toks.min() >= 0
+    check(toks.shape == (LM_BATCH, gen) and toks.min() >= 0
           and toks.max() < v_pad, f"{label}: served tokens {toks.shape} "
           f"outside [0, {v_pad})")
+    if not profile:
+        res["instrumented"] = None
+        res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{label}] batch {LM_BATCH}, prompt {prompt}, gen {gen}: "
+              f"{res['tok_s']:,.1f} tok/s over the uninstrumented timed loop "
+              f"({res['wall_s']:.3f} s; whole call {res['total_s']:.2f} s), "
+              f"launches {res['launches']}; no instrumented run")
+        return res
     events = []
-    clock = StepClock(torch, first=LM_GEN - 8, n=4)
+    clock = StepClock(torch, first=LM_PROFILE_GEN - 8, n=4)
 
     def hook(step):
         ev = torch.cuda.Event(enable_timing=True)
@@ -3838,13 +4004,13 @@ def _serve_and_time(torch, serve, ops, make_args, label, v_pad, wrap):
         clock(step)
     try:
         with (wrap() if wrap else contextlib.nullcontext()) as extra:
-            timed = serve.serve_lm(make_args(), step_hook=hook)
+            timed = serve.serve_lm(make_args(LM_PROFILE_GEN), step_hook=hook)
     finally:
         clock.close()
     torch.cuda.synchronize()
     res["instrumented"] = extra
     res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    check((timed["tokens"] == toks).all(),
+    check((timed["tokens"] == toks[:, :LM_PROFILE_GEN]).all(),
           f"{label}: the instrumented serve_lm run generated other tokens")
     steps = [events[i].elapsed_time(events[i + 1])
              for i in range(len(events) - 1)]
@@ -3856,12 +4022,13 @@ def _serve_and_time(torch, serve, ops, make_args, label, v_pad, wrap):
     res["busy_ms"] = summarize_profile(
         torch, clock.prof, clock.n, sum(traced) / len(traced),
         f"{label}, per traced decode step")
-    print(f"[{label}] batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}: "
+    print(f"[{label}] batch {LM_BATCH}, prompt {prompt}, gen {gen}: "
           f"{res['tok_s']:,.1f} tok/s over the uninstrumented timed loop "
           f"({res['wall_s']:.3f} s; whole call {res['total_s']:.2f} s), "
-          f"launches {res['launches']}; instrumented run: median untraced "
-          f"step {res['median_step_ms']:.3f} ms (events between steps), "
-          f"timed loop {timed['wall_s']:.3f} s")
+          f"launches {res['launches']}; instrumented run of "
+          f"{LM_PROFILE_GEN} tokens: median untraced step "
+          f"{res['median_step_ms']:.3f} ms (events between steps), timed "
+          f"loop {timed['wall_s']:.3f} s")
     return res
 
 
@@ -3874,15 +4041,17 @@ def phase_ssm_serve(torch):
     a 248-token prompt and 8 generated tokens (tokens equal but at
     near-ties, logits up to each row's first differing token, the final
     state of the rows that never differ), beside the floor of the CPU
-    against itself with every weight one float32 ulp off, and the card's
+    against itself with every weight one float32 ulp up, and the card's
     own prefill of the same 256 tokens (two chunks) against its decode at
     every position."""
     import numpy as np
     from repro_torch.models import layers, zoo
     from repro_torch.models.layers import padded_vocab
     v_pad = padded_vocab(ssm_config())
-    res = serve_and_time(torch, lambda: ssm_serve_args(LM_GEN, DEVICE),
+    t0 = time.perf_counter()
+    res = serve_and_time(torch, lambda gen: ssm_serve_args(gen, DEVICE),
                          f"ssm serve {SSM_ARCH}", v_pad)
+    print(f"[ssm serve] serve cell {time.perf_counter() - t0:.1f} s")
 
     cut = ssm_config(SSM_CUT)
     prompt = np.random.default_rng(SSM_SEED).integers(
@@ -3893,13 +4062,17 @@ def phase_ssm_serve(torch):
     res["agree"] = {}
     try:
         for init in ("reference", "carry"):
+            t1 = time.perf_counter()
             prep = carry_init_fn(torch) if init == "carry" else None
-            runs = [record_decode(torch, ssm_serve_args(
-                SSM_AGREE_GEN, where, SSM_AGREE_PROMPT), cfg=cut, prep=prep,
-                nudge=nudge) for where, nudge in ((DEVICE, False),
-                                                  ("cpu", False),
-                                                  ("cpu", True))]
-            card, cpu, floor = runs
+            # the card's seeded init (drawn on the card), copied to the
+            # host for the CPU runs
+            card = record_decode(torch, ssm_serve_args(
+                SSM_AGREE_GEN, DEVICE, SSM_AGREE_PROMPT), cfg=cut, prep=prep)
+            host = cut_model(torch, card[3], SSM_CUT, "cpu")
+            cpu, floor = (record_decode(torch, ssm_serve_args(
+                SSM_AGREE_GEN, "cpu", SSM_AGREE_PROMPT), cfg=cut, prep=prep,
+                nudge=nudge, model=host) for nudge in (False, True))
+            runs = [card, cpu, floor]
             check(card[1].shape == cpu[1].shape == (steps, LM_BATCH, v_pad),
                   f"ssm decode logits {tuple(card[1].shape)}")
             gap = decode_state_gap(torch, card, cpu, SSM_AGREE_PROMPT)
@@ -3921,7 +4094,7 @@ def phase_ssm_serve(torch):
                   f"{gap['worst_step']}); final state of those rows within "
                   f"{gap['ssm']:.3e} (scale {gap['ssm_scale']:.3f}), conv "
                   f"history within {gap['conv']:.3e}. Floor, CPU with every "
-                  f"weight one float32 ulp off: logits "
+                  f"weight one float32 ulp up: logits "
                   f"{floor_gap['logits']:.3e}, ssm {floor_gap['ssm']:.3e}, "
                   f"conv {floor_gap['conv']:.3e}, {floor_gap['n_same']} rows "
                   f"the same. Card prefill of the {steps} tokens vs its "
@@ -3953,7 +4126,9 @@ def phase_ssm_serve(torch):
                 "floor_logits": floor_gap["logits"],
                 "prefill_vs_decode_last": pd[-1].item(),
                 "prefill_vs_decode_max": pd.max().item()}
-            del runs, card, cpu, floor, model
+            del runs, card, cpu, floor, model, host
+            print(f"[ssm serve] {init} init agreement "
+                  f"{time.perf_counter() - t1:.1f} s")
     finally:
         layers.COMPUTE_DTYPE = saved
     return res
@@ -4009,21 +4184,38 @@ def decode_state_gap(torch, a, b, prompt_len):
 
 # ------------------------------------------------------------------ LM zoo
 
-def zoo_config(arch, n_layers=None):
+def zoo_config(arch, n_layers=None, **over):
     """``arch`` at its published widths, flash switched on where its
-    attention takes the kernel (zamba2's and qwen3's one head dim; MLA's
-    192/128 heads take the plain path), ``n_layers`` cutting the depth."""
+    attention takes the kernel (every head dim but MLA's 192/128 heads,
+    which take the plain path), ``n_layers`` cutting the depth and
+    ``over`` replacing other fields (a cut's encoder depth or cross-
+    attention period)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    cfg = dataclasses.replace(cfg, use_flash_attention=not cfg.kv_lora_rank)
+    cfg = dataclasses.replace(cfg, use_flash_attention=not cfg.kv_lora_rank,
+                              **over)
     return cfg if n_layers is None else dataclasses.replace(
         cfg, n_layers=n_layers)
 
 
+def open_gates(torch, model, seed):
+    """Set every cross site's gate of a VLM ``model`` in place from
+    ``seed`` to a non-zero value (|gate| in [0.5, 1.5), either sign): the
+    init's gates are 0, where the cross path adds nothing."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for site in model.cross:
+            g = rng.uniform(0.5, 1.5) * rng.choice([-1.0, 1.0])
+            site.gate.fill_(float(g))
+
+
 def zoo_expect(cfg):
     """Kernel launches per forward of ``cfg``: the hybrid one ``ssd_scan``
-    per Mamba layer and one flash per site, qwen3 one flash per layer,
-    DeepSeek none."""
+    per Mamba layer and one flash per site, DeepSeek none, every other
+    family one flash per (self-attention) layer: the dense LMs', qwen3's
+    and the VLM's layers, Whisper's decoder layers (the encoder's 1 500
+    frames and the cross sites take the plain path)."""
     from repro_torch.models import hybrid
     if cfg.family == "hybrid":
         return {"ssd_scan": cfg.n_layers,
@@ -4041,13 +4233,14 @@ def zoo_serve_args(arch, gen, device, prompt=LM_PROMPT):
         "--gen-len", str(gen)])
 
 
-def zoo_cut(torch, model, cut):
+def zoo_cut(torch, model, cut, device="cpu"):
     """The leaves of ``model`` that a model of config ``cut`` (a depth cut
-    of it) holds, copied to the host, as an LM of ``cut`` on the CPU (no
-    second copy of the weights: the module takes the host tensors)."""
+    of it) holds, copied to ``device`` a tensor at a time, as an LM of
+    ``cut`` there (no second copy of the weights: the module takes the
+    copied tensors)."""
     shell = type(model)(cut, "meta")
     full = model.state_dict()
-    shell.load_state_dict({k: full[k].detach().to("cpu")
+    shell.load_state_dict({k: full[k].detach().to(device)
                            for k in shell.state_dict()}, assign=True)
     return shell
 
@@ -4096,7 +4289,7 @@ def zoo_kernels(torch, arch, cfg, operands):
             del got
         check(routes == {"tensor_core": 1, "float32": 0},
               f"{arch}: {name} at the path's operands took routes {routes}")
-        entry = time_kernel(torch, name, ins, kw)
+        entry = time_kernel(torch, name, ins, kw, plain_reps=ZOO_PLAIN_REPS)
         entry.update(shapes=[list(t.shape) for t in ins],
                      strides=[list(t.stride()) for t in ins])
         if name == "ssd_scan":
@@ -4114,11 +4307,12 @@ def zoo_kernels(torch, arch, cfg, operands):
     return out
 
 
-def zoo_agree(torch, arch, cut, model):
-    """Float32 decode of the cut ``model`` (on the CPU) on the card and on
+def zoo_agree(torch, arch, cut, model, card_model):
+    """Float32 decode of the cut ``model`` (on the CPU) on the card (its
+    copy ``card_model`` there) and on
     the CPU, ``serve_lm`` at batch 8 over ``ZOO_AGREE[arch]`` prompt and
     generated steps, beside the floor where ``ZOO_AGREE`` asks for it
-    (the CPU against itself with every weight one float32 ulp off),
+    (the CPU against itself with every weight one float32 ulp up),
     compared as the SSM's decode is
     (``decode_state_gap``): tokens equal but at greedy near-ties (top-two
     gap within the logits bound; at least half the rows equal
@@ -4128,8 +4322,10 @@ def zoo_agree(torch, arch, cut, model):
     largest entry, the conv history within ``SSM_CONV_ATOL`` and the
     KV or latent caches within ``LM_CACHE_ATOL``.  The logits bound is
     ``SSM_DECODE_ATOL`` for the hybrid (its conv history goes through
-    bf16 as the SSM's does) and ``LM_DECODE_ATOL`` for the MoE LMs.  The
-    model moves to the card and back (one copy of its weights)."""
+    bf16 as the SSM's does) and ``LM_DECODE_ATOL`` for the other LMs.  The
+    VLM and Whisper decode against zero cross caches, as ``serve_lm``
+    does; their ``vis_k``/``vis_v`` and ``enc`` are compared with the
+    rest."""
     from repro_torch.models import layers
     prompt, gen, with_floor = ZOO_AGREE[arch]
     atol = SSM_DECODE_ATOL if cut.family == "hybrid" else LM_DECODE_ATOL
@@ -4137,9 +4333,11 @@ def zoo_agree(torch, arch, cut, model):
     layers.COMPUTE_DTYPE = torch.float32
     try:
         runs = [record_decode(torch, zoo_serve_args(arch, gen, where, prompt),
-                              cfg=cut, model=model, nudge=nudge)
-                for where, nudge in ((DEVICE, False), ("cpu", False),
-                                     ("cpu", True))[:3 if with_floor else 2]]
+                              cfg=cut, model=m, nudge=nudge)
+                for where, m, nudge in ((DEVICE, card_model, False),
+                                        ("cpu", model, False),
+                                        ("cpu", model, True)
+                                        )[:3 if with_floor else 2]]
     finally:
         layers.COMPUTE_DTYPE = saved
     card, cpu = runs[:2]
@@ -4166,7 +4364,7 @@ def zoo_agree(torch, arch, cut, model):
           f"first step over 1e-3 {res['first_step_over_1e-3']}); final "
           f"cache of those rows "
           f"{ {k: f'{v[0]:.3e} of {v[1]:.3f}' for k, v in gap['cache'].items()} }"
-          f". Floor, CPU with every weight one float32 ulp off: logits "
+          f". Floor, CPU with every weight one float32 ulp up: logits "
           f"{fgap['logits']}, {fgap['n_same']} rows the same, caches "
           f"{ {k: f'{v[0]:.3e}' for k, v in fgap['cache'].items()} }")
     check(gap["n_same"] >= LM_BATCH // 2 and all(t <= atol
@@ -4185,41 +4383,116 @@ def zoo_agree(torch, arch, cut, model):
     return res
 
 
+def zoo_prefill_agree(torch, arch, cut, model, card_model):
+    """Float32 prefill of the cut ``model`` (on the CPU) against its copy
+    ``card_model`` on the card over ``ZOO_PREFILL_AGREE[arch]`` seeded
+    tokens with the stub inputs (Whisper's encoder and cross-attention, the
+    VLM's cross sites with open gates, flash on the card's float32 route
+    where the length allows), within ``ZOO_PREFILL_ATOL``, beside the
+    floor where it runs: the CPU with every weight one float32 ulp up
+    (``nextafter`` in place, then back down)."""
+    import numpy as np
+    from repro_torch.launch import train
+    from repro_torch.models import layers, zoo
+    b, s, with_floor = ZOO_PREFILL_AGREE[arch]
+    batch = train.lm_batch(np.random.default_rng(ZOO_SEED + 7), cut, b, s,
+                           "cpu")
+    del batch["labels"]
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        want = zoo.forward_logits(cut, model, batch)
+        got = zoo.forward_logits(cut, card_model, {
+            k: v.to(DEVICE) for k, v in batch.items()}).cpu()
+        floor = None
+        if with_floor:
+            with torch.no_grad():
+                for sign in (1.0, -1.0):
+                    for p in model.parameters():
+                        p.copy_(torch.nextafter(
+                            p, torch.tensor(sign * float("inf"))))
+                    if sign > 0:
+                        floor = (zoo.forward_logits(cut, model, batch)
+                                 - want).abs().max().item()
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    err = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    res = {"batch": b, "seq": s, "max_abs_err": err,
+           "scale": want.abs().max().item(), "argmax_agree": agree,
+           "floor": floor}
+    print(f"[lm zoo] {arch} float32 prefill, cut {cut.n_layers} layers, "
+          f"{b} x {s} tokens with the stub inputs, card vs CPU: logits "
+          f"within {err:.3e} (scale {res['scale']:.3f}, bound "
+          f"{ZOO_PREFILL_ATOL}), argmax agrees at {100 * agree:.2f}%; "
+          f"floor, the CPU with every weight one ulp up: {floor}")
+    check(bool(torch.isfinite(got).all()) and err <= ZOO_PREFILL_ATOL,
+          f"{arch} float32 prefill: card logits differ from the CPU's by "
+          f"{err}, over {ZOO_PREFILL_ATOL}")
+    return res
+
+
 def zoo_cell(torch, arch):
     """One LM of the zoo at its published widths (``ZOO_DEPTH`` cuts the
     depth where one card forces it): prefill with the launch gates, the
-    kernels at layer 0's own operands, ``serve_lm`` decode, the MoE
-    dispatch's drops and collisions at prefill and decode, and the
-    float32 card-vs-CPU decode on a cut of the same weights."""
+    kernels at layer 0's own operands, the float32 card-vs-CPU prefill
+    (the configs of this slice) and decode on a cut of the same weights,
+    ``serve_lm`` decode, and the MoE dispatch's drops and collisions at
+    prefill and decode."""
     from repro_torch.models import moe
     from repro_torch.models.layers import padded_vocab
     t0 = time.perf_counter()
+    split = {}
+
+    def lap(name, since=[t0]):
+        now = time.perf_counter()
+        split[name] = now - since[0]
+        since[0] = now
     cfg = zoo_config(arch, ZOO_DEPTH[arch])
     expect = zoo_expect(cfg)
     label = f"lm zoo {arch}"
     model, batch, _, res = run_prefill(
         torch, cfg, ZOO_SEED, "flash_attention", label, expect=expect,
-        shape=ZOO_PREFILL[arch])
+        shape=ZOO_PREFILL[arch], warm=ZOO_WARM)
     res.update(n_layers=cfg.n_layers, expect=expect,
                busy_share=(res["busy_ms"] / res["traced_ms"]
                            if res["busy_ms"] else None),
                weight_gb=sum(p.numel() * p.element_size()
                              for p in model.parameters()) / 1e9)
     operands, res["prefill_dispatch"] = zoo_layer0(torch, cfg, model, batch)
-    cut = zoo_config(arch, ZOO_CUT[arch])
+    cut = zoo_config(arch, **ZOO_CUT[arch])
     cpu_model = zoo_cut(torch, model, cut)
     del model, batch
     torch.cuda.empty_cache()
+    lap("prefill")
     res["kernels"] = zoo_kernels(torch, arch, cfg, operands)
     del operands
     torch.cuda.empty_cache()
+    lap("kernels")
+    # the cut's copy on the card, made after the kernels' timing (llama3's
+    # flash twin at layer 0 holds ~50 GB of float32 scores)
+    card_model = zoo_cut(torch, cpu_model, cut, DEVICE)
+    if arch in ZOO_PREFILL_AGREE:
+        if cut.family == "vlm":
+            for m in (cpu_model, card_model):
+                open_gates(torch, m, ZOO_SEED)
+        res["prefill_agree"] = zoo_prefill_agree(torch, arch, cut, cpu_model,
+                                                 card_model)
+        lap("prefill_agree")
+    res["agree"] = zoo_agree(torch, arch, cut, cpu_model, card_model)
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    lap("decode_agree")
     res["serve"] = serve_and_time(
-        torch, lambda: zoo_serve_args(arch, LM_GEN, DEVICE),
+        torch, lambda gen: zoo_serve_args(arch, gen, DEVICE,
+                                          ZOO_SERVE_PROMPT),
         f"lm zoo serve {arch}", padded_vocab(cfg), cfg=cfg,
-        wrap=moe.tally if cfg.family == "moe" else None)
+        wrap=moe.tally if cfg.family == "moe" else None, gen=ZOO_SERVE_GEN,
+        prompt=ZOO_SERVE_PROMPT, profile=cfg.family == "moe")
     res["decode_dispatch"] = res["serve"].pop("instrumented")
     res["serve"].pop("tokens")
     torch.cuda.empty_cache()
+    lap("serve")
     for stage in ("prefill", "decode"):
         d = res[f"{stage}_dispatch"]
         if d and d["calls"]:
@@ -4229,22 +4502,23 @@ def zoo_cell(torch, arch):
                   f"{d['dropped'] / d['assignments']:.4f}, the reference's "
                   f"moe_drop_rate), {d['zeroed']} kept but zeroed by the "
                   f"slot cap - 1 collision")
-    res["agree"] = zoo_agree(torch, arch, cut, cpu_model)
-    del cpu_model
     res["seconds"] = time.perf_counter() - t0
+    res["split_s"] = split
     print(f"[lm zoo] {arch}: {cfg.n_layers} layers on the card "
           f"({res['weight_gb']:.2f} GB of float32 weights), prefill "
           f"{ZOO_PREFILL[arch]} at {res['prefill_tok_s']:,.0f} tokens/s, "
           f"busy {res['busy_share']}, peak {res['max_memory_gb']:.2f} GiB; "
           f"decode {res['serve']['tok_s']:,.1f} tok/s, median step "
-          f"{res['serve']['median_step_ms']:.3f} ms, peak "
-          f"{res['serve']['max_memory_gb']:.2f} GiB; {res['seconds']:.1f} s")
+          f"{res['serve'].get('median_step_ms')} ms, peak "
+          f"{res['serve']['max_memory_gb']:.2f} GiB; {res['seconds']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in split.items()} })")
     return res
 
 
 def phase_lm_zoo(torch):
-    """The hybrid and mixture-of-experts LMs (``zoo_cell`` each):
-    zamba2-1.2b, qwen3-moe-30b-a3b and deepseek-v2-236b."""
+    """The LM zoo beyond smollm and mamba2 (``zoo_cell`` each): zamba2-1.2b,
+    qwen3-moe-30b-a3b, deepseek-v2-236b, whisper-small,
+    llama-3.2-vision-11b, stablelm-12b and llama3-405b."""
     t0 = time.perf_counter()
     out = {arch: zoo_cell(torch, arch) for arch in ZOO_DEPTH}
     out["seconds"] = time.perf_counter() - t0
@@ -4274,10 +4548,11 @@ def lm_shell(cfg, device="meta"):
     the shell ``train_loop.module_loss`` swaps tensors into, and the
     source of ``convert.lm_leaves``' layout and the parameter counts."""
     from repro_torch.models import deepseek, hybrid, moe, ssm, transformer
-    from repro_torch.models import zoo
+    from repro_torch.models import vlm, whisper, zoo
     cls = {"dense": transformer.DenseLM, "moe_qwen": moe.Qwen3MoeLM,
            "moe_deepseek": deepseek.DeepSeekLM, "ssm": ssm.Mamba2LM,
-           "hybrid": hybrid.Zamba2LM}[zoo._family_key(cfg)]
+           "hybrid": hybrid.Zamba2LM, "vlm": vlm.VisionLM,
+           "audio": whisper.WhisperLM}[zoo._family_key(cfg)]
     return cls(cfg, device)
 
 
@@ -4285,13 +4560,18 @@ def lm_train_flops(cfg, b, s):
     """A FLOP lower bound of one train step (forward and backward) from
     the shapes: ``6 N_active B S`` (every weight matrix once per token:
     routed experts scaled by top_k / E, the hybrid's shared block once per
-    site, the embedding table only where tied, as the read-out) plus the
-    causal attention, ``6 B Hq S^2 Dh`` per attention layer or site (the
-    SSD's chunk products are left out).  Returns ``(flops, n_active,
-    n_total)``."""
-    from repro_torch.models import hybrid
+    site, the embedding table only where tied, as the read-out; the
+    matrices that read the stub inputs, ``vproj``/``aproj``, Whisper's
+    encoder and the cross sites' ``wk``/``wv``, once per vision token or
+    frame ``T`` instead) plus the attention: ``6 B Hq S^2 Dh`` per causal
+    layer or site, ``12 B Hq S T Dh`` per cross site and ``12 B Hq T^2
+    Dh`` per encoder layer (the SSD's chunk products are left out).
+    Returns ``(flops, n_active, n_total)``; ``n_active`` counts per
+    token of its own stream."""
+    from repro_torch.models import hybrid, vlm
     model = lm_shell(cfg)
-    active = total = 0
+    t = cfg.n_vision_tokens or cfg.n_audio_frames
+    active = total = token_flops = 0
     for name, p in model.named_parameters():
         n = p.numel()
         total += n
@@ -4302,15 +4582,23 @@ def lm_train_flops(cfg, b, s):
         if name.startswith("shared."):
             n *= hybrid.grouped(cfg)[0]
         active += n
+        per_frame = (name in ("vproj", "aproj") or name.startswith("encoder.")
+                     or name.endswith(("xattn.wk", "xattn.wv"))
+                     or (name.startswith("cross.")
+                         and name.endswith(("attn.wk", "attn.wv"))))
+        token_flops += 6 * n * b * (t if per_frame else s)
     if cfg.family == "hybrid":
         attn_layers = hybrid.grouped(cfg)[0]
     elif cfg.family == "ssm":
         attn_layers = 0
     else:
         attn_layers = cfg.n_layers
+    cross = {"vlm": vlm.n_sites(cfg) if cfg.family == "vlm" else 0,
+             "audio": cfg.n_layers}.get(cfg.family, 0)
     hd = cfg.resolved_head_dim if cfg.n_heads else 0
-    flops = 6 * active * b * s + 6 * b * cfg.n_heads * s * s * hd \
-        * attn_layers
+    flops = (token_flops + 6 * b * cfg.n_heads * s * s * hd * attn_layers
+             + 12 * b * cfg.n_heads * s * t * hd * cross
+             + 12 * b * cfg.n_heads * t * t * hd * cfg.n_encoder_layers)
     return flops, active, total
 
 
@@ -4496,20 +4784,22 @@ def _leaf_gaps(torch, layout, a, b):
 def lm_train_agree(torch, arch, smi):
     """Float32 card vs CPU: one ``make_train_step`` (its two halves,
     ``microbatch_grads`` and ``apply_grads``, to keep the gradients) of a
-    ``LM_TRAIN_CUT[arch]``-layer cut of ``arch`` at full width, from the same
-    state (the card's seeded init carried to the host through the
-    reference's numpy tree) and batch; the gates and floor of
-    ``LM_TRAIN_*``."""
+    ``LM_TRAIN_CUT[arch]`` cut of ``arch`` at full width (the VLM's gates
+    set from the seed to non-zero values), from the same state (the card's
+    seeded init carried to the host) and batch (``train.lm_batch``: the
+    tokens, then the VLM's vision or Whisper's frame embeddings); the
+    gates and floor of ``LM_TRAIN_*``."""
     import gc
     import numpy as np
     from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.core.config import TrainConfig
     from repro_torch.kernels import ops
+    from repro_torch.launch import train
     from repro_torch.models import layers, zoo
     from repro_torch.train import train_loop as TL
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), n_layers=LM_TRAIN_CUT[arch])
+    cfg = dataclasses.replace(get_config(arch), **LM_TRAIN_CUT[arch])
     tcfg = TrainConfig(learning_rate=1e-3, total_steps=LM_TRAIN[arch][3])
     api = zoo.build(cfg, DEVICE)
     saved = layers.COMPUTE_DTYPE
@@ -4522,13 +4812,13 @@ def lm_train_agree(torch, arch, smi):
         since[0] = now
     try:
         model = api.init(LM_TRAIN_SEED)
+        if cfg.family == "vlm":
+            open_gates(torch, model, LM_TRAIN_SEED)
         flat, layout = convert.lm_leaves(model)
         host = [t.cpu() for t in flat]
         lap("init_and_copy")
-        toks = np.random.default_rng(LM_TRAIN_SEED).integers(
-            0, cfg.vocab_size, (1, LM_TRAIN_CUT_S), dtype=np.int32)
-        batch = {"tokens": torch.from_numpy(toks),
-                 "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
+        batch = train.lm_batch(np.random.default_rng(LM_TRAIN_SEED), cfg, 1,
+                               LM_TRAIN_CUT_S, "cpu")
         ops.reset_launch_counts()
         with twin_calls() as twin:
             card_fn = TL.module_loss(model, api.loss, layout.names)
@@ -4560,7 +4850,7 @@ def lm_train_agree(torch, arch, smi):
         grad_gap = _leaf_gaps(torch, layout, grads_c, grads_h)
         lap("grad_compare")
         floor = None
-        if arch != "qwen3-moe-30b-a3b":
+        if arch in LM_TRAIN_FLOOR:
             f_loss, f_grads = TL.microbatch_grads(
                 cpu_fn, _nudged(torch, host), batch, 1)
             floor = {"loss": abs(f_loss.item() - loss_h.item()),
@@ -5168,7 +5458,7 @@ def items_timed(torch, items, launches, entries):
         entries.setdefault(name, entry)
 
 
-def time_kernel(torch, name, inputs, kw):
+def time_kernel(torch, name, inputs, kw, plain_reps=20):
     """Times, error and bound of one kernel at ``inputs`` (``ssd_scan_f32``:
     ``ssd_scan`` at float32 inputs).  The bound counts each input byte read
     once and each output byte written once, at the operands' element sizes
@@ -5343,7 +5633,7 @@ def time_kernel(torch, name, inputs, kw):
                    + 2 * h * w * n_words * 4 + h * w * hc * d * 4)
         n_ops = ids.numel() * (2 + kw["assoc"])
     ms, dev_ms = both_ms(torch, kern)
-    plain_ms, plain_dev_ms = both_ms(torch, plain, reps=20)
+    plain_ms, plain_dev_ms = both_ms(torch, plain, reps=plain_reps)
     library_ms, library_dev_ms = (None, None) if library is None else \
         both_ms(torch, library)
     b_ms, b_by = bound(n_bytes, n_ops, flops)
@@ -5463,7 +5753,7 @@ def main():
         print("[dist-only] stopping after the process backend's phases")
         return
     if opts.kernels_only:
-        phase_flash(torch, dev)
+        print(json.dumps({"flash_dh160": phase_flash(torch, dev)}))
         phase_ssd_kernels(torch, dev)
         print("[kernels-only] stopping after the kernel checks")
         return
@@ -5497,7 +5787,7 @@ def main():
     stamp("dist_paths")
     nccl_res = phase_nccl(torch)
     stamp("nccl")
-    phase_flash(torch, dev)
+    flash_dh160 = phase_flash(torch, dev)
     stamp("flash")
     phase_ssd_kernels(torch, dev)
     stamp("ssd_kernels")
@@ -5609,6 +5899,7 @@ def main():
                                      "total_s", "agree", "launches")}},
         "gather_reduce": {"requests": GATHER_REQUESTS,
                           "launches": gather["launches"]}}}))
+    print(json.dumps({"flash_dh160": flash_dh160}))
     print(json.dumps({"lm_zoo": zoo_res}))
     print(json.dumps({"lm_train": lm_train}))
     # the kernels at the zoo's own layer-0 operands, beside their rows

@@ -1,21 +1,23 @@
 """Config registry of the port: ``get_config(arch_id)`` and the reduced
-``smoke_config`` (the GCN archs, the dense LMs, the Mamba-2 SSM, the
-Zamba2 hybrid and the two mixture-of-experts LMs; the VLM and audio
-families wait for ROADMAP Queue 1 item 6)."""
+``smoke_config`` for every arch the reference registers (the GCN archs,
+the dense LMs, the two mixture-of-experts LMs, the Llama-3.2-Vision VLM,
+Whisper, the Mamba-2 SSM and the Zamba2 hybrid)."""
 from __future__ import annotations
 
 import dataclasses
 
 from ..core.config import ModelConfig
 from . import (deepseek_v2_236b, graphgen_gcn, graphgen_gcn_deep,
-               graphgen_sage, mamba2_1p3b, qwen3_moe_30b_a3b, smollm_135m,
-               smollm_360m, zamba2_1p2b)
+               graphgen_sage, llama3_405b, llama32_vision_11b, mamba2_1p3b,
+               qwen3_moe_30b_a3b, smollm_135m, smollm_360m, stablelm_12b,
+               whisper_small, zamba2_1p2b)
 
 REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (smollm_135m, smollm_360m, qwen3_moe_30b_a3b, deepseek_v2_236b,
-              mamba2_1p3b, zamba2_1p2b, graphgen_gcn, graphgen_sage,
-              graphgen_gcn_deep)
+    for m in (smollm_135m, smollm_360m, stablelm_12b, llama3_405b,
+              qwen3_moe_30b_a3b, deepseek_v2_236b, llama32_vision_11b,
+              whisper_small, mamba2_1p3b, zamba2_1p2b, graphgen_gcn,
+              graphgen_sage, graphgen_gcn_deep)
 }
 
 
@@ -36,7 +38,9 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     dims 8 (rope) / 16 (nope, v), one dense layer of d_ff 64 before two
     MoE layers, one shared expert; ssm and hybrid: state 16, head_dim 16,
     chunk 8; hybrid: 5 layers, the shared block every 2 (two sites and a
-    tail layer)."""
+    tail layer); vlm: 4 layers, cross-attention every 2, 8 vision tokens
+    of width 24; audio: 2 encoder and 2 decoder layers, 12 frames of
+    width 24."""
     if cfg.family == "gcn":
         depth = max(len(cfg.fanouts), 1)
         small = ((4, 3) + (2,) * depth)[:depth]
@@ -44,9 +48,6 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
                                    n_classes=5, fanouts=small,
                                    cache_rows=min(cfg.cache_rows, 256),
                                    cache_l1_rows=min(cfg.cache_l1_rows, 32))
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(f"the port has no {cfg.family!r} family yet "
-                         f"(ROADMAP Queue 1 item 6)")
     heads = max(cfg.n_heads // 4, 2) if cfg.n_heads else 0
     kv = max(cfg.n_kv_heads // 4, 1) if cfg.n_kv_heads else 0
     kv = min(kv, heads) if heads else 0
@@ -66,4 +67,10 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         rep.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
     if cfg.family == "hybrid":
         rep.update(n_layers=5, attn_every=2)
+    if cfg.family == "vlm":
+        rep.update(n_layers=4, cross_attn_every=2, n_vision_tokens=8,
+                   d_vision=24)
+    if cfg.family == "audio":
+        rep.update(n_encoder_layers=2, n_layers=2, n_audio_frames=12,
+                   d_audio=24)
     return dataclasses.replace(cfg, **rep)

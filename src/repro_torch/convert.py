@@ -1,6 +1,7 @@
 """Carry GCN and LM weights (dense, Mamba-2, Zamba2 hybrid, Qwen3-MoE,
-DeepSeek-V2), optimizer state, cache state, KV caches, SSM states and
-MLA latent caches from ``repro`` to the port.
+DeepSeek-V2, Llama-3.2-Vision, Whisper), optimizer state, cache state,
+KV caches, SSM states, MLA latent caches and cross-attention caches from
+``repro`` to the port.
 
 Each function takes the reference's pytree as numpy arrays
 (``jax.tree.map(np.asarray, tree)`` on the caller's side — this module
@@ -14,8 +15,11 @@ KV cache, ``mamba_params_from_numpy`` a ``Mamba2LM`` and
 numpy`` a ``Zamba2LM`` and ``hybrid_cache_from_numpy`` its state and
 per-site KV caches, ``moe_params_from_numpy`` a ``Qwen3MoeLM`` (its KV
 cache through ``moe_cache_from_numpy``), ``deepseek_params_from_numpy`` a
-``DeepSeekLM`` and ``deepseek_cache_from_numpy`` its latent cache, so a
-run of the port can start from the reference's state mid-run.  The
+``DeepSeekLM`` and ``deepseek_cache_from_numpy`` its latent cache,
+``vlm_params_from_numpy`` a ``VisionLM`` and ``vlm_cache_from_numpy`` its
+KV and vision caches, ``whisper_params_from_numpy`` a ``WhisperLM`` and
+``whisper_cache_from_numpy`` its KV cache and encoder states, so a run of
+the port can start from the reference's state mid-run.  The
 reference stacks each kind of layer on a leading ``[n]`` axis; the port
 holds one module per layer (and one shared block in the hybrid).
 
@@ -50,6 +54,8 @@ from .models.hybrid import Zamba2LM
 from .models.moe import Qwen3MoeLM
 from .models.ssm import Mamba2LM
 from .models.transformer import DenseLM
+from .models.vlm import VisionLM
+from .models.whisper import WhisperLM
 from .train.optimizer import AdamState
 from .train.train_loop import TrainState
 
@@ -198,6 +204,18 @@ def _put_moe(mod, stack, cfg: ModelConfig, i: int) -> None:
         _put_module(mod.shared, _MLP, stack["shared"], cfg, i)
 
 
+def _put_blocks(blocks, stack, cfg: ModelConfig, attns=("attn",),
+                norms=("ln1", "ln2")) -> None:
+    """Row ``i`` of the reference's stacked dense-block leaves (the
+    attentions ``attns``, ``mlp`` and the norms ``norms``) into block
+    ``i`` of ``blocks``."""
+    for i, block in enumerate(blocks):
+        for a in attns:
+            _put_module(getattr(block, a), _ATTN, stack[a], cfg, i)
+        _put_module(block.mlp, _MLP, stack["mlp"], cfg, i)
+        _put_module(block, norms, stack, cfg, i)
+
+
 def _bf16(a, device) -> torch.Tensor:
     """A bfloat16 cache leaf on ``device`` (bfloat16 values pass through
     float32 exactly)."""
@@ -208,20 +226,15 @@ def _bf16(a, device) -> torch.Tensor:
 def lm_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
                          ) -> DenseLM:
     """``transformer.init_lm``'s pytree of numpy arrays (``embed/tok``,
-    ``embed/norm_f``, and ``layers/attn|mlp|ln1|ln2`` stacked on a leading
-    ``[L]`` axis) -> a ``DenseLM`` for ``cfg`` on ``device`` holding the
-    same weights (``[d_in, d_out]`` layout in both packages)."""
-    device = resolve_device(device)
-    model = DenseLM(cfg)
-    stack = params_np["layers"]
+    ``embed/norm_f``, untied ``embed/head``, and ``layers/attn|mlp|ln1|
+    ln2`` stacked on a leading ``[L]`` axis) -> a ``DenseLM`` for ``cfg``
+    on ``device`` holding the same weights (``[d_in, d_out]`` layout in
+    both packages)."""
+    model = DenseLM(cfg, resolve_device(device))
     with torch.no_grad():
-        _put(model.tok, params_np["embed"]["tok"], cfg)
-        _put(model.norm_f, params_np["embed"]["norm_f"], cfg)
-        for i, block in enumerate(model.layers):
-            _put_module(block.attn, _ATTN, stack["attn"], cfg, i)
-            _put_module(block.mlp, _MLP, stack["mlp"], cfg, i)
-            _put_module(block, ("ln1", "ln2"), stack, cfg, i)
-    return model.to(device)
+        _put_embed(model, params_np["embed"], cfg)
+        _put_blocks(model.layers, params_np["layers"], cfg)
+    return model
 
 
 def lm_cache_from_numpy(cache_np, device="cuda") -> dict:
@@ -338,6 +351,59 @@ def deepseek_cache_from_numpy(cache_np, device="cuda") -> dict:
             for name in ("ckv_dense", "kr_dense", "ckv", "kr")}
 
 
+def vlm_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
+                          ) -> VisionLM:
+    """``vlm.init_vlm``'s pytree of numpy arrays (``embed``, ``vproj``,
+    ``layers/attn|mlp|ln1|ln2`` stacked on ``[L]`` and ``cross/attn|ln|
+    gate`` stacked on ``[sites]``; ``gate [sites, 1]``) -> a ``VisionLM``
+    for ``cfg`` on ``device`` holding the same weights."""
+    model = VisionLM(cfg, device)
+    cross = params_np["cross"]
+    with torch.no_grad():
+        _put_embed(model, params_np["embed"], cfg)
+        _put(model.vproj, params_np["vproj"], cfg)
+        _put_blocks(model.layers, params_np["layers"], cfg)
+        for i, site in enumerate(model.cross):
+            _put_module(site.attn, _ATTN, cross["attn"], cfg, i)
+            _put_module(site, ("ln", "gate"), cross, cfg, i)
+    return model
+
+
+def vlm_cache_from_numpy(cache_np, device="cuda") -> dict:
+    """``vlm.init_cache``-shaped ``{"k", "v" [L, B, S, Hkv Dh], "vis_k",
+    "vis_v" [sites, B, T, Hkv Dh]}`` of numpy arrays -> the port's
+    bfloat16 caches on ``device``."""
+    device = resolve_device(device)
+    return {name: _bf16(cache_np[name], device)
+            for name in ("k", "v", "vis_k", "vis_v")}
+
+
+def whisper_params_from_numpy(params_np, cfg: ModelConfig, device="cuda"
+                              ) -> WhisperLM:
+    """``whisper.init_whisper``'s pytree of numpy arrays (``embed``,
+    ``aproj``, ``encoder/attn|mlp|ln1|ln2`` stacked on the encoder's
+    layers and ``decoder/attn|xattn|mlp|ln1|lnx|ln2`` on the decoder's)
+    -> a ``WhisperLM`` for ``cfg`` on ``device`` holding the same
+    weights."""
+    model = WhisperLM(cfg, device)
+    with torch.no_grad():
+        _put_embed(model, params_np["embed"], cfg)
+        _put(model.aproj, params_np["aproj"], cfg)
+        _put_blocks(model.encoder, params_np["encoder"], cfg)
+        _put_blocks(model.decoder, params_np["decoder"], cfg,
+                    attns=("attn", "xattn"), norms=("ln1", "lnx", "ln2"))
+    return model
+
+
+def whisper_cache_from_numpy(cache_np, device="cuda") -> dict:
+    """``whisper.init_cache``-shaped ``{"k", "v" [L, B, S, Hkv Dh], "enc"
+    [B, T, D]}`` of numpy arrays -> the port's bfloat16 caches on
+    ``device``."""
+    device = resolve_device(device)
+    return {name: _bf16(cache_np[name], device)
+            for name in ("k", "v", "enc")}
+
+
 class LeafLayout(NamedTuple):
     """The reference's pytree leaves of an LM over the port's tensors.
 
@@ -381,28 +447,37 @@ class LeafLayout(NamedTuple):
 
 def _stacks(model):
     """``({reference key: ModuleList attribute}, {reference key: shared
-    module attribute})`` of ``model``'s family."""
+    module attribute}, (top-level parameters outside ``embed``))`` of
+    ``model``'s family."""
     if isinstance(model, Zamba2LM):
-        return {"mamba": "layers"}, {"shared": "shared"}
+        return {"mamba": "layers"}, {"shared": "shared"}, ()
     if isinstance(model, DeepSeekLM):
-        return {"dense": "dense", "layers": "layers"}, {}
+        return {"dense": "dense", "layers": "layers"}, {}, ()
+    if isinstance(model, VisionLM):
+        return {"layers": "layers", "cross": "cross"}, {}, ("vproj",)
+    if isinstance(model, WhisperLM):
+        return ({"encoder": "encoder", "decoder": "decoder"}, {},
+                ("aproj",))
     if isinstance(model, (DenseLM, Mamba2LM, Qwen3MoeLM)):
-        return {"layers": "layers"}, {}
+        return {"layers": "layers"}, {}, ()
     raise TypeError(f"lm_leaves takes an LM of the port, got "
                     f"{type(model).__name__}")
 
 
 def lm_leaves(model) -> Tuple[List[torch.Tensor], LeafLayout]:
     """The parameters of an LM of the port (dense, SSM, hybrid, Qwen3-MoE,
-    DeepSeek) in the flat order of its ``LeafLayout``, and the layout.
-    The reference's keys are the port's attribute names: ``embed/tok``,
-    ``embed/norm_f``, ``embed/head`` (untied), then per layer kind the
-    block's own parameter names (``layers/attn/wq``, ``layers/moe/
-    shared/wg``, ``mamba/w_in``, ``shared/ln1`` ...)."""
-    stacks, singles = _stacks(model)
+    DeepSeek, VLM, Whisper) in the flat order of its ``LeafLayout``, and
+    the layout.  The reference's keys are the port's attribute names:
+    ``embed/tok``, ``embed/norm_f``, ``embed/head`` (untied), the VLM's
+    ``vproj`` and Whisper's ``aproj``, then per layer kind the block's own
+    parameter names (``layers/attn/wq``, ``layers/moe/shared/wg``,
+    ``mamba/w_in``, ``shared/ln1``, ``cross/gate``, ``decoder/xattn/wk``
+    ...)."""
+    stacks, singles, tops = _stacks(model)
     entries = [(("embed", n), [(n, getattr(model, n))], False)
                for n in ("tok", "norm_f", "head")
                if getattr(model, n, None) is not None]
+    entries += [((n,), [(n, getattr(model, n))], False) for n in tops]
     for key, attr in stacks.items():
         blocks = list(getattr(model, attr))
         if not blocks:

@@ -1,4 +1,4 @@
-"""The GCN, cache, LM, MoE, MLA, SSM and hybrid fields of
+"""The GCN, cache, LM, MoE, MLA, SSM, hybrid, VLM and audio fields of
 ``repro.core.config.ModelConfig``, and ``TrainConfig``.
 
 Only what the ported slices read is carried over: the GCN dims, the
@@ -7,13 +7,15 @@ fanouts and the cache policy, with the same construction-time validation
 norm constants and its flash switch; the mixture-of-experts fields
 (experts, top-k, shared experts, expert width, leading dense layers),
 DeepSeek's multi-head latent attention ranks and head dims, the Mamba-2
-SSM dims (state, heads, head dim, expansion, chunk, conv width) and the
-hybrid's shared-attention period, each with the reference's defaults;
+SSM dims (state, heads, head dim, expansion, chunk, conv width), the
+hybrid's shared-attention period, the VLM's cross-attention period and
+vision-token stub and Whisper's encoder depth and audio-frame stub, each
+with the reference's defaults;
 the optimizer's schedule; the autotuner's ``TuneCandidate`` and
 ``ModelConfig.with_candidate``; and the roofline constants of the card
-the port runs on (an NVIDIA H100, not the reference's TPU).  The VLM and
-audio fields and the shape/mesh configs wait for the slices that need
-them (ROADMAP Queue 1 items 6-7).
+the port runs on (an NVIDIA H100, not the reference's TPU).  The
+shape/mesh configs wait for the slice that needs them (ROADMAP Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -67,16 +69,18 @@ def _round_up_pow2(n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """A GCN architecture plus its distributed feature-fetch policy, or
-    a decoder-only LM: dense, mixture-of-experts (Qwen3-MoE, DeepSeek-V2
-    with MLA), Mamba-2 SSM, or the Zamba2 hybrid.
+    an LM: dense, mixture-of-experts (Qwen3-MoE, DeepSeek-V2 with MLA),
+    Mamba-2 SSM, the Zamba2 hybrid, the Llama-3.2-Vision VLM (a dense
+    decoder with gated cross-attention) or the Whisper encoder-decoder.
 
     Field meanings and defaults match ``repro.core.config.ModelConfig``;
     see the reference for the long-form comments on each cache knob.
     The reference's ``scan_layers`` and ``remat`` are XLA knobs with no
     counterpart here: ``DenseLM`` holds one module per layer and keeps
-    its activations (ROADMAP Queue 1 item 6)."""
+    its activations (ROADMAP Queue 1 item 6.4)."""
     name: str
-    family: str                 # "gcn", "dense", "moe", "ssm", "hybrid"
+    family: str                 # gcn | dense | moe | ssm | hybrid | vlm
+                                # | audio
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -105,6 +109,13 @@ class ModelConfig:
     conv_width: int = 4
     attn_every: int = 0         # hybrid: the shared attention block runs
                                 # after every attn_every-th Mamba layer
+    cross_attn_every: int = 0   # vlm: a gated cross-attention block after
+                                # every cross_attn_every-th self layer
+    n_vision_tokens: int = 0    # vlm: patch embeddings per image (stub)
+    d_vision: int = 0           # vlm: their width
+    n_encoder_layers: int = 0   # audio: encoder depth (n_layers: decoder)
+    n_audio_frames: int = 0     # audio: frame embeddings per clip (stub)
+    d_audio: int = 0            # audio: their width
     gcn_hidden: int = 0
     gcn_in_dim: int = 0
     n_classes: int = 0

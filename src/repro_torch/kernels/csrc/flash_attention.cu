@@ -2,7 +2,8 @@
 // grouping,
 //   out[b, h, i] = sum_j softmax_j(q[b, h, i] . k[b, g, j] * scale) v[b, g, j]
 // with q [B, Hq, Lq, Dh], k/v [B, Hkv, Lk, Dh] (float32, contiguous),
-// g = h / (Hq / Hkv), scale = 1 / sqrt(Dh), out float32.  Bfloat16
+// g = h / (Hq / Hkv), scale = 1 / sqrt(Dh), Dh 64, 128 or 160, out
+// float32.  Bfloat16
 // operands, the dense LM's, go to the tensor-core kernel in
 // flash_attention_sm90.cu; the wrapper picks the route by dtype.
 // Causal: row i sees column j iff i + (Lk - Lq) >= j (the last query
@@ -29,7 +30,9 @@
 // the 64 x 64 score tile by float32 FMA (rows ty + 16i, columns tx + 16j),
 // write it to shared memory, and four threads per row take the tile's max
 // and sum with warp shuffles.  Each thread keeps a 4 x (Dh / 16) block of
-// the output accumulator in registers, rescales it by the row's alpha and
+// the output accumulator in registers (Dh 64, 128 or 160: at 160 the
+// staged tiles take 141 KB of shared memory, opted in at launch),
+// rescales it by the row's alpha and
 // adds P V.  Key tiles entirely above the causal diagonal are never
 // loaded (the Pallas kernel's pl.when(run)); query tiles run heaviest
 // first (blockIdx.x reversed) so the longest blocks start early.
@@ -230,6 +233,9 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                       s);
   if (dh == 128)
     return launch<128>(fq, fk, fv, fo, batch, hq, hkv, lq, lk, causal, scale,
+                       s);
+  if (dh == 160)
+    return launch<160>(fq, fk, fv, fo, batch, hq, hkv, lq, lk, causal, scale,
                        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,7 @@
 // [B, L, H, Dh] tensors transposed to [B, H, L, Dh], read in place), and
 // out written through its own strides (the wrapper allocates [B, Lq, Hq,
 // Dh] and returns the transposed view).  g = h / (Hq / Hkv), scale =
-// 1 / sqrt(Dh), Dh 64 or 128.  Causal: row i sees column j iff
+// 1 / sqrt(Dh), Dh 64, 128 or 160.  Causal: row i sees column j iff
 // i + (Lk - Lq) >= j; masked logits are -1e30.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
@@ -36,9 +36,13 @@
 //   (d0, row0, head, batch): GQA needs no repeat (the KV head is a
 //   coordinate) and no layout copy runs.  Every box is 64 bf16 wide, one
 //   128-byte row, and lands in shared memory in the 128-byte swizzle;
-//   Dh 128 takes two boxes per tile, one after the other.  The Q tile
+//   Dh 128 takes two boxes per tile, one after the other, and Dh 160
+//   three: the third box starts at column 128 and TMA fills its columns
+//   past 160 with zeros (the pad lives in shared memory only; no product
+//   reads it).  The Q tile
 //   comes once; K and V tiles (128 keys at Dh 64, 64 keys at Dh 128, so
-//   that the score and output accumulators fit in 160 registers) run
+//   and 160, so that the score and output accumulators fit in 160
+//   registers) run
 //   through two-slot rings, one for K and one for V, each slot with a
 //   "full" mbarrier (TMA's transaction count) and an "empty" one that the
 //   twelve consumer warps arrive on, so K slots free as soon as the scores
@@ -48,7 +52,8 @@
 // - S = Q K^T: wgmma m64nNk16 (N = keys per tile), both operands in shared
 //   memory, K-major, Dh / 16 steps; the descriptors carry the 128-byte
 //   swizzle mode of the tensor maps, and a step advances the start address
-//   by 32 bytes within the swizzled row (by a whole box past 64 columns).
+//   by 32 bytes within the swizzled row (by a whole box past 64 columns);
+//   at Dh 160 the last two steps read the third box's first 64 bytes.
 // - Overlap within a warpgroup: tile t's S product is issued together with
 //   tile t-1's P V product, and the softmax of S_t runs while P V still
 //   occupies the tensor cores (wgmma.wait_group 1, then 0 before O is
@@ -65,11 +70,14 @@
 //   float32 accumulator fragment of m64nN is the A fragment of N / 16 k16
 //   steps once packed to bf16 pairs) and V read from shared memory as the
 //   B operand with the transpose bit, so V's [keys, Dh] rows need no
-//   transposed copy; one n64 product per 64 output columns.
+//   transposed copy; one n64 product per 64 output columns, and at Dh 160
+//   one n32 product for the last 32 (the first 64 bytes of each swizzled
+//   row of the third box), so a thread holds 64 + 16 output floats.
 // - Epilogue: one division per element by the clamped denominator, the
 //   bf16 tile stored into the warpgroup's own rows of the Q buffer in the
-//   128-byte swizzle, then one TMA store per 64 columns through the
-//   output's tensor map (rows past Lq are clipped by the hardware).
+//   128-byte swizzle, then one TMA store per box through the output's
+//   tensor map (rows past Lq and, at Dh 160, columns past 160 are clipped
+//   by the hardware).
 // The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so the library links no libcuda)
 // and passed as __grid_constant__ kernel parameters.
@@ -90,8 +98,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
 struct Tile {
+  static_assert(DH == 64 || DH == 128 || DH == 160, "head dim 64, 128, 160");
   static constexpr int kN = DH == 64 ? 128 : 64;         // keys per tile
-  static constexpr int kChunks = DH / kBoxCols;          // boxes per row
+  // boxes per row; the last one at Dh 160 is half columns, half TMA pad
+  static constexpr int kChunks = (DH + kBoxCols - 1) / kBoxCols;
+  static constexpr int kFull = DH / kBoxCols;            // n64 output chunks
+  static constexpr int kTail = DH % kBoxCols;            // output columns past
+  static constexpr int kTailN = kTail;                   // the tail's product
+  static constexpr int kTailRegs = kTailN ? kTailN / 2 : 1;
   static constexpr int kQChunk = kBlockM * kRowBytes;    // one Q box
   static constexpr int kKVChunk = kN * kRowBytes;        // one K or V box
   static constexpr int kQBytes = kChunks * kQChunk;
@@ -125,19 +139,44 @@ __device__ __forceinline__ void issue_qk(float (&s)[N / 2], uint32_t qa,
 }
 
 // O += P V for one key tile: N / 16 k16 steps per 64 output columns, P
-// from registers, V MN-major (16 key rows of 128 bytes per step).
+// from registers, V MN-major (16 key rows of 128 bytes per step); at Dh
+// 160 the last 32 columns take n32 steps into `ot`.
 template <int DH, int N>
-__device__ __forceinline__ void issue_pv(float (&o)[DH / 64][32],
+__device__ __forceinline__ void issue_pv(float (&o)[Tile<DH>::kFull][32],
+                                         float (&ot)[Tile<DH>::kTailRegs],
                                          const uint32_t (&pa)[N / 16][4],
                                          uint32_t va) {
   using T = Tile<DH>;
 #pragma unroll
-  for (int c = 0; c < T::kChunks; ++c)
+  for (int c = 0; c < T::kFull; ++c)
 #pragma unroll
     for (int ks = 0; ks < N / 16; ++ks)
       wgmma_rs(o[c], pa[ks],
                sw128_desc(va + c * T::kKVChunk + ks * 16 * kRowBytes));
+  if constexpr (T::kTailN > 0) {
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks)
+      wgmma_rs(ot, pa[ks], sw128_desc(va + T::kFull * T::kKVChunk +
+                                      ks * 16 * kRowBytes));
+  }
   wgmma_commit();
+}
+
+// Round one output fragment (float32, m64nW: rows r and r + 8, columns c2,
+// c2 + 1 of each 8-column group) divided by its row's denominator to bf16
+// and store it into the swizzled box at `ob`.
+template <int NR>
+__device__ __forceinline__ void stage_out(const float (&acc)[NR], uint32_t ob,
+                                          int r, int c2, const float (&den)[2]) {
+#pragma unroll
+  for (int i = 0; i < NR; i += 2) {
+    const int half = (i >> 1) & 1;
+    const int row = r + 8 * half;
+    const uint32_t addr =
+        ob + row * kRowBytes + (((i >> 2) ^ (row & 7)) << 4) + 2 * c2;
+    const uint32_t val = pack_bf16(acc[i] / den[half], acc[i + 1] / den[half]);
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(val) : "memory");
+  }
 }
 
 // Online softmax of one score tile in registers (two rows per thread,
@@ -273,11 +312,13 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(bar);
   };
 
-  float o[T::kChunks][32];
+  float o[T::kFull][32], ot[T::kTailRegs];
 #pragma unroll
-  for (int c = 0; c < T::kChunks; ++c)
+  for (int c = 0; c < T::kFull; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T::kTailRegs; ++i) ot[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, alpha[2];
   float s[N / 2];
   uint32_t pa[N / 16][4];
@@ -303,7 +344,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
       issue_qk<DH, N>(s, qa, sK + st * T::kKVBytes);
       mbar_wait(v_full + 8 * pst, ((kt - 1) / kStages) & 1);
-      issue_pv<DH, N>(o, pa, sV + pst * T::kKVBytes);
+      issue_pv<DH, N>(o, ot, pa, sV + pst * T::kKVBytes);
       wgmma_wait<1>();
       fence_regs(s);
       release(k_empty + 8 * st);
@@ -311,24 +352,29 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       off, lk, causal, scale_log2);
       wgmma_wait<0>();
 #pragma unroll
-      for (int c = 0; c < T::kChunks; ++c) fence_regs(o[c]);
+      for (int c = 0; c < T::kFull; ++c) fence_regs(o[c]);
+      fence_regs(ot);
       release(v_empty + 8 * pst);
 #pragma unroll
-      for (int c = 0; c < T::kChunks; ++c)
+      for (int c = 0; c < T::kFull; ++c)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < T::kTailRegs; ++i) ot[i] *= alpha[(i >> 1) & 1];
       pack_a<N>(s, pa);
     }
     // the last tile's P V
     const int lst = (n_kt - 1) % kStages;
     mbar_wait(v_full + 8 * lst, ((n_kt - 1) / kStages) & 1);
 #pragma unroll
-    for (int c = 0; c < T::kChunks; ++c) fence_regs(o[c]);
+    for (int c = 0; c < T::kFull; ++c) fence_regs(o[c]);
+    fence_regs(ot);
     wgmma_fence();
-    issue_pv<DH, N>(o, pa, sV + lst * T::kKVBytes);
+    issue_pv<DH, N>(o, ot, pa, sV + lst * T::kKVBytes);
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < T::kChunks; ++c) fence_regs(o[c]);
+    for (int c = 0; c < T::kFull; ++c) fence_regs(o[c]);
+    fence_regs(ot);
     release(v_empty + 8 * lst);
   }
 
@@ -341,20 +387,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     den[j] = fmaxf(l[j], 1e-30f);
   }
 #pragma unroll
-  for (int c = 0; c < T::kChunks; ++c) {
-    const uint32_t ob = qa + c * T::kQChunk;
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int half = (i >> 1) & 1;
-      const int row = r + 8 * half;
-      const uint32_t addr =
-          ob + row * kRowBytes + (((i >> 2) ^ (row & 7)) << 4) + 2 * c2;
-      const uint32_t val =
-          pack_bf16(o[c][i] / den[half], o[c][i + 1] / den[half]);
-      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(val)
-                   : "memory");
-    }
-  }
+  for (int c = 0; c < T::kFull; ++c)
+    stage_out(o[c], qa + c * T::kQChunk, r, c2, den);
+  if constexpr (T::kTailN > 0)
+    stage_out(ot, qa + T::kFull * T::kQChunk, r, c2, den);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   if (threadIdx.x % 128 == 0 && wg_first < lq) {
@@ -426,6 +462,9 @@ extern "C" int repro_flash_attention_sm90(
   if (dh == 128)
     return launch<128>(q, k, v, out, batch, hq, hkv, lq, lk, causal, scale,
                        st, s);
+  if (dh == 160)
+    return launch<160>(q, k, v, out, batch, hq, hkv, lq, lk, causal, scale,
+                       st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -433,5 +472,6 @@ extern "C" int repro_flash_attention_sm90(
 extern "C" int repro_flash_attention_sm90_smem(int dh) {
   if (dh == 64) return Tile<64>::kSmem;
   if (dh == 128) return Tile<128>::kSmem;
+  if (dh == 160) return Tile<160>::kSmem;
   return 0;
 }

@@ -19,8 +19,9 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-#: head dims the kernels are instantiated for (smollm's 64, and 128)
-HEAD_DIMS = (64, 128)
+#: head dims the kernels are instantiated for (smollm's and whisper's 64,
+#: the llama heads' 128, stablelm-12b's 160)
+HEAD_DIMS = (64, 128, 160)
 #: both sequence lengths must be multiples of this many rows
 TILE = 64
 #: TMA's alignment (bytes) of every stride but the last and of each base

@@ -527,7 +527,12 @@ def _sync(dev: torch.device) -> None:
 def serve_lm(args, step_hook=None) -> dict:
     """LM serving: batched greedy decode with the model's cache (the dense
     and Qwen3-MoE LMs' bfloat16 KV cache, the SSM's recurrent state, the
-    hybrid's state and per-site KV caches, DeepSeek's latent cache).
+    hybrid's state and per-site KV caches, DeepSeek's latent cache, the
+    VLM's KV cache and per-site vision keys and values, Whisper's KV cache
+    and encoder states).  As in the reference, the VLM and Whisper decode
+    against the zero cross caches of ``init_cache``: no vision or audio
+    prefill writes ``vis_k``, ``vis_v`` or ``enc`` on this path (ROADMAP
+    Queue 3).
 
     The prompt (``--prompt-len`` tokens drawn with numpy from ``--seed``)
     is filled token by token through the decode path; with
@@ -591,10 +596,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="graphgen-gcn",
                     help="a gcn arch (graphgen-gcn, graphgen-sage, "
                          "graphgen-gcn-deep) is served by the graph tier; "
-                         "a dense (smollm-135m, smollm-360m), moe "
-                         "(qwen3-moe-30b-a3b, deepseek-v2-236b), ssm "
-                         "(mamba2-1.3b) or hybrid (zamba2-1.2b) LM by the "
-                         "decode loop")
+                         "a dense (smollm-135m, smollm-360m, stablelm-12b, "
+                         "llama3-405b), moe (qwen3-moe-30b-a3b, "
+                         "deepseek-v2-236b), vlm (llama-3.2-vision-11b), "
+                         "audio (whisper-small), ssm (mamba2-1.3b) or "
+                         "hybrid (zamba2-1.2b) LM by the decode loop")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",

@@ -57,12 +57,13 @@ ladders with a warning.  The validator sees a few rounds only, so a
 trained batch that an accepted pick's exchange drops requests from is
 regenerated at the traced slack, which the run then keeps.
 
-``train_lm`` (every LM arch the port serves: dense, SSM, hybrid and
-MoE) trains on the reference's synthetic batches (``np.random.
-default_rng(--seed)``, ``--lm-batch`` x ``--lm-seq`` tokens, labels the
-tokens rolled left by one) through ``train/train_loop.py``'s step, with
-``--microbatches``; it checkpoints the ``TrainState`` in the reference's
-layout (stacked layers) and ``--resume`` restores one written by either
+``train_lm`` (every LM arch the port serves: dense, MoE, VLM, Whisper,
+SSM and hybrid) trains on the reference's synthetic batches
+(``np.random.default_rng(--seed)``, ``--lm-batch`` x ``--lm-seq`` tokens,
+labels the tokens rolled left by one, then the VLM's vision or Whisper's
+frame embeddings as float32 normals from the same generator) through
+``train/train_loop.py``'s step, with ``--microbatches``; it checkpoints
+the ``TrainState`` in the reference's layout (stacked layers) and ``--resume`` restores one written by either
 package.  It runs in one process: ``--dist`` with an LM arch raises (the
 LM paths' process backend is ROADMAP Queue 1 items 6 and 7.4).
 ``--device`` is the one flag the reference lacks.
@@ -933,10 +934,21 @@ def offline_gcn(args, group: WorkerGroup = None) -> dict:
 
 def lm_batch(rng: np.random.Generator, cfg, b: int, s: int, device) -> dict:
     """The reference's next LM batch from ``rng``: ``[b, s]`` int32 tokens
-    uniform over the vocabulary and labels ``np.roll(tokens, -1, 1)``."""
+    uniform over the vocabulary and labels ``np.roll(tokens, -1, 1)``;
+    then, from the same generator, the VLM's ``vision [b,
+    n_vision_tokens, d_vision]`` or Whisper's ``frames [b,
+    n_audio_frames, d_audio]``, float32 standard normals (the stubbed
+    frontends' embeddings)."""
     toks = rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)
-    return {"tokens": torch.from_numpy(toks).to(device),
-            "labels": torch.from_numpy(np.roll(toks, -1, axis=1)).to(device)}
+    batch = {"tokens": torch.from_numpy(toks).to(device),
+             "labels": torch.from_numpy(np.roll(toks, -1, axis=1)).to(device)}
+    stub = {"vlm": ("vision", cfg.n_vision_tokens, cfg.d_vision),
+            "audio": ("frames", cfg.n_audio_frames, cfg.d_audio)}
+    if cfg.family in stub:
+        key, n, d = stub[cfg.family]
+        batch[key] = torch.from_numpy(rng.standard_normal(
+            (b, n, d), dtype=np.float32)).to(device)
+    return batch
 
 
 def train_lm(args, step_hook=None) -> dict:

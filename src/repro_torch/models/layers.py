@@ -92,11 +92,19 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, pos: torch.Tensor,
+                 causal: bool = True, rope: bool = True,
+                 kv_x: Optional[torch.Tensor] = None,
                  cache: Optional[tuple] = None,
                  cache_pos: Optional[int] = None):
-    """Causal self-attention of ``x [B, L, D]`` with rope at ``pos [B, L]``;
-    ``p`` holds ``wq``, ``wk``, ``wv``, ``wo``.  Returns ``(out,
-    new_cache)``.
+    """Self- or cross-attention of ``x [B, L, D]``; ``p`` holds ``wq``,
+    ``wk``, ``wv``, ``wo``.  Returns ``(out, new_cache)``.
+
+    Keys and values are projected from ``kv_x [B, Lk, D]`` when it is
+    given (cross-attention), else from ``x``.  With ``rope`` the queries
+    and keys are roped at ``pos [B, L]`` (the keys at ``cache_pos`` with
+    a cache); without it neither is (the cross-attention of the VLM and
+    Whisper).  The attention is causal only when ``causal`` is set and no
+    cache is given.
 
     With ``cache = (k_cache, v_cache)`` (``[B, S, Hkv * Dh]`` bfloat16)
     the step's keys are roped at ``cache_pos``, written into the cache IN
@@ -105,13 +113,16 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, pos: torch.Tensor,
     keys from ``cache_pos + L`` on masked."""
     b, l, _ = x.shape
     hd = cfg.resolved_head_dim
+    src = x if kv_x is None else kv_x
+    lk = src.shape[1]
     q = (x @ p.wq.to(x.dtype)).reshape(b, l, cfg.n_heads, hd)
-    k = (x @ p.wk.to(x.dtype)).reshape(b, l, cfg.n_kv_heads, hd)
-    v = (x @ p.wv.to(x.dtype)).reshape(b, l, cfg.n_kv_heads, hd)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    kpos = pos if cache is None else torch.full(
-        (b, l), cache_pos, dtype=pos.dtype, device=pos.device)
-    k = apply_rope(k, kpos, cfg.rope_theta)
+    k = (src @ p.wk.to(x.dtype)).reshape(b, lk, cfg.n_kv_heads, hd)
+    v = (src @ p.wv.to(x.dtype)).reshape(b, lk, cfg.n_kv_heads, hd)
+    if rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        kpos = pos if cache is None else torch.full(
+            (b, lk), cache_pos, dtype=pos.dtype, device=pos.device)
+        k = apply_rope(k, kpos, cfg.rope_theta)
     new_cache = kv_valid = None
     if cache is not None:
         kc, vc = cache
@@ -122,7 +133,7 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, *, pos: torch.Tensor,
         k = kc.reshape(b, s, cfg.n_kv_heads, hd).to(x.dtype)
         v = vc.reshape(b, s, cfg.n_kv_heads, hd).to(x.dtype)
         kv_valid = cache_pos + l
-    out = gqa_attention(q, k, v, causal=cache is None,
+    out = gqa_attention(q, k, v, causal=causal and cache is None,
                         use_flash=cfg.use_flash_attention,
                         kv_valid_len=kv_valid)
     out = out.reshape(b, l, cfg.n_heads * hd) @ p.wo.to(x.dtype)

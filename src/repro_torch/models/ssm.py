@@ -317,22 +317,20 @@ def init_mamba2(cfg: ModelConfig, seed: int = 0, device="cuda") -> Mamba2LM:
     """A ``Mamba2LM`` on ``device`` with the reference's init scales:
     normal x 0.01 for ``tok`` and ``head``, x 0.02 for ``w_in`` and
     ``w_out``, x 0.5 for ``conv_k``; ``a_log`` and ``dt_bias`` 0 (so a =
-    -1), ``d_skip`` and the norms 1.  Drawn from a CPU ``torch.Generator``
-    seeded with ``seed`` (one seed gives the same weights on every device;
-    the draws differ from ``repro.models.ssm.init_mamba2``'s — use
-    ``convert`` to share weights)."""
-    device = resolve_device(device)
-    model = Mamba2LM(cfg, device)
-    gen = torch.Generator().manual_seed(seed)
-
-    def draw(p, scale):
-        p.copy_(torch.randn(p.shape, generator=gen) * scale)
+    -1), ``d_skip`` and the norms 1.  Drawn in place from a generator on
+    ``device`` seeded with ``seed`` (as ``moe.init_qwen3_moe``: the same
+    weights on one device type, not across them; mamba2-1.3b's 1.3 G
+    weights take seconds to draw on the host).  The draws differ from
+    ``repro.models.ssm.init_mamba2``'s — use ``convert`` to share
+    weights."""
+    model = Mamba2LM(cfg, resolve_device(device))
+    gen = torch.Generator(device=model.tok.device).manual_seed(seed)
     with torch.no_grad():
-        draw(model.tok, 0.01)
+        L.draw(model.tok, gen, 0.01)
         if model.head is not None:
-            draw(model.head, 0.01)
+            L.draw(model.head, gen, 0.01)
         for blk in model.layers:
-            draw(blk.w_in, 0.02)
-            draw(blk.conv_k, 0.5)
-            draw(blk.w_out, 0.02)
+            L.draw(blk.w_in, gen, 0.02)
+            L.draw(blk.conv_k, gen, 0.5)
+            L.draw(blk.w_out, gen, 0.02)
     return model

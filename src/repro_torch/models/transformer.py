@@ -1,12 +1,14 @@
 """Dense decoder-only LM, llama family (port of
-``repro/models/transformer.py``): smollm-135m and smollm-360m.
+``repro/models/transformer.py``): smollm-135m, smollm-360m, stablelm-12b
+and llama3-405b.
 
 The reference stacks every layer's weights on a leading ``[L]`` axis and
 scans over them; ``scan_layers`` is an XLA knob, so here each layer is
 its own ``Block`` in an ``nn.ModuleList`` and the forward is a Python
 loop.  Weights are float32 in the reference's ``[d_in, d_out]`` layout,
 so ``repro_torch.convert.lm_params_from_numpy`` copies them across.
-Embeddings are tied (every dense config of the port ties them).
+The smollm configs tie the read-out to the embedding; stablelm-12b and
+llama3-405b hold an untied ``head [D, V_pad]``.
 """
 from __future__ import annotations
 
@@ -65,29 +67,33 @@ class Block(nn.Module):
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
-                cache=None, cache_pos=None):
-        """``(x', new_cache)`` for activations ``x [B, L, D]``."""
+                cache=None, cache_pos=None, causal: bool = True):
+        """``(x', new_cache)`` for activations ``x [B, L, D]`` (``causal``
+        off: Whisper's encoder)."""
         h, new_cache = L.attn_forward(
             self.attn, L.rmsnorm(self.ln1, x, cfg.norm_eps), cfg, pos=pos,
-            cache=cache, cache_pos=cache_pos)
+            causal=causal, cache=cache, cache_pos=cache_pos)
         x = x + h
         x = x + L.mlp_forward(self.mlp, L.rmsnorm(self.ln2, x, cfg.norm_eps))
         return x, new_cache
 
 
 class DenseLM(nn.Module):
-    """Token embedding ``tok [V_pad, D]`` (tied read-out), ``n_layers``
-    blocks and the final norm ``norm_f``."""
+    """Token embedding ``tok [V_pad, D]``, ``n_layers`` blocks, the final
+    norm ``norm_f`` and, untied (stablelm-12b, llama3-405b), the read-out
+    ``head [D, V_pad]``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "dense" or not cfg.tie_embeddings:
-            raise ValueError(f"DenseLM needs a dense config with tied "
-                             f"embeddings, got {cfg.name!r}")
+        if cfg.family != "dense":
+            raise ValueError(f"DenseLM needs a dense config, got "
+                             f"{cfg.name!r} ({cfg.family})")
         self.cfg = cfg
-        self.tok = nn.Parameter(torch.zeros(L.padded_vocab(cfg), cfg.d_model,
-                                            device=device))
-        self.norm_f = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        v, d = L.padded_vocab(cfg), cfg.d_model
+        self.tok = nn.Parameter(torch.zeros(v, d, device=device))
+        self.norm_f = nn.Parameter(torch.ones(d, device=device))
+        self.head = (None if cfg.tie_embeddings
+                     else nn.Parameter(torch.zeros(d, v, device=device)))
         self.layers = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.n_layers))
 
@@ -99,7 +105,7 @@ class DenseLM(nn.Module):
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in self.layers:
             x, _ = block(x, self.cfg, pos)
-        return L.lm_head(self.tok, self.norm_f, x, self.cfg)
+        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``.
@@ -124,24 +130,28 @@ class DenseLM(nn.Module):
             x, _ = block(x, self.cfg, qpos, cache=(cache["k"][i],
                                                    cache["v"][i]),
                          cache_pos=pos)
-        return L.lm_head(self.tok, self.norm_f, x, self.cfg)[:, 0], cache
+        return (L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)[:, 0],
+                cache)
 
 
 def init_dense_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> DenseLM:
     """A ``DenseLM`` on ``device`` with the reference's init scales: normal
-    x 0.02 for every layer matrix, x 0.01 for ``tok``, ones for the norms,
-    drawn from a CPU ``torch.Generator`` seeded with ``seed`` (so one seed
-    gives the same weights on every device; the draws differ from
+    x 0.02 for every layer matrix, x 0.01 for ``tok`` and ``head``, ones
+    for the norms.  Drawn in place from a generator on ``device`` seeded
+    with ``seed`` (as ``moe.init_qwen3_moe``: the same weights on one
+    device type, not across them; stablelm-12b's 12 G weights would take
+    minutes to draw on the host).  The draws differ from
     ``repro.models.transformer.init_lm``'s — use ``convert`` to share
-    weights)."""
-    device = resolve_device(device)
-    model = DenseLM(cfg)
-    gen = torch.Generator().manual_seed(seed)
+    weights."""
+    model = DenseLM(cfg, resolve_device(device))
+    gen = torch.Generator(device=model.tok.device).manual_seed(seed)
     with torch.no_grad():
-        model.tok.copy_(torch.randn(model.tok.shape, generator=gen) * 0.01)
+        L.draw(model.tok, gen, 0.01)
+        if model.head is not None:
+            L.draw(model.head, gen, 0.01)
         for block in model.layers:
             for w in (block.attn.wq, block.attn.wk, block.attn.wv,
                       block.attn.wo, block.mlp.wg, block.mlp.wu,
                       block.mlp.wd):
-                w.copy_(torch.randn(w.shape, generator=gen) * 0.02)
-    return model.to(device)
+                L.draw(w, gen, 0.02)
+    return model

@@ -1,9 +1,8 @@
 """Model zoo of the port (``repro/models/zoo.py``'s ``build`` and
-``forward_logits``) for the families ported so far: the paper's GCN, the
-dense LM, the mixture-of-experts LMs (Qwen3-MoE; DeepSeek-V2 with MLA,
-told apart by ``kv_lora_rank``), the Mamba-2 SSM LM and the Zamba2
-hybrid.  The VLM and audio families raise ``NotImplementedError`` naming
-ROADMAP Queue 1 item 6."""
+``forward_logits``) for every family of the reference: the paper's GCN,
+the dense LM, the mixture-of-experts LMs (Qwen3-MoE; DeepSeek-V2 with
+MLA, told apart by ``kv_lora_rank``), the Llama-3.2-Vision VLM, Whisper,
+the Mamba-2 SSM LM and the Zamba2 hybrid."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
@@ -11,15 +10,16 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..core.config import ModelConfig, resolve_device
-from . import deepseek, gcn, hybrid, moe, ssm, transformer
+from . import deepseek, gcn, hybrid, moe, ssm, transformer, vlm, whisper
 
-_LATER = "is not ported yet (ROADMAP Queue 1 item 6)"
-#: the LM families ported so far
-LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the LM families
+LM_FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 #: family key -> (module, name of its seeded initialiser)
 _INITS = {"dense": (transformer, "init_dense_lm"),
           "moe_qwen": (moe, "init_qwen3_moe"),
           "moe_deepseek": (deepseek, "init_deepseek"),
+          "vlm": (vlm, "init_vlm"),
+          "audio": (whisper, "init_whisper"),
           "ssm": (ssm, "init_mamba2"),
           "hybrid": (hybrid, "init_zamba2")}
 
@@ -65,22 +65,30 @@ def build(cfg: ModelConfig, device="cuda") -> ModelAPI:
             decode=lambda m, cache, tokens, pos: m.forward_decode(
                 cache, tokens, pos),
             init_cache=lambda m, batch, seq: m.init_cache(batch, seq))
-    raise NotImplementedError(f"family {cfg.family!r} {_LATER}")
+    raise ValueError(f"unknown family {cfg.family!r} of {cfg.name!r}")
 
 
 def forward_logits(cfg: ModelConfig, model, batch: dict) -> torch.Tensor:
     """Full-sequence forward (prefill) without an autograd graph: float32
-    logits ``[B, S, V_pad]`` of ``batch["tokens"]``.  ``cfg`` must be the
-    model's own config (the model reads its own, flash switch included).
-    The SSM family runs ``ops.ssd_scan`` in every layer, the hybrid in
-    every Mamba layer and, with flash on, ``ops.flash_attention`` at every
-    site of its shared block; the dense and Qwen3-MoE families run flash
-    in every layer when it is on (DeepSeek's MLA takes the plain path)."""
+    logits ``[B, S, V_pad]`` of ``batch["tokens"]``, with
+    ``batch["vision"]`` for the VLM and ``batch["frames"]`` for Whisper
+    (as the reference's ``forward_logits``).  ``cfg`` must be the model's
+    own config (the model reads its own, flash switch included).  The SSM
+    family runs ``ops.ssd_scan`` in every layer, the hybrid in every Mamba
+    layer and, with flash on, ``ops.flash_attention`` at every site of
+    its shared block; with flash on the dense, Qwen3-MoE and VLM families
+    run it in every self-attention layer and Whisper in every decoder
+    layer (DeepSeek's MLA, the cross-attention and Whisper's encoder take
+    the plain path)."""
     if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(f"forward_logits of family "
-                                  f"{cfg.family!r} {_LATER}")
+        raise ValueError(f"forward_logits takes an LM config, got family "
+                         f"{cfg.family!r}")
     if cfg != model.cfg:
         raise ValueError(f"forward_logits got a config other than the "
                          f"model's own: {cfg} vs {model.cfg}")
     with torch.no_grad():
+        if cfg.family == "vlm":
+            return model.forward_train(batch["tokens"], batch["vision"])
+        if cfg.family == "audio":
+            return model.forward_train(batch["tokens"], batch["frames"])
         return model.forward_train(batch["tokens"])

@@ -274,17 +274,60 @@ def assert_cache_close(got: dict, want: dict) -> None:
                                    atol=1e-5 * np.abs(w).max(), err_msg=name)
 
 
+def stub_inputs(cfg, batch: int, seed: int) -> dict:
+    """The stubbed frontends' seeded float32 inputs of ``cfg``'s family:
+    ``{"vision": [B, n_vision_tokens, d_vision]}`` for the VLM, ``{"frames":
+    [B, n_audio_frames, d_audio]}`` for Whisper, else ``{}``."""
+    rng = np.random.default_rng(seed + 1)
+    if cfg.family == "vlm":
+        return {"vision": rng.standard_normal(
+            (batch, cfg.n_vision_tokens, cfg.d_vision)).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+            (batch, cfg.n_audio_frames, cfg.d_audio)).astype(np.float32)}
+    return {}
+
+
+def fill_cross_caches(jcfg, jp, jcache, extra: dict) -> dict:
+    """The reference's decode cache with its cross caches filled from
+    ``extra`` as ``tests/test_models_smoke.py`` fills them: Whisper's
+    ``enc`` from ``whisper.encode``; the VLM's ``vis_k``/``vis_v`` as each
+    site's ``wk``/``wv`` of the projected vision embeddings.  Other
+    families' caches come back as they are."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import layers as JL
+    jcache = dict(jcache)
+    if "frames" in extra:
+        from repro.models import whisper as JW
+        enc = JW.encode(jcfg, jp, jnp.asarray(extra["frames"]))
+        jcache["enc"] = enc.astype(jcache["enc"].dtype)
+    if "vision" in extra:
+        vis = (jnp.asarray(extra["vision"]).astype(JL.COMPUTE_DTYPE)
+               @ jp["vproj"].astype(JL.COMPUTE_DTYPE))
+        vk, vv = [], []
+        for i in range(jcfg.n_layers // jcfg.cross_attn_every):
+            attn = jax.tree.map(lambda a: a[i], jp["cross"]["attn"])
+            vk.append(vis @ attn["wk"].astype(vis.dtype))
+            vv.append(vis @ attn["wv"].astype(vis.dtype))
+        jcache["vis_k"] = jnp.stack(vk).astype(jcache["vis_k"].dtype)
+        jcache["vis_v"] = jnp.stack(vv).astype(jcache["vis_v"].dtype)
+    return jcache
+
+
 def check_lm_parity(jmod, jcfg, params, model, cache_from_numpy, *,
                     batch: int = 2, seq: int = 16, prompt: int = 5,
                     steps: int = 6, seed: int = 3) -> None:
     """The port's ``model`` (holding the reference's ``params``) against
     ``jmod`` (a ``repro.models`` family module) in the current compute
-    dtype (float32: set both with ``set_compute``):
+    dtype (float32: set both with ``set_compute``), the VLM with seeded
+    ``vision`` and Whisper with seeded ``frames`` (``stub_inputs``):
 
     * ``forward_logits`` on ``[batch, seq]`` seeded tokens against
       ``forward_train``, rtol 1e-5 / atol 1e-6;
     * the loss against ``loss_fn``, rtol 1e-4;
-    * ``prompt`` reference decode steps, then ``steps`` greedy steps, each
+    * with the cross caches filled (``fill_cross_caches``), ``prompt``
+      reference decode steps, then ``steps`` greedy steps, each
       taken by the port from the reference's cache of that step (carried
       across by ``cache_from_numpy``): the step's logits within rtol/atol
       1e-5, its greedy tokens equal, and every leaf of the cache the port
@@ -302,23 +345,29 @@ def check_lm_parity(jmod, jcfg, params, model, cache_from_numpy, *,
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
     labels = np.roll(tokens, -1, axis=1)
-    got = zoo.forward_logits(cfg, model, {"tokens": torch.from_numpy(tokens)})
-    want = jax.jit(lambda p, t: jmod.forward_train(jcfg, p, t))(
-        jp, jnp.asarray(tokens))
+    extra = stub_inputs(cfg, batch, seed)
+    textra = {k: torch.from_numpy(v) for k, v in extra.items()}
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+    got = zoo.forward_logits(cfg, model, {"tokens": torch.from_numpy(tokens),
+                                          **textra})
+    want = jax.jit(lambda p, t, e: jmod.forward_train(jcfg, p, t, *e))(
+        jp, jnp.asarray(tokens), tuple(jextra.values()))
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
     with torch.no_grad():
         loss = zoo.build(cfg, "cpu").loss(model, {
             "tokens": torch.from_numpy(tokens),
-            "labels": torch.from_numpy(labels)})
+            "labels": torch.from_numpy(labels), **textra})
     jloss = jmod.loss_fn(jcfg, jp, {"tokens": jnp.asarray(tokens),
-                                    "labels": jnp.asarray(labels)})
+                                    "labels": jnp.asarray(labels), **jextra})
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
 
     decode = jax.jit(lambda p, c, t, pos: jmod.forward_decode(jcfg, p, c, t,
                                                               pos))
-    jcache = jmod.init_cache(jcfg, batch, prompt + steps)
+    jcache = fill_cross_caches(jcfg, jp,
+                               jmod.init_cache(jcfg, batch, prompt + steps),
+                               extra)
     for p in range(prompt):
         jl, jcache = decode(jp, jcache, jnp.asarray(tokens[:, p:p + 1]),
                             jnp.int32(p))
@@ -336,3 +385,33 @@ def check_lm_parity(jmod, jcfg, params, model, cache_from_numpy, *,
                 torch.argmax(tl, dim=-1).numpy(),
                 np.asarray(jnp.argmax(jl, axis=-1)))
             assert_cache_close(cache, jcache)
+
+
+def open_gates(params: dict, seed: int) -> dict:
+    """The VLM's numpy params with every cross site's ``gate`` set from
+    ``seed`` to a non-zero value (|gate| in [0.5, 1.5), either sign): at
+    the reference's init the gates are 0 and the cross path adds nothing,
+    so a test at the init alone holds nothing of it."""
+    rng = np.random.default_rng(seed)
+    gate = params["cross"]["gate"]
+    params["cross"]["gate"] = (rng.uniform(0.5, 1.5, gate.shape)
+                               * rng.choice([-1.0, 1.0], gate.shape)
+                               ).astype(np.float32)
+    return params
+
+
+def assert_layout_matches(model, params: dict) -> None:
+    """``convert.lm_leaves(model)``'s layout is the reference's pytree:
+    its paths are ``params``' leaves in ``jax.tree`` flatten order, and
+    ``lm_params_to_numpy(model)`` has ``params``' structure and values
+    (``model`` holding ``params``)."""
+    import jax
+    from repro_torch import convert
+    _, layout = convert.lm_leaves(model)
+    want = [tuple(str(getattr(k, "key", k)) for k in path)
+            for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
+    assert list(layout.paths) == want
+    back = convert.lm_params_to_numpy(model)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for got, ref in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(got, ref)

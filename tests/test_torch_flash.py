@@ -20,7 +20,8 @@ inputs made by numpy from a seed:
   raise ``ValueError`` from ``ops.flash_attention`` before dispatch.
 
 On a card (marked ``cuda``): the tensor-core route against the twin at the
-bfloat16 gate on strided operands, Dh 64 and 128, without a float32-route
+bfloat16 gate on strided operands, Dh 64, 128 and 160 (stablelm-12b's
+heads: two 64-column boxes and a third padded by TMA), without a float32-route
 launch; causal ``Lq > Lk`` raises there too, launching nothing.
 """
 import numpy as np
@@ -183,7 +184,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 160])
 def test_tensor_core_route_on_card(cuda, dh):
     """bf16 views of [B, L, H, Dh] tensors (query and key tiles cut by Lq
     and Lk) through the tensor-core route only, within the bf16 gate; the

@@ -20,9 +20,13 @@ across by ``repro_torch.convert``:
   where XLA and torch round at other places, which also flips ~1% of
   the argmaxes), and 8 greedy decode steps from the reference's own cache
   with equal tokens in float32;
+* the untied dense configs (stablelm-12b, llama3-405b) at their smoke
+  configs in float32: forward, loss and decode from the reference's cache
+  (``_torch_parity.check_lm_parity``);
 * ``serve_lm`` on the CPU, and the dispatch's refusals.
 
-On a card (marked ``cuda``): the CUDA kernel against its twin.
+On a card (marked ``cuda``): the CUDA kernel against its twin, Dh 64,
+128 and 160.
 """
 import dataclasses
 import types
@@ -35,6 +39,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_parity import check_lm_parity, set_compute  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -89,10 +94,14 @@ def _ref_model(jcfg, cfg, seed=0):
 # ------------------------------------------------------------------ configs
 
 def test_lm_configs_match_reference():
-    """smollm-135m/360m and their smoke variants carry the reference's
-    values in every field the port has; an unported family's smoke config
-    names its ROADMAP item."""
-    for name in ("smollm-135m", "smollm-360m"):
+    """The dense configs (smollm-135m/360m, stablelm-12b, llama3-405b) and
+    their smoke variants carry the reference's values in every field the
+    port has; the registry holds every LM arch of the reference."""
+    from repro.configs import ASSIGNED_ARCHS
+    from repro_torch.configs import REGISTRY
+    assert set(ASSIGNED_ARCHS) <= set(REGISTRY)
+    for name in ("smollm-135m", "smollm-360m", "stablelm-12b",
+                 "llama3-405b"):
         for a, b in ((get_config(name), jget_config(name)),
                      (smoke_config(get_config(name)),
                       jsmoke_config(jget_config(name)))):
@@ -100,8 +109,6 @@ def test_lm_configs_match_reference():
                 assert getattr(a, f.name) == getattr(b, f.name), (name,
                                                                  f.name)
             assert a.resolved_head_dim == b.resolved_head_dim
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        smoke_config(ModelConfig(name="x", family="vlm"))
 
 
 @pytest.mark.parametrize("vocab", [512, 1000, 49152, 50257])
@@ -215,16 +222,17 @@ def test_flash_twin_matches_pallas_and_oracle(case, dtype):
 
 def test_flash_dispatch_refuses():
     """ops never guesses a device; the kernel's wrapper refuses a head dim
-    it is not built for (stablelm-12b's 160) and lengths off its tile;
+    it is not built for (DeepSeek's 192-wide q/k heads) and lengths off
+    its tile;
     the flash path refuses autograd rather than drop the gradient."""
     q = torch.zeros(1, 2, 64, 64)
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         ops.flash_attention(q, torch.zeros(1, 2, 64, 64, device="meta"),
                             torch.zeros(1, 2, 64, 64))
     with pytest.raises(ValueError, match="head dims"):
-        flash_mod.flash_attention_cuda(torch.zeros(1, 2, 64, 160),
-                                       torch.zeros(1, 2, 64, 160),
-                                       torch.zeros(1, 2, 64, 160))
+        flash_mod.flash_attention_cuda(torch.zeros(1, 2, 64, 192),
+                                       torch.zeros(1, 2, 64, 192),
+                                       torch.zeros(1, 2, 64, 192))
     with pytest.raises(ValueError, match="multiples of 64"):
         flash_mod.flash_attention_cuda(torch.zeros(1, 2, 96, 64),
                                        torch.zeros(1, 2, 96, 64),
@@ -384,15 +392,36 @@ def test_serve_lm_cpu_smoke(prompt_len):
 
 
 def test_zoo_refuses_unported_families():
-    """build and forward_logits name the ROADMAP item of a family the port
-    lacks; the GCN family builds without a decode path."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        zoo.build(ModelConfig(name="x", family="vlm"), device="cpu")
+    """Every family of the reference builds (none is left to port); a
+    family the reference lacks is refused by name; the GCN family builds
+    without a decode path and ``forward_logits`` refuses it, as the
+    reference's does."""
+    from repro_torch.configs import REGISTRY
+    for cfg in REGISTRY.values():
+        api = zoo.build(smoke_config(cfg), device="cpu")
+        assert (api.decode is None) == (cfg.family == "gcn")
+    with pytest.raises(ValueError, match="unknown family 'x'"):
+        zoo.build(ModelConfig(name="y", family="x"), device="cpu")
     gcn_cfg = get_config("graphgen-gcn")
     api = zoo.build(gcn_cfg, device="cpu")
     assert api.decode is None and api.init_cache is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="LM config"):
         zoo.forward_logits(gcn_cfg, None, {})
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "llama3-405b"])
+def test_untied_dense_matches_reference(monkeypatch, arch):
+    """stablelm-12b and llama3-405b at their smoke configs (untied read-out
+    ``embed/head``; llama3's rope theta 5e5) on the reference's weights in
+    float32: forward, loss and six decode steps from the reference's
+    cache (``check_lm_parity``)."""
+    set_compute(monkeypatch, "float32")
+    cfg = smoke_config(get_config(arch))
+    jcfg = jsmoke_config(jget_config(arch))
+    assert not cfg.tie_embeddings
+    params, model = _ref_model(jcfg, cfg, seed=4)
+    assert model.head is not None and "head" in params["embed"]
+    check_lm_parity(JT, jcfg, params, model, convert.lm_cache_from_numpy)
 
 
 def test_forward_logits_refuses_another_config():
@@ -422,7 +451,8 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES[:1] + [
     (2, 9, 3, 256, 256, 64, True), (1, 4, 2, 128, 320, 128, True),
-    (1, 4, 1, 192, 128, 128, False)])
+    (1, 4, 1, 192, 128, 128, False), (2, 32, 8, 256, 256, 160, True),
+    (1, 4, 2, 128, 320, 160, True), (1, 4, 1, 192, 128, 160, False)])
 def test_flash_kernel_on_card(cuda, case, dtype):
     """The CUDA kernel against its twin on the card: float32 within 1e-5;
     bfloat16 (the tensor-core route, p rounded to bf16 before P V) within

@@ -110,8 +110,8 @@ def _ref_params(jcfg, init, seed=0):
 def test_ssm_configs_match_reference():
     """mamba2-1.3b and its smoke config carry the reference's values in
     every field the port has (heads, kv heads, head_dim and d_ff 0 for a
-    config without attention); the VLM family still names its ROADMAP
-    item."""
+    config without attention); the VLM's smoke config, once refused, is
+    now the reference's."""
     for a, b in ((get_config(ARCH), jget_config(ARCH)), _smoke()):
         for f in dataclasses.fields(a):
             assert getattr(a, f.name) == getattr(b, f.name), f.name
@@ -119,8 +119,10 @@ def test_ssm_configs_match_reference():
     small = _smoke()[0]
     assert (small.n_heads, small.n_kv_heads, small.head_dim, small.d_ff) \
         == (0, 0, 0, 0)
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        smoke_config(jget_config("llama-3.2-vision-11b"))
+    vlm_cfg = smoke_config(get_config("llama-3.2-vision-11b"))
+    want = jsmoke_config(jget_config("llama-3.2-vision-11b"))
+    for f in dataclasses.fields(vlm_cfg):
+        assert getattr(vlm_cfg, f.name) == getattr(want, f.name), f.name
 
 
 # -------------------------------------------------------------- ssd twin
@@ -578,7 +580,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 def test_zoo_builds_ssm_and_refuses_others():
     """The ssm family builds with a decode path and an O(1) cache; the
     model refuses a config of another family; forward_logits refuses a
-    config other than the model's own; unported families raise."""
+    config other than the model's own; a family the reference lacks
+    raises."""
     cfg = _smoke()[0]
     api = zoo.build(cfg, "cpu")
     model = api.init(0)
@@ -593,8 +596,8 @@ def test_zoo_builds_ssm_and_refuses_others():
     with pytest.raises(ValueError, match="model's own"):
         zoo.forward_logits(dataclasses.replace(cfg, ssm_chunk=4), model,
                            {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        zoo.build(ModelConfig(name="x", family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        zoo.build(ModelConfig(name="x", family="x"), device="cpu")
     with pytest.raises(ValueError, match="untied"):
         layers.lm_head(model.tok, model.norm_f, torch.zeros(1, 1, 64), cfg)
 

@@ -7,9 +7,13 @@ seeded init and carried to the reference by ``convert.lm_params_to_numpy``
 structure first), ``COMPUTE_DTYPE`` float32 in both packages unless
 stated:
 
-* each LM family at its smoke config: the loss and every reference
+* each LM family at its smoke config (the untied dense configs
+  stablelm-12b and llama3-405b, the VLM with seeded vision embeddings and
+  Whisper with seeded frames among them): the loss and every reference
   leaf's gradient against ``jax.value_and_grad`` of ``api.loss`` (loss
-  rtol 1e-6; each leaf within 1e-5 of its largest |g|, 1.4e-6 seen), and
+  rtol 1e-6; each leaf within 1e-5 of its largest |g|, 1.4e-6 seen; the
+  VLM also with its gates set non-zero from a seed, since at the init's
+  zero gates only the gates themselves get a cross-path gradient), and
   mamba2 in bfloat16 compute (loss rtol 1e-5, each leaf within 0.15 of
   its largest |g|: 0.073 seen, the skip weight ``d_skip`` whose gradient
   sums bf16 products in another order);
@@ -26,7 +30,13 @@ stated:
   residual element within 1.25 quantization steps of its leaf, at most
   1% of them over 1e-2 of a step apart, and elsewhere the params and
   moments within 1e-5 of each leaf's largest entry, the params within
-  the three steps' summed learning rates everywhere);
+  the three steps' summed learning rates everywhere); and three steps,
+  2 microbatches, compressing, of each new config (stablelm-12b,
+  llama3-405b, the VLM with open gates, Whisper), whose compression
+  quantizes per reference leaf through the VLM's and Whisper's layouts;
+* ``train_lm``'s batches, the VLM's ``vision`` and Whisper's ``frames``
+  drawn after the tokens from the same generator, bit for bit the
+  reference's;
 * ``quantize``, ``compress_grads`` and ``data/tokens.py`` bit-exact;
   ``nan_guard``; ``train_lm`` of both packages resumed from one step-0
   ``TrainState`` checkpoint that ``repro`` wrote (losses over 4 steps
@@ -48,7 +58,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_parity import set_compute  # noqa: E402
+from _torch_parity import open_gates, set_compute, stub_inputs  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.core.config import ModelConfig as JModelConfig  # noqa: E402
@@ -74,7 +84,10 @@ from repro_torch.train import compression  # noqa: E402
 from repro_torch.train import train_loop as TL  # noqa: E402
 
 ARCHS = ["smollm-135m", "mamba2-1.3b", "zamba2-1.2b", "qwen3-moe-30b-a3b",
-         "deepseek-v2-236b"]
+         "deepseek-v2-236b", "stablelm-12b", "llama3-405b",
+         "llama-3.2-vision-11b", "whisper-small"]
+#: the configs this slice added: the untied dense LMs, the VLM, Whisper
+NEW_ARCHS = ARCHS[5:]
 
 
 @pytest.fixture
@@ -83,24 +96,35 @@ def f32(monkeypatch):
     set_compute(monkeypatch, "float32")
 
 
-def _setup(arch, seed=0, n_layers=None):
+def _setup(arch, seed=0, n_layers=None, gates=False):
     """``(cfg, jcfg, model, flat, layout, params_np)``: the smoke config in
     both packages (``n_layers`` cutting its depth) and the port's seeded
-    model, its flat parameters and their reference tree."""
+    model, its flat parameters and their reference tree; ``gates`` sets
+    the VLM's cross gates from ``seed`` to non-zero values
+    (``_torch_parity.open_gates``) in the model and the tree."""
     cfg = smoke_config(get_config(arch))
     jcfg = jsmoke_config(jget_config(arch))
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
         jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
     model = zoo.build(cfg, "cpu").init(seed)
+    if gates:
+        gate = open_gates(convert.lm_params_to_numpy(model),
+                          seed)["cross"]["gate"]
+        with torch.no_grad():
+            for site, g in zip(model.cross, gate):
+                site.gate.copy_(torch.from_numpy(g))
     flat, layout = convert.lm_leaves(model)
     return cfg, jcfg, model, flat, layout, convert.lm_params_to_numpy(model)
 
 
 def _batch(cfg, b, s, seed):
+    """Seeded tokens, their labels and the family's stub inputs (the
+    VLM's vision embeddings, Whisper's frames)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1),
+            **stub_inputs(cfg, b, seed)}
 
 
 def _torch(batch):
@@ -158,6 +182,25 @@ def test_family_loss_and_grads(f32, arch, n_layers):
     if n_layers is not None:
         assert not any(np.asarray(g).any()
                        for g in jax.tree.leaves(grads["shared"]))
+
+
+def test_vlm_grads_with_gates_open(f32):
+    """The VLM with its gates set non-zero from the seed: the loss and
+    every leaf's gradient (the cross sites' ``wq``..``wo`` and ``ln``
+    among them, all zero at the init's closed gates) against
+    ``jax.value_and_grad``."""
+    cfg, jcfg, model, flat, layout, params_np = _setup(
+        "llama-3.2-vision-11b", gates=True)
+    assert np.abs(params_np["cross"]["gate"]).min() >= 0.5
+    batch = _batch(cfg, 2, 32, seed=1)
+    loss, grads = _port_grads("llama-3.2-vision-11b", model, flat, layout,
+                              batch)
+    jloss, jgrads = jax.jit(jax.value_and_grad(JZ.build(jcfg).loss))(
+        _jax(params_np), _jax(batch))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
+    _close_leaves(grads, jax.tree.map(np.asarray, jgrads), 1e-5, "vlm")
+    assert all(np.abs(grads["cross"]["attn"][w]).max() > 0
+               for w in ("wq", "wk", "wv", "wo"))
 
 
 def test_bf16_grads_mamba2(monkeypatch):
@@ -333,6 +376,82 @@ def test_make_train_step_three_steps(f32, micro, compress):
         assert int(m["step"]) == int(jm["step"]) == t + 1
         lrs.append(1e-3 * (t + 1) / tcfg.warmup_steps)
     _check_state(state, jstate, layout, compress, lrs)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_make_train_step_three_steps_new_configs(f32, arch):
+    """Three steps of ``make_train_step``, 2 microbatches, compressing,
+    for each config this slice added (the VLM with open gates, its and
+    Whisper's stub inputs split with the tokens) in both packages from
+    one state and the same batches."""
+    cfg, jcfg, model, flat, layout, params_np = _setup(
+        arch, gates=arch == "llama-3.2-vision-11b")
+    kw = dict(learning_rate=1e-3, total_steps=10, microbatches=2,
+              compress_grads=True)
+    tcfg, jtcfg = TrainConfig(**kw), JTrainConfig(**kw)
+    api = zoo.build(cfg, "cpu")
+    step = TL.make_train_step(TL.module_loss(model, api.loss, layout.names),
+                              tcfg, layout)
+    jstep = jax.jit(JTL.make_train_step(JZ.build(jcfg).loss, jtcfg))
+    state = TL.init_state(flat, tcfg, layout)
+    jstate = JTL.init_state(_jax(params_np), jtcfg)
+    lrs = []
+    for t in range(3):
+        batch = _batch(cfg, 4, 16, seed=10 + t)
+        state, m = step(state, _torch(batch))
+        jstate, jm = jstep(jstate, _jax(batch))
+        np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(m["grad_norm"].item(),
+                                   float(jm["grad_norm"]), rtol=1e-5)
+        assert int(m["step"]) == int(jm["step"]) == t + 1
+        lrs.append(1e-3 * (t + 1) / tcfg.warmup_steps)
+    _check_state(state, jstate, layout, True, lrs)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
+def test_train_lm_batches_bit_exact(monkeypatch, tmp_path, arch):
+    """The batches both ``train_lm``s hand their step over 3 steps (the
+    steps replaced by recorders): tokens, labels and the VLM's
+    ``vision`` or Whisper's ``frames``, bit for bit."""
+    got, want = [], []
+
+    def port_step(loss_fn, tcfg, layout):
+        def step(state, batch):
+            got.append({k: v.numpy() for k, v in batch.items()})
+            return state, {"loss": torch.zeros(()),
+                           "grad_norm": torch.zeros(())}
+        return step
+
+    def ref_step(loss_fn, tcfg):
+        def step(state, batch):
+            want.append({k: np.asarray(v) for k, v in batch.items()})
+            return state, {"loss": 0.0, "grad_norm": 0.0}
+        return step
+
+    class NoJit:
+        """``jax`` as ``repro.launch.train`` sees it, with ``jit`` the
+        identity (so the recorder sees arrays, not tracers)."""
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+        @staticmethod
+        def jit(fn, **kw):
+            return fn
+    monkeypatch.setattr(train, "make_train_step", port_step)
+    monkeypatch.setattr(jtrain, "make_train_step", ref_step)
+    monkeypatch.setattr(jtrain, "jax", NoJit())
+    jtrain.train_lm(_jargs(arch, str(tmp_path / "j"), steps=3))
+    train.train_lm(train.parse_args([
+        "--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+        "--seed", "0", "--ckpt-dir", str(tmp_path / "t"), "--lm-batch", "2",
+        "--lm-seq", "32"]))
+    stub = "vision" if arch == "llama-3.2-vision-11b" else "frames"
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) == sorted(["tokens", "labels", stub])
+        for k in w:
+            _bit_equal(g[k], w[k], k)
 
 
 def test_microbatches_split_the_batch(f32):
