@@ -105,10 +105,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
               to the warm window's sums; in the host cell every record's L3
               bytes W x the static gather; finite losses, no request
               dropped; per step of the trained loop fanout_mean L(L+1)/2,
-              fanout_mean_bwd L(L-1)/2 and one probe launch.  First, a
-              fresh process splits a train run's first step (library
-              start-up, kernel load, set-up, the first generation round,
-              forward, backward and AdamW, then the second of each).
+              fanout_mean_bwd L(L-1)/2 and one probe launch.
    agree    — the autotune trace on the card against the CPU's (the port's
    autotune   twins) on the same seeds and draws at the CPU differential
               test's shape (2 000 nodes, W = 4 sharded device and host
@@ -151,8 +148,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
               the dense wire's, the shares of a step in the gloo transport
               and in its host staging, and the phase's seconds.
    dist paths — (PR 23) every other graph path with one process per worker
-              over gloo on the card, at W = 2 and 4, one spawn of the ranks
-              per width shared by its cells, each cell beside the stacked
+              over gloo on the card, at W = 4, one spawn of the ranks
+              shared by its cells, each cell beside the stacked
               run of the same flags in this process: serve (graphgen-gcn,
               64 Zipf requests: every prediction and each rank's warm
               cache block equal to the stacked server's, no request-path
@@ -218,7 +215,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         a 2-layer cut of the same weights at 2 x 512 tokens
                         (atol 2e-2 on logits of scale ~1.5: bf16 rounds at
                         other places in cuBLAS and on the CPU);
-              serve     ``serve_lm``, batch 8, prompt 128, gen 128: tokens in
+              serve     ``serve_lm``, batch 8, prompt 32, gen 64: tokens in
                         [0, V_pad), decode tok/s over the timed loop of a
                         run with nothing else in it; a second run of 32
                         generated tokens (LM_PROFILE_GEN: its tokens the
@@ -226,7 +223,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         profiler over 4 steps gives the median untraced
                         step and the busy share.
                         Then float32 compute on the card against the CPU
-                        port in float32 on the same weights, over the 128
+                        port in float32 on the same weights, over 32
                         prompt-fill steps and 8 generated steps: tokens
                         equal, every step's logits within LM_DECODE_ATOL
                         (1e-2) and the final bf16 KV cache within
@@ -256,25 +253,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         against the CPU port on a 2-layer cut at 2 x 256
                         tokens (two chunks), both inits, float32 (atol
                         1e-3) and bfloat16 (atol 5e-2);
-              serve     ``serve_lm``, batch 8, prompt 128, gen 128 (no
+              serve     ``serve_lm``, batch 8, prompt 32, gen 64 (no
                         kernel: the O(1) recurrence is plain torch), tok/s
                         of an uninstrumented loop, then the median step and
                         busy share of an instrumented one; on a 2-layer cut
-                        in float32 at both inits, card vs CPU over a 248-
-                        token prompt and 8 generated tokens (256 steps):
+                        in float32 at both inits, card vs CPU over a 120-
+                        token prompt and 8 generated tokens (128 steps):
                         tokens equal but at greedy near-ties (top-two gap
                         within 2e-2; at least half the rows equal
                         throughout), logits within 2e-2 up to each row's
                         first difference, the final state of the equal rows
                         within 1e-2 of its largest entry and their bf16 conv
                         history within 6.25e-2, beside a printed one-ulp
-                        floor; and the card's prefill of the same 256 tokens
-                        against its decode at every position (within 1e-1:
-                        decode keeps the conv history in bf16).
+                        floor at the carry init; and the card's prefill of
+                        the same tokens against its decode at every
+                        position (within 1e-1: decode keeps the conv
+                        history in bf16).
    lm zoo   — the rest of the LM zoo at published widths, random float32
               weights from a seed (drawn on the card): zamba2-1.2b at full
               depth (38 Mamba layers, the shared attention at 6 sites,
-              32/32 heads of 64, SSM state 64), qwen3-moe-30b-a3b at 16 of
+              32/32 heads of 64, SSM state 64), qwen3-moe-30b-a3b at 8 of
               48 layers (128 experts top 8, 32/4 heads of 128, vocab
               151 936), deepseek-v2-236b at 4 of 60 (the dense layer and 3
               MoE layers: 160 experts top 6, 2 shared, MLA with kv_lora 512
@@ -299,7 +297,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
               also beside SDPA on the same views); for whisper, the VLM,
               stablelm and llama3 a float32 prefill card vs CPU on a cut of
               the same
-              weights, 2 x 256 tokens with the stub inputs (the VLM's
+              weights, 1 x 256 tokens with the stub inputs (the VLM's
               gates opened from the seed) within 1e-3, beside a one-ulp
               floor (not llama3's 30 GB cut); float32 decode card vs CPU
               on the cut (zamba2 one site and a tail layer, qwen3 2
@@ -309,7 +307,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
               to each row's first difference, every cache leaf of the rows
               that never differ, the VLM's vis_k/vis_v and whisper's enc
               among them, beside a one-ulp floor but for DeepSeek and
-              llama3); ``serve_lm`` batch 8, prompt 32, gen 64 (tok/s and
+              llama3); ``serve_lm`` batch 8, prompt 32, gen 32 (tok/s and
               peak; for qwen3 and DeepSeek an instrumented run of 32
               tokens gives the median step, busy share and the decode
               dispatch's tally; the VLM and
@@ -341,9 +339,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
               full width, 1 x 256
               tokens, one ``make_train_step`` from the same state: the
               loss (rtol 1e-5), every reference leaf's gradient (within
-              1e-3 of its largest |g|) and the params after the step
-              (within 2 lr(1) + 2^-22, the most one AdamW step can move a
-              weight, and at most 1% of them apart by over lr(1) / 100),
+              1e-3 of its largest |g|) and, for smollm, mamba2, zamba2
+              and whisper (``LM_TRAIN_UPDATE``: the update is the same
+              elementwise arithmetic for every family), the params after
+              the step (within 2 lr(1) + 2^-22, the most one AdamW step
+              can move a weight, and at most 1% of them apart by over
+              lr(1) / 100),
               beside a floor (the CPU with every weight one ulp up; not
               for qwen3, whose second host state would not fit);
               --microbatches 2
@@ -359,6 +360,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
               lower bound, and ``adam_update`` and one layer's
               ``SSDScan`` forward and backward timed at the cell's
               shapes, each beside the card's name and power limit.
+   lm mesh  — the LM's model axis: qwen3-moe-30b-a3b at its
+              published widths, 8 of 48 layers, over two gloo processes
+              on the card (``launch.mesh``'s runner, ``--moe ep_a2a
+              --shard-heads``: each rank 64 experts and 16/2 heads).
+              Each rank: the bf16 prefill forward at 2 x 2048 (a warm
+              forward, then one timed with zeroed launch and collective
+              counters: flash launched once a layer on the tensor-core
+              route at the per-rank (2, 16/2, 2048, 128), EP's 4
+              all_to_alls and one all_reduce a layer; per-rank ms,
+              bytes, calls, transport and staging seconds by collective,
+              peak memory), then ``serve_lm --shard-heads`` over the
+              group in bf16 (batch 8, prompt 32, gen 32: tok/s; decode
+              takes the MoE's gather path).  Then in this
+              process: the same forward in one process (ms, peak, busy
+              share); flash at rank 0's layer-0 operands against its
+              twin, timed beside its 0.0348 ms bound and SDPA; on a
+              2-layer float32 cut, the ranks' logits on the gather path
+              (experts split) with and without ``--seq-parallel`` within
+              1e-3 of one process's, EP's without it within 1e-3 of the
+              same ranks' whole EP forward repeated on the CPU (the
+              rank's weights moved there, the gloo group's CPU view), EP's
+              with it within 1e-3 of EP's without, layer 0's EP dispatch
+              integers equal to the CPU's
+              (the same inputs; the card's top-k may differ only at a
+              near tie) and its output within 1e-4 of the CPU run's
+              largest |y|; the float32 ``serve_lm --dist`` decode's
+              tokens on both ranks equal to one process's, beside the
+              one-ulp floor.  ``--mesh-only`` runs the build and this
+              phase alone.
    gather   — ``gather_reduce`` (no model path) over 8 bucket-32 requests
               of the graphgen-gcn W = 1 server: the hop-2 level's mean from
               the 20 000 x 128 feature table, [1280, 20] ids and mask, 8
@@ -434,8 +464,13 @@ N_NODES, N_REQUESTS = 20_000, 64
 TRAIN_STEPS, TRAIN_BATCH = 20, 32
 LM_ARCH, LM_SEED = "smollm-135m", 0
 PREFILL_B, PREFILL_S, PREFILL_WARM = 8, 2048, 5
-LM_BATCH, LM_PROMPT, LM_GEN, LM_AGREE_GEN = 8, 128, 128, 8
-# float32 decode, card vs CPU over the 136 steps: the random init's
+# the serve cells' prompt and generated tokens, short because the prompt
+# fills through the decode path, one host-paced step a token, in the
+# timed and the instrumented run, and the whole script must end within
+# its 1200 s limit on a slow host; the float32 card-vs-CPU decode runs
+# LM_PROMPT + LM_AGREE_GEN steps
+LM_BATCH, LM_PROMPT, LM_GEN, LM_AGREE_GEN = 8, 32, 64, 8
+# float32 decode, card vs CPU over the 40 steps: the random init's
 # residual stream is small, so a k/v entry that rounds to the neighbouring
 # bf16 value in the cache moves the normalised state by a few tenths of a
 # percent; the phase prints this floor (the CPU against itself with every
@@ -446,7 +481,12 @@ LM_DECODE_ATOL = 1e-2          # logits, every step
 LM_CACHE_ATOL = 6.25e-2        # final bf16 k/v cache (entries up to ~2.4)
 SSM_ARCH, SSM_SEED = "mamba2-1.3b", 0
 SSM_CUT, SSM_CUT_S = 2, 256
-SSM_AGREE_PROMPT, SSM_AGREE_GEN = 248, 8    # 256 decode steps, two chunks
+# the float32 card-vs-CPU decode: 128 steps, one chunk for the card's
+# prefill of the same tokens (ssm prefill's cut holds the carry across
+# chunks, card vs CPU at 2 x 256), and the floor at the carry init only:
+# the CPU's steps cost ~0.1 s each, and the whole script must end within
+# its 1200 s limit on a slow host
+SSM_AGREE_PROMPT, SSM_AGREE_GEN = 120, 8
 GATHER_REQUESTS = 8
 # the SSM's card-vs-CPU bounds (2-layer cut, logits up to ~2.5): float32
 # prefill differs only in the order of float32 sums; bfloat16 rounds at
@@ -464,10 +504,12 @@ SSM_DECODE_ATOL = 2e-2         # logits, every step
 SSM_STATE_RTOL = 1e-2          # final float32 state, of its largest entry
 SSM_CONV_ATOL = 6.25e-2        # final bf16 conv history (entries up to ~4)
 SSM_PREFILL_DECODE_ATOL = 1e-1
-# the LM zoo's cells: depth on the card (None: all; qwen3, DeepSeek and
-# llama3 cut where one 80 GB card forces it: float32 weights of 2.49,
-# 15.9 and 12.75 GB a layer; qwen3's prefill peaked at 79.8 GB with 20
-# layers, ~10 GB of it float32 logits; llama3's 3 layers with its 16.8 GB
+# the LM zoo's cells: depth on the card (None: all; DeepSeek and llama3
+# cut where one 80 GB card forces it: float32 weights of 15.9 and 12.75
+# GB a layer; qwen3, 2.49 GB a layer, whose prefill peaked at 79.8 GB with
+# 20 layers, ~10 GB of it float32 logits, at the lm mesh phase's 8, its
+# decode host-paced by the layer and the whole script bound to end within
+# 1200 s on a slow host; llama3's 3 layers with its 16.8 GB
 # embedding and head are 55 GB, 4 would be 68 GB of weights and ~85 GB at
 # the read-out's peak of 8 x 2048 float32 and bf16 logits), prefill B x S
 # (DeepSeek's plain attention holds [B, 128, S, S] float32 scores), the
@@ -478,7 +520,7 @@ SSM_PREFILL_DECODE_ATOL = 1e-1
 # its prompt and generated steps (the CPU reads the cut's weights every
 # step: 21 GB for DeepSeek's, 30 GB for llama3's)
 ZOO_SEED = 0
-ZOO_DEPTH = {"zamba2-1.2b": None, "qwen3-moe-30b-a3b": 16,
+ZOO_DEPTH = {"zamba2-1.2b": None, "qwen3-moe-30b-a3b": 8,
              "deepseek-v2-236b": 4, "whisper-small": None,
              "llama-3.2-vision-11b": None, "stablelm-12b": None,
              "llama3-405b": 3}
@@ -494,31 +536,32 @@ ZOO_CUT = {"zamba2-1.2b": {"n_layers": 7},
            "stablelm-12b": {"n_layers": 1}, "llama3-405b": {"n_layers": 1}}
 # steps, and whether the floor runs: not over DeepSeek's 21 GB cut or
 # llama3's 30 GB (a third decode on the host, at ~0.5 s a step)
-ZOO_AGREE = {"zamba2-1.2b": (64, 8, True), "qwen3-moe-30b-a3b": (8, 8, True),
+ZOO_AGREE = {"zamba2-1.2b": (32, 8, True), "qwen3-moe-30b-a3b": (8, 8, True),
              "deepseek-v2-236b": (4, 4, False), "whisper-small": (8, 8, True),
              "llama-3.2-vision-11b": (8, 8, True),
              "stablelm-12b": (8, 8, True), "llama3-405b": (4, 4, False)}
 # float32 prefill card vs CPU on the same cut (the configs of this slice,
 # whose cross-attention the decode path, with zero cross caches, cannot
-# reach): B x S tokens with the stub inputs, and whether the floor (the
-# CPU with every weight one ulp up, in place and back) runs; the VLM's
+# reach): B x S tokens with the stub inputs (one row: the CPU's float32
+# pass over a cut takes seconds a row), and whether the floor (the CPU
+# with every weight one ulp up, in place and back) runs; the VLM's
 # gates set from the seed to non-zero values first.  Float32 sums in
 # another order give ~1e-6; a wrong mask, rope or projection moves the
 # logits by tenths.
-ZOO_PREFILL_AGREE = {"whisper-small": (2, 256, True),
-                     "llama-3.2-vision-11b": (2, 256, True),
-                     "stablelm-12b": (2, 256, True),
-                     "llama3-405b": (2, 256, False)}
+ZOO_PREFILL_AGREE = {"whisper-small": (1, 256, True),
+                     "llama-3.2-vision-11b": (1, 256, True),
+                     "stablelm-12b": (1, 256, True),
+                     "llama3-405b": (1, 256, False)}
 ZOO_PREFILL_ATOL = 1e-3
 # the instrumented serve_lm run of each serve cell (median step, busy
 # share) generates this many tokens, not LM_GEN: its tokens must equal the
 # first LM_PROFILE_GEN of the timed run's
 LM_PROFILE_GEN = 32
 # the zoo's serve cells: batch 8, prompt ZOO_SERVE_PROMPT, gen ZOO_SERVE_GEN
-# (the smollm and mamba2 serve cells keep prompt 128, gen 128): the
+# (the smollm and mamba2 serve cells: prompt 32, gen 64): the
 # prompt fills through the decode path one token a step, and the 40-layer
 # configs take 77-95 ms a step, host-paced
-ZOO_SERVE_PROMPT, ZOO_SERVE_GEN = 32, 64
+ZOO_SERVE_PROMPT, ZOO_SERVE_GEN = 32, 32
 # timing-only work the zoo's cells cut to fit the script's budget: warm
 # prefill forwards and the plain twin's timed calls; and only the MoE
 # cells, whose decode dispatch it tallies, run the instrumented serve run
@@ -577,6 +620,14 @@ LM_TRAIN_CUT_S = 256
 # and stablelm's 1.3 G-parameter cuts (~8 s of host time each)
 LM_TRAIN_FLOOR = ("smollm-135m", "mamba2-1.3b", "zamba2-1.2b",
                   "whisper-small")
+# the archs whose training check also runs AdamW's update on the CPU and
+# holds the card's new params to it.  ``apply_grads`` is the same
+# elementwise arithmetic over every family's leaves, so these four cover
+# it; the update of qwen3's, the VLM's and stablelm's 1.3-1.9 G-parameter
+# cuts takes 15-29 s of host time each, more than the whole script's
+# 1200 s limit on a slow host leaves room for: those three hold the loss
+# and every leaf's gradient
+LM_TRAIN_UPDATE = LM_TRAIN_FLOOR
 LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_RTOL = 1e-5, 1e-3
 LM_TRAIN_FLIP_SHARE = 1e-2
 # bf16, 2 microbatches against 1 on one batch: the forward is row for row
@@ -1861,105 +1912,6 @@ class LoopLaunches:
         self.train.pipelined_loop = self.orig
 
 
-def first_step_split():
-    """``--first-step``: in this fresh process, the once-per-process costs
-    of a train run's step 0, each ended by a synchronize: library start-up
-    (import torch, the CUDA context), loading the built kernels, the run's
-    set-up (graph, tables, placement, model), the first generation round,
-    forward, backward and AdamW, then the second of each (warm); then a
-    ``torch.profiler`` set up as ``StepClock`` sets it up (entered, then
-    stepped through its wait, warm-up and one traced step, then closed)
-    around six more steps.  Prints one JSON line."""
-    t = time.perf_counter()
-    out = {}
-
-    def lap(name):
-        nonlocal t
-        now = time.perf_counter()
-        out[name] = now - t
-        t = now
-
-    import torch
-    lap("import_torch_s")
-    torch.zeros(1, device=DEVICE)
-    torch.cuda.synchronize()
-    lap("cuda_context_s")
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import _build
-    _build.build()
-    _build.library()
-    lap("kernels_load_s")
-    from repro_torch.launch import train
-    from repro_torch.models.gcn import gcn_loss
-    from repro_torch.train.optimizer import adam_update, init_adam
-    run = train.build_gcn_run(train_args("graphgen-gcn-deep", 1))
-    model, cache = run["model"], run["cache"]
-    opt = init_adam(model.leaves())
-    torch.cuda.synchronize()
-    lap("setup_s")
-    for rnd in ("first", "second"):
-        i = 0 if rnd == "first" else 1
-        with torch.no_grad():
-            batch, cache = run["gen_fn"](run["device_args"],
-                                         run["seeds_for"](i),
-                                         run["draws"](i, 1, TRAIN_BATCH),
-                                         cache)
-        torch.cuda.synchronize()
-        lap(f"{rnd}_generation_s")
-        params = model.leaves()
-        loss = gcn_loss(model, batch)
-        torch.cuda.synchronize()
-        lap(f"{rnd}_forward_s")
-        grads = torch.autograd.grad(loss, params)
-        torch.cuda.synchronize()
-        lap(f"{rnd}_backward_s")
-        new, opt, _ = adam_update(run["tcfg"], params, grads, opt)
-        with torch.no_grad():
-            for p, n in zip(params, new):
-                p.copy_(n)
-        torch.cuda.synchronize()
-        lap(f"{rnd}_adamw_s")
-    from torch.profiler import ProfilerActivity, profile, schedule
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                   schedule=schedule(wait=3, warmup=1, active=1, repeat=1))
-    prof.__enter__()
-    lap("profiler_enter_s")
-    for i in range(2, 8):
-        with torch.no_grad():
-            batch, cache = run["gen_fn"](run["device_args"],
-                                         run["seeds_for"](i),
-                                         run["draws"](i, 1, TRAIN_BATCH),
-                                         cache)
-        model, opt, loss = run["train_fn"](model, opt, batch)
-        float(loss)
-        prof.step()
-        lap(f"profiled_step{i - 2}_s")
-    prof.__exit__(None, None, None)
-    lap("profiler_exit_s")
-    print(json.dumps({"first_step": out}))
-
-
-def phase_first_step():
-    """Satellite of phase 13: ``first_step_split`` in a fresh process (this
-    one paid its once-per-process costs long ago).  Prints the split and
-    returns it."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--first-step"], capture_output=True, text=True,
-                          timeout=600, cwd=ROOT)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"first-step process failed: "
-          f"{proc.stderr[-3000:]}")
-    line = [ln for ln in proc.stdout.splitlines()
-            if ln.startswith('{"first_step"')]
-    check(len(line) == 1, f"first-step process printed {proc.stdout[-2000:]}")
-    split = json.loads(line[0])["first_step"]
-    split["process_wall_s"] = wall
-    print("[first step] a fresh process, graphgen-gcn-deep W=1 (s): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    return split
-
-
 def phase_autotune(torch):
     """Phase 13: ``train_gcn --autotune --autotune-steps 8`` for 20 steps
     in each of ``AUTOTUNE_RUNS``.  Prints the trace length and its
@@ -1974,7 +1926,7 @@ def phase_autotune(torch):
     launches and one probe launch."""
     from repro_torch.launch import autotune as at
     from repro_torch.launch import train
-    results = {"first_step": phase_first_step()}
+    results = {}
     for arch, w, extra, probe in AUTOTUNE_RUNS:
         store = "host" if "host" in extra else "device"
         label = f"{arch} W={w} {store}"
@@ -2149,13 +2101,15 @@ def phase_autotune_agree(torch):
 #: the baselines' task (benchmarks/gen_throughput.py's defaults)
 BASE_NODES, BASE_SEEDS, BASE_FANOUTS = 20_000, 256, (40, 20)
 SCALE_NODES, SCALE_SEEDS = 60_000, 1_189
-BASE_CALLS, NODE_CALLS = 5, 3
+# timed calls after the checked call (the warm one; node-centric's also
+# counts its launches): node-centric's take 6.4-9.1 s each, host-paced
+BASE_CALLS, NODE_CALLS = 5, 1
 
 
 def timed_calls(torch, fn, n):
-    """One warm call, then ``n`` calls each read by the host clock (to a
-    synchronize) and by CUDA events: ``(host ms list, event ms list)``."""
-    fn()
+    """``n`` calls of ``fn`` (the caller's checked call was the warm one),
+    each read by the host clock (to a synchronize) and by CUDA events:
+    ``(host ms list, event ms list)``."""
     torch.cuda.synchronize()
     host, dev = [], []
     for _ in range(n):
@@ -2172,8 +2126,9 @@ def timed_calls(torch, fn, n):
 
 
 def launched_ops(torch, fn):
-    """Non-view aten ops with a CUDA output that ``fn()`` dispatches: its
-    kernel launches (every op the baselines run launches one kernel)."""
+    """``(n, fn())``: the non-view aten ops with a CUDA output that
+    ``fn()`` dispatches, its kernel launches (every op the baselines run
+    launches one kernel), and what it returned."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -2190,9 +2145,9 @@ def launched_ops(torch, fn):
             return out
 
     with Count() as c:
-        fn()
+        out = fn()
     torch.cuda.synchronize()
-    return c.n
+    return c.n, out
 
 
 def csr_members(torch, indptr, indices, frontier, ids, mask):
@@ -2276,7 +2231,10 @@ def phase_baselines(torch):
     res = {"nodes_per_iter": nodes, "max_degree": max_deg,
            "n_edges": int(g.n_edges)}
     for name in ("edge", "sql", "node"):
-        out = expand(name)
+        if name == "node":
+            n_launches, out = launched_ops(torch, lambda: expand(name))
+        else:
+            out = expand(name)
         torch.cuda.synchronize()
         for level, (frontier, ids, m) in enumerate(out):
             k = BASE_FANOUTS[level]
@@ -2303,7 +2261,7 @@ def phase_baselines(torch):
                  "kept": [int(m.sum()) for _, _, m in out]}
         entry["nodes_per_s"] = nodes / (entry["event_ms"] / 1e3)
         if name == "node":
-            entry["launches"] = launched_ops(torch, lambda: expand(name))
+            entry["launches"] = n_launches
         res[name] = entry
         print(f"[baselines {name}] {entry['event_ms']:.3f} ms by events "
               f"(range {entry['event_range'][0]:.3f}-"
@@ -2754,6 +2712,11 @@ def phase_dist(torch):
 #: worker over gloo on the one card, one spawn per width shared by all of
 #: its cells, each cell beside the stacked run of the same flags
 DIST_PATHS_TIMEOUT_S = 900
+#: its widths: W = 4, whose spawn runs every cell (a W = 2 spawn would
+#: repeat the serve, deep and host cells for ~50 s that the script's
+#: 1200 s limit does not leave; two ranks run in the dist and lm mesh
+#: phases)
+DIST_PATH_WORKERS = (4,)
 #: kernels every rank of each cell must launch on its path; the tiered
 #: probe is the W = 1 fused probe and is not on a W > 1 path: there the
 #: L1 is the gather probe and the L2 the compact probe round
@@ -3130,11 +3093,11 @@ def dist_paths_cell(torch, w, tmp, launches):
 def phase_dist_paths(torch):
     """Phase 17b (PR 23): every other graph path with one process per
     worker over gloo on the card (every rank on ``cuda:0``, the
-    collectives staged through host memory) at W = 2 and 4, each cell
+    collectives staged through host memory) at W = 4, each cell
     beside the stacked run of the same flags in this process: serve
     (graphgen-gcn, 64 Zipf requests), the tiered cache (graphgen-gcn-deep,
-    20 steps), the L3 host store (graphgen-gcn at depth 2), and at W = 4
-    the deep run's ``--export-serve`` file, a server warm-started from
+    20 steps), the L3 host store (graphgen-gcn at depth 2), the deep
+    run's ``--export-serve`` file, a server warm-started from
     it, ``--offline`` and ``--autotune``.  Gates: ``dist_paths_cell``'s.
     Records: each rank's median step or request and the transport's
     share, and the phase's seconds."""
@@ -3145,7 +3108,7 @@ def phase_dist_paths(torch):
     launches = {}
     try:
         widths = {w: dist_paths_cell(torch, w, tmp, launches)
-                  for w in DIST_WORKERS}
+                  for w in DIST_PATH_WORKERS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
@@ -3618,7 +3581,7 @@ def phase_lm_prefill(torch):
 
 
 def lm_serve_args(gen, device):
-    """``serve_lm`` flags: smollm-135m, batch 8, prompt 128."""
+    """``serve_lm`` flags: smollm-135m, batch 8, prompt ``LM_PROMPT``."""
     from repro_torch.launch import serve
     return serve.parse_args([
         "--arch", LM_ARCH, "--device", device, "--seed", str(LM_SEED),
@@ -3630,14 +3593,14 @@ def nudge_weights(torch, model):
     """Move every weight of ``model`` one float32 ulp up, in place
     (``nextafter``: the floor of a card-vs-CPU comparison, with no random
     draw over a large cut's weights)."""
-    inf = torch.tensor(float("inf"))
     with torch.no_grad():
         for p in model.parameters():
-            p.copy_(torch.nextafter(p, inf))
+            p.copy_(torch.nextafter(p, torch.tensor(float("inf"),
+                                                    device=p.device)))
 
 
 def record_decode(torch, args, nudge=False, cfg=None, prep=None,
-                  model=None):
+                  model=None, group=None):
     """``serve_lm(args)`` with every decode step's float32 logits copied
     to the host (prompt fill and generation); returns the tokens, the
     stacked logits ``[steps, B, V_pad]``, the final cache on the host and
@@ -3646,7 +3609,7 @@ def record_decode(torch, args, nudge=False, cfg=None, prep=None,
     carried across from another device), ``prep(model)`` edits the model
     in place (the SSM's carry init), and ``nudge`` moves every weight one
     float32 ulp up after that (``nudge_weights``), for the floor of the
-    comparison."""
+    comparison.  ``group`` serves as that rank of a model axis."""
     from repro_torch.launch import serve
     from repro_torch.models import zoo
     real_lm_init = zoo._lm_init
@@ -3674,7 +3637,7 @@ def record_decode(torch, args, nudge=False, cfg=None, prep=None,
     zoo._lm_init = lm_init
     try:
         with launch_config(cfg):
-            toks = serve.serve_lm(args)["tokens"]
+            toks = serve.serve_lm(args, group=group)["tokens"]
     finally:
         zoo._lm_init = real_lm_init
         for m in made:
@@ -3925,7 +3888,7 @@ def phase_ssm_prefill(torch):
 
 
 def ssm_serve_args(gen, device, prompt=LM_PROMPT):
-    """``serve_lm`` flags: mamba2-1.3b, batch 8, prompt 128."""
+    """``serve_lm`` flags: mamba2-1.3b, batch 8, the given prompt."""
     from repro_torch.launch import serve
     return serve.parse_args([
         "--arch", SSM_ARCH, "--device", device, "--seed", str(SSM_SEED),
@@ -4038,12 +4001,12 @@ def phase_ssm_serve(torch):
     nothing else in the loop, for its tok/s; a second, instrumented run for
     the median step and the busy share; then, on a 2-layer cut in float32
     compute at both inits, the card against the CPU port at every step of
-    a 248-token prompt and 8 generated tokens (tokens equal but at
-    near-ties, logits up to each row's first differing token, the final
-    state of the rows that never differ), beside the floor of the CPU
-    against itself with every weight one float32 ulp up, and the card's
-    own prefill of the same 256 tokens (two chunks) against its decode at
-    every position."""
+    an ``SSM_AGREE_PROMPT``-token prompt and 8 generated tokens (tokens
+    equal but at near-ties, logits up to each row's first differing token,
+    the final state of the rows that never differ), beside (at the carry
+    init) the floor of the CPU against itself with every weight one
+    float32 ulp up, and the card's own prefill of the same 128 tokens (one
+    chunk) against its decode at every position."""
     import numpy as np
     from repro_torch.models import layers, zoo
     from repro_torch.models.layers import padded_vocab
@@ -4054,37 +4017,46 @@ def phase_ssm_serve(torch):
     print(f"[ssm serve] serve cell {time.perf_counter() - t0:.1f} s")
 
     cut = ssm_config(SSM_CUT)
-    prompt = np.random.default_rng(SSM_SEED).integers(
-        0, cut.vocab_size, (LM_BATCH, SSM_AGREE_PROMPT), dtype=np.int32)
-    steps = SSM_AGREE_PROMPT + SSM_AGREE_GEN
     saved = layers.COMPUTE_DTYPE
     layers.COMPUTE_DTYPE = torch.float32
     res["agree"] = {}
     try:
         for init in ("reference", "carry"):
             t1 = time.perf_counter()
+            n_prompt = SSM_AGREE_PROMPT
+            prompt = np.random.default_rng(SSM_SEED).integers(
+                0, cut.vocab_size, (LM_BATCH, n_prompt), dtype=np.int32)
+            steps = n_prompt + SSM_AGREE_GEN
             prep = carry_init_fn(torch) if init == "carry" else None
             # the card's seeded init (drawn on the card), copied to the
             # host for the CPU runs
             card = record_decode(torch, ssm_serve_args(
-                SSM_AGREE_GEN, DEVICE, SSM_AGREE_PROMPT), cfg=cut, prep=prep)
+                SSM_AGREE_GEN, DEVICE, n_prompt), cfg=cut, prep=prep)
             host = cut_model(torch, card[3], SSM_CUT, "cpu")
-            cpu, floor = (record_decode(torch, ssm_serve_args(
-                SSM_AGREE_GEN, "cpu", SSM_AGREE_PROMPT), cfg=cut, prep=prep,
-                nudge=nudge, model=host) for nudge in (False, True))
-            runs = [card, cpu, floor]
+            cpu, *floor = (record_decode(torch, ssm_serve_args(
+                SSM_AGREE_GEN, "cpu", n_prompt), cfg=cut, prep=prep,
+                nudge=nudge, model=host)
+                for nudge in ((False, True) if init == "carry"
+                              else (False,)))
             check(card[1].shape == cpu[1].shape == (steps, LM_BATCH, v_pad),
                   f"ssm decode logits {tuple(card[1].shape)}")
-            gap = decode_state_gap(torch, card, cpu, SSM_AGREE_PROMPT)
-            floor_gap = decode_state_gap(torch, floor, cpu, SSM_AGREE_PROMPT)
-            # the card's own prefill of the same tokens (two chunks)
+            gap = decode_state_gap(torch, card, cpu, n_prompt)
+            floor_gap = (decode_state_gap(torch, floor[0], cpu, n_prompt)
+                         if floor else None)
+            floor_text = ("no floor" if floor_gap is None else
+                          f"Floor, CPU with every weight one float32 ulp "
+                          f"up: logits {floor_gap['logits']:.3e}, ssm "
+                          f"{floor_gap['ssm']:.3e}, conv "
+                          f"{floor_gap['conv']:.3e}, {floor_gap['n_same']} "
+                          f"rows the same")
+            # the card's own prefill of the same tokens
             model = card[3]
             seq = np.concatenate([prompt, card[0]], axis=1)
             pre = zoo.forward_logits(cut, model, {
                 "tokens": torch.from_numpy(seq).to(DEVICE)}).cpu()
             pd = (pre.transpose(0, 1) - card[1]).abs().amax(dim=(1, 2))
             print(f"[ssm serve] float32, 2-layer cut, {init} init, "
-                  f"{SSM_AGREE_PROMPT} prompt + {SSM_AGREE_GEN} generated "
+                  f"{n_prompt} prompt + {SSM_AGREE_GEN} generated "
                   f"steps, card vs CPU: {gap['n_same']} of {LM_BATCH} rows "
                   f"generate the same tokens (first differing step per row "
                   f"{gap['first']}, top-two logit gaps there "
@@ -4093,11 +4065,8 @@ def phase_ssm_serve(torch):
                   f"(scale {cpu[1].abs().max().item():.3f}, worst step "
                   f"{gap['worst_step']}); final state of those rows within "
                   f"{gap['ssm']:.3e} (scale {gap['ssm_scale']:.3f}), conv "
-                  f"history within {gap['conv']:.3e}. Floor, CPU with every "
-                  f"weight one float32 ulp up: logits "
-                  f"{floor_gap['logits']:.3e}, ssm {floor_gap['ssm']:.3e}, "
-                  f"conv {floor_gap['conv']:.3e}, {floor_gap['n_same']} rows "
-                  f"the same. Card prefill of the {steps} tokens vs its "
+                  f"history within {gap['conv']:.3e}. {floor_text}. Card "
+                  f"prefill of the {steps} tokens vs its "
                   f"decode: last position {pd[-1].item():.3e}, median "
                   f"{pd.median().item():.3e}, max {pd.max().item():.3e}")
             check(gap["n_same"] >= LM_BATCH // 2 and all(
@@ -4123,10 +4092,11 @@ def phase_ssm_serve(torch):
             res["agree"][init] = {
                 "logits": gap["logits"], "ssm": gap["ssm"],
                 "conv": gap["conv"], "rows_same": gap["n_same"],
-                "floor_logits": floor_gap["logits"],
+                "prompt": n_prompt,
+                "floor_logits": floor_gap and floor_gap["logits"],
                 "prefill_vs_decode_last": pd[-1].item(),
                 "prefill_vs_decode_max": pd.max().item()}
-            del runs, card, cpu, floor, model, host
+            del card, cpu, floor, model, host
             print(f"[ssm serve] {init} init agreement "
                   f"{time.perf_counter() - t1:.1f} s")
     finally:
@@ -4526,6 +4496,541 @@ def phase_lm_zoo(torch):
     return out
 
 
+# --------------------------------------------------------------- lm mesh --
+# the LM's model axis: qwen3-moe-30b-a3b at its published widths
+# (d 2048, 32/4 heads of 128, 128 experts top-8 of width 768, vocab
+# 151 936) over MESH_WORKERS gloo ranks on the one card, experts split
+# and all-to-all dispatched (--moe ep_a2a) and heads split.  Cut in depth
+# only: MESH_DEPTH of 48 layers.  Each rank holds its 64 experts (1.21 GB
+# a layer), its 16/2 heads and the whole embedding and head (2.49 GB):
+# ~12.2 GB of float32 weights, ~16-18 GB at the prefill's peak; the
+# single-process forward beside them holds all 19.8 GB.  Eight layers
+# keep the two ranks, the rank-side decode and the single-process run
+# inside the script's budget (the depth sets the per-forward time, not a
+# card limit: both ranks and the single process would fit 16 layers).
+MESH_ARCH, MESH_DEPTH, MESH_CUT = "qwen3-moe-30b-a3b", 8, 2
+MESH_WORKERS = 2
+MESH_PREFILL = (2, 2048)        # B x S, bf16: flash at (2, 16/2, 2048, 128)
+# timed forwards after one warm forward (a rank's takes 3-5 s: gloo
+# stages EP's all_to_alls through host memory)
+MESH_REPS = 1
+MESH_AGREE = (1, 256)           # float32 prefill on the cut
+# float32 card, sharded against one process on the cut (the gather path,
+# whose dispatch the split experts keep bit for bit), EP on the card
+# against the same ranks' EP on the CPU, and EP with sequence parallelism
+# against EP without: the sums of the split heads' outputs and gloo's
+# reduction round differently from one process's, and the card's matmuls
+# from the CPU's (~1e-6 to 1e-5 expected); a wrong slice, a dropped
+# all_reduce or a misrouted token moves logits by tenths.  The bound is
+# the zoo's float32 card-vs-CPU prefill bound.  EP against the gather
+# path is printed, not held: their capacities drop different assignments.
+MESH_ATOL = 1e-3
+MESH_TIMEOUT_S = 900
+
+
+def mesh_args(gen, device, *extra):
+    """``serve_lm`` flags of the mesh phase's decode: batch 8, prompt 32,
+    ``gen`` generated tokens, heads split (decode takes the MoE's gather
+    path, experts split)."""
+    from repro_torch.launch import serve
+    return serve.parse_args([
+        "--arch", MESH_ARCH, "--device", device, "--seed", str(ZOO_SEED),
+        "--batch", str(LM_BATCH), "--prompt-len", str(ZOO_SERVE_PROMPT),
+        "--gen-len", str(gen), "--shard-heads", *extra])
+
+
+def mesh_batch(torch, cfg, shape, dev):
+    """The seeded prefill tokens of ``shape`` (``train.lm_batch``, as
+    ``run_prefill`` draws them)."""
+    import numpy as np
+    from repro_torch.launch import train
+    batch = train.lm_batch(np.random.default_rng(ZOO_SEED), cfg, *shape, dev)
+    del batch["labels"]
+    return batch
+
+
+def mesh_collectives(group, n):
+    """The group's counters per forward (or step) over ``n`` of them:
+    calls, bytes sent, transport and staging seconds, by collective."""
+    return {kind: {k: v / n for k, v in st.items()}
+            for kind, st in group.stats.items() if st["calls"]}
+
+
+def lm_mesh_rank(group, out):
+    """A rank of the lm mesh phase (``launch.mesh``'s target): the bf16
+    prefill at ``MESH_DEPTH`` layers (a warm forward, then ``MESH_REPS``
+    timed ones with zeroed launch and collective counters; rank 0 saves
+    layer 0's flash operands), the bf16 ``serve_lm`` decode, then on the
+    ``MESH_CUT`` float32 cut: the prefill on the gather path and on EP,
+    each without and with ``--seq-parallel`` (rank 0 saves the logits),
+    layer 0's EP call repeated on the CPU (the rank's experts copied
+    over, the same gloo group's CPU view) with both runs' dispatch
+    integers and outputs saved, the whole EP forward repeated on the CPU
+    (the rank's weights moved there, the same CPU view; rank 0 saves the
+    logits), and the float32 ``serve_lm`` decode with every step's
+    logits; results to ``out/rank<r>.*``."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.core.collectives import ProcessWorkers
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, zoo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, r = group.device, group.rank
+    res = {"rank": r, "device": str(dev)}
+    cfg = zoo_config(MESH_ARCH, MESH_DEPTH)
+    with zoo.settings(group, moe_impl="ep_a2a", shard_heads=True):
+        t0 = time.perf_counter()
+        model = zoo.build(cfg, dev).init(ZOO_SEED)
+        torch.cuda.synchronize(dev)
+        res["init_s"] = time.perf_counter() - t0
+        res["weight_gb"] = sum(p.numel() * p.element_size()
+                               for p in model.parameters()) / 1e9
+        batch = mesh_batch(torch, cfg, MESH_PREFILL, dev)
+        real, seen = ops.flash_attention, []
+
+        def spy(q, k, v, causal=True):
+            if not seen and r == 0:
+                torch.save({n: t.transpose(1, 2).cpu() for n, t in
+                            (("q", q), ("k", k), ("v", v))},
+                           os.path.join(out, "flash_ops.pt"))
+            seen.append([list(t.shape) for t in (q, k, v)])
+            return real(q, k, v, causal)
+        ops.flash_attention = spy
+        try:
+            t0 = time.perf_counter()
+            zoo.forward_logits(cfg, model, batch)
+            torch.cuda.synchronize(dev)
+            res["first_forward_s"] = time.perf_counter() - t0
+        finally:
+            ops.flash_attention = real
+        res["flash_shapes"] = seen[0]
+        ops.reset_launch_counts()
+        group.reset_stats()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        with moe.tally() as drops:
+            for _ in range(MESH_REPS):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                logits = zoo.forward_logits(cfg, model, batch)
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+                ok = bool(torch.isfinite(logits).all())
+                del logits
+        res.update(forward_ms=times, launches=ops.launch_counts(),
+                   flash_routes=ops.flash_route_counts(), finite=ok,
+                   collectives=mesh_collectives(group, MESH_REPS),
+                   max_memory_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+                   dispatch=drops)
+        del model
+        torch.cuda.empty_cache()
+    group.reset_stats()
+    with launch_config(cfg):
+        dec = serve.serve_lm(mesh_args(LM_PROFILE_GEN, "cuda", "--dist",
+                                       "gloo", "--workers",
+                                       str(group.world)), group=group)
+    res["decode"] = {"tok_s": dec["tok_s"], "wall_s": dec["wall_s"],
+                     "tokens": dec["tokens"].tolist(),
+                     "collectives": mesh_collectives(
+                         group, ZOO_SERVE_PROMPT + LM_PROFILE_GEN)}
+    torch.cuda.empty_cache()
+    # float32 on the cut (one model: the heads and experts split): the
+    # gather path without and with sequence parallelism (rank 0's logits
+    # for the single process's), then EP without and with it; layer 0's
+    # EP run again on the CPU over a CPU view of the same gloo group
+    cut = zoo_config(MESH_ARCH, MESH_CUT)
+    saved = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    cpu_group = ProcessWorkers("gloo", group.world, group.rank, "cpu")
+    try:
+        fbatch = mesh_batch(torch, cut, MESH_AGREE, dev)
+        with zoo.settings(group, shard_heads=True):
+            model = zoo.build(cut, dev).init(ZOO_SEED)
+        real_ep, first = moe.moe_forward_ep, []
+
+        def ep_spy(p, x, cfg_):
+            y = real_ep(p, x, cfg_)
+            if not first:
+                first.append((x.cpu(), y.cpu()))
+            return y
+        for moe_impl in ("gather", "ep_a2a"):
+            for sp in (False, True):
+                tag = f"{moe_impl}{'_sp' if sp else ''}"
+                first.clear()
+                moe.moe_forward_ep = ep_spy
+                try:
+                    with zoo.settings(group, moe_impl=moe_impl,
+                                      shard_heads=True, seq_parallel=sp), \
+                            moe.tally(plans=True) as t:
+                        logits = zoo.forward_logits(cut, model, fbatch)
+                finally:
+                    moe.moe_forward_ep = real_ep
+                if r == 0:
+                    np.save(os.path.join(out, f"logits_{tag}.npy"),
+                            logits.cpu().numpy())
+                res[f"cut_{tag}_dispatch"] = {
+                    k: v for k, v in t.items() if k != "plans"}
+                if moe_impl == "ep_a2a" and not sp:
+                    card = {n: np.asarray(v.cpu() if hasattr(v, "cpu")
+                                          else v)
+                            for n, v in t["plans"][0].items()}
+                    layer0 = copy.deepcopy(model.layers[0].moe).to("cpu")
+                    x0, y0 = first[0]
+                    with zoo.settings(cpu_group, moe_impl="ep_a2a"), \
+                            moe.tally(plans=True) as tc, torch.no_grad():
+                        y_cpu = moe.moe_forward_ep(layer0, x0, cut)
+                    cpu = {n: np.asarray(v) for n, v in
+                           tc["plans"][0].items()}
+                    np.savez(os.path.join(out, f"rank{r}_ep.npz"),
+                             y_card=y0.numpy(), y_cpu=y_cpu.numpy(),
+                             x0=x0.numpy(), router0=layer0.router.detach()
+                             .numpy(),
+                             **{f"card.{n}": v for n, v in card.items()},
+                             **{f"cpu.{n}": v for n, v in cpu.items()})
+                del logits
+        # the whole EP forward again on the CPU, over the CPU view of the
+        # same gloo group: the card's EP logits are held to it
+        model.to("cpu")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // group.world))
+        try:
+            with zoo.settings(cpu_group, moe_impl="ep_a2a",
+                              shard_heads=True), moe.tally() as t:
+                logits = zoo.forward_logits(cut, model, mesh_batch(
+                    torch, cut, MESH_AGREE, "cpu"))
+        finally:
+            torch.set_num_threads(threads)
+        if r == 0:
+            np.save(os.path.join(out, "logits_ep_a2a_cpu.npy"),
+                    logits.numpy())
+        res["cut_ep_a2a_cpu_dispatch"] = dict(t)
+        del logits, model
+        group.reset_stats()
+        toks, steps, _, _ = record_decode(
+            torch, mesh_args(LM_PROFILE_GEN, "cuda", "--dist", "gloo",
+                             "--workers", str(group.world)), cfg=cut,
+            group=group)
+        res["f32_decode_tokens"] = toks.tolist()
+        if r == 0:
+            np.save(os.path.join(out, "decode_logits.npy"), steps.numpy())
+    finally:
+        L.COMPUTE_DTYPE = saved
+    with open(os.path.join(out, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def first_flip_gap(torch, a, b, prompt):
+    """Two ``record_decode`` runs: the max abs logit gap of each row up
+    to the step that produced its first differing token (all steps for a
+    row that never differs), and the rows that never differ."""
+    import numpy as np
+    ta, tb = np.asarray(a[0]), np.asarray(b[0])
+    gap, same = 0.0, 0
+    for row in range(ta.shape[0]):
+        diff = np.nonzero(ta[row] != tb[row])[0]
+        last = a[1].shape[0] if not diff.size else prompt + int(diff[0])
+        same += int(not diff.size)
+        gap = max(gap, float((a[1][:last, row] - b[1][:last, row]).abs()
+                             .max()))
+    return gap, same
+
+
+def ep_card_vs_cpu(torch, plans, m, e_loc, k):
+    """Layer 0's EP dispatch on the card against the CPU's, per rank
+    (``plans``: each rank's ``rank<r>_ep.npz``).  Each rank's top-k from
+    the CPU's run of the same float32 input and router may differ from
+    the card's only where the CPU's k-th and (k+1)-th probabilities lie
+    within 1e-6 of each other; every other dispatch integer is
+    recomputed on the CPU from the card's own top-k, the all_to_all
+    simulated across the ranks' send blocks, and must equal the card's
+    bit for bit; where no top-k differs, the CPU run's own integers equal
+    the card's too.  Returns ``(top-k tokens that differ, near ties,
+    integers compared, max |y_card - y_cpu| over ranks where no top-k
+    differs, max |y|)``."""
+    import numpy as np
+    from repro_torch.models import moe
+    flips = ties = compared = 0
+    y_gap = y_max = 0.0
+    level1 = []
+    for z in plans:
+        x = torch.from_numpy(z["x0"]).reshape(-1, z["x0"].shape[-1])
+        router = torch.from_numpy(z["router0"])
+        probs = torch.softmax((x @ router).float(), -1)
+        srt = torch.sort(probs, -1, descending=True).values
+        near = (srt[:, k - 1] - srt[:, k]) < 1e-6 * srt[:, k - 1]
+        card = torch.from_numpy(z["card.topi"])
+        differ = (torch.from_numpy(z["cpu.topi"]) != card).any(-1)
+        flips += int(differ.sum())
+        ties += int(near.sum())
+        check(not bool((differ & ~near).any()), "lm mesh: the card's top-k "
+              "experts differ from the CPU's away from a near tie")
+        if not bool(differ.any()):
+            for n in ("order", "dest", "slot", "ok", "recv_e", "recv_m",
+                      "order2", "slot2", "ok2", "cap", "c2"):
+                check(np.array_equal(z["card." + n], z["cpu." + n]),
+                      f"lm mesh: EP {n} on the card differs from the "
+                      f"CPU run's")
+            y_gap = max(y_gap, float(np.abs(z["y_card"] - z["y_cpu"]).max()))
+            y_max = max(y_max, float(np.abs(z["y_cpu"]).max()))
+        fe = card.reshape(-1)
+        cap = int(z["card.cap"])
+        order, dest, slot = moe._sorted_slots(fe // e_loc, m)
+        ok = slot < cap
+        for n, a in (("order", order), ("dest", dest), ("slot", slot),
+                     ("ok", ok)):
+            check(np.array_equal(a.numpy(), z["card." + n]),
+                  f"lm mesh: EP {n} on the card differs from the CPU's")
+            compared += a.numel()
+        send_e = torch.zeros((m, cap), dtype=torch.int64)
+        send_m = torch.zeros((m, cap), dtype=torch.int64)
+        sel = torch.nonzero(ok).squeeze(1)
+        send_e[dest[sel], slot[sel]] = fe[order[sel]] % e_loc
+        send_m[dest[sel], slot[sel]] = 1
+        level1.append((send_e, send_m, cap))
+    for r, z in enumerate(plans):
+        cap = level1[r][2]
+        re_ = torch.cat([level1[j][0][r] for j in range(m)])
+        rm = torch.cat([level1[j][1][r] for j in range(m)])
+        check(np.array_equal(re_.numpy(), z["card.recv_e"].astype(np.int64))
+              and np.array_equal(rm.numpy(),
+                                 z["card.recv_m"].astype(np.int64)),
+              "lm mesh: EP's received expert ids or marks differ from the "
+              "CPU's all_to_all")
+        c2 = max(int(m * cap / e_loc * 2.0) + 8, 8)
+        order2, sk2, slot2 = moe._sorted_slots(re_ + (1 - rm) * e_loc,
+                                               e_loc + 1)
+        ok2 = (slot2 < c2) & (sk2 < e_loc)
+        for n, a in (("order2", order2), ("slot2", slot2), ("ok2", ok2)):
+            check(np.array_equal(a.numpy(), z["card." + n]),
+                  f"lm mesh: EP {n} on the card differs from the CPU's")
+            compared += a.numel()
+        check(int(z["card.c2"]) == c2, "lm mesh: EP's c2 differs")
+    return flips, ties, compared, y_gap, y_max
+
+
+def phase_lm_mesh(torch, smi):
+    """The LM's model axis: ``lm_mesh_rank`` on ``MESH_WORKERS`` gloo ranks
+    of the one card (``launch.mesh``), then, in this process after them,
+    the single-process bf16 prefill and the float32 cut; the gates:
+    every rank launched flash ``MESH_DEPTH`` times a forward on the
+    tensor-core route at the per-rank shape, the kernel at rank 0's layer-
+    0 operands against its twin (timed beside its bound and SDPA), finite
+    logits; on the float32 cut the gather path's logits with and without
+    sequence parallelism within ``MESH_ATOL`` of the single process's
+    (the same dispatch, experts split), EP's within it of the ranks'
+    whole EP forward repeated on the CPU, EP's with sequence parallelism
+    within it of EP's without, and layer 0's EP dispatch and output on
+    the card against the CPU's (``ep_card_vs_cpu``); the float32
+    decode's tokens on every rank equal to the single process's (beside
+    the one-ulp floor).  Returns the phase's record."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh")
+    try:
+        return lm_mesh_checks(torch, smi, tmp, t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lm_mesh_checks(torch, smi, tmp, t0):
+    """``phase_lm_mesh``'s runs and gates, the ranks' files in ``tmp``."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import padded_vocab
+    cfg = zoo_config(MESH_ARCH, MESH_DEPTH)
+    cut = zoo_config(MESH_ARCH, MESH_CUT)
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, os.path.join(ROOT, "src"), env.get("PYTHONPATH"))
+        if p)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.mesh", "--workers",
+         str(MESH_WORKERS), "--dist", "gloo", "--device", DEVICE,
+         "--timeout", str(MESH_TIMEOUT_S), "chip_smoke:lm_mesh_rank",
+         json.dumps({"out": tmp})],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=MESH_TIMEOUT_S + 60)
+    ranks_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"lm mesh: the ranks exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    ranks = [read_json(os.path.join(tmp, f"rank{r}.json"))
+             for r in range(MESH_WORKERS)]
+    m = MESH_WORKERS
+    hq, hkv = cfg.n_heads // m, cfg.n_kv_heads // m
+    b, s = MESH_PREFILL
+    shape = [[b, hq, s, 128], [b, hkv, s, 128], [b, hkv, s, 128]]
+    n_flash = MESH_REPS * MESH_DEPTH
+    for rk in ranks:
+        label = f"lm mesh rank {rk['rank']}"
+        check(rk["launches"].get("flash_attention") == n_flash
+              and sum(rk["launches"].values()) == n_flash
+              and rk["flash_routes"] == {"tensor_core": n_flash,
+                                         "float32": 0},
+              f"{label}: launched {rk['launches']} (routes "
+              f"{rk['flash_routes']}) over {MESH_REPS} forwards, expected "
+              f"{MESH_DEPTH} tensor-core flash launches a forward")
+        check(rk["flash_shapes"] == shape, f"{label}: flash at "
+              f"{rk['flash_shapes']}, expected the per-rank {shape}")
+        check(rk["finite"], f"{label}: prefill logits not finite")
+        coll = rk["collectives"]
+        check(coll.get("all_to_all", {}).get("calls") == 4 * MESH_DEPTH
+              and coll.get("all_reduce", {}).get("calls") == MESH_DEPTH,
+              f"{label}: collectives per forward {coll}: expected EP's 4 "
+              f"all_to_alls and one all_reduce of the heads per layer")
+        print(f"[lm mesh] rank {rk['rank']} ({rk['device']}): "
+              f"{rk['weight_gb']:.2f} GB of float32 weights, init "
+              f"{rk['init_s']:.2f} s, first forward "
+              f"{rk['first_forward_s']:.3f} s; {b} x {s} bf16 forwards (ms) "
+              f"{[round(t, 3) for t in rk['forward_ms']]}, peak "
+              f"{rk['max_memory_gb']:.2f} GiB; launches {rk['launches']}; "
+              f"flash at {rk['flash_shapes'][0]} / {rk['flash_shapes'][1]}; "
+              f"MoE drops {rk['dispatch']}")
+        for kind, st in coll.items():
+            print(f"[lm mesh] rank {rk['rank']} {kind} per forward: "
+                  f"{st['calls']:.0f} calls, {st['bytes'] / 1e6:.3f} MB sent, "
+                  f"transport {st['seconds'] * 1e3:.3f} ms, staging "
+                  f"{st['staging_s'] * 1e3:.3f} ms ({smi})")
+    launches = {"flash_attention": sum(rk["launches"]["flash_attention"]
+                                       for rk in ranks)}
+    # the single process, after the ranks: the same forward
+    model, _, _, single = run_prefill(
+        torch, cfg, ZOO_SEED, "flash_attention", "lm mesh single process",
+        shape=MESH_PREFILL, warm=MESH_REPS)
+    launches["flash_attention"] += single["launches"]["flash_attention"]
+    del model
+    torch.cuda.empty_cache()
+    # flash at rank 0's layer-0 operands: the per-rank shape as the
+    # model's [B, L, H, Dh] views, against its twin, timed
+    saved = torch.load(os.path.join(tmp, "flash_ops.pt"))
+    qkv = [saved[n].to(DEVICE).transpose(1, 2) for n in ("q", "k", "v")]
+    ops.reset_launch_counts()
+    flash = time_kernel(torch, "flash_attention", qkv, {"causal": True})
+    check(ops.flash_route_counts()["float32"] == 0, "lm mesh: flash at the "
+          "per-rank shape left the tensor-core route")
+    flash["shapes"] = [list(t.shape) for t in qkv]
+    print(f"[lm mesh] flash at rank 0's layer-0 operands "
+          f"{flash['shapes'][0]} / {flash['shapes'][1]} causal bf16: "
+          f"{flash['ms']:.4f} ms (events) {flash['device_ms']:.4f} ms "
+          f"(device), bound {flash['bound_ms']:.4f} ms "
+          f"({flash['bound_by']}), SDPA {flash['library_ms']:.4f} / "
+          f"{flash['library_device_ms']:.4f} ms, twin "
+          f"{flash['plain_ms']:.4f} ms; max abs err {flash['max_abs_err']} "
+          f"({smi})")
+    del qkv, saved
+    # the float32 cut: the single process against the sharded runs
+    from repro_torch.models import layers as L, zoo
+    saved_dt = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    agree = {}
+    try:
+        model = zoo.build(cut, DEVICE).init(ZOO_SEED)
+        want = zoo.forward_logits(cut, model, mesh_batch(
+            torch, cut, MESH_AGREE, DEVICE)).cpu().numpy()
+        del model
+        got = {tag: np.load(os.path.join(tmp, f"logits_{tag}.npy"))
+               for tag in ("gather", "gather_sp", "ep_a2a", "ep_a2a_sp",
+                           "ep_a2a_cpu")}
+        for tag, ref_tag in (("gather", None), ("gather_sp", None),
+                             ("ep_a2a", "ep_a2a_cpu"),
+                             ("ep_a2a_sp", "ep_a2a")):
+            other = want if ref_tag is None else got[ref_tag]
+            err = float(np.abs(got[tag] - other).max())
+            agree[tag] = err
+            check(err <= MESH_ATOL, f"lm mesh: float32 {tag} logits {err} "
+                  f"from {ref_tag or 'the single process'}'s, bound "
+                  f"{MESH_ATOL}")
+            print(f"[lm mesh] float32 {cut.n_layers}-layer cut, "
+                  f"{MESH_AGREE[0]} x {MESH_AGREE[1]}, --moe "
+                  f"{tag.replace('_sp', '')}"
+                  f"{' --seq-parallel' if tag.endswith('_sp') else ''}: max "
+                  f"|logits - {ref_tag or 'single process'}| {err:.3e} "
+                  f"(bound {MESH_ATOL}); drops "
+                  f"{ranks[0][f'cut_{tag}_dispatch']}"
+                  + (f" (the CPU's {ranks[0]['cut_ep_a2a_cpu_dispatch']})"
+                     if ref_tag == "ep_a2a_cpu" else ""))
+        agree["ep_vs_gather"] = float(np.abs(got["ep_a2a"] - want).max())
+        plans = [np.load(os.path.join(tmp, f"rank{r}_ep.npz"))
+                 for r in range(m)]
+        flips, ties, n, y_gap, y_max = ep_card_vs_cpu(
+            torch, plans, m, cut.n_experts // m, cut.top_k)
+        check(y_gap <= 1e-4 * y_max + 1e-7, f"lm mesh: layer 0's EP output "
+              f"on the card {y_gap} from the CPU run's (max |y| {y_max})")
+        agree.update(ep_ints=n, topk_flips=flips, near_ties=ties,
+                     ep_y_max_abs_err=y_gap, ep_y_max=y_max)
+        print(f"[lm mesh] EP at layer 0 of the float32 cut, card against the "
+              f"CPU: {n} dispatch integers equal; top-k tokens that differ "
+              f"{flips} (near ties {ties}); max |y_card - y_cpu| {y_gap:.3e} "
+              f"of max |y| {y_max:.3e}; EP's logits "
+              f"{agree['ep_vs_gather']:.3e} from the gather path's (their "
+              f"capacities drop other assignments: drops "
+              f"{ranks[0]['cut_ep_a2a_dispatch']} against "
+              f"{ranks[0]['cut_gather_dispatch']})")
+        # float32 decode: every rank's tokens against the single process's
+        args = mesh_args(LM_PROFILE_GEN, DEVICE)
+        base = record_decode(torch, args, cfg=cut)
+        floor = record_decode(torch, args, cfg=cut, nudge=True)
+    finally:
+        L.COMPUTE_DTYPE = saved_dt
+    mesh_logits = torch.from_numpy(np.load(os.path.join(tmp,
+                                                        "decode_logits.npy")))
+    gap = float((mesh_logits - base[1]).abs().max())
+    floor_gap, floor_rows = first_flip_gap(torch, base, floor,
+                                           ZOO_SERVE_PROMPT)
+    for rk in ranks:
+        check(np.array_equal(np.asarray(rk["f32_decode_tokens"]), base[0]),
+              f"lm mesh: rank {rk['rank']}'s float32 decode tokens differ "
+              f"from the single process's")
+    agree.update(decode_max_abs_err=gap, decode_floor=floor_gap,
+                 floor_rows_same=floor_rows)
+    print(f"[lm mesh] float32 decode on the cut, batch {LM_BATCH}, prompt "
+          f"{ZOO_SERVE_PROMPT}, gen {LM_PROFILE_GEN}: every rank's tokens "
+          f"equal the single process's; max |logits - single| {gap:.3e}. "
+          f"One-ulp floor (one process with every weight one float32 ulp "
+          f"up): logits {floor_gap:.3e} up to each row's first differing "
+          f"token, {floor_rows} of {LM_BATCH} rows generate the same "
+          f"tokens")
+    v_pad = padded_vocab(cfg)
+    for rk in ranks:
+        toks = np.asarray(rk["decode"]["tokens"])
+        check(toks.shape == (LM_BATCH, LM_PROFILE_GEN) and toks.min() >= 0
+              and toks.max() < v_pad, f"lm mesh: rank {rk['rank']}'s bf16 "
+              f"decode tokens {toks.shape} outside [0, {v_pad})")
+        check(np.array_equal(toks, np.asarray(ranks[0]["decode"]["tokens"])),
+              "lm mesh: the ranks decoded different tokens")
+    dec = ranks[0]["decode"]
+    print(f"[lm mesh] bf16 serve_lm --dist gloo --workers {m} at "
+          f"{MESH_DEPTH} layers, batch {LM_BATCH}, prompt {ZOO_SERVE_PROMPT}, "
+          f"gen {LM_PROFILE_GEN}: {dec['tok_s']:,.1f} tok/s "
+          f"({dec['wall_s']:.3f} s); collectives per step "
+          f"{ {k: round(v['calls'], 1) for k, v in dec['collectives'].items()} } "
+          f"({smi})")
+    for rk in ranks:
+        for key in ("flash_shapes",):
+            rk.pop(key)
+        rk["decode"].pop("tokens")
+        rk.pop("f32_decode_tokens")
+    res = {"ranks": ranks, "single": {k: single[k] for k in (
+        "init_s", "first_forward_s", "warm_forward_ms", "forward_ms",
+        "prefill_tok_s", "max_memory_gb", "busy_ms", "traced_ms",
+        "launches")}, "flash": {k: flash[k] for k in (
+            "shapes", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "plain_device_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")}, "agree": agree, "launches": launches,
+        "ranks_s": ranks_s, "seconds": time.perf_counter() - t0}
+    print(f"[lm mesh] single process: {b} x {s} forwards (ms) "
+          f"{[round(t, 3) for t in single['forward_ms']]}, peak "
+          f"{single['max_memory_gb']:.2f} GiB; the ranks' median "
+          f"{[round(statistics.median(rk['forward_ms']), 3) for rk in ranks]} "
+          f"ms, peaks {[round(rk['max_memory_gb'], 2) for rk in ranks]} GiB; "
+          f"ranks {ranks_s:.1f} s, phase {res['seconds']:.1f} s ({smi})")
+    return res
+
+
 @contextlib.contextmanager
 def twin_calls():
     """Count the calls of ``ssd_scan``'s plain twin inside the block (the
@@ -4859,21 +5364,23 @@ def lm_train_agree(torch, arch, smi):
             lap("floor")
         del grads_c
         gc.collect()
-        new_h, _ = TL.apply_grads(tcfg, state, loss_h, grads_h, layout)
-        del grads_h, state
-        lap("cpu_update")
         lr1 = tcfg.learning_rate / tcfg.warmup_steps
         param_bound = 2 * lr1 + 2.0 ** -22
-        param_gap = flips = n_weights = 0
-        for a, b in zip(new_c.params, new_h.params):
-            d = (a - b.to(a.device)).abs()
-            param_gap = max(param_gap, d.max().item())
-            flips += int((d > lr1 / 100).sum())
-            n_weights += d.numel()
-        moved = max((a - b).abs().max().item()
-                    for a, b in zip(new_c.params, flat))
+        param_gap = moved = flips = n_weights = None
+        if arch in LM_TRAIN_UPDATE:
+            new_h, _ = TL.apply_grads(tcfg, state, loss_h, grads_h, layout)
+            del grads_h, state
+            lap("cpu_update")
+            param_gap = flips = n_weights = 0
+            for a, b in zip(new_c.params, new_h.params):
+                d = (a - b.to(a.device)).abs()
+                param_gap = max(param_gap, d.max().item())
+                flips += int((d > lr1 / 100).sum())
+                n_weights += d.numel()
+            moved = max((a - b).abs().max().item()
+                        for a, b in zip(new_c.params, flat))
+            lap("param_compare")
         del new_c, flat
-        lap("param_compare")
     finally:
         layers.COMPUTE_DTYPE = saved
     loss_gap = abs(loss_c - loss_h.item())
@@ -4882,20 +5389,24 @@ def lm_train_agree(torch, arch, smi):
            "loss_abs_err": loss_gap, "grad_max_share": grad_gap[0],
            "grad_worst_leaf": grad_gap[1], "param_max_abs_err": param_gap,
            "param_bound": param_bound, "param_moved": moved,
-           "param_flips": flips, "param_flip_share": flips / n_weights,
+           "param_flips": flips,
+           "param_flip_share": flips and flips / n_weights,
            "floor": floor,
            "launches": counts, "device": smi,
            "seconds": time.perf_counter() - t0, "split_s": split}
+    update = ("the update not run on the CPU (LM_TRAIN_UPDATE)"
+              if param_gap is None else
+              f"params after the step within {param_gap:.3e} (bound 2 lr(1) "
+              f"+ 2^-22 = {param_bound:.4e}; the step moved them up to "
+              f"{moved:.3e}), {flips} of {n_weights} apart by over lr(1) / "
+              f"100 (share {flips / n_weights:.2e}, bound "
+              f"{LM_TRAIN_FLIP_SHARE})")
     print(f"[lm train agree] {arch} float32, {cfg.n_layers}-layer cut, 1 x "
           f"{LM_TRAIN_CUT_S} tokens, one step card vs CPU: loss "
           f"{loss_c:.6f} vs {loss_h.item():.6f} (|d| {loss_gap:.3e}); "
           f"gradients within {grad_gap[0]:.3e} of each leaf's largest |g| "
-          f"(worst {grad_gap[1]}; bound {LM_TRAIN_GRAD_RTOL}); params after "
-          f"the step within {param_gap:.3e} (bound 2 lr(1) + 2^-22 = "
-          f"{param_bound:.4e}; "
-          f"the step moved them up to {moved:.3e}), {flips} of {n_weights} "
-          f"apart by over lr(1) / 100 (share {flips / n_weights:.2e}, bound "
-          f"{LM_TRAIN_FLIP_SHARE}); floor, the CPU with "
+          f"(worst {grad_gap[1]}; bound {LM_TRAIN_GRAD_RTOL}); {update}; "
+          f"floor, the CPU with "
           f"every weight one ulp up: "
           f"{'not run (host memory)' if floor is None else floor}; "
           f"{res['seconds']:.1f} s "
@@ -4906,10 +5417,13 @@ def lm_train_agree(torch, arch, smi):
     check(grad_gap[0] <= LM_TRAIN_GRAD_RTOL, f"{arch} float32 step: "
           f"gradient {grad_gap[1]} differs card vs CPU by {grad_gap[0]} of "
           f"its scale, over {LM_TRAIN_GRAD_RTOL}")
-    check(param_gap <= param_bound and moved > 0, f"{arch} float32 step: "
-          f"params differ card vs CPU by {param_gap}, over {param_bound}")
-    check(flips <= LM_TRAIN_FLIP_SHARE * n_weights, f"{arch} float32 "
-          f"step: {flips} of {n_weights} params apart by over lr(1) / 100")
+    if param_gap is not None:
+        check(param_gap <= param_bound and moved > 0, f"{arch} float32 "
+              f"step: params differ card vs CPU by {param_gap}, over "
+              f"{param_bound}")
+        check(flips <= LM_TRAIN_FLIP_SHARE * n_weights, f"{arch} float32 "
+              f"step: {flips} of {n_weights} params apart by over lr(1) / "
+              f"100")
     return res
 
 
@@ -5685,9 +6199,9 @@ def main():
     ap.add_argument("--train-only", action="store_true",
                     help="stop after the build and the lm train phase (a "
                          "first bring-up of LM training)")
-    ap.add_argument("--first-step", action="store_true",
-                    help="print the split of a fresh process's first train "
-                         "step (run by the autotune phase)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="stop after the build and the lm mesh phase (a "
+                         "first bring-up of the LM's model axis)")
     opts = ap.parse_args()
     # host tensors of 2 MB and more on transparent huge pages (torch's
     # CPU allocator madvises them): a fresh allocation's page faults cost
@@ -5695,9 +6209,6 @@ def main():
     # (qwen3's AdamW over 1.87 G weights in the lm train phase, the CPU
     # decodes) allocate fresh memory at every op
     os.environ.setdefault("THP_MEM_ALLOC_ENABLE", "1")
-    if opts.first_step:
-        first_step_split()
-        return
 
     import torch
     if not torch.cuda.is_available():
@@ -5744,6 +6255,10 @@ def main():
     if opts.train_only:
         print(json.dumps({"lm_train": phase_lm_train(torch, smi)}))
         print("[train-only] stopping after the lm train phase")
+        return
+    if opts.mesh_only:
+        print(json.dumps({"lm_mesh": phase_lm_mesh(torch, smi)}))
+        print("[mesh-only] stopping after the lm mesh phase")
         return
     phase_kernels(torch, dev)
     if opts.dist_only:
@@ -5801,6 +6316,8 @@ def main():
     stamp("ssm_serve")
     zoo_res = phase_lm_zoo(torch)
     stamp("lm_zoo")
+    mesh_res = phase_lm_mesh(torch, smi)
+    stamp("lm_mesh")
     lm_train = phase_lm_train(torch, smi)
     stamp("lm_train")
     gather = phase_gather_reduce(torch, serve_res)
@@ -5808,12 +6325,12 @@ def main():
     runs = (list(serve_res.values()) + list(train_res.values())
             + list(host_res.values()) + [merge_res]
             + list(offline_res.values()) + [ckpt_res]
-            + [r for k, r in autotune_res.items() if k != "first_step"]
+            + list(autotune_res.values())
             + [agree_at, recovery, dist_res, paths_res, nccl_res]
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather]
             + [r for arch in ZOO_DEPTH for r in (zoo_res[arch],
                                                  zoo_res[arch]["serve"])]
-            + [lm_train[arch] for arch in LM_TRAIN])
+            + [lm_train[arch] for arch in LM_TRAIN] + [mesh_res])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
     # the float32 route of ssd_scan: its launches on the main path (0 in a
@@ -5860,8 +6377,7 @@ def main():
                     "wall_s", "startup_s", "profiler_s", "capacity_slack",
                     "n_dropped")},
                 "fanouts": list(r["fanouts"]), "launches": r["launches"]}
-        for label, r in autotune_res.items() if label != "first_step"},
-        "first_step": autotune_res["first_step"],
+        for label, r in autotune_res.items()},
         "baselines": baselines, "recovery": recovery}))
     print(json.dumps({"dist": {f"W={w}": r
                                for w, r in dist_res["widths"].items()},
@@ -5902,6 +6418,7 @@ def main():
     print(json.dumps({"flash_dh160": flash_dh160}))
     print(json.dumps({"lm_zoo": zoo_res}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"lm_mesh": mesh_res}))
     # the kernels at the zoo's own layer-0 operands, beside their rows
     for entry in kernels:
         rows = {arch: {k: zoo_res[arch]["kernels"][entry["name"]][k] for k in (
@@ -5912,6 +6429,8 @@ def main():
             if entry["name"] in zoo_res[arch]["kernels"]}
         if rows:
             entry["zoo"] = rows
+        if entry["name"] == "flash_attention":
+            entry["mesh"] = mesh_res["flash"]
     print(json.dumps({"timing_floor": {"null_launch": "a 4-byte zero_()",
                                        **floor}}))
     print(json.dumps({"kernels": kernels}))

@@ -48,6 +48,8 @@ import torch
 
 from .core.config import ModelConfig, resolve_device
 from .core.feature_cache import FeatureCache, TieredCache
+from .models import layers as L
+from .models import zoo
 from .models.deepseek import DeepSeekLM
 from .models.gcn import GCN
 from .models.hybrid import Zamba2LM
@@ -165,9 +167,10 @@ def cache_state_from_numpy(state_np, device="cuda"):
 
 
 def _put(dst: torch.Tensor, a, cfg: ModelConfig) -> None:
-    """Copy the numpy weight ``a`` (as float32) into ``dst``; raises if
+    """Copy the numpy weight ``a`` (as float32) into ``dst`` (its slice
+    of ``a`` where ``dst`` is a rank's shard, ``layers.take``); raises if
     the shapes differ."""
-    a = np.array(a, np.float32)       # a writable copy
+    a = np.array(L.take(dst, np.asarray(a)), np.float32)   # a writable copy
     if dst.shape != a.shape:
         raise ValueError(f"weight of shape {a.shape} does not fit "
                          f"{tuple(dst.shape)} of {cfg.name!r}")
@@ -402,6 +405,36 @@ def whisper_cache_from_numpy(cache_np, device="cuda") -> dict:
     device = resolve_device(device)
     return {name: _bf16(cache_np[name], device)
             for name in ("k", "v", "enc")}
+
+
+def params_from_numpy(params_np, cfg: ModelConfig, device="cuda"):
+    """The reference's params of any LM family (numpy) -> the port's model
+    of ``cfg`` on ``device``.  Under an installed model axis
+    (``zoo.settings``) the model is this rank's shard, each split weight
+    holding its slice of the reference's array."""
+    fn = {"dense": lm_params_from_numpy, "moe_qwen": moe_params_from_numpy,
+          "moe_deepseek": deepseek_params_from_numpy,
+          "vlm": vlm_params_from_numpy, "audio": whisper_params_from_numpy,
+          "ssm": mamba_params_from_numpy,
+          "hybrid": hybrid_params_from_numpy}[zoo._family_key(cfg)]
+    return fn(params_np, cfg, device)
+
+
+def cache_slice(cache: dict, model) -> dict:
+    """A whole cache (numpy or torch leaves) as ``model``'s rank holds
+    it: the KV leaves (``k``, ``v``, ``vis_k``, ``vis_v``) cut to the
+    rank's kv heads on their trailing ``Hkv Dh`` axis where the model's
+    attention splits them (the reference's ``cache_pspec``); every other
+    leaf (SSM state, MLA latents, Whisper's ``enc``) whole."""
+    split = next((m.split for m in model.modules()
+                  if isinstance(getattr(m, "split", None), L.HeadSplit)
+                  and hasattr(m, "wk")), None)
+    if split is None or split.kv_whole:
+        return dict(cache)
+    hd = model.cfg.resolved_head_dim
+    lo, hi = split.kv0 * hd, (split.kv0 + split.nkv) * hd
+    return {name: a[..., lo:hi] if name in ("k", "v", "vis_k", "vis_v")
+            else a for name, a in cache.items()}
 
 
 class LeafLayout(NamedTuple):

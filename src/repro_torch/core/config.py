@@ -14,8 +14,9 @@ with the reference's defaults;
 the optimizer's schedule; the autotuner's ``TuneCandidate`` and
 ``ModelConfig.with_candidate``; and the roofline constants of the card
 the port runs on (an NVIDIA H100, not the reference's TPU).  The
-shape/mesh configs wait for the slice that needs them (ROADMAP Queue 1
-item 7).
+shape/mesh configs wait for the dry-run tooling (ROADMAP Queue 1 item
+7.6); the LM's model axis takes its width from the process group
+(``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -77,7 +78,8 @@ class ModelConfig:
     see the reference for the long-form comments on each cache knob.
     The reference's ``scan_layers`` and ``remat`` are XLA knobs with no
     counterpart here: ``DenseLM`` holds one module per layer and keeps
-    its activations (ROADMAP Queue 1 item 6.4)."""
+    its activations (``remat`` comes back with training over the model
+    axis, ROADMAP Queue 1 items 6.4 and 7.4)."""
     name: str
     family: str                 # gcn | dense | moe | ssm | hybrid | vlm
                                 # | audio

@@ -25,8 +25,10 @@ Rank ``r`` takes ``cuda:r`` when at least ``W`` cards are visible and
 ``cuda:0`` otherwise (gloo only: NCCL refuses two ranks on one card, so
 ``--dist nccl`` with fewer cards than workers raises); ``--device cpu``
 keeps every rank on the CPU.  Every entry point here takes the card
-unless its caller names the CPU.  ``make_production_mesh`` waits for ROADMAP
-Queue 1 item 7.4.
+unless its caller names the CPU.  The LM's model axis is such a group
+too: ``serve_lm --dist`` installs it with ``models.layers.set_mesh``.
+``make_production_mesh`` waits for the dry-run tooling (ROADMAP Queue 1
+item 7.6).
 """
 from __future__ import annotations
 

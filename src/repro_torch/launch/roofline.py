@@ -12,7 +12,7 @@ Per step, each term is a count over the rate the card moves it at:
 The constants are the H100's (``core/config.py``).  The reference's
 dry-run analysis (``analyse``, the markdown tables and ``main``, which
 read ``launch/dryrun.py``'s JSONL) waits for the dry-run tooling
-(ROADMAP Queue 1 item 7.4).
+(ROADMAP Queue 1 item 7.6).
 """
 from __future__ import annotations
 

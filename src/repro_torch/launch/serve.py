@@ -18,7 +18,17 @@ latency clock and sends every request to the other ranks as a
 fixed-shape ``broadcast`` header (a length of -1 ends every rank's
 loop); each rank generates and runs the forward on its row of the
 request's ``[W, bucket]`` seeds, and the predictions are gathered with
-one ``all_gather``.  The LM decode loop runs in one process only.
+one ``all_gather``.  For an LM, ``--dist gloo|nccl --workers M`` serves
+over a model axis of M ranks (``models/layers.py``): a MoE splits its
+experts ``E / M`` per rank and ``--shard-heads`` splits every
+attention's heads (and the KV cache where the kv heads divide M); rank 0
+prints the tokens and tok/s.
+Decode runs one token a step, so it always takes the MoE's gather path
+(its expert outputs all-gathered): the expert-parallel all-to-all,
+sequence parallelism and chunked attention act only on a multi-token
+sequence, and are ``zoo.settings`` switches of the prefill forward
+(``zoo.forward_logits``), which runs per rank through
+``launch/mesh.py``'s runner.
 
 ``compile_count()`` counts the distinct step shapes the server has run:
 the ladder is run once at startup, and the request path must add none
@@ -47,6 +57,8 @@ Examples::
         --device cpu --nodes 2000 --requests 16
     python -m repro_torch.launch.serve --arch smollm-135m --smoke \\
         --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke \\
+        --device cpu --dist gloo --workers 2 --shard-heads
 """
 from __future__ import annotations
 
@@ -342,17 +354,6 @@ def build_server(args, group: WorkerGroup = None):
     return server, head_order
 
 
-def _refuse_dist(args, what: str) -> None:
-    """Raise for ``--dist gloo|nccl``: the LM paths run in one process
-    (their process backend is tensor parallelism, ROADMAP Queue 1 items
-    6 and 7.4)."""
-    if args.dist != "none":
-        raise NotImplementedError(
-            f"--dist {args.dist}: {what} runs in one process only (--dist "
-            f"none); the LM paths' process backend (tensor parallelism) "
-            f"is ROADMAP Queue 1 items 6 and 7.4")
-
-
 def _request_channel(group: WorkerGroup, capacity: int):
     """``exchange(ids) -> ids``: worker 0's request (None ends the loop)
     on every rank of a process group, as one fixed-shape ``broadcast``
@@ -524,7 +525,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_lm(args, step_hook=None) -> dict:
+def serve_lm(args, step_hook=None, group: WorkerGroup = None) -> dict:
     """LM serving: batched greedy decode with the model's cache (the dense
     and Qwen3-MoE LMs' bfloat16 KV cache, the SSM's recurrent state, the
     hybrid's state and per-site KV caches, DeepSeek's latent cache, the
@@ -542,9 +543,28 @@ def serve_lm(args, step_hook=None) -> dict:
     timed loop, so tok/s measures decode, not a host sync per token.
     ``step_hook(i)``, if given, runs after the ``i``-th timed step is
     enqueued.  Returns ``tok_s``, the timed loop's ``wall_s`` and the
-    generated ``tokens [B, gen_len]`` (int32 numpy)."""
-    _refuse_dist(args, "serve_lm")
-    dev = resolve_device(args.device)
+    generated ``tokens [B, gen_len]`` (int32 numpy).
+
+    On a model-axis ``group`` (``main`` joins it for ``--dist
+    gloo|nccl``) every rank builds its shard of the same seeded weights
+    (under ``--shard-heads`` its heads too) and decodes the same prompt
+    on the MoE's gather path; every rank returns the tokens and rank 0
+    prints them.  ``--workers`` > 1 without a process backend raises."""
+    if group is None and args.dist != "none":
+        raise ValueError(f"--dist {args.dist}: the LM's model axis runs one "
+                         f"process per rank: start it through main(), which "
+                         f"launches or joins the ranks, or pass their group")
+    if group is None and args.workers > 1:
+        raise ValueError(f"--workers {args.workers} with --dist none: the "
+                         f"LM's model axis needs a process per rank (--dist "
+                         f"gloo|nccl)")
+    with zoo.settings(group, shard_heads=args.shard_heads):
+        return _serve_lm(args, step_hook, group)
+
+
+def _serve_lm(args, step_hook, group) -> dict:
+    dev = group.device if group is not None else resolve_device(args.device)
+    lead = group is None or group.lead
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -581,11 +601,15 @@ def serve_lm(args, step_hook=None) -> dict:
         dt = time.perf_counter() - t0
     toks = args.gen_len * args.batch
     tok_s = toks / dt if dt > 0 else 0.0
-    print(f"generated {toks} tokens in {dt:.2f}s ({tok_s:.1f} tok/s batched)")
     gen = (torch.cat(out, dim=1).cpu().numpy() if out
            else np.zeros((args.batch, 0), np.int32))
-    if gen.size:
-        print("sample token ids:", gen[0][:16])
+    if lead:
+        axis = (f" over a model axis of {group.world} ranks"
+                if group is not None else "")
+        print(f"generated {toks} tokens in {dt:.2f}s ({tok_s:.1f} tok/s "
+              f"batched){axis}")
+        if gen.size:
+            print("sample token ids:", gen[0][:16])
     return {"tok_s": tok_s, "tokens": gen, "wall_s": dt}
 
 
@@ -609,18 +633,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--shard-heads", action="store_true",
+                    help="LM model axis: split every attention's heads "
+                         "(and the KV cache where the kv heads divide "
+                         "--workers)")
     # --- graph-serving flags
     ap.add_argument("--workers", type=int, default=1,
                     help="workers W: on the stacked worker axis of one "
                          "process (--dist none), or one process each "
-                         "(--dist gloo|nccl)")
+                         "(--dist gloo|nccl); an LM's model axis needs "
+                         "--dist gloo|nccl")
     ap.add_argument("--dist", default="none", choices=mesh.DIST_BACKENDS,
-                    help="worker backend of the graph tier: none = the "
-                         "stacked axis in this process; gloo = one process "
-                         "per worker (on a card every collective stages "
-                         "through host memory); nccl = one process per "
-                         "card (needs W visible cards).  The LM decode "
-                         "loop runs in one process only")
+                    help="worker backend: none = the stacked axis in this "
+                         "process (an LM: one process); gloo = one process "
+                         "per worker or model-axis rank (on a card every "
+                         "collective stages through host memory); nccl = "
+                         "one process per card (needs W visible cards)")
     ap.add_argument("--dist-timeout", type=float, default=3600,
                     help="--dist: seconds the launcher waits for its ranks "
                          "before ending them and failing")
@@ -649,19 +677,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     """CLI entry: dispatch on the arch family — ``gcn`` archs get the
     graph-serving tier, LM archs the decode loop.  With ``--dist
-    gloo|nccl`` the graph tier spawns the ``--workers`` ranks
-    (``launch/mesh.py``) and exits non-zero if any fails or outlives
-    ``--dist-timeout``; a rank (or a ``torchrun`` worker) joins the group
-    and serves."""
+    gloo|nccl`` it spawns the ``--workers`` ranks (``launch/mesh.py``:
+    graph workers, or an LM's model axis) and exits non-zero if any fails
+    or outlives ``--dist-timeout``; a rank (or a ``torchrun`` worker)
+    joins the group and serves."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if get_config(args.arch).family != "gcn":
-        serve_lm(args)
-    elif args.dist == "none":
-        serve_gcn(args)
+    body = serve_gcn if get_config(args.arch).family == "gcn" else serve_lm
+    if args.dist == "none":
+        body(args)
     else:
         mesh.launch_or_join("repro_torch.launch.serve", argv, args,
-                            lambda group: serve_gcn(args, group=group))
+                            lambda group: body(args, group=group))
 
 
 if __name__ == "__main__":

@@ -64,8 +64,9 @@ labels the tokens rolled left by one, then the VLM's vision or Whisper's
 frame embeddings as float32 normals from the same generator) through
 ``train/train_loop.py``'s step, with ``--microbatches``; it checkpoints
 the ``TrainState`` in the reference's layout (stacked layers) and ``--resume`` restores one written by either
-package.  It runs in one process: ``--dist`` with an LM arch raises (the
-LM paths' process backend is ROADMAP Queue 1 items 6 and 7.4).
+package.  It runs in one process: ``--dist`` with an LM arch raises
+(``serve_lm`` runs over the LM's model axis; training over it, with FSDP
+and ``maybe_remat``, is ROADMAP Queue 1 items 6.4 and 7.4).
 ``--device`` is the one flag the reference lacks.
 
 Examples::
@@ -1132,8 +1133,9 @@ def main(argv=None) -> None:
         if args.dist != "none":
             raise NotImplementedError(
                 f"--dist {args.dist}: train_lm runs in one process only "
-                f"(--dist none); the LM paths' process backend (tensor "
-                f"parallelism) is ROADMAP Queue 1 items 6 and 7.4")
+                f"(--dist none); training over the LM's model axis waits "
+                f"for ROADMAP Queue 1 items 6 and 7.4 (6.4: maybe_remat; "
+                f"7.4: train_lm --dist with FSDP); serve_lm --dist runs")
         train_lm(args)
         return
     body = offline_gcn if args.offline else train_gcn

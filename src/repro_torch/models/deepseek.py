@@ -14,8 +14,19 @@ and the roped key ``k_r [B, S, 64]`` in bfloat16, written in place;
 ``q_nope`` goes into latent space through ``W_uk`` and the values come
 back through ``W_uv`` after the softmax.  The routed experts are
 ``moe.moe_forward``'s layer, with the shared experts beside them.
+
+On the model axis under ``set_shard_heads(True)`` an ``MLA`` whose heads
+divide M holds the rank's heads at the reference's two ``shard_heads``
+sites: the columns of ``wuq`` (the queries) and of ``wukv`` (the
+expanded keys and values), and the rows of ``wo``; the latent
+projections, their norms and the latent cache stay whole on every rank,
+and the output is summed by one ``all_reduce``.  The MoE layers split
+their experts (``moe.py``); sequence parallelism gathers the sequence
+for ``mla_train`` and keeps the FFN on the rank's slice.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -33,8 +44,11 @@ class MLA(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        d, h = cfg.d_model, cfg.n_heads
+        d = cfg.d_model
         nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        vd = cfg.v_head_dim
+        self.split = sp = L.head_split(cfg.n_heads)
+        h = sp.nq if sp else cfg.n_heads
 
         def zeros(*shape):
             return nn.Parameter(torch.zeros(shape, device=device))
@@ -42,10 +56,19 @@ class MLA(nn.Module):
         self.wuq = zeros(cfg.q_lora_rank, h * (nope + rope))
         self.wdkv = zeros(d, cfg.kv_lora_rank)
         self.wkr = zeros(d, rope)
-        self.wukv = zeros(cfg.kv_lora_rank, h * (nope + cfg.v_head_dim))
-        self.wo = zeros(h * cfg.v_head_dim, d)
+        self.wukv = zeros(cfg.kv_lora_rank, h * (nope + vd))
+        self.wo = zeros(h * vd, d)
+        if sp is not None:
+            for w, dim, width in ((self.wuq, 1, nope + rope),
+                                  (self.wukv, 1, nope + vd), (self.wo, 0, vd)):
+                L.split_param(w, dim, sp.q0 * width, cfg.n_heads * width)
         self.lnq = nn.Parameter(torch.ones(cfg.q_lora_rank, device=device))
         self.lnkv = nn.Parameter(torch.ones(cfg.kv_lora_rank, device=device))
+
+
+def _heads(p: MLA, cfg: ModelConfig) -> int:
+    """The heads ``p`` holds: the rank's of a head-split MLA."""
+    return p.split.nq if p.split else cfg.n_heads
 
 
 def _query(p: MLA, x: torch.Tensor, cfg: ModelConfig):
@@ -54,7 +77,7 @@ def _query(p: MLA, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     cq = L.rmsnorm(p.lnq, x @ p.wdq.to(x.dtype), cfg.norm_eps)
-    q = (cq @ p.wuq.to(x.dtype)).reshape(b, s, cfg.n_heads, nope + rope)
+    q = (cq @ p.wuq.to(x.dtype)).reshape(b, s, _heads(p, cfg), nope + rope)
     return q[..., :nope], q[..., nope:]
 
 
@@ -71,9 +94,14 @@ def mla_train(p: MLA, x: torch.Tensor, cfg: ModelConfig,
               pos: torch.Tensor) -> torch.Tensor:
     """MLA over a full sequence: ``x [B, S, D]``, ``pos [B, S]`` ->
     ``[B, S, D]``; keys ``[k_nope | k_r]`` per head, causal
-    ``gqa_attention`` of 192-wide q/k heads over 128-wide values."""
-    b, s, _ = x.shape
-    h, nope = cfg.n_heads, cfg.qk_nope_head_dim
+    ``gqa_attention`` of 192-wide q/k heads over 128-wide values.  ``x``
+    may hold the rank's slice of the sequence (gathered here; the result
+    is the slice)."""
+    s = pos.shape[1]
+    sliced = x.shape[1] != s
+    x = L.gather_seq(x, s)
+    b = x.shape[0]
+    h, nope = _heads(p, cfg), cfg.qk_nope_head_dim
     rope, vd = cfg.qk_rope_head_dim, cfg.v_head_dim
     qn, qr = _query(p, x, cfg)
     qr = L.apply_rope(qr, pos, cfg.rope_theta)
@@ -83,7 +111,9 @@ def mla_train(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     k = torch.cat([kn, kr.expand(b, s, h, rope)], dim=-1)
     out = L.gqa_attention(torch.cat([qn, qr], dim=-1), k, v, causal=True,
                           use_flash=cfg.use_flash_attention)
-    return out.reshape(b, s, h * vd) @ p.wo.to(x.dtype)
+    out = L.reduce_heads(out.reshape(b, s, h * vd) @ p.wo.to(x.dtype),
+                         p.split)
+    return L.seq_slice(out) if sliced else out
 
 
 def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig,
@@ -96,7 +126,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     in the compute dtype, then float32 over sqrt(nope + rope), keys past
     ``pos`` masked; the values ``(w c_kv) W_uv``."""
     b = x.shape[0]
-    h, nope = cfg.n_heads, cfg.qk_nope_head_dim
+    h, nope = _heads(p, cfg), cfg.qk_nope_head_dim
     rope, vd, lora = cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     qn, qr = _query(p, x, cfg)                       # [B, 1, H, nope|rope]
@@ -117,7 +147,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o_lat = torch.einsum("bhs,bsl->bhl", w, ckv)
     out = torch.einsum("bhl,lhv->bhv", o_lat, wuv).reshape(b, h * vd)
-    return out[:, None, :] @ p.wo.to(x.dtype)
+    return L.reduce_heads(out[:, None, :] @ p.wo.to(x.dtype), p.split)
 
 
 class MLABlock(nn.Module):
@@ -132,11 +162,13 @@ class MLABlock(nn.Module):
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, device=device))
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
 
-    def ffn(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-        """``x + ffn(norm(x))``."""
+    def ffn(self, x: torch.Tensor, cfg: ModelConfig,
+            seq_len: Optional[int] = None) -> torch.Tensor:
+        """``x + ffn(norm(x))`` (``x`` may hold the rank's slice of a
+        ``seq_len``-token sequence)."""
         z = L.rmsnorm(self.ln2, x, cfg.norm_eps)
         if self.moe is not None:
-            return x + M.moe_forward(self.moe, z, cfg)
+            return x + M.moe_forward(self.moe, z, cfg, seq_len)
         return x + L.mlp_forward(self.mlp, z)
 
 
@@ -175,14 +207,15 @@ class DeepSeekLM(nn.Module):
         """Full-sequence causal forward: ``tokens [B, S]`` -> float32 logits
         ``[B, S, V_pad]`` (plain attention: no kernel runs)."""
         b, s = tokens.shape
-        x = L.embed_tokens(self.tok, tokens)
+        x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for blk, _, _ in self.blocks():
             x = x + mla_train(blk.attn, L.rmsnorm(blk.ln1, x,
                                                   self.cfg.norm_eps),
                               self.cfg, pos)
-            x = blk.ffn(x, self.cfg)
-        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+            x = blk.ffn(x, self.cfg, s)
+        return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
+                         self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``."""

@@ -12,6 +12,11 @@ multiples of 128, ``ops.flash_attention`` at every site (the reference's
 predicate, ``layers.gqa_attention``).  Decode is the SSM's O(1)
 recurrence (the conv history through bfloat16 in the cache) and the
 dense LM's cached attention at each site.
+
+On the model axis the Mamba layers and their state are replicated on
+every rank (the reference's variants shard no Mamba weight); the shared
+block's attention splits its heads under ``set_shard_heads(True)``, with
+each site's KV cache holding the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -72,16 +77,17 @@ class Zamba2LM(nn.Module):
         ``[B, S, V_pad]``."""
         cfg = self.cfg
         b, s = tokens.shape
-        x = L.embed_tokens(self.tok, tokens)
+        x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for kind, i in self.schedule():
             if kind == "attn":
                 x, _ = self.shared(x, cfg, pos)
             else:
                 blk = self.layers[i]
-                x = x + blk.mamba_train(L.rmsnorm(blk.ln, x, cfg.norm_eps),
-                                        cfg)
-        return L.lm_head(self.tok, self.norm_f, x, cfg, self.head)
+                x = x + L.seq_apply(lambda z: blk.mamba_train(z, cfg),
+                                    L.rmsnorm(blk.ln, x, cfg.norm_eps), s)
+        return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), cfg,
+                         self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``,
@@ -105,7 +111,7 @@ class Zamba2LM(nn.Module):
             "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1,
                                  d_in + 2 * n), dtype=torch.bfloat16,
                                 device=dev),
-            **kv_cache(cfg, sites, batch, seq, dev)}
+            **kv_cache(cfg, sites, batch, seq, dev, self.shared.attn.split)}
 
     def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int):
         """One decode step: ``tokens [B, 1]`` at position ``pos`` ->

@@ -24,11 +24,28 @@ combine.  Three points follow the reference exactly, on both devices:
 
 The combine adds each token's k contributions in the reference's order
 (ascending expert id, the order of the sorted scatter-add) one rounding
-at a time, with no atomics.  The expert-parallel all-to-all path
-(``moe_forward_ep``, the reference's ``MOE_IMPL = "ep_a2a"``) is a mesh
-path and waits for ROADMAP Queue 1 item 7.4.  ``tally()`` counts the
-dispatch's kept, dropped and collision-zeroed assignments while it is
-open (off by default).
+at a time, with no atomics.  ``tally()`` counts the dispatch's kept,
+dropped and collision-zeroed assignments while it is open (off by
+default).
+
+**The model axis** (``layers.set_mesh``, M ranks).  Where M divides the
+experts, an ``MoEMLP`` built on the axis holds the rank's ``E / M``
+experts (``split``); the router and the shared experts stay whole.  Two
+paths run it:
+
+* ``moe_forward`` (the gather path, decode always): every rank routes
+  all tokens and builds the dispatch as above, runs ``_expert_swiglu``
+  on its own experts' rows, and the expert outputs are all-gathered
+  before the combine (the reference's ``[E, cap, D]`` buffer and outputs
+  sharded over ``model``): the unsharded result, bit for bit.
+* ``moe_forward_ep`` (``set_moe_impl("ep_a2a")``, the reference's
+  ``shard_map``), where M also divides the sequence: each rank routes
+  its own ``S / M`` slice of the tokens, sends each assignment to the
+  rank that owns its expert (``cap`` slots per destination), sorts what
+  it receives by local expert (``c2`` slots each), runs its experts and
+  sends the rows home.  Overflow past either capacity is dropped, not
+  clipped.  Its combine adds a token's k contributions in top-k order,
+  as the reference's ``y.at[ftok].add`` does.
 """
 from __future__ import annotations
 
@@ -44,8 +61,30 @@ from . import layers as L
 from .transformer import MLP, Attention, kv_cache
 
 CAPACITY_FACTOR = 1.25
+#: ``"gather"`` (``moe_forward``'s dispatch) or ``"ep_a2a"``
+MOE_IMPLS = ("gather", "ep_a2a")
+MOE_IMPL = "gather"
 
 _TALLY: Optional[list] = None
+_PLANS: Optional[list] = None
+
+
+def set_moe_impl(impl: str) -> None:
+    """``moe_forward``'s dispatch on a model axis: ``"gather"`` or
+    ``"ep_a2a"``."""
+    global MOE_IMPL
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"MoE impl must be one of {MOE_IMPLS}, got "
+                         f"{impl!r}")
+    MOE_IMPL = impl
+
+
+class ExpertSplit(NamedTuple):
+    """A rank's experts ``[e0, e0 + n)`` on rank ``r`` of ``m``."""
+    m: int
+    r: int
+    e0: int
+    n: int
 
 
 def capacity(t: int, cfg: ModelConfig) -> int:
@@ -70,6 +109,18 @@ class Dispatch(NamedTuple):
     cap: int
 
 
+def top_k(router: torch.Tensor, xf: torch.Tensor, k: int):
+    """``(topv, topi) [T, k]``: router logits in ``xf``'s dtype, then
+    float32; softmax; the top k with ties to the lower index (the first k
+    of a stable descending sort, as ``lax.top_k``); the weights
+    renormalised."""
+    logits = (xf @ router.to(xf.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    return topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9), topi
+
+
 def route(router: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig
           ) -> Dispatch:
     """Top-k routing and the capacity plan of ``xf [T, D]``: router logits
@@ -78,11 +129,7 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig
     ``lax.top_k``); the weights renormalised; the flat expert ids sorted
     stably and each assignment's rank in its expert's queue."""
     t, k, e = xf.shape[0], cfg.top_k, cfg.n_experts
-    logits = (xf @ router.to(xf.dtype)).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]
-    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    topv, topi = top_k(router, xf, k)
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
@@ -101,24 +148,53 @@ def _expert_swiglu(p, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p.wd.to(buf.dtype))
 
 
-def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                seq_len: Optional[int] = None) -> torch.Tensor:
     """The MoE MLP of ``x [B, S, D]`` in ``x``'s dtype (``p`` holds
     ``router [D, E]``, ``wg``/``wu [E, D, F]``, ``wd [E, F, D]`` and, with
     shared experts, ``shared``): the reference's capacity dispatch and its
     slot ``cap - 1`` collision (module docstring), the combine in its
-    order, plus the shared experts' MLP."""
+    order, plus the shared experts' MLP.
+
+    On the model axis ``x`` may hold the rank's slice of a ``seq_len``-
+    token sequence (sequence parallelism; the result is the slice too).
+    With ``MOE_IMPL == "ep_a2a"``, experts split and M dividing the
+    sequence (the reference's predicate) it runs ``moe_forward_ep`` on
+    the rank's slice; otherwise the gather path on the whole sequence."""
+    s = x.shape[1] if seq_len is None else seq_len
+    sliced = x.shape[1] != s
+    sp = p.split
+    if MOE_IMPL == "ep_a2a" and sp is not None and s % sp.m == 0:
+        xs = x if sliced else L.seq_slice(x)
+        y = moe_forward_ep(p, xs, cfg)
+        if p.shared is not None:
+            y = y + L.mlp_forward(p.shared, xs)
+        return y if sliced else L.gather_seq(y, s)
+    if sliced:
+        return L.seq_slice(_moe_gather(p, L.gather_seq(x, s), cfg))
+    return _moe_gather(p, x, cfg)
+
+
+def _moe_gather(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``moe_forward``'s gather path on the whole sequence; with experts
+    split, each rank runs its experts' rows and the outputs are
+    all-gathered before the combine."""
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.n_experts
     xf = x.reshape(t, d)
     r = route(p.router, xf, cfg)
     cap = r.cap
     tok = r.order // k                             # sorted -> token
-    kept = torch.nonzero(r.keep).squeeze(1)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    buf[r.se[kept], r.rank[kept]] = xf[tok[kept]]
+    sp = p.split
+    e0, el = (sp.e0, sp.n) if sp else (0, e)
+    kept = torch.nonzero(r.keep & (r.se >= e0) & (r.se < e0 + el)).squeeze(1)
+    buf = torch.zeros((el, cap, d), dtype=x.dtype, device=x.device)
+    buf[r.se[kept] - e0, r.rank[kept]] = xf[tok[kept]]
     over = r.count > cap
-    buf[over, cap - 1] = 0                         # the reference's collision
+    buf[over[e0:e0 + el], cap - 1] = 0             # the reference's collision
     out = _expert_swiglu(p, buf)
+    if sp is not None:
+        out = L._axis(sp.m, sp.r).all_gather(out[None])[0]
     # sorted -> flat: assignment i of token t sits at t k + i; its weight
     # is zero where it was dropped (the reference reads slot cap - 1 there)
     rank_c = torch.clamp(r.rank, max=cap - 1)
@@ -141,6 +217,90 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y.reshape(b, s, d)
 
 
+def _sorted_slots(key: torch.Tensor, n_keys: int):
+    """``(order, sorted key, slot)``: a stable sort of ``key`` (values in
+    ``[0, n_keys)``) and each sorted entry's rank among its equal keys,
+    the reference's ``argsort`` and ``i - searchsorted(sk, sk)``."""
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    count = torch.bincount(key, minlength=n_keys)
+    first = torch.cumsum(count, 0) - count
+    return order, sk, torch.arange(key.numel(), device=key.device) - first[sk]
+
+
+def moe_forward_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's expert-parallel MoE (``moe_forward_ep``'s
+    ``shard_map`` body) on this rank's tokens ``x [B, S / M, D]``,
+    without the shared experts: ``[B, S / M, D]``.
+
+    1. route the rank's ``T`` tokens (``top_k``); assignment ``i`` goes
+       to rank ``dest = expert // (E / M)``; a stable sort by ``dest``
+       gives each its slot, kept below ``cap = max(int(T k / M * 2) + 8,
+       8)``;
+    2. three ``all_to_all``s send the rows, the local expert ids and the
+       valid marks;
+    3. the received rows sorted stably by local expert (the empty slots
+       keyed after every expert), kept below ``c2 = max(int(M cap /
+       (E / M) * 2) + 8, 8)``, through ``_expert_swiglu`` as ``[E / M,
+       c2, D]``;
+    4. one ``all_to_all`` sends the rows home; the combine adds each
+       token's weighted contributions in top-k order.
+
+    Everything dropped past a capacity contributes zero."""
+    sp = p.split
+    group = L._axis(sp.m, sp.r)
+    m, el = sp.m, sp.n
+    bl, sl, d = x.shape
+    t, k = bl * sl, cfg.top_k
+    xf = x.reshape(t, d)
+    topv, topi = top_k(p.router, xf, k)
+    fe = topi.reshape(-1)
+    fw = topv.reshape(-1).to(xf.dtype)
+    cap = max(int(t * k / m * 2.0) + 8, 8)
+    order, dest, slot = _sorted_slots(fe // el, m)
+    ok = slot < cap
+    sel = torch.nonzero(ok).squeeze(1)
+    at = (dest[sel], slot[sel])
+    send_x = xf.new_zeros((m, cap, d))
+    send_x[at] = xf[order[sel] // k]
+    send_e = torch.zeros((m, cap), dtype=torch.int32, device=x.device)
+    send_e[at] = (fe[order[sel]] % el).to(torch.int32)
+    send_m = xf.new_zeros((m, cap))
+    send_m[at] = 1
+    rx = group.all_to_all(send_x[None])[0].reshape(m * cap, d)
+    re = group.all_to_all(send_e[None])[0].reshape(m * cap)
+    rm = group.all_to_all(send_m[None])[0].reshape(m * cap)
+    c2 = max(int(m * cap / el * 2.0) + 8, 8)
+    key2 = (re + (1 - rm.to(torch.int32)) * el).to(torch.int64)
+    order2, sk2, slot2 = _sorted_slots(key2, el + 1)
+    ok2 = (slot2 < c2) & (sk2 < el)
+    sel2 = torch.nonzero(ok2).squeeze(1)
+    buf = xf.new_zeros((el, c2, d))
+    buf[sk2[sel2], slot2[sel2]] = rx[order2[sel2]]
+    out = _expert_swiglu(p, buf)
+    back = xf.new_zeros((m * cap, d))
+    back[order2[sel2]] = out[sk2[sel2], slot2[sel2]]
+    home = group.all_to_all(back.reshape(1, m, cap, d))[0]
+    got = home[dest, torch.clamp(slot, max=cap - 1)] * ok[:, None].to(
+        xf.dtype)
+    contrib = torch.empty_like(got)
+    contrib[order] = got
+    prod = (contrib * fw[:, None]).reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        y = y + prod[:, j]
+    if _TALLY is not None:
+        dropped = (~ok).sum() + ((sk2 < el) & ~ok2).sum()
+        _TALLY.append(torch.stack([t * k - dropped, dropped,
+                                   torch.zeros_like(dropped)]))
+    if _PLANS is not None:
+        _PLANS.append({"topi": topi, "order": order, "dest": dest,
+                       "slot": slot, "ok": ok, "recv_e": re, "recv_m": rm,
+                       "order2": order2, "slot2": slot2, "ok2": ok2,
+                       "cap": cap, "c2": c2})
+    return y.reshape(bl, sl, d)
+
+
 def moe_drop_rate(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Share of the ``T k`` assignments dropped by capacity (the
     reference's benchmark metric), a float32 scalar.  It does not count
@@ -151,19 +311,28 @@ def moe_drop_rate(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def tally():
+def tally(plans: bool = False):
     """Count every ``moe_forward`` call's dispatch inside the block:
     yields a dict that holds, on exit, ``calls``, ``assignments``,
     ``dropped`` (past capacity) and ``zeroed`` (kept but zeroed by the
     slot ``cap - 1`` collision).  The counts stay on the device until
-    the exit (no host sync per call)."""
-    global _TALLY
+    the exit (no host sync per call).  The gather path counts the whole
+    dispatch on every rank; ``moe_forward_ep`` counts the rank's own
+    assignments and the drops it makes (its tokens past ``cap``, the
+    rows it received past ``c2``), so the ranks' counts sum to the whole.
+    With ``plans`` it also holds ``plans``: each ``moe_forward_ep``
+    call's dispatch integers (top-k experts, both sorts, slots and kept
+    masks, the received expert ids and marks, ``cap`` and ``c2``)."""
+    global _TALLY, _PLANS
     saved, _TALLY = _TALLY, []
+    saved_plans, _PLANS = _PLANS, ([] if plans else None)
     out: dict = {}
     try:
         yield out
     finally:
         rows, _TALLY = _TALLY, saved
+        if plans:
+            out["plans"], _PLANS = _PLANS, saved_plans
         kept, dropped, zeroed = (torch.stack(rows).sum(0).tolist() if rows
                                  else (0, 0, 0))
         out.update(calls=len(rows), assignments=kept + dropped,
@@ -173,18 +342,27 @@ def tally():
 class MoEMLP(nn.Module):
     """``router [D, E]``, the experts' ``wg``/``wu [E, D, F]`` and ``wd
     [E, F, D]``, and with shared experts ``shared``, one SwiGLU MLP of
-    width ``n_shared_experts x d_ff_expert``."""
+    width ``n_shared_experts x d_ff_expert``.  Built on a model axis that
+    divides the experts, the rank's ``E / M`` of them (``split``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+        m, r = L.model_axis()
+        # every rank holds all experts where M does not divide them
+        self.split = sp = (ExpertSplit(m, r, r * (e // m), e // m)
+                           if m > 1 and e % m == 0 else None)
+        el = sp.n if sp else e
 
         def zeros(*shape):
             return nn.Parameter(torch.zeros(shape, device=device))
         self.router = zeros(d, e)
-        self.wg = zeros(e, d, f)
-        self.wu = zeros(e, d, f)
-        self.wd = zeros(e, f, d)
+        self.wg = zeros(el, d, f)
+        self.wu = zeros(el, d, f)
+        self.wd = zeros(el, f, d)
+        if sp is not None:
+            for w in (self.wg, self.wu, self.wd):
+                L.split_param(w, 0, sp.e0, e)
         self.shared = (MLP(cfg, device, d_ff=cfg.n_shared_experts * f)
                        if cfg.n_shared_experts else None)
 
@@ -207,7 +385,7 @@ class MoEBlock(nn.Module):
             cache=cache, cache_pos=cache_pos)
         x = x + h
         x = x + moe_forward(self.moe, L.rmsnorm(self.ln2, x, cfg.norm_eps),
-                            cfg)
+                            cfg, pos.shape[1])
         return x, new_cache
 
 
@@ -237,20 +415,22 @@ class Qwen3MoeLM(nn.Module):
         ``[B, S, V_pad]``; with ``use_flash_attention`` each layer runs
         ``ops.flash_attention`` once (both lengths multiples of 128)."""
         b, s = tokens.shape
-        x = L.embed_tokens(self.tok, tokens)
+        x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in self.layers:
             x, _ = block(x, self.cfg, pos)
-        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+        return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
+                         self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``."""
         return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
 
     def init_cache(self, batch: int, seq: int) -> dict:
-        """Zeroed bfloat16 KV cache: ``k``/``v [L, B, S, Hkv Dh]``."""
+        """Zeroed bfloat16 KV cache: ``k``/``v [L, B, S, Hkv Dh]`` (the
+        rank's kv heads of a head-split model)."""
         return kv_cache(self.cfg, self.cfg.n_layers, batch, seq,
-                        self.tok.device)
+                        self.tok.device, self.layers[0].attn.split)
 
     def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int):
         """One decode step: ``tokens [B, 1]`` at position ``pos`` ->

@@ -19,6 +19,11 @@ N] float32, "conv" [L, B, W - 1, C] bfloat16}`` written in place.  The
 casts follow the reference step by step: the input projection, the
 causal conv, ``silu`` and the skip in ``layers.COMPUTE_DTYPE``; ``dt``,
 the SSD operands and the state in float32.
+
+On the model axis (``layers.set_mesh``) every Mamba layer and its state
+are replicated on every rank, as the reference's mesh variants leave
+them; under sequence parallelism each layer gathers the sequence for its
+scan and keeps the rank's slice of its output.
 """
 from __future__ import annotations
 
@@ -277,12 +282,17 @@ class Mamba2LM(nn.Module):
 
     def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward: ``tokens [B, S]`` -> float32 logits
-        ``[B, S, V_pad]``; every layer runs ``ops.ssd_scan`` once."""
-        x = L.embed_tokens(self.tok, tokens)
+        ``[B, S, V_pad]``; every layer runs ``ops.ssd_scan`` once.  On
+        the model axis the layers are replicated: under sequence
+        parallelism each gathers the sequence for its scan and keeps the
+        rank's slice of its output."""
+        s = tokens.shape[1]
+        x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         for blk in self.layers:
-            x = x + blk.mamba_train(L.rmsnorm(blk.ln, x, self.cfg.norm_eps),
-                                    self.cfg)
-        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+            x = x + L.seq_apply(lambda z: blk.mamba_train(z, self.cfg),
+                                L.rmsnorm(blk.ln, x, self.cfg.norm_eps), s)
+        return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
+                         self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``,

@@ -9,6 +9,12 @@ loop.  Weights are float32 in the reference's ``[d_in, d_out]`` layout,
 so ``repro_torch.convert.lm_params_from_numpy`` copies them across.
 The smollm configs tie the read-out to the embedding; stablelm-12b and
 llama3-405b hold an untied ``head [D, V_pad]``.
+
+On the model axis (``layers.set_mesh``) an ``Attention`` built under
+``set_shard_heads(True)`` holds the rank's heads and the KV cache its kv
+heads; the MLP, the embedding and the read-out stay whole on every rank.
+Under ``set_seq_parallel(True)`` the residual between blocks is the
+rank's slice of the sequence, gathered once before the read-out.
 """
 from __future__ import annotations
 
@@ -24,24 +30,36 @@ def _matrix(d_in: int, d_out: int, device) -> nn.Parameter:
 
 
 def kv_cache(cfg: ModelConfig, n: int, batch: int, seq: int,
-             device) -> dict:
+             device, split=None) -> dict:
     """Zeroed bfloat16 ``k``/``v [n, B, S, Hkv Dh]`` for ``n`` attention
-    layers (or sites)."""
-    shape = (n, batch, seq, cfg.n_kv_heads * cfg.resolved_head_dim)
+    layers (or sites); with a ``layers.HeadSplit`` the rank's kv heads
+    only."""
+    hkv = cfg.n_kv_heads if split is None else split.nkv
+    shape = (n, batch, seq, hkv * cfg.resolved_head_dim)
     return {name: torch.zeros(shape, dtype=torch.bfloat16, device=device)
             for name in ("k", "v")}
 
 
 class Attention(nn.Module):
-    """``wq [D, Hq Dh]``, ``wk``/``wv [D, Hkv Dh]``, ``wo [Hq Dh, D]``."""
+    """``wq [D, Hq Dh]``, ``wk``/``wv [D, Hkv Dh]``, ``wo [Hq Dh, D]``;
+    built on the model axis under ``set_shard_heads(True)``, the rank's
+    heads of each (``split``, a ``layers.HeadSplit``; None: whole)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         hd, d = cfg.resolved_head_dim, cfg.d_model
-        self.wq = _matrix(d, cfg.n_heads * hd, device)
-        self.wk = _matrix(d, cfg.n_kv_heads * hd, device)
-        self.wv = _matrix(d, cfg.n_kv_heads * hd, device)
-        self.wo = _matrix(cfg.n_heads * hd, d, device)
+        self.split = sp = L.head_split(cfg.n_heads, cfg.n_kv_heads)
+        hq, hkv = (sp.nq, sp.nkv) if sp else (cfg.n_heads, cfg.n_kv_heads)
+        self.wq = _matrix(d, hq * hd, device)
+        self.wk = _matrix(d, hkv * hd, device)
+        self.wv = _matrix(d, hkv * hd, device)
+        self.wo = _matrix(hq * hd, d, device)
+        if sp is not None:
+            L.split_param(self.wq, 1, sp.q0 * hd, cfg.n_heads * hd)
+            L.split_param(self.wo, 0, sp.q0 * hd, cfg.n_heads * hd)
+            if not sp.kv_whole:
+                for w in (self.wk, self.wv):
+                    L.split_param(w, 1, sp.kv0 * hd, cfg.n_kv_heads * hd)
 
 
 class MLP(nn.Module):
@@ -101,11 +119,12 @@ class DenseLM(nn.Module):
         """Full-sequence causal forward: ``tokens [B, S]`` -> float32 logits
         ``[B, S, V_pad]``."""
         b, s = tokens.shape
-        x = L.embed_tokens(self.tok, tokens)
+        x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in self.layers:
             x, _ = block(x, self.cfg, pos)
-        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+        return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
+                         self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``.
@@ -115,9 +134,10 @@ class DenseLM(nn.Module):
         return L.lm_loss(self.forward_train(batch["tokens"]), batch["labels"])
 
     def init_cache(self, batch: int, seq: int) -> dict:
-        """Zeroed bfloat16 KV cache: ``k``/``v [L, B, S, Hkv Dh]``."""
+        """Zeroed bfloat16 KV cache: ``k``/``v [L, B, S, Hkv Dh]`` (the
+        rank's kv heads of a head-split model)."""
         return kv_cache(self.cfg, self.cfg.n_layers, batch, seq,
-                        self.tok.device)
+                        self.tok.device, self.layers[0].attn.split)
 
     def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int):
         """One decode step: ``tokens [B, 1]`` at position ``pos`` (the

@@ -14,6 +14,12 @@ gate starts at 0, so at the seeded init the cross path adds nothing
 takes the plain path (the reference's predicate).  Decode keeps the
 reference's inline cross step over the per-site ``vis_k``/``vis_v``
 caches.
+
+On the model axis every attention, the cross sites' included, splits
+its heads under ``set_shard_heads(True)`` and the caches hold the
+rank's kv heads; the projected vision embeddings stay whole on every
+rank.  Under sequence parallelism a cross site's queries run on the
+rank's slice of the sequence as they stand.
 """
 from __future__ import annotations
 
@@ -84,13 +90,15 @@ class VisionLM(nn.Module):
         b, s = tokens.shape
         x = L.embed_tokens(self.tok, tokens)
         vis = vision.to(x.dtype) @ self.vproj.to(x.dtype)
+        x = L.shard_batch(x)
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         ce = cfg.cross_attn_every
         for site, cross in enumerate(self.cross):
             for block in self.layers[site * ce:(site + 1) * ce]:
                 x, _ = block(x, cfg, pos)
             x = cross(x, cfg, vis, pos)
-        return L.lm_head(self.tok, self.norm_f, x, cfg, self.head)
+        return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), cfg,
+                         self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` (with ``batch["vision"]``)
@@ -104,8 +112,10 @@ class VisionLM(nn.Module):
         Hkv Dh]`` and each site's vision keys and values ``vis_k``/``vis_v
         [sites, B, n_vision_tokens, Hkv Dh]``."""
         cfg, dev = self.cfg, self.tok.device
-        vis = kv_cache(cfg, n_sites(cfg), batch, cfg.n_vision_tokens, dev)
-        return {**kv_cache(cfg, cfg.n_layers, batch, seq, dev),
+        sp = self.layers[0].attn.split
+        vis = kv_cache(cfg, n_sites(cfg), batch, cfg.n_vision_tokens, dev,
+                       sp)
+        return {**kv_cache(cfg, cfg.n_layers, batch, seq, dev, sp),
                 "vis_k": vis["k"], "vis_v": vis["v"]}
 
     def forward_decode(self, cache: dict, tokens: torch.Tensor, pos: int):
@@ -125,12 +135,15 @@ class VisionLM(nn.Module):
                                       cache=(cache["k"][i], cache["v"][i]),
                                       cache_pos=pos)
             z = L.rmsnorm(cross.ln, x, cfg.norm_eps)
-            q = (z @ cross.attn.wq.to(x.dtype)).reshape(b, 1, cfg.n_heads, hd)
-            k = cache["vis_k"][site].reshape(b, -1, cfg.n_kv_heads, hd)
-            v = cache["vis_v"][site].reshape(b, -1, cfg.n_kv_heads, hd)
-            att = L.gqa_attention(q, k.to(x.dtype), v.to(x.dtype),
-                                  causal=False)
-            att = att.reshape(b, 1, -1) @ cross.attn.wo.to(x.dtype)
+            sp = cross.attn.split
+            q = (z @ cross.attn.wq.to(x.dtype)).reshape(b, 1, -1, hd)
+            k, v = (L.kv_for_heads(cache[name][site].reshape(
+                        b, -1, sp.nkv if sp else cfg.n_kv_heads, hd),
+                        sp, cfg.n_kv_heads).to(x.dtype)
+                    for name in ("vis_k", "vis_v"))
+            att = L.gqa_attention(q, k, v, causal=False)
+            att = L.reduce_heads(
+                att.reshape(b, 1, -1) @ cross.attn.wo.to(x.dtype), sp)
             x = x + torch.tanh(cross.gate).to(x.dtype) * att
         logits = L.lm_head(self.tok, self.norm_f, x, cfg, self.head)
         return logits[:, 0], cache

@@ -15,6 +15,13 @@ With ``use_flash_attention`` the decoder's self-attention runs
 ``ops.flash_attention`` when the prompt is a multiple of 128; the
 encoder's 1 500 frames and every cross site take the plain path (the
 reference's predicate).
+
+On the model axis every attention splits its heads under
+``set_shard_heads(True)`` (whisper-small's 12 heads over 2 or 4 ranks)
+and the self caches hold the rank's kv heads; the encoder states and
+their cache ``enc`` stay whole on every rank.  Under sequence
+parallelism the encoder and the decoder keep the rank's slice between
+blocks, and the encoder's states are gathered once at its end.
 """
 from __future__ import annotations
 
@@ -88,9 +95,10 @@ class WhisperLM(nn.Module):
         x = frames.to(L.COMPUTE_DTYPE) @ self.aproj.to(L.COMPUTE_DTYPE)
         b, t, _ = x.shape
         pos = torch.arange(t, device=x.device)[None, :].expand(b, t)
+        x = L.shard_batch(x)
         for block in self.encoder:
             x, _ = block(x, self.cfg, pos, causal=False)
-        return x
+        return L.gather_seq(x, t)
 
     def forward_train(self, tokens: torch.Tensor, frames: torch.Tensor
                       ) -> torch.Tensor:
@@ -98,11 +106,12 @@ class WhisperLM(nn.Module):
         d_audio]`` -> float32 logits ``[B, S, V_pad]``."""
         enc = self.encode(frames)
         b, s = tokens.shape
-        x = L.embed_tokens(self.tok, tokens)
+        x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in self.decoder:
             x, _ = block(x, self.cfg, enc, pos)
-        return L.lm_head(self.tok, self.norm_f, x, self.cfg, self.head)
+        return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
+                         self.head)
 
     def loss(self, batch: dict) -> torch.Tensor:
         """Cross entropy of ``batch["tokens"]`` (with ``batch["frames"]``)
@@ -115,7 +124,8 @@ class WhisperLM(nn.Module):
         """Zeroed bfloat16 caches: the decoder's ``k``/``v [L, B, S, Hkv
         Dh]`` and the encoder states ``enc [B, n_audio_frames, D]``."""
         cfg, dev = self.cfg, self.tok.device
-        return {**kv_cache(cfg, cfg.n_layers, batch, seq, dev),
+        return {**kv_cache(cfg, cfg.n_layers, batch, seq, dev,
+                           self.decoder[0].attn.split),
                 "enc": torch.zeros((batch, cfg.n_audio_frames, cfg.d_model),
                                    dtype=torch.bfloat16, device=dev)}
 

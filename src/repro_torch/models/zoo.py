@@ -2,15 +2,25 @@
 ``forward_logits``) for every family of the reference: the paper's GCN,
 the dense LM, the mixture-of-experts LMs (Qwen3-MoE; DeepSeek-V2 with
 MLA, told apart by ``kv_lora_rank``), the Llama-3.2-Vision VLM, Whisper,
-the Mamba-2 SSM LM and the Zamba2 hybrid."""
+the Mamba-2 SSM LM and the Zamba2 hybrid.
+
+``settings(group, ...)`` installs a model-axis ``group`` (one
+``ProcessWorkers`` rank per process, ``layers.set_mesh``) and the
+reference's four switches for the block: every model that ``build``'s
+``init`` makes inside it is this rank's shard (the heads under
+``shard_heads``, the experts where M divides them), drawn tensor by
+tensor as the single process draws them, and its forward and decode run
+the model axis's collectives."""
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from ..core.config import ModelConfig, resolve_device
 from . import deepseek, gcn, hybrid, moe, ssm, transformer, vlm, whisper
+from . import layers as L
 
 #: the LM families
 LM_FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
@@ -50,8 +60,32 @@ class ModelAPI(NamedTuple):
     init_cache: Optional[Callable]
 
 
+@contextlib.contextmanager
+def settings(group=None, *, moe_impl: str = "gather",
+             shard_heads: bool = False, seq_parallel: bool = False,
+             attn_impl: str = "naive"):
+    """The model axis ``group`` (None: one process) and the reference's
+    switches (``moe.set_moe_impl``, ``layers.set_shard_heads``,
+    ``set_seq_parallel``, ``set_attn_impl``) inside the block, restored on
+    exit.  Build and run a model inside the same settings."""
+    saved = (L.get_mesh(), moe.MOE_IMPL, L.SHARD_HEADS, L.SEQ_PARALLEL,
+             L.ATTN_IMPL)
+    setters = (L.set_mesh, moe.set_moe_impl, L.set_shard_heads,
+               L.set_seq_parallel, L.set_attn_impl)
+    try:
+        for fn, value in zip(setters, (group, moe_impl, shard_heads,
+                                       seq_parallel, attn_impl)):
+            fn(value)
+        yield
+    finally:
+        for fn, value in zip(setters, saved):
+            fn(value)
+
+
 def build(cfg: ModelConfig, device="cuda") -> ModelAPI:
-    """The ``ModelAPI`` of ``cfg`` with models made on ``device``."""
+    """The ``ModelAPI`` of ``cfg`` with models made on ``device``; inside
+    ``settings(group)`` each model is this rank's shard (module
+    docstring)."""
     device = resolve_device(device)
     if cfg.family == "gcn":
         return ModelAPI(cfg=cfg,

@@ -22,8 +22,8 @@ differentiates the mean over its own seeds and the sync averages the
 gradients: the group's ``all_reduce`` (``psum``) or ``tree_psum`` over the
 group (``tree``), each then divided by the worker count.  The sync runs
 before the optimizer's global-norm clip, which must see the global
-gradient.  LM training over processes waits for ROADMAP Queue 1 item
-7.4, as ``serve_lm --dist`` does.
+gradient.  LM training over the model axis waits for ROADMAP Queue 1
+item 7.4 (``serve_lm --dist`` runs over it).
 """
 from __future__ import annotations
 

@@ -540,15 +540,14 @@ _GCN = ["--smoke", "--device", "cpu", "--nodes", "300", "--workers", "2",
 
 
 def test_offline_and_serve_refuse_dist():
-    """Called without a group, ``offline_gcn`` and ``serve_gcn`` refuse
-    ``--dist`` (it runs one process per worker, which ``main`` launches or
-    joins); ``serve_lm`` raises under ``--dist`` in any case."""
+    """Called without a group, ``offline_gcn``, ``serve_gcn`` and
+    ``serve_lm`` refuse ``--dist`` (it runs one process per worker or
+    model-axis rank, which ``main`` launches or joins)."""
     from repro_torch.launch import serve
     with pytest.raises(ValueError, match="one process per worker"):
         train.offline_gcn(train.parse_args(_GCN))
     for fn, arch, err in ((serve.serve_gcn, "graphgen-gcn", ValueError),
-                          (serve.serve_lm, "smollm-135m",
-                           NotImplementedError)):
+                          (serve.serve_lm, "smollm-135m", ValueError)):
         with pytest.raises(err, match="one process"):
             fn(serve.parse_args(["--arch", arch, "--smoke", "--device",
                                  "cpu", "--nodes", "300", "--dist",

@@ -702,11 +702,16 @@ def test_reference_reads_the_dist_export(runs, reference):
 
 
 def test_serve_lm_still_refuses_dist():
-    """``serve_lm --dist`` raises before any work, naming the ROADMAP
-    items that will port the LM paths across processes."""
-    with pytest.raises(NotImplementedError, match="items 6 and 7.4"):
+    """``serve_lm`` still refuses the ``--dist`` forms it cannot run,
+    before any work: ``--dist nccl`` off the card, and ``--workers 2``
+    without a process backend (its model axis needs a process per rank;
+    ``--dist gloo`` runs, ``tests/test_torch_serve_mesh.py``)."""
+    with pytest.raises(ValueError, match="--device cuda"):
         serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
-                    "--dist", "gloo", "--workers", "2"])
+                    "--dist", "nccl", "--workers", "2"])
+    with pytest.raises(ValueError, match="process per rank"):
+        serve.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+                    "--workers", "2"])
 
 
 def test_launcher_fails_fast_on_a_dead_serving_rank():
