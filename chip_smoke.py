@@ -264,8 +264,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
                         throughout), logits within 2e-2 up to each row's
                         first difference, the final state of the equal rows
                         within 1e-2 of its largest entry and their bf16 conv
-                        history within 6.25e-2, beside a printed one-ulp
-                        floor at the carry init; and the card's prefill of
+                        history within 6.25e-2; and the card's prefill of
                         the same tokens against its decode at every
                         position (within 1e-1: decode keeps the conv
                         history in bf16).
@@ -345,8 +344,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
               the step (within 2 lr(1) + 2^-22, the most one AdamW step
               can move a weight, and at most 1% of them apart by over
               lr(1) / 100),
-              beside a floor (the CPU with every weight one ulp up; not
-              for qwen3, whose second host state would not fit);
+              (no floor: a second CPU pass, informational, does not fit
+              the script's 1200 s limit);
               --microbatches 2
               against 1 on smollm's first batch (bf16: loss rtol 1e-5,
               every reference leaf's gradient within 2e-2 of its largest
@@ -389,7 +388,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
               tokens on both ranks equal to one process's, beside the
               one-ulp floor.  ``--mesh-only`` runs the build and this
               phase alone.
-   gather   — ``gather_reduce`` (no model path) over 8 bucket-32 requests
+   lm train mesh — ``train_lm --dist gloo`` over a (data, model) mesh of
+              gloo processes on the card (``TRAIN_MESH``): zamba2-1.2b
+              whole on (1, 2) with heads split, sequence parallelism and
+              remat dots, and qwen3-moe-30b-a3b at 2 of 48 layers on
+              (2, 2) with EP, heads split, sequence parallelism, remat
+              full and FSDP; bf16, 4 x 512, 2 steps.  Gates: every rank
+              exits 0 with finite losses and grad norms; zamba2's ranks
+              launch ``ssd_scan`` once a Mamba layer in the forward and
+              again in remat's recompute, every step, and no twin; on a
+              float32 cut (2 x 256 tokens) the gather path over the mesh
+              (FSDP's gather and reduce, the sharded norm and AdamW)
+              against one process's step on the card (loss rtol 1e-5,
+              gradients 1e-3 of each leaf's largest |g|, params the lm
+              train phase's AdamW bound), remat none and dots within 1e-6 of full,
+              EP's step against the same ranks' EP on the CPU.  Prints
+              per rank the step ms and their parts, collectives by axis
+              and kind, peaks (and one forward and backward's under each
+              remat setting), beside the card's name and power limit.
+              ``--train-mesh-only`` runs the build and this phase alone.
+   gather   —``gather_reduce`` (no model path) over 8 bucket-32 requests
               of the graphgen-gcn W = 1 server: the hop-2 level's mean from
               the 20 000 x 128 feature table, [1280, 20] ids and mask, 8
               launches; each result against its twin and against
@@ -463,13 +481,13 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 N_NODES, N_REQUESTS = 20_000, 64
 TRAIN_STEPS, TRAIN_BATCH = 20, 32
 LM_ARCH, LM_SEED = "smollm-135m", 0
-PREFILL_B, PREFILL_S, PREFILL_WARM = 8, 2048, 5
+PREFILL_B, PREFILL_S, PREFILL_WARM = 8, 2048, 2
 # the serve cells' prompt and generated tokens, short because the prompt
 # fills through the decode path, one host-paced step a token, in the
 # timed and the instrumented run, and the whole script must end within
 # its 1200 s limit on a slow host; the float32 card-vs-CPU decode runs
 # LM_PROMPT + LM_AGREE_GEN steps
-LM_BATCH, LM_PROMPT, LM_GEN, LM_AGREE_GEN = 8, 32, 64, 8
+LM_BATCH, LM_PROMPT, LM_GEN, LM_AGREE_GEN = 8, 32, 16, 8
 # float32 decode, card vs CPU over the 40 steps: the random init's
 # residual stream is small, so a k/v entry that rounds to the neighbouring
 # bf16 value in the cache moves the normalised state by a few tenths of a
@@ -483,9 +501,10 @@ SSM_ARCH, SSM_SEED = "mamba2-1.3b", 0
 SSM_CUT, SSM_CUT_S = 2, 256
 # the float32 card-vs-CPU decode: 128 steps, one chunk for the card's
 # prefill of the same tokens (ssm prefill's cut holds the carry across
-# chunks, card vs CPU at 2 x 256), and the floor at the carry init only:
-# the CPU's steps cost ~0.1 s each, and the whole script must end within
-# its 1200 s limit on a slow host
+# chunks, card vs CPU at 2 x 256); no floor (a third decode on the host,
+# informational; PERF.md keeps its earlier readings): the CPU's steps
+# cost ~0.1 s each, and the whole script must end within its 1200 s
+# limit on a slow host
 SSM_AGREE_PROMPT, SSM_AGREE_GEN = 120, 8
 GATHER_REQUESTS = 8
 # the SSM's card-vs-CPU bounds (2-layer cut, logits up to ~2.5): float32
@@ -507,11 +526,13 @@ SSM_PREFILL_DECODE_ATOL = 1e-1
 # the LM zoo's cells: depth on the card (None: all; DeepSeek and llama3
 # cut where one 80 GB card forces it: float32 weights of 15.9 and 12.75
 # GB a layer; qwen3, 2.49 GB a layer, whose prefill peaked at 79.8 GB with
-# 20 layers, ~10 GB of it float32 logits, at the lm mesh phase's 8, its
-# decode host-paced by the layer and the whole script bound to end within
-# 1200 s on a slow host; llama3's 3 layers with its 16.8 GB
-# embedding and head are 55 GB, 4 would be 68 GB of weights and ~85 GB at
-# the read-out's peak of 8 x 2048 float32 and bf16 logits), prefill B x S
+# 20 layers, ~10 GB of it float32 logits; llama3's 3 layers with its 16.8
+# GB embedding and head were 55 GB, 4 would be 68 GB of weights and ~85
+# GB at the read-out's peak of 8 x 2048 float32 and bf16 logits).  The
+# script's 1200 s limit on a slow host sets the rest: qwen3 4
+# layers, DeepSeek 2 (its dense layer and one MoE layer), the VLM and
+# stablelm 10 of 40, llama3 1 (the decode is host-paced by the layer and
+# the prefill's init and trace by the weights)), prefill B x S
 # (DeepSeek's plain attention holds [B, 128, S, S] float32 scores), the
 # float32 card-vs-CPU cut as config overrides (zamba2: one site and a
 # tail layer; DeepSeek: the dense layer and one MoE layer; whisper: 2
@@ -520,10 +541,10 @@ SSM_PREFILL_DECODE_ATOL = 1e-1
 # its prompt and generated steps (the CPU reads the cut's weights every
 # step: 21 GB for DeepSeek's, 30 GB for llama3's)
 ZOO_SEED = 0
-ZOO_DEPTH = {"zamba2-1.2b": None, "qwen3-moe-30b-a3b": 8,
-             "deepseek-v2-236b": 4, "whisper-small": None,
-             "llama-3.2-vision-11b": None, "stablelm-12b": None,
-             "llama3-405b": 3}
+ZOO_DEPTH = {"zamba2-1.2b": None, "qwen3-moe-30b-a3b": 4,
+             "deepseek-v2-236b": 2, "whisper-small": None,
+             "llama-3.2-vision-11b": 10, "stablelm-12b": 10,
+             "llama3-405b": 1}
 ZOO_PREFILL = {"zamba2-1.2b": (8, 2048), "qwen3-moe-30b-a3b": (8, 2048),
                "deepseek-v2-236b": (1, 2048), "whisper-small": (8, 2048),
                "llama-3.2-vision-11b": (8, 2048), "stablelm-12b": (8, 2048),
@@ -534,38 +555,42 @@ ZOO_CUT = {"zamba2-1.2b": {"n_layers": 7},
            "whisper-small": {"n_layers": 2, "n_encoder_layers": 2},
            "llama-3.2-vision-11b": {"n_layers": 1, "cross_attn_every": 1},
            "stablelm-12b": {"n_layers": 1}, "llama3-405b": {"n_layers": 1}}
-# steps, and whether the floor runs: not over DeepSeek's 21 GB cut or
-# llama3's 30 GB (a third decode on the host, at ~0.5 s a step)
-ZOO_AGREE = {"zamba2-1.2b": (32, 8, True), "qwen3-moe-30b-a3b": (8, 8, True),
-             "deepseek-v2-236b": (4, 4, False), "whisper-small": (8, 8, True),
-             "llama-3.2-vision-11b": (8, 8, True),
-             "stablelm-12b": (8, 8, True), "llama3-405b": (4, 4, False)}
+# steps, and whether the floor runs (a third decode on the host, at ~0.5
+# s a step, informational: none runs, for the script's 1200 s limit;
+# the floors' earlier readings are in PERF.md)
+ZOO_AGREE = {"zamba2-1.2b": (16, 8, False),
+             "qwen3-moe-30b-a3b": (8, 8, False),
+             "deepseek-v2-236b": (4, 4, False),
+             "whisper-small": (8, 8, False),
+             "llama-3.2-vision-11b": (8, 8, False),
+             "stablelm-12b": (8, 8, False), "llama3-405b": (4, 4, False)}
 # float32 prefill card vs CPU on the same cut (the configs of this slice,
 # whose cross-attention the decode path, with zero cross caches, cannot
 # reach): B x S tokens with the stub inputs (one row: the CPU's float32
 # pass over a cut takes seconds a row), and whether the floor (the CPU
-# with every weight one ulp up, in place and back) runs; the VLM's
+# with every weight one ulp up, in place and back; none runs, as
+# ZOO_AGREE's) runs; the VLM's
 # gates set from the seed to non-zero values first.  Float32 sums in
 # another order give ~1e-6; a wrong mask, rope or projection moves the
 # logits by tenths.
-ZOO_PREFILL_AGREE = {"whisper-small": (1, 256, True),
-                     "llama-3.2-vision-11b": (1, 256, True),
-                     "stablelm-12b": (1, 256, True),
+ZOO_PREFILL_AGREE = {"whisper-small": (1, 256, False),
+                     "llama-3.2-vision-11b": (1, 256, False),
+                     "stablelm-12b": (1, 256, False),
                      "llama3-405b": (1, 256, False)}
 ZOO_PREFILL_ATOL = 1e-3
 # the instrumented serve_lm run of each serve cell (median step, busy
 # share) generates this many tokens, not LM_GEN: its tokens must equal the
 # first LM_PROFILE_GEN of the timed run's
-LM_PROFILE_GEN = 32
+LM_PROFILE_GEN = 16
 # the zoo's serve cells: batch 8, prompt ZOO_SERVE_PROMPT, gen ZOO_SERVE_GEN
-# (the smollm and mamba2 serve cells: prompt 32, gen 64): the
+# (the smollm and mamba2 serve cells: prompt 32, gen 16): the
 # prompt fills through the decode path one token a step, and the 40-layer
 # configs take 77-95 ms a step, host-paced
-ZOO_SERVE_PROMPT, ZOO_SERVE_GEN = 32, 32
+ZOO_SERVE_PROMPT, ZOO_SERVE_GEN = 16, 16
 # timing-only work the zoo's cells cut to fit the script's budget: warm
 # prefill forwards and the plain twin's timed calls; and only the MoE
 # cells, whose decode dispatch it tallies, run the instrumented serve run
-ZOO_WARM, ZOO_PLAIN_REPS = 3, 5
+ZOO_WARM, ZOO_PLAIN_REPS = 1, 2
 # LM training (train_lm) at published widths: arch -> (layers on the
 # card, None for all; batch; seq; steps; microbatches).  qwen3 is cut to 2
 # of 48 layers: 1.83 G float32 parameters (2 x 0.60 G of experts, 0.62 G
@@ -581,13 +606,13 @@ ZOO_WARM, ZOO_PLAIN_REPS = 3, 5
 # not at all: one layer with its embedding and head is 7.4 G parameters,
 # ~118 GB with the gradients and AdamW's moments (its smoke config trains
 # in the CPU tests).
-LM_TRAIN = {"smollm-135m": (None, 8, 512, 8, 2),
-            "mamba2-1.3b": (None, 4, 512, 6, 1),
-            "zamba2-1.2b": (None, 4, 512, 6, 1),
-            "qwen3-moe-30b-a3b": (2, 4, 512, 4, 1),
-            "whisper-small": (None, 4, 512, 6, 1),
-            "llama-3.2-vision-11b": (5, 4, 512, 4, 1),
-            "stablelm-12b": (2, 4, 512, 4, 1)}
+LM_TRAIN = {"smollm-135m": (None, 8, 512, 4, 2),
+            "mamba2-1.3b": (None, 4, 512, 4, 1),
+            "zamba2-1.2b": (None, 4, 512, 4, 1),
+            "qwen3-moe-30b-a3b": (2, 4, 512, 3, 1),
+            "whisper-small": (None, 4, 512, 4, 1),
+            "llama-3.2-vision-11b": (5, 4, 512, 3, 1),
+            "stablelm-12b": (2, 4, 512, 3, 1)}
 LM_TRAIN_SEED = 0
 # float32 card vs CPU, one train step on a cut at full width over 1 x 256
 # tokens (two SSD chunks), 2 layers (zamba2: 7, one site of its shared
@@ -616,10 +641,10 @@ LM_TRAIN_CUT = {"smollm-135m": {"n_layers": 2}, "mamba2-1.3b": {"n_layers": 2},
                 "stablelm-12b": {"n_layers": 1}}
 LM_TRAIN_CUT_S = 256
 # the archs whose training check also runs the floor (a second CPU pass
-# on a nudged copy of the cut): not qwen3's (host memory), nor the VLM's
-# and stablelm's 1.3 G-parameter cuts (~8 s of host time each)
-LM_TRAIN_FLOOR = ("smollm-135m", "mamba2-1.3b", "zamba2-1.2b",
-                  "whisper-small")
+# on a nudged copy of the cut, informational): none, for the script's
+# 1200 s limit (its earlier readings for smollm, mamba2, zamba2 and
+# whisper are in PERF.md)
+LM_TRAIN_FLOOR = ()
 # the archs whose training check also runs AdamW's update on the CPU and
 # holds the card's new params to it.  ``apply_grads`` is the same
 # elementwise arithmetic over every family's leaves, so these four cover
@@ -627,7 +652,8 @@ LM_TRAIN_FLOOR = ("smollm-135m", "mamba2-1.3b", "zamba2-1.2b",
 # cuts takes 15-29 s of host time each, more than the whole script's
 # 1200 s limit on a slow host leaves room for: those three hold the loss
 # and every leaf's gradient
-LM_TRAIN_UPDATE = LM_TRAIN_FLOOR
+LM_TRAIN_UPDATE = ("smollm-135m", "mamba2-1.3b", "zamba2-1.2b",
+                   "whisper-small")
 LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_RTOL = 1e-5, 1e-3
 LM_TRAIN_FLIP_SHARE = 1e-2
 # bf16, 2 microbatches against 1 on one batch: the forward is row for row
@@ -4035,9 +4061,7 @@ def phase_ssm_serve(torch):
             host = cut_model(torch, card[3], SSM_CUT, "cpu")
             cpu, *floor = (record_decode(torch, ssm_serve_args(
                 SSM_AGREE_GEN, "cpu", n_prompt), cfg=cut, prep=prep,
-                nudge=nudge, model=host)
-                for nudge in ((False, True) if init == "carry"
-                              else (False,)))
+                nudge=nudge, model=host) for nudge in (False,))
             check(card[1].shape == cpu[1].shape == (steps, LM_BATCH, v_pad),
                   f"ssm decode logits {tuple(card[1].shape)}")
             gap = decode_state_gap(torch, card, cpu, n_prompt)
@@ -4503,12 +4527,12 @@ def phase_lm_zoo(torch):
 # and all-to-all dispatched (--moe ep_a2a) and heads split.  Cut in depth
 # only: MESH_DEPTH of 48 layers.  Each rank holds its 64 experts (1.21 GB
 # a layer), its 16/2 heads and the whole embedding and head (2.49 GB):
-# ~12.2 GB of float32 weights, ~16-18 GB at the prefill's peak; the
-# single-process forward beside them holds all 19.8 GB.  Eight layers
-# keep the two ranks, the rank-side decode and the single-process run
-# inside the script's budget (the depth sets the per-forward time, not a
-# card limit: both ranks and the single process would fit 16 layers).
-MESH_ARCH, MESH_DEPTH, MESH_CUT = "qwen3-moe-30b-a3b", 8, 2
+# ~7.3 GB of float32 weights at 4 layers; the single-process forward
+# beside them holds all 12.5 GB.  Four layers (eight before) keep
+# the two ranks, the rank-side decode and the single-process run inside
+# the script's budget (the depth sets the per-forward time, not a card
+# limit: both ranks and the single process would fit 16 layers).
+MESH_ARCH, MESH_DEPTH, MESH_CUT = "qwen3-moe-30b-a3b", 4, 2
 MESH_WORKERS = 2
 MESH_PREFILL = (2, 2048)        # B x S, bf16: flash at (2, 16/2, 2048, 128)
 # timed forwards after one warm forward (a rank's takes 3-5 s: gloo
@@ -5518,6 +5542,647 @@ def phase_lm_train(torch, smi):
     return out
 
 
+# LM training over a (data, model) process mesh (train_lm --dist): gloo
+# ranks on the one card, through launch.mesh.  arch -> (layers on the
+# card, None for all; workers W; model axis M; train_lm flags; batch;
+# seq; steps).  qwen3-moe-30b-a3b at its published widths, 2 of 48
+# layers (as LM_TRAIN), on a (2, 2) mesh with EP, heads split, sequence
+# parallelism and remat full: each rank stores a quarter of the whole
+# (FSDP over data, and over model where the model holds a leaf whole),
+# gathers its model rank's half (~4.9 GB) before the loss and reduces
+# as much gradient after it, all staged through host memory by gloo.
+# zamba2-1.2b whole on (1, 2) with remat dots: every rank runs every
+# Mamba layer's ssd_scan, again in the backward's recompute.  Two steps
+# each (a first, which holds the ranks' one-time imports and CUDA
+# warm-up, and one steady step): gloo's host-staged transport makes a
+# step 8-14 s on the card's host, and a third step of both cells (~22 s)
+# does not fit the whole script's 1200 s limit on a slow host.
+TRAIN_MESH = {
+    "zamba2-1.2b": (None, 2, 2, ("--shard-heads", "--seq-parallel",
+                                 "--remat", "dots"), 4, 512, 2),
+    "qwen3-moe-30b-a3b": (2, 4, 2, ("--moe", "ep_a2a", "--shard-heads",
+                                    "--seq-parallel", "--remat", "full"),
+                          4, 512, 2)}
+# the float32 cut (LM_TRAIN_CUT's layers, full width): 2 x LM_TRAIN_CUT_S
+# tokens, so the batch splits over qwen3's data axis of 2; one step over
+# the mesh with the gather path (experts split), heads split, sequence
+# parallelism, FSDP and remat full, against one process's
+# make_train_step on the card (the same seeded init and batch): the loss
+# within LM_TRAIN_LOSS_RTOL, every leaf's gradient within
+# LM_TRAIN_GRAD_RTOL of its largest |g|, the new params within 2 lr(1) +
+# 2^-22 with at most LM_TRAIN_FLIP_SHARE of them over lr(1) / 100 (PR
+# 25's bounds: the mesh's sums run in other orders, ~1e-6 expected).
+# EP drops other assignments than the gather path, so its cut step is
+# held to the same ranks' EP step on the CPU: each rank's loss and
+# gradient shares before the sync with the same bounds (the sync and
+# the update are the gather path's arithmetic, held above; the update
+# of qwen3's cut on the CPU is left out, as LM_TRAIN_UPDATE leaves it
+# out: four ranks' host states would crowd the host's memory).  remat none and dots against full on the cut: every leaf's
+# gradient share within TRAIN_MESH_REMAT_RTOL of its largest (the card's
+# scatter-adds round in the order their atomics land).
+TRAIN_MESH_CUT_B = 2
+TRAIN_MESH_REMAT_RTOL = 1e-6
+TRAIN_MESH_TIMEOUT_S = 900
+#: the ranks' ``launch.mesh`` target
+TRAIN_MESH_TARGET = "chip_smoke:train_mesh_rank"
+
+
+def train_mesh_args(arch, flags, b, s, steps, tmp, *extra):
+    """``train_lm`` flags of a mesh cell on the card."""
+    from repro_torch.launch import train
+    _, w, m, _, _, _, _ = TRAIN_MESH[arch]
+    return train.parse_args([
+        "--arch", arch, "--device", DEVICE, "--seed", str(LM_TRAIN_SEED),
+        "--steps", str(steps), "--lm-batch", str(b), "--lm-seq", str(s),
+        "--dist", "gloo", "--workers", str(w), "--model-axis", str(m),
+        "--log-every", "1", "--ckpt-every", str(steps + 1), "--ckpt-dir",
+        tmp, *flags, *extra])
+
+
+def _flag(flags, name, value):
+    """``flags`` with ``name``'s value replaced by ``value``."""
+    flags = list(flags)
+    if name in flags:
+        flags[flags.index(name) + 1] = value
+        return flags
+    return flags + [name, value]
+
+
+def _loss_of(model, batch):
+    return model.loss(batch)
+
+
+def _mesh_collectives(mesh, n):
+    """Each axis's collective counters per step over ``n`` steps."""
+    return {axis: mesh_collectives(g, n)
+            for axis, g in mesh.groups().items()}
+
+
+def train_mesh_single(torch, arch, ref):
+    """One process's float32 ``make_train_step`` of the cut on the card
+    (the gather path, no mesh) up to its gradients: each leaf's to
+    ``ref/<i>.g.npy``; the loss, the grad norm ``apply_grads`` would
+    clip by, the leaves' largest |g| and the step's learning rate to
+    ``ref/single.json`` (its update is elementwise: a rank recomputes it
+    on its slice from these, bit for bit the step's)."""
+    import numpy as np
+    from repro_torch.convert import lm_leaves
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.models import layers, zoo
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import global_norm
+    cut = dataclasses.replace(get_lm_config(arch), **LM_TRAIN_CUT[arch])
+    steps = TRAIN_MESH[arch][6]
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=steps)
+    saved, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, torch.float32
+    try:
+        api = zoo.build(cut, DEVICE)
+        model = api.init(LM_TRAIN_SEED)
+        flat, layout = lm_leaves(model)
+        batch = train.lm_batch(np.random.default_rng(LM_TRAIN_SEED), cut,
+                               TRAIN_MESH_CUT_B, LM_TRAIN_CUT_S, DEVICE)
+        loss, grads = TL.microbatch_grads(
+            TL.module_loss(model, api.loss, layout.names),
+            [p.detach() for p in flat], batch, 1)
+        del flat
+        gnorm = global_norm(grads)
+        scales = []
+        for i, g in enumerate(layout.group(grads)):
+            scales.append(g.abs().max().item())
+            np.save(os.path.join(ref, f"{i}.g.npy"), g.cpu().numpy())
+            del g
+        out = {"loss": loss.item(), "grad_norm": gnorm.item(),
+               "scales": scales,
+               "lr1": tcfg.learning_rate / tcfg.warmup_steps}
+        with open(os.path.join(ref, "single.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    del model, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def get_lm_config(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch)
+
+
+def _owned(lf, coords):
+    """True where a rank counts a leaf's slice once for the mesh (a leaf
+    whole on an axis counts on that axis's rank 0)."""
+    dr, mr = coords
+    return ((lf.data_dim is not None or dr == 0)
+            and (lf.model_cut is not None or mr == 0))
+
+
+def _chunks(a, b, n=1 << 24):
+    """Aligned chunks of ``n`` elements of two tensors of one shape, each
+    pair on ``a``'s device (a comparison's temporaries stay a chunk's
+    size on the crowded card, and the host's cores do no arithmetic)."""
+    return ((x, y.to(x.device)) for x, y in zip(a.reshape(-1).split(n),
+                                                 b.reshape(-1).split(n)))
+
+
+def _gaps_vs(torch, plan, got, want_of, scales=None):
+    """Per leaf, ``max |got - want|`` (``want_of(i, lf)`` the rank's slice
+    of the reference's leaf ``i``) as a share of ``scales[i]`` (default
+    the largest |want| over the mesh), compared a chunk at a time on
+    ``got``'s device; returns ``(worst share, path)``."""
+    errs, maxima = [], []
+    for i, (lf, g) in enumerate(zip(plan.leaves, got)):
+        e = mx = 0.0
+        for x, y in _chunks(g, want_of(i, lf)):
+            e = max(e, (x - y).abs().max().item())
+            mx = max(mx, y.abs().max().item())
+        errs.append(e)
+        maxima.append(mx)
+    world = plan.mesh.world
+    errs = world.all_reduce(torch.tensor([errs], device=world.device),
+                            "max")[0]
+    if scales is None:
+        scales = world.all_reduce(torch.tensor([maxima],
+                                               device=world.device),
+                                  "max")[0].tolist()
+    worst = (0.0, None)
+    for lf, e, sc in zip(plan.leaves, errs.tolist(), scales):
+        share = e / max(sc, 1e-30)
+        if share > worst[0]:
+            worst = (share, "/".join(lf.path))
+    return worst
+
+
+def _param_gaps(torch, plan, got, want_of, lr1):
+    """The new params' largest gap, and the weights apart by over
+    ``lr1 / 100`` and all weights (each counted once over the mesh)."""
+    gap = 0.0
+    flips = n = 0
+    for i, (lf, p) in enumerate(zip(plan.leaves, got)):
+        for x, y in _chunks(p, want_of(i, lf)):
+            d = (x - y).abs()
+            gap = max(gap, d.max().item())
+            if _owned(lf, plan.mesh.coords):
+                flips += int((d > lr1 / 100).sum())
+                n += d.numel()
+    world = plan.mesh.world
+    gap = world.all_reduce(torch.tensor([[gap]], device=world.device), "max")
+    counts = world.all_reduce(torch.tensor([[flips, n]], dtype=torch.int64,
+                                           device=world.device))
+    return gap.item(), int(counts[0, 0]), int(counts[0, 1])
+
+
+@contextlib.contextmanager
+def _timed_calls(owner, names, into):
+    """Inside the block, each function ``owner.<name>`` (a method where
+    ``owner`` is a class) appends each call's seconds to ``into[name]``."""
+    real = {n: getattr(owner, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            got = fn(*a, **kw)
+            into.setdefault(name, []).append(time.perf_counter() - t0)
+            return got
+        return timed
+    try:
+        for n, fn in real.items():
+            setattr(owner, n, wrap(n, fn))
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(owner, n, fn)
+
+
+def train_mesh_rank(group, arch, out, ref, t_launch):
+    """A rank of the lm train mesh phase (``launch.mesh``'s target): the
+    bf16 cell through ``train_lm`` (step times and their parts,
+    launches, collectives by axis, peak), one forward and
+    backward of its last params (gathered once, the moments dropped)
+    under each remat setting (peaks), then the float32 cut
+    (``train_mesh_cut``); results to ``out/rank<r>.json``, with the
+    seconds since ``t_launch`` (the phase's ``time.time()`` at the
+    launch) at the rank's start and end."""
+    started = time.time() - t_launch
+    import numpy as np
+    import torch
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.train import train_loop as TL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    depth, w, m, flags, b, s, steps = TRAIN_MESH[arch]
+    cfg = get_lm_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    dev, r = group.device, group.rank
+    res = {"rank": r, "device": str(dev), "started_s": started}
+    # each step's seconds in the step's parts (gather, differentiate,
+    # reduce, update), its collectives and the growth of the staging
+    # buffers: the calls' lists cut at each step's end
+    calls, marks, seen, coll_s = {}, [], set(), []
+    args = train_mesh_args(arch, flags, b, s, steps, out)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, t_last = [], [time.perf_counter()]
+
+    def clock(t):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        times.append((now - t_last[0]) * 1e3)
+        print(f"[{arch} rank {r}] step {t}: {times[-1]:.1f} ms; allocated "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}, "
+              f"reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f}",
+              flush=True)
+        t_last[0] = now
+        marks.append({k: len(v) for k, v in calls.items()})
+        coll_s.append(sum(st["seconds"] + st["staging_s"] for g in seen
+                          for st in g.stats.values()))
+    from repro_torch.core import collectives
+    from repro_torch.train import fsdp
+    real_run = collectives.ProcessWorkers._run
+
+    def spy_run(self, *a):
+        seen.add(self)
+        return real_run(self, *a)
+    collectives.ProcessWorkers._run = spy_run
+    with launch_config(cfg, train), twin_calls() as twin, _timed_calls(
+            TL, ("mesh_grads", "apply_grads"), calls), _timed_calls(
+            fsdp.ShardPlan, ("gather", "reduce"), calls), _timed_calls(
+            collectives, ("_pinned",), calls):
+        try:
+            run = train.train_lm(args, group=group, step_hook=clock)
+        finally:
+            collectives.ProcessWorkers._run = real_run
+    res["step_split_s"] = [
+        {**{k: sum(v[(marks[t - 1].get(k, 0) if t else 0):
+                     marks[t].get(k, 0)]) for k, v in calls.items()},
+         "collectives": coll_s[t] - (coll_s[t - 1] if t else 0.0)}
+        for t in range(len(marks))]
+    plan, state, layout = run["plan"], run["state"], run["layout"]
+    lm = plan.mesh
+    res["steps_wall_s"] = run["wall_s"]
+    res.update(step_ms=times, losses=run["losses"],
+               grad_norms=run["grad_norms"], launches=ops.launch_counts(),
+               ssd_routes=ops.ssd_route_counts(), twin_calls=twin,
+               collectives=_mesh_collectives(lm, steps),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+               coords=list(lm.coords),
+               state_gb=sum(t.numel() * 4 for t in state.params) / 2**30)
+    # one forward and backward of the last state under each remat setting
+    batch = train.data_rows(train.lm_batch(np.random.default_rng(
+        LM_TRAIN_SEED), cfg, b, s, dev), cfg, lm)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=steps)
+    res["remat_peak_gb"] = {}
+    t0 = time.perf_counter()
+
+    def remat_peak(remat):
+        fn = TL.module_loss(lm_shell(dataclasses.replace(cfg, remat=remat)),
+                            _loss_of, layout.names)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, grads = TL.mesh_grads(fn, tcfg, layout, plan, whole, batch)
+        torch.cuda.synchronize(dev)
+        res["remat_peak_gb"][remat] = (torch.cuda.max_memory_allocated(dev)
+                                       / 2**30)
+        del loss, grads
+        torch.cuda.empty_cache()
+    with train.lm_settings(args, lm, cfg):
+        whole = plan.gather(state.params)
+        del state, run
+        torch.cuda.empty_cache()
+        for remat in ("full", "dots"):
+            remat_peak(remat)
+        # remat none keeps every activation: the ranks of one data
+        # coordinate at a time (four ranks' passes do not fit the card)
+        for turn in range(lm.data.world):
+            if lm.coords[0] == turn:
+                remat_peak("none")
+            lm.world.all_reduce(torch.zeros((1, 1), device=dev))
+    del whole, batch
+    res["remat_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    res.update(train_mesh_cut(torch, arch, flags, lm, ref, out))
+    res["done_s"] = time.time() - t_launch
+    with open(os.path.join(out, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def train_mesh_cut(torch, arch, flags, lm, ref, out):
+    """The float32 cut's gates on this rank (``train_mesh_rank``), the
+    leaves gathered once: (EP cells) EP's gradient shares on the card and
+    on the CPU (over CPU views of the same gloo groups, from the card's
+    gathered leaves); the gather path's (remat full), remat none's and
+    dots' held to them; then the gather path's sync and update held to
+    one process's (``ref``).  The zero moments are made again for the
+    update: four ranks' cut states, leaves and two sets of gradients
+    would not fit the card beside them."""
+    import numpy as np
+    from repro_torch.convert import lm_leaves
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.models import layers, zoo
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.fsdp import ShardPlan
+    from repro_torch.train.optimizer import adam_update, init_adam
+    dev = lm.world.device
+    steps = TRAIN_MESH[arch][6]
+    res = {"split_s": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        res["split_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+    cut = dataclasses.replace(get_lm_config(arch), **LM_TRAIN_CUT[arch],
+                              remat="full")
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=steps)
+    single = read_json(os.path.join(ref, "single.json"))
+
+    def cut_args(moe_impl):
+        fl = _flag(_flag(flags, "--moe", moe_impl), "--remat", "full")
+        return train_mesh_args(arch, fl, TRAIN_MESH_CUT_B, LM_TRAIN_CUT_S,
+                               1, out)
+    gargs = cut_args("gather")
+    saved, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, torch.float32
+    try:
+        with train.lm_settings(gargs, lm, cut):
+            model = zoo.build(cut, dev).init(LM_TRAIN_SEED)
+            params, layout = lm_leaves(model)
+            plan = ShardPlan(layout, lm, cut.fsdp_params)
+            p0 = TL.init_state(params, tcfg, layout, plan).params
+            del params
+            model.to_empty(device="meta")
+            batch = train.data_rows(train.lm_batch(
+                np.random.default_rng(LM_TRAIN_SEED), cut, TRAIN_MESH_CUT_B,
+                LM_TRAIN_CUT_S, dev), cut, lm)
+        lap("cut_init")
+        whole = plan.gather(p0)
+        lap("cut_gather")
+        if "ep_a2a" in flags:
+            res["ep"] = train_mesh_ep(torch, cut_args("ep_a2a"), lm, cut,
+                                      tcfg, layout, plan, whole, batch,
+                                      model)
+            lap("cut_ep")
+        with train.lm_settings(gargs, lm, cut):
+            loss, full = TL.mesh_grads(
+                TL.module_loss(model, _loss_of, layout.names), tcfg, layout,
+                plan, whole, batch)
+            # remat none and dots against full: each rank's shares
+            res["remat_gap"] = {}
+            for remat in ("none", "dots"):
+                shell = lm_shell(dataclasses.replace(cut, remat=remat))
+                _, g = TL.mesh_grads(TL.module_loss(shell, _loss_of,
+                                                    layout.names),
+                                     tcfg, layout, plan, whole, batch)
+                res["remat_gap"][remat] = _gaps_vs(
+                    torch, plan, g, lambda i, lf: full[i])
+                del g
+        del whole
+        lap("cut_grads")
+        loss = plan.mean_loss(loss)
+        grads = plan.reduce(full)
+        lap("cut_reduce")
+        state = TL.TrainState(params=p0, opt=init_adam(p0), error=None)
+        new, metrics = TL.apply_grads(tcfg, state, loss, grads, layout, plan)
+        res["gather"] = {"loss": loss.item(), "loss_single": single["loss"],
+                         "grad_norm": metrics["grad_norm"].item(),
+                         "grad_norm_single": single["grad_norm"]}
+        new = new.params
+
+        def ref_g(i, lf):
+            a = np.load(os.path.join(ref, f"{i}.g.npy"), mmap_mode="r")
+            return torch.from_numpy(np.ascontiguousarray(plan.take(lf, a)))
+        g_ref = [ref_g(i, lf) for i, lf in enumerate(plan.leaves)]
+        res["gather"]["grad_gap"] = _gaps_vs(
+            torch, plan, grads, lambda i, lf: g_ref[i], single["scales"])
+        del grads
+        # one process's update of the rank's slice, from its gradient and
+        # norm: AdamW is elementwise, so these are its step's own values
+        norm = torch.tensor(single["grad_norm"], device=dev)
+        p_ref, _, _ = adam_update(tcfg, state.params,
+                                  [g.to(dev) for g in g_ref], state.opt,
+                                  lambda _: norm)
+        del state, g_ref
+        res["gather"]["params"] = _param_gaps(
+            torch, plan, new, lambda i, lf: p_ref[i], single["lr1"])
+        del new, p_ref
+        lap("cut_compare")
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    return res
+
+
+def train_mesh_ep(torch, eargs, lm, cut, tcfg, layout, plan, whole, batch,
+                  model):
+    """EP's float32 cut step on the card, then on the CPU over CPU views
+    of the same gloo groups from the card's gathered leaves: each rank's
+    loss and gradient shares before the sync (the sync's sums are the
+    same arithmetic on both), card against CPU."""
+    from repro_torch.core.collectives import ProcessWorkers
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.fsdp import ShardPlan
+    t0 = time.perf_counter()
+    with train.lm_settings(eargs, lm, cut), moe.tally() as t_card:
+        loss, grads = TL.mesh_grads(
+            TL.module_loss(model, _loss_of, layout.names), tcfg, layout,
+            plan, whole, batch)
+        loss = loss.item()
+    card_s = time.perf_counter() - t0
+    cpu = lmesh.Mesh(*(ProcessWorkers("gloo", g.world, g.rank, "cpu", g.pg)
+                       for g in (lm.world, lm.data, lm.model)))
+    cplan = ShardPlan(layout, cpu, cut.fsdp_params)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // lm.world.world))
+    t0 = time.perf_counter()
+    try:
+        with train.lm_settings(eargs, cpu, cut), moe.tally() as t_cpu:
+            closs, cgrads = TL.mesh_grads(
+                TL.module_loss(lm_shell(cut), _loss_of, layout.names), tcfg,
+                layout, cplan, [x.cpu() for x in whole],
+                {k: v.cpu() for k, v in batch.items()})
+            closs = closs.item()
+    finally:
+        torch.set_num_threads(threads)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(loss - closs) / max(abs(closs), 1e-30)
+    rel = lm.world.all_reduce(torch.tensor([[rel]], device=lm.world.device),
+                              "max").item()
+    return {"loss": loss, "loss_cpu": closs, "loss_rel_max": rel,
+            "card_s": card_s, "cpu_s": cpu_s,
+            "grad_gap": _gaps_vs(torch, plan, grads,
+                                 lambda i, lf: cgrads[i]),
+            "dispatch_card": dict(t_card), "dispatch_cpu": dict(t_cpu)}
+
+
+def phase_lm_train_mesh(torch, smi):
+    """LM training over the mesh (``TRAIN_MESH``): per cell, one process's
+    float32 step on the cut first (``train_mesh_single``), then the ranks
+    (``train_mesh_rank``); the gates: every rank exits 0 with finite
+    losses and grad norms, zamba2's ranks launch ``ssd_scan`` at every
+    Mamba layer's forward and again in its recompute on every step (no
+    twin call, qwen3's ranks no kernel: training takes the plain
+    attention), the float32 cut's gather-path step within the one
+    process's bounds, remat none and dots within TRAIN_MESH_REMAT_RTOL of
+    full, EP's card step within the CPU's.  Prints each rank's step
+    times, collectives by axis and kind, and peaks beside ``smi``."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    out = {}
+    for arch in TRAIN_MESH:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh")
+        try:
+            out[arch] = train_mesh_cell(torch, arch, smi, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[lm train mesh] phase {out['seconds']:.1f} s")
+    return out
+
+
+def train_mesh_cell(torch, arch, smi, tmp):
+    """One ``TRAIN_MESH`` cell's runs and gates (``phase_lm_train_mesh``);
+    the ranks' files in ``tmp``."""
+    t0 = time.perf_counter()
+    depth, w, m, flags, b, s, steps = TRAIN_MESH[arch]
+    cfg = get_lm_config(arch)
+    n_layers = cfg.n_layers if depth is None else depth
+    label = f"lm train mesh {arch} ({w // m}, {m})"
+    ref = os.path.join(tmp, "single")
+    os.makedirs(ref)
+    single = train_mesh_single(torch, arch, ref)
+    single_s = time.perf_counter() - t0
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, os.path.join(ROOT, "src"), env.get("PYTHONPATH"))
+        if p)
+    # the ranks share the card: growable segments keep the allocator's
+    # fragments from adding up over four processes
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[{label}] before the ranks: {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB free on the card, this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    t_launch = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.mesh", "--workers",
+         str(w), "--dist", "gloo", "--device", DEVICE, "--timeout",
+         str(TRAIN_MESH_TIMEOUT_S), TRAIN_MESH_TARGET,
+         json.dumps({"arch": arch, "out": tmp, "ref": ref,
+                     "t_launch": t_launch})],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=TRAIN_MESH_TIMEOUT_S + 60)
+    launcher_s = time.time() - t_launch
+    print(proc.stdout, end="", flush=True)
+    errors = [ln for ln in proc.stderr.splitlines()
+              if "Error" in ln or "error" in ln][:12]
+    check(proc.returncode == 0, f"{label}: the ranks exited "
+          f"{proc.returncode}; first errors:\n" + "\n".join(errors)
+          + f"\n{proc.stderr[-2000:]}")
+    ranks = [read_json(os.path.join(tmp, f"rank{r}.json"))
+             for r in range(w)]
+    mamba = n_layers if cfg.family in ("ssm", "hybrid") else 0
+    for rk in ranks:
+        rl = f"{label} rank {rk['rank']} {tuple(rk['coords'])}"
+        check(all(map(math.isfinite, rk["losses"] + rk["grad_norms"]))
+              and len(rk["losses"]) == steps,
+              f"{rl}: losses {rk['losses']}, grad norms {rk['grad_norms']}")
+        want = {k: 0 for k in rk["launches"]}
+        want["ssd_scan"] = mamba * 2 * steps
+        check(rk["launches"] == want and rk["twin_calls"]["ssd_scan_ref"] == 0,
+              f"{rl}: launches {rk['launches']} (twin "
+              f"{rk['twin_calls']}), expected {want}: {mamba} ssd_scan a "
+              f"forward and as many in the remat recompute, {steps} steps")
+        print(f"[{label}] rank {rk['rank']} at {tuple(rk['coords'])} "
+              f"({rk['device']}): {n_layers} layers, {b} x {s} bf16 tokens, "
+              f"{' '.join(flags)}; step ms "
+              f"{[round(t, 1) for t in rk['step_ms']]}; losses "
+              f"{[round(x, 5) for x in rk['losses']]}, grad norms "
+              f"{[round(x, 5) for x in rk['grad_norms']]}; stored state "
+              f"{rk['state_gb']:.2f} GiB, peak {rk['peak_gb']:.2f} GiB; "
+              f"one forward + backward's peak by remat "
+              f"{ {k: round(v, 2) for k, v in rk['remat_peak_gb'].items()} } "
+              f"GiB; launches {rk['launches']}; card: {smi}")
+        for axis, kinds in rk["collectives"].items():
+            for kind, st in kinds.items():
+                print(f"[{label}] rank {rk['rank']} {axis} {kind} per step: "
+                      f"{st['calls']:.0f} calls, {st['bytes'] / 1e6:.1f} MB "
+                      f"sent, transport {st['seconds'] * 1e3:.1f} ms, "
+                      f"staging {st['staging_s'] * 1e3:.1f} ms ({smi})")
+    # the float32 cut: every rank reports the mesh-wide maxima
+    rk = ranks[0]
+    g = rk["gather"]
+    lr1 = single["lr1"]
+    bound = 2 * lr1 + 2.0 ** -22
+    pgap, flips, n_w = g["params"]
+    print(f"[{label}] float32 cut ({dict(LM_TRAIN_CUT[arch])}, "
+          f"{TRAIN_MESH_CUT_B} x {LM_TRAIN_CUT_S} tokens), the gather path "
+          f"over the mesh vs one process on the card: loss {g['loss']:.7f} "
+          f"vs {g['loss_single']:.7f}, grad norm {g['grad_norm']:.6f} vs "
+          f"{g['grad_norm_single']:.6f}; gradients within "
+          f"{g['grad_gap'][0]:.3e} of each leaf's largest |g| (worst "
+          f"{g['grad_gap'][1]}; bound {LM_TRAIN_GRAD_RTOL}); params after "
+          f"the step within {pgap:.3e} (bound {bound:.4e}), {flips} of {n_w} "
+          f"over lr(1) / 100; remat none / dots vs full "
+          f"{ {k: v for k, v in rk['remat_gap'].items()} }; one process's "
+          f"step {single_s:.1f} s; rank 0's seconds: steps "
+          f"{rk['steps_wall_s']:.1f}, remat passes {rk['remat_s']:.1f}, the "
+          f"cut { {k: round(v, 1) for k, v in rk['split_s'].items()} }; "
+          f"each step's parts "
+          f"{[{k: round(v, 2) for k, v in st.items()} for st in rk['step_split_s']]} "
+          f"(collectives: their transport and staging; _pinned: the "
+          f"staging buffers' growth); the ranks started {max(x['started_s'] for x in ranks):.1f} s "
+          f"after the launch and ended after "
+          f"{max(x['done_s'] for x in ranks):.1f} s, the launcher returned "
+          f"after {launcher_s:.1f} s; card: {smi}")
+    check(abs(g["loss"] - g["loss_single"]) <= LM_TRAIN_LOSS_RTOL
+          * abs(g["loss_single"]), f"{label}: float32 loss {g['loss']} vs "
+          f"one process's {g['loss_single']}")
+    check(g["grad_gap"][0] <= LM_TRAIN_GRAD_RTOL, f"{label}: gradient "
+          f"{g['grad_gap'][1]} {g['grad_gap'][0]} of its scale from one "
+          f"process's")
+    check(pgap <= bound and flips <= LM_TRAIN_FLIP_SHARE * n_w,
+          f"{label}: params {pgap} apart (bound {bound}), {flips} of {n_w} "
+          f"over lr(1) / 100")
+    for k, (gap, path) in rk["remat_gap"].items():
+        check(gap <= TRAIN_MESH_REMAT_RTOL, f"{label}: remat {k}'s gradient "
+              f"{path} {gap} of its scale from full's")
+    res = {"workers": w, "model_axis": m, "flags": list(flags),
+           "n_layers": n_layers, "batch": b, "seq": s, "steps": steps,
+           "ranks": ranks, "single": {k: v for k, v in single.items()
+                                      if k != "scales"},
+           "launches": {"ssd_scan": sum(x["launches"].get("ssd_scan", 0)
+                                        for x in ranks)},
+           "device": smi}
+    if "ep" in rk:
+        e = rk["ep"]
+        print(f"[{label}] float32 cut, EP over the mesh: card vs the same "
+              f"ranks on the CPU, each rank's loss and gradient shares "
+              f"before the sync: rank 0's loss {e['loss']:.7f} vs "
+              f"{e['loss_cpu']:.7f} (over the ranks within "
+              f"{e['loss_rel_max']:.3e} relative); gradients within "
+              f"{e['grad_gap'][0]:.3e} of each leaf's largest |g| (worst "
+              f"{e['grad_gap'][1]}); dispatch card {e['dispatch_card']} / "
+              f"CPU {e['dispatch_cpu']}; card {e['card_s']:.1f} s, CPU "
+              f"{e['cpu_s']:.1f} s; card: {smi}")
+        check(e["loss_rel_max"] <= LM_TRAIN_LOSS_RTOL, f"{label}: EP loss "
+              f"card vs CPU {e['loss_rel_max']} apart")
+        check(e["grad_gap"][0] <= LM_TRAIN_GRAD_RTOL, f"{label}: EP "
+              f"gradient {e['grad_gap'][1]} card vs CPU {e['grad_gap'][0]}")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{label}] {res['seconds']:.1f} s")
+    return res
+
+
 def gather_levels(torch, server, head_order):
     """The ``gather_reduce`` drive's operands on a graphgen-gcn W = 1
     ``server``: the 20 000 x 128 feature table, and ``GATHER_REQUESTS``
@@ -6199,6 +6864,10 @@ def main():
     ap.add_argument("--train-only", action="store_true",
                     help="stop after the build and the lm train phase (a "
                          "first bring-up of LM training)")
+    ap.add_argument("--train-mesh-only", action="store_true",
+                    help="stop after the build and the lm train mesh "
+                         "phase (a first bring-up of training over the "
+                         "LM's mesh)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="stop after the build and the lm mesh phase (a "
                          "first bring-up of the LM's model axis)")
@@ -6255,6 +6924,10 @@ def main():
     if opts.train_only:
         print(json.dumps({"lm_train": phase_lm_train(torch, smi)}))
         print("[train-only] stopping after the lm train phase")
+        return
+    if opts.train_mesh_only:
+        print(json.dumps({"lm_train_mesh": phase_lm_train_mesh(torch, smi)}))
+        print("[train-mesh-only] stopping after the lm train mesh phase")
         return
     if opts.mesh_only:
         print(json.dumps({"lm_mesh": phase_lm_mesh(torch, smi)}))
@@ -6320,6 +6993,8 @@ def main():
     stamp("lm_mesh")
     lm_train = phase_lm_train(torch, smi)
     stamp("lm_train")
+    train_mesh = phase_lm_train_mesh(torch, smi)
+    stamp("lm_train_mesh")
     gather = phase_gather_reduce(torch, serve_res)
     stamp("gather_reduce")
     runs = (list(serve_res.values()) + list(train_res.values())
@@ -6330,7 +7005,8 @@ def main():
             + [prefill, lm_serve, ssm_prefill, ssm_serve, gather]
             + [r for arch in ZOO_DEPTH for r in (zoo_res[arch],
                                                  zoo_res[arch]["serve"])]
-            + [lm_train[arch] for arch in LM_TRAIN] + [mesh_res])
+            + [lm_train[arch] for arch in LM_TRAIN] + [mesh_res]
+            + [train_mesh[arch] for arch in TRAIN_MESH])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
     # the float32 route of ssd_scan: its launches on the main path (0 in a
@@ -6419,6 +7095,7 @@ def main():
     print(json.dumps({"lm_zoo": zoo_res}))
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"lm_mesh": mesh_res}))
+    print(json.dumps({"lm_train_mesh": train_mesh}))
     # the kernels at the zoo's own layer-0 operands, beside their rows
     for entry in kernels:
         rows = {arch: {k: zoo_res[arch]["kernels"][entry["name"]][k] for k in (

@@ -55,7 +55,7 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kv = 1
     rep = dict(n_layers=min(cfg.n_layers, 4), d_model=64, n_heads=heads,
                n_kv_heads=kv, head_dim=16 if heads else 0,
-               d_ff=128 if cfg.d_ff else 0, vocab_size=512)
+               d_ff=128 if cfg.d_ff else 0, vocab_size=512, remat="none")
     if cfg.family == "moe":
         rep.update(n_experts=8, top_k=2, d_ff_expert=32)
         if cfg.kv_lora_rank:

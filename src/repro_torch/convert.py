@@ -446,11 +446,16 @@ class LeafLayout(NamedTuple):
     order ``jax.tree`` flattens the reference's dicts in) and covers the
     next ``counts[j]`` tensors of the flat order, stacked on a new
     leading axis when ``stacked[j]`` (one per layer) or the one tensor
-    itself (the embedding, the final norm, the hybrid's shared block)."""
+    itself (the embedding, the final norm, the hybrid's shared block).
+    ``shapes[j]`` is the shape of each of leaf ``j``'s tensors as this
+    process holds them, and ``shards[j]`` their ``layers.Shard`` on a
+    model axis (None: whole)."""
     names: Tuple[str, ...]
     paths: Tuple[Tuple[str, ...], ...]
     counts: Tuple[int, ...]
     stacked: Tuple[bool, ...]
+    shapes: Tuple[Tuple[int, ...], ...] = ()
+    shards: Tuple = ()
 
     def parts(self, flat: Sequence) -> Iterator[Tuple[Tuple[str, ...],
                                                       list, bool]]:
@@ -525,10 +530,14 @@ def lm_leaves(model) -> Tuple[List[torch.Tensor], LeafLayout]:
                             [(f"{attr}.{name}", p)], False))
     entries.sort(key=lambda e: e[0])
     named = [nt for _, nts, _ in entries for nt in nts]
+    firsts = [e[1][0][1] for e in entries]
     layout = LeafLayout(names=tuple(n for n, _ in named),
                         paths=tuple(e[0] for e in entries),
                         counts=tuple(len(e[1]) for e in entries),
-                        stacked=tuple(e[2] for e in entries))
+                        stacked=tuple(e[2] for e in entries),
+                        shapes=tuple(tuple(t.shape) for t in firsts),
+                        shards=tuple(getattr(t, "shard", None)
+                                     for t in firsts))
     return [t for _, t in named], layout
 
 
@@ -592,12 +601,24 @@ def lm_params_to_numpy(model) -> dict:
     return flat_to_numpy(*lm_leaves(model))
 
 
-def train_state_to_numpy(state: TrainState, layout: LeafLayout
-                         ) -> TrainState:
+def train_state_to_numpy(state: TrainState, layout: LeafLayout,
+                         mesh=None) -> TrainState:
     """An LM ``TrainState`` of the port as the reference's, with numpy
     leaves: ``params``, ``opt = AdamState(step int32, m, v)`` and
-    ``error`` (one residual per reference leaf, or None)."""
+    ``error`` (one residual per reference leaf, or None).  With ``mesh``
+    (a ``train.fsdp.ShardPlan``) ``state`` holds the rank's slices and
+    every leaf is gathered whole over both axes (every rank must call
+    this)."""
     opt = state.opt
+    if mesh is not None:
+        def tree(slices):
+            return _nest((path, _numpy(t)) for path, t in
+                         zip(layout.paths, mesh.whole(slices)))
+        return TrainState(
+            params=tree(state.params),
+            opt=AdamState(step=np.asarray(_numpy(opt.step), np.int32),
+                          m=tree(opt.m), v=tree(opt.v)),
+            error=None if state.error is None else tree(state.error))
     return TrainState(
         params=flat_to_numpy(state.params, layout),
         opt=AdamState(step=np.asarray(_numpy(opt.step), np.int32),
@@ -608,11 +629,24 @@ def train_state_to_numpy(state: TrainState, layout: LeafLayout
 
 
 def train_state_from_numpy(tree: TrainState, layout: LeafLayout,
-                           device="cuda") -> TrainState:
+                           device="cuda", mesh=None) -> TrainState:
     """The reference's LM ``TrainState`` of numpy arrays as the port's on
-    ``device`` (the inverse of ``train_state_to_numpy``)."""
+    ``device`` (the inverse of ``train_state_to_numpy``); with ``mesh``
+    (a ``train.fsdp.ShardPlan``) each leaf's slice on the rank
+    (``ShardPlan.take``: the model rank's slice, then the data rank's)."""
     device = resolve_device(device)
     params, (step, m, v), error = tree
+    if mesh is not None:
+        def slices(t):
+            return [_tensor(np.ascontiguousarray(
+                mesh.take(lf, np.asarray(_leaf(t, lf.path)))), device)
+                for lf in mesh.leaves]
+        return TrainState(
+            params=slices(params),
+            opt=AdamState(step=torch.tensor(np.asarray(step),
+                                            dtype=torch.int32).to(device),
+                          m=slices(m), v=slices(v)),
+            error=None if error is None else slices(error))
     return TrainState(
         params=flat_from_numpy(params, layout, device),
         opt=AdamState(step=torch.tensor(np.asarray(step),

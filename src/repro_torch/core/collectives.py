@@ -17,8 +17,16 @@ the serving loop's request header rides:
   on the contiguous ``[W, ...]`` send block.  gloo has no path for CUDA
   tensors in ``all_to_all`` and point-to-point, so on a card every gloo
   collective stages its send block to host memory and copies the result
-  back (``staged``); NCCL takes the device tensors as they are.  Booleans
+  back (``staged``), through page-locked buffers the process reuses;
+  NCCL takes the device tensors as they are.  Booleans
   travel as their uint8 bytes.
+
+A ``ProcessWorkers`` may span a sub-group of the processes (``pg``: one
+axis of a ``(data, model)`` mesh, ``launch/mesh.py::make_local_mesh``),
+with its own counters.  ``sum_over``, ``gather_over`` and
+``all_to_all_over`` are ``all_reduce``, ``all_gather`` and
+``all_to_all`` under autograd, each backward its forward's adjoint (the
+LM's model axis in training).
 
 Every collective takes and returns the LOCAL block ``[L, ...]``, ``L`` =
 ``group.local`` (``W`` stacked, 1 per process).  The forms are exactly
@@ -28,6 +36,7 @@ receive from ``lax``, on either backend.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, Sequence, Tuple
 
@@ -37,6 +46,22 @@ from .config import resolve_device
 
 #: ``all_reduce`` operations
 REDUCE_OPS = ("sum", "max")
+#: page-locked host buffers of gloo's staged transport: one for the
+#: block a collective sends (and reduces in place), one for the blocks it
+#: receives; shared by every group of the process, whose collectives run
+#: one at a time, and grown in powers of two to the largest block
+_PINNED: Dict[str, torch.Tensor] = {}
+
+
+def _pinned(role: str, shape, dtype) -> torch.Tensor:
+    """A page-locked host tensor of ``shape`` and ``dtype`` over the
+    process's ``role`` buffer (valid until the next collective)."""
+    n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    buf = _PINNED.get(role)
+    if buf is None or buf.numel() < n:
+        buf = _PINNED[role] = torch.empty(1 << max(n - 1, 0).bit_length(),
+                                          dtype=torch.uint8, pin_memory=True)
+    return buf[:n].view(dtype).view(shape)
 
 
 class WorkerGroup:
@@ -143,8 +168,10 @@ def stacked(x: torch.Tensor) -> StackedGroup:
 
 
 class ProcessWorkers(WorkerGroup):
-    """One worker per process over the default ``torch.distributed``
-    process group (``launch/mesh.py`` joins it).
+    """One worker per process over a ``torch.distributed`` process group:
+    the default (world) group ``launch/mesh.py`` joins, or ``pg``, a
+    sub-group of it (a mesh axis, ``mesh.make_local_mesh``), in which
+    this process is ``rank`` of ``world``.
 
     ``stats`` counts, per collective, the calls, the bytes this rank's
     blocks sent to other ranks (``all_reduce``: its block once, whatever
@@ -157,12 +184,14 @@ class ProcessWorkers(WorkerGroup):
     KINDS = ("all_gather", "all_to_all", "ppermute", "all_reduce",
              "broadcast")
 
-    def __init__(self, backend: str, world: int, rank: int, device):
+    def __init__(self, backend: str, world: int, rank: int, device,
+                 pg=None):
         import torch.distributed as dist
         self._dist = dist
         self.backend = backend
         self.world, self.rank, self.local = int(world), int(rank), 1
         self.device = torch.device(device)
+        self.pg = pg
         # gloo moves host tensors only: a card's blocks go through host RAM
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self.reset_stats()
@@ -181,10 +210,17 @@ class ProcessWorkers(WorkerGroup):
         if not self.staged:
             return t.contiguous()
         t0 = time.perf_counter()
-        h = torch.empty(t.shape, dtype=t.dtype)
+        h = _pinned("send", t.shape, t.dtype)
         h.copy_(t)
         self._staging += time.perf_counter() - t0
         return h
+
+    def _recv(self, shape, dtype, like: torch.Tensor) -> torch.Tensor:
+        """A receive block: page-locked when staged, else beside
+        ``like``."""
+        if self.staged:
+            return _pinned("recv", tuple(shape), dtype)
+        return like.new_empty(shape)
 
     def _in(self, t: torch.Tensor, dtype, device=None) -> torch.Tensor:
         """A received block back on ``device`` (default: the group's) in
@@ -195,6 +231,8 @@ class ProcessWorkers(WorkerGroup):
             t = t.to(device)
             torch.cuda.current_stream(device).synchronize()
             self._staging += time.perf_counter() - t0
+        elif self.staged:
+            t = t.clone()                 # off the reused host buffers
         return t.view(torch.bool) if dtype == torch.bool else t
 
     def _run(self, kind: str, fn, x: torch.Tensor, sent: int):
@@ -211,6 +249,11 @@ class ProcessWorkers(WorkerGroup):
         st["staging_s"] += self._staging
         return out
 
+    def _global(self, r: int) -> int:
+        """The world rank of this group's rank ``r``."""
+        return r if self.pg is None else self._dist.get_global_rank(
+            self.pg, r)
+
     def _check(self, x: torch.Tensor) -> None:
         if x.shape[0] != 1:
             raise ValueError(f"a process holds one worker's block: leading "
@@ -221,9 +264,10 @@ class ProcessWorkers(WorkerGroup):
 
         def go(x):
             t = self._out(x[0])
-            parts = [torch.empty_like(t) for _ in range(self.world)]
-            self._dist.all_gather(parts, t)
-            return self._in(torch.cat(parts, dim=0), x.dtype)[None]
+            got = self._recv((self.world,) + tuple(t.shape), t.dtype, t)
+            self._dist.all_gather(list(got.unbind(0)), t, group=self.pg)
+            return self._in(got.reshape((-1,) + tuple(t.shape[1:])),
+                            x.dtype)[None]
         return self._run("all_gather", go, x,
                          x[0].nbytes * (self.world - 1))
 
@@ -235,8 +279,8 @@ class ProcessWorkers(WorkerGroup):
 
         def go(x):
             t = self._out(x[0])
-            out = torch.empty_like(t)
-            self._dist.all_to_all_single(out, t)
+            out = self._recv(t.shape, t.dtype, t)
+            self._dist.all_to_all_single(out, t, group=self.pg)
             return self._in(out, x.dtype)[None]
         return self._run("all_to_all", go, x,
                          x[0].nbytes * (self.world - 1) // self.world)
@@ -256,12 +300,13 @@ class ProcessWorkers(WorkerGroup):
             ops = []
             if dst:
                 ops.append(self._dist.P2POp(self._dist.isend, self._out(x[0]),
-                                            dst[0]))
+                                            self._global(dst[0]), self.pg))
             if src:
                 buf = torch.empty(
                     x.shape[1:], device="cpu" if self.staged else x.device,
                     dtype=torch.uint8 if x.dtype == torch.bool else x.dtype)
-                ops.append(self._dist.P2POp(self._dist.irecv, buf, src[0]))
+                ops.append(self._dist.P2POp(self._dist.irecv, buf,
+                                            self._global(src[0]), self.pg))
             for req in (self._dist.batch_isend_irecv(ops) if ops else ()):
                 req.wait()
             if src:
@@ -278,8 +323,10 @@ class ProcessWorkers(WorkerGroup):
                else self._dist.ReduceOp.MAX)
 
         def go(x):
-            t = self._out(x[0]).clone()
-            self._dist.all_reduce(t, op=rop)
+            t = self._out(x[0])
+            if not self.staged:            # the staged copy is already new
+                t = t.clone()
+            self._dist.all_reduce(t, op=rop, group=self.pg)
             return self._in(t, x.dtype)[None]
         return self._run("all_reduce", go, x, x[0].nbytes)
 
@@ -287,8 +334,76 @@ class ProcessWorkers(WorkerGroup):
         self._check(x)
 
         def go(x):
-            t = self._out(x[0]).clone()
-            self._dist.broadcast(t, src=0)
+            t = self._out(x[0])
+            if not self.staged:            # the staged copy is already new
+                t = t.clone()
+            self._dist.broadcast(t, src=self._global(0), group=self.pg)
             return self._in(t, x.dtype, x.device)[None]
         sent = x[0].nbytes * (self.world - 1) if self.rank == 0 else 0
         return self._run("broadcast", go, x, sent)
+
+
+# ------------------------------------------------- differentiable forms --
+# The model axis's collectives under autograd.  Each backward is its
+# forward's adjoint, so the gradient that reaches a rank's tensor is the
+# derivative of the SUM of every rank's objective: a replicated loss is
+# seeded 1 / M on each of the M ranks, and a weight every rank holds
+# whole sums its ranks' gradients (``train/fsdp.py``).  Integer blocks
+# (EP's expert ids) take the group's own methods: they carry no gradient.
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group.all_reduce(g.contiguous())
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group, ctx.n = group, x.shape[1]
+        return group.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        grp, n = ctx.group, ctx.n
+        summed = grp.all_reduce(g.contiguous())
+        lead = summed.reshape((grp.local, grp.world, n)
+                              + tuple(summed.shape[2:]))
+        i = torch.arange(grp.local, device=g.device)
+        return None, lead[i, grp.rank + i]
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group.all_to_all(g.contiguous())
+
+
+def sum_over(group: WorkerGroup, x: torch.Tensor) -> torch.Tensor:
+    """``group.all_reduce(x)`` (a partial sum made whole) under autograd:
+    the backward sums the ranks' gradients the same way."""
+    return _Sum.apply(group, x)
+
+
+def gather_over(group: WorkerGroup, x: torch.Tensor) -> torch.Tensor:
+    """``group.all_gather(x)`` (``[L, n, ...] -> [L, W n, ...]``) under
+    autograd: the backward is the reduce-scatter, an ``all_reduce`` of
+    the whole gradient and each worker's slice of it (gloo has no
+    reduce-scatter)."""
+    return _Gather.apply(group, x)
+
+
+def all_to_all_over(group: WorkerGroup, x: torch.Tensor) -> torch.Tensor:
+    """``group.all_to_all(x)`` under autograd: the backward sends each
+    chunk's gradient back the way it came, the same ``all_to_all``."""
+    return _AllToAll.apply(group, x)

@@ -14,9 +14,9 @@ with the reference's defaults;
 the optimizer's schedule; the autotuner's ``TuneCandidate`` and
 ``ModelConfig.with_candidate``; and the roofline constants of the card
 the port runs on (an NVIDIA H100, not the reference's TPU).  The
-shape/mesh configs wait for the dry-run tooling (ROADMAP Queue 1 item
-7.6); the LM's model axis takes its width from the process group
-(``models/layers.py``).
+shape configs wait for the dry-run tooling (ROADMAP Queue 1 item
+7.6); the LM's model and data axes take their widths from the process
+groups (``launch/mesh.py::make_local_mesh``).
 """
 from __future__ import annotations
 
@@ -33,6 +33,9 @@ VALID_CACHE_WIRES = ("dense", "compact")
 VALID_FEATURE_STORES = ("device", "host")
 #: how the workers' gradients are summed (``TrainConfig.grad_sync``)
 GRAD_SYNC_MODES = ("psum", "tree")
+#: ``ModelConfig.remat``: keep every activation, recompute each layer
+#: body in the backward, or keep only its 2-D matrix products' outputs
+REMAT_MODES = ("none", "full", "dots")
 
 # Roofline constants of the card the port runs on: one NVIDIA H100 80GB
 # HBM3 (SXM) at a 700.00 W power limit.  The autotuner's cost model
@@ -76,10 +79,12 @@ class ModelConfig:
 
     Field meanings and defaults match ``repro.core.config.ModelConfig``;
     see the reference for the long-form comments on each cache knob.
-    The reference's ``scan_layers`` and ``remat`` are XLA knobs with no
-    counterpart here: ``DenseLM`` holds one module per layer and keeps
-    its activations (``remat`` comes back with training over the model
-    axis, ROADMAP Queue 1 items 6.4 and 7.4)."""
+    The reference's ``scan_layers`` is an XLA knob with no counterpart
+    here (each layer is its own module); ``remat`` (``none | full |
+    dots``) is ``models/layers.py::maybe_remat``'s activation
+    checkpointing of every layer body, and ``fsdp_params`` puts a
+    parameter's ``data`` dimension of ``zoo.param_pspec`` on the data
+    axis of a training mesh (``train/fsdp.py``)."""
     name: str
     family: str                 # gcn | dense | moe | ssm | hybrid | vlm
                                 # | audio
@@ -134,8 +139,13 @@ class ModelConfig:
     feature_store: str = "device"
     host_gather_depth: int = 2  # host store: 2 overlaps the gather, 1 blocks
     use_flash_attention: bool = False
+    remat: str = "none"         # none | full | dots (maybe_remat)
+    fsdp_params: bool = True    # shard params over the data axis (ZeRO-3)
 
     def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{self.remat!r}")
         if self.cache_rows < 0:
             raise ValueError(f"cache_rows must be >= 0, got {self.cache_rows}")
         object.__setattr__(self, "cache_rows", _round_up_pow2(self.cache_rows))

@@ -1,8 +1,13 @@
 """Worker groups and the process launcher (the counterpart of
 ``repro/launch/mesh.py``'s ``make_mesh`` and ``make_local_mesh``).
 
-* ``make_local_group(w, device)`` is ``make_local_mesh``: the stacked
-  group of ``w`` workers in this process (``--dist none``).
+* ``make_local_group(w, device)``: the stacked group of ``w`` workers
+  in this process (``--dist none``).
+* ``make_local_mesh(n_data, n_model, group)`` is the reference's
+  ``make_local_mesh``: the ``(data, model)`` mesh over the ranks of a
+  joined process group, rank ``r`` at ``(r // n_model, r % n_model)``
+  (row-major, as the reference lays its devices out), with a
+  ``ProcessWorkers`` for each axis (``Mesh``).
 * ``make_group(backend, world, rank, device, init_method)`` joins a
   ``torch.distributed`` process group (``gloo`` or ``nccl``) and returns
   the worker's ``ProcessWorkers``; ``join_from_env`` does so from the
@@ -26,9 +31,10 @@ Rank ``r`` takes ``cuda:r`` when at least ``W`` cards are visible and
 ``--dist nccl`` with fewer cards than workers raises); ``--device cpu``
 keeps every rank on the CPU.  Every entry point here takes the card
 unless its caller names the CPU.  The LM's model axis is such a group
-too: ``serve_lm --dist`` installs it with ``models.layers.set_mesh``.
-``make_production_mesh`` waits for the dry-run tooling (ROADMAP Queue 1
-item 7.6).
+too: ``serve_lm --dist`` installs it with ``models.layers.set_mesh``,
+and ``train_lm --dist`` installs a mesh's model axis there and runs
+FSDP and the gradient sync over its data axis.  ``make_production_mesh``
+waits for the dry-run tooling (ROADMAP Queue 1 item 7.6).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -63,6 +70,58 @@ def make_local_group(n_workers: int = 1, device="cuda") -> StackedGroup:
     card unless ``device`` says otherwise (``resolve_device`` raises where
     no card is present: the group never drops to the CPU on its own)."""
     return StackedGroup(n_workers, resolve_device(device))
+
+
+class Mesh(NamedTuple):
+    """A rank's place on a ``(data, model)`` process mesh: the world
+    group, the data-axis group (the ranks that share this rank's model
+    coordinate) and the model-axis group (those that share its data
+    coordinate), each a ``ProcessWorkers`` with its own counters."""
+    world: ProcessWorkers
+    data: ProcessWorkers
+    model: ProcessWorkers
+
+    @property
+    def shape(self) -> dict:
+        """``{"data": D, "model": M}``, as a jax mesh's ``shape``."""
+        return {"data": self.data.world, "model": self.model.world}
+
+    @property
+    def coords(self):
+        """This rank's ``(data, model)`` coordinate."""
+        return self.data.rank, self.model.rank
+
+    def groups(self):
+        """``{"world", "data", "model"}`` -> the groups (their ``stats``
+        by axis)."""
+        return {"world": self.world, "data": self.data, "model": self.model}
+
+
+def make_local_mesh(n_data: int, n_model: int, group: ProcessWorkers
+                    ) -> Mesh:
+    """The ``(n_data, n_model)`` mesh over the joined world ``group``
+    (``n_data * n_model`` ranks; rank ``r`` at ``(r // n_model, r %
+    n_model)``).  Every rank creates every axis group in the same order
+    (``dist.new_group`` is collective), keeping its own two."""
+    import torch.distributed as dist
+    if n_data < 1 or n_model < 1 or n_data * n_model != group.world:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh needs "
+                         f"{max(n_data, 1) * max(n_model, 1)} ranks, the "
+                         f"group holds {group.world}")
+    dr, mr = divmod(group.rank, n_model)
+    axes = {}
+    for name, n, fixed, lines in (("data", n_data, mr, n_model),
+                                  ("model", n_model, dr, n_data)):
+        for line in range(lines):
+            ranks = ([d * n_model + line for d in range(n_data)]
+                     if name == "data" else
+                     [line * n_model + j for j in range(n_model)])
+            pg = dist.new_group(ranks, backend=group.backend)
+            if line == fixed:
+                axes[name] = ProcessWorkers(group.backend, n,
+                                            dr if name == "data" else mr,
+                                            group.device, pg)
+    return Mesh(group, axes["data"], axes["model"])
 
 
 def check_backend(backend: str, world: int, device) -> None:

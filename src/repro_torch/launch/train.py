@@ -64,9 +64,14 @@ labels the tokens rolled left by one, then the VLM's vision or Whisper's
 frame embeddings as float32 normals from the same generator) through
 ``train/train_loop.py``'s step, with ``--microbatches``; it checkpoints
 the ``TrainState`` in the reference's layout (stacked layers) and ``--resume`` restores one written by either
-package.  It runs in one process: ``--dist`` with an LM arch raises
-(``serve_lm`` runs over the LM's model axis; training over it, with FSDP
-and ``maybe_remat``, is ROADMAP Queue 1 items 6.4 and 7.4).
+package.  ``--dist gloo|nccl --workers W --model-axis M`` trains over a
+``(W / M, M)`` process mesh, rank ``r`` at ``(r // M, r % M)``: the
+reference's sharded step (its dry-run's ``train`` program), with FSDP
+over ``data``, the batch split over ``data``, and the model axis's
+switches of the dry-run, ``--moe gather|ep_a2a``, ``--shard-heads``,
+``--seq-parallel``, ``--attn naive|chunked``, ``--remat
+keep|none|full|dots`` and ``--compress`` (``train/fsdp.py``); rank 0
+logs and writes whole checkpoints, every rank restores its slice.
 ``--device`` is the one flag the reference lacks.
 
 Examples::
@@ -79,6 +84,9 @@ Examples::
         --device cpu --nodes 2000 --steps 6 --feature-store host
     python -m repro_torch.launch.train --arch smollm-135m --smoke \\
         --device cpu --steps 3
+    python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \\
+        --device cpu --dist gloo --workers 4 --model-axis 2 \\
+        --moe ep_a2a --shard-heads --seq-parallel --remat full --steps 3
 """
 from __future__ import annotations
 
@@ -112,6 +120,7 @@ from ..kernels import ops
 from ..models import zoo
 from ..models.gcn import gcn_loss, init_gcn
 from ..train import checkpoint as ckpt
+from ..train.fsdp import ShardPlan
 from ..train.optimizer import adam_update, init_adam
 from ..train.train_loop import (init_state, make_grad_sync, make_step_sync,
                                 make_train_step, module_loss)
@@ -952,55 +961,122 @@ def lm_batch(rng: np.random.Generator, cfg, b: int, s: int, device) -> dict:
     return batch
 
 
-def train_lm(args, step_hook=None) -> dict:
-    """Train an LM arch (``repro``'s ``train_lm`` line for line): the
-    seeded model of ``zoo.build`` on ``--device``, a ``TrainConfig`` of
-    ``--lr``, ``--steps`` and ``--microbatches``, the ``TrainState`` of
-    ``train_loop.init_state`` (the model keeps no weights of its own: it
-    is the step's ``meta`` shell), ``--resume`` from ``--ckpt-dir``,
-    saves every ``--ckpt-every`` steps, the log line every
-    ``--log-every``.  ``step_hook(t)``, when given, runs after step
-    ``t``'s loss reached the host.  Returns ``{"losses", "wall_s"}``."""
+def data_rows(batch: dict, cfg, mesh) -> dict:
+    """A data rank's rows of a global LM batch (``zoo.batch_pspecs``: the
+    leading axis split over ``data`` where it divides, else whole)."""
+    if mesh is None:
+        return batch
+    specs = zoo.batch_pspecs(cfg, {k: v.shape for k, v in batch.items()},
+                             mesh.shape)
+    d, r = mesh.data.world, mesh.data.rank
+    return {k: (v[r * (v.shape[0] // d):(r + 1) * (v.shape[0] // d)]
+                if specs[k][0] else v) for k, v in batch.items()}
+
+
+def lm_mesh(args, group):
+    """``(mesh, lm_config)`` of a ``train_lm`` run: the ``(W / M, M)``
+    mesh over ``group`` (None in one process) and the arch's config with
+    ``--smoke`` and ``--remat`` applied."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    dev = resolve_device(args.device)
-    api = zoo.build(cfg, dev)
+    if args.remat != "keep":
+        cfg = dataclasses.replace(cfg, remat=args.remat)
+    if group is None:
+        if args.model_axis != 1:
+            raise ValueError(f"--model-axis {args.model_axis} needs one "
+                             f"process per rank: --dist gloo|nccl")
+        return None, cfg
+    return mesh.make_local_mesh(group.world // args.model_axis,
+                                args.model_axis, group), cfg
+
+
+def lm_settings(args, lmesh, cfg):
+    """``zoo.settings`` of a ``train_lm`` run: the mesh's model axis, the
+    flags' switches, and the data axis where the batch splits over it
+    (the MoE's gather path then dispatches the global batch)."""
+    split = lmesh is not None and zoo.batch_pspecs(
+        cfg, {"tokens": (args.lm_batch, args.lm_seq)},
+        lmesh.shape)["tokens"][0]
+    return zoo.settings(None if lmesh is None else lmesh.model,
+                        moe_impl=args.moe, shard_heads=args.shard_heads,
+                        seq_parallel=args.seq_parallel, attn_impl=args.attn,
+                        data=lmesh.data if split else None)
+
+
+def train_lm(args, step_hook=None, group: WorkerGroup = None,
+             state_hook=None) -> dict:
+    """Train an LM arch (``repro``'s ``train_lm`` line for line): the
+    seeded model of ``zoo.build`` on ``--device``, a ``TrainConfig`` of
+    ``--lr``, ``--steps``, ``--microbatches`` and ``--compress``, the
+    ``TrainState`` of ``train_loop.init_state`` (the model keeps no
+    weights of its own: it is the step's ``meta`` shell), ``--resume``
+    from ``--ckpt-dir``, saves every ``--ckpt-every`` steps, the log line
+    every ``--log-every``.  With ``group`` (a rank of ``--dist``) it
+    trains over the ``(W / M, M)`` mesh (module docstring): the model
+    built as the model rank's shard under the switches, the state as the
+    rank's slices (``fsdp.ShardPlan``), each step on the data rank's rows
+    of the seeded global batch.  ``step_hook(t)``, when given, runs after
+    step ``t``'s loss reached the host, ``state_hook(t, state)`` with the
+    state after it.  Returns ``{"losses", "wall_s"}`` (the reference's),
+    on a mesh also ``grad_norms``, the last ``state``, its ``layout``
+    and ``plan``."""
+    lmesh, cfg = lm_mesh(args, group)
+    dev = resolve_device(args.device) if group is None else group.device
+    lead = group is None or group.lead
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
-                       microbatches=args.microbatches)
-    model = api.init(args.seed)
-    params, layout = lm_leaves(model)
-    state = init_state(params, tcfg, layout)
-    del params
-    model.to_empty(device="meta")
-    step = make_train_step(module_loss(model, api.loss, layout.names), tcfg,
-                           layout)
-
-    start = 0
-    if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
-        start = ckpt.latest_step(args.ckpt_dir)
-        state = ckpt.restore_lm_state(args.ckpt_dir, start, state, layout)
-        print(f"resumed from step {start}")
-
-    rng = np.random.default_rng(args.seed)
+                       microbatches=args.microbatches,
+                       compress_grads=args.compress)
     b, s = args.lm_batch, args.lm_seq
-    losses = []
-    t0 = time.perf_counter()
-    for t in range(start, args.steps):
-        batch = lm_batch(rng, cfg, b, s, dev)
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
-        if step_hook is not None:
-            step_hook(t)
-        if (t + 1) % args.ckpt_every == 0:
-            ckpt.save_lm_state(args.ckpt_dir, t + 1, state, layout,
-                               keep=tcfg.keep_checkpoints)
-        if (t + 1) % args.log_every == 0:
-            print(f"step {t+1}: loss={losses[-1]:.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f}")
+    with lm_settings(args, lmesh, cfg):
+        api = zoo.build(cfg, dev)
+        model = api.init(args.seed)
+        params, layout = lm_leaves(model)
+        plan = None if lmesh is None else ShardPlan(layout, lmesh,
+                                                    cfg.fsdp_params)
+        state = init_state(params, tcfg, layout, plan)
+        del params
+        model.to_empty(device="meta")
+        loss_fn = module_loss(model, api.loss, layout.names)
+        step = (make_train_step(loss_fn, tcfg, layout) if plan is None
+                else make_train_step(loss_fn, tcfg, layout, mesh=plan))
+
+        start = 0
+        if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
+            start = ckpt.latest_step(args.ckpt_dir)
+            state = ckpt.restore_lm_state(args.ckpt_dir, start, state,
+                                          layout, mesh=plan)
+            if lead:
+                print(f"resumed from step {start}")
+
+        rng = np.random.default_rng(args.seed)
+        losses, norms = [], []
+        t0 = time.perf_counter()
+        for t in range(start, args.steps):
+            batch = data_rows(lm_batch(rng, cfg, b, s, dev), cfg, lmesh)
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            if step_hook is not None:
+                step_hook(t)
+            if state_hook is not None:
+                state_hook(t, state)
+            if (t + 1) % args.ckpt_every == 0:
+                ckpt.save_lm_state(args.ckpt_dir, t + 1, state, layout,
+                                   mesh=plan, keep=tcfg.keep_checkpoints)
+            if (t + 1) % args.log_every == 0 and lead:
+                print(f"step {t+1}: loss={losses[-1]:.4f} "
+                      f"gnorm={norms[-1]:.3f}")
     dt = time.perf_counter() - t0
-    print(f"trained {args.steps - start} steps in {dt:.1f}s")
-    return {"losses": losses, "wall_s": dt}
+    if lead:
+        print(f"trained {args.steps - start} steps in {dt:.1f}s"
+              + ("" if lmesh is None else
+                 f" over a ({lmesh.data.world}, {lmesh.model.world}) "
+                 f"mesh"))
+    out = {"losses": losses, "wall_s": dt}
+    if plan is not None:
+        out.update(grad_norms=norms, state=state, layout=layout, plan=plan)
+    return out
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -1099,6 +1175,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lm-batch", type=int, default=4)
     ap.add_argument("--lm-seq", type=int, default=64)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="LM archs under --dist: the mesh's model axis M "
+                         "(the data axis is --workers / M)")
+    ap.add_argument("--moe", default="gather", choices=["gather", "ep_a2a"],
+                    help="LM archs: the MoE dispatch over the model axis")
+    ap.add_argument("--shard-heads", action="store_true",
+                    help="LM archs: split attention heads over the model "
+                         "axis")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="LM archs: keep a rank's slice of the sequence "
+                         "between blocks")
+    ap.add_argument("--attn", default="naive", choices=["naive", "chunked"],
+                    help="LM archs: the plain attention's form")
+    ap.add_argument("--remat", default="keep",
+                    choices=["keep", "none", "full", "dots"],
+                    help="LM archs: recompute layer bodies in the backward "
+                         "(keep: the config's own)")
+    ap.add_argument("--compress", action="store_true",
+                    help="LM archs: int8 error-feedback gradient "
+                         "compression")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -1122,21 +1218,23 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     """CLI entry: train a GCN arch (``--offline``: through the GraphGen
-    baseline) or an LM arch (``train_lm``, one process: ``--dist`` raises
-    ``NotImplementedError``).  With ``--dist gloo|nccl`` it spawns
-    the ``--workers`` ranks (``launch/mesh.py``) and exits non-zero if
-    any fails or outlives ``--dist-timeout``; a rank (or a ``torchrun``
+    baseline) or an LM arch (``train_lm``; with ``--dist`` over a
+    ``(W / M, M)`` mesh, ``M = --model-axis``, which must divide
+    ``--workers``).  With ``--dist gloo|nccl`` it spawns the
+    ``--workers`` ranks (``launch/mesh.py``) and exits non-zero if any
+    fails or outlives ``--dist-timeout``; a rank (or a ``torchrun``
     worker) joins the group and trains."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if get_config(args.arch).family != "gcn":
-        if args.dist != "none":
-            raise NotImplementedError(
-                f"--dist {args.dist}: train_lm runs in one process only "
-                f"(--dist none); training over the LM's model axis waits "
-                f"for ROADMAP Queue 1 items 6 and 7.4 (6.4: maybe_remat; "
-                f"7.4: train_lm --dist with FSDP); serve_lm --dist runs")
-        train_lm(args)
+        if args.model_axis < 1 or args.workers % args.model_axis:
+            raise ValueError(f"--model-axis {args.model_axis} must divide "
+                             f"--workers {args.workers}")
+        if args.dist == "none":
+            train_lm(args)
+            return
+        mesh.launch_or_join("repro_torch.launch.train", argv, args,
+                            lambda group: train_lm(args, group=group))
         return
     body = offline_gcn if args.offline else train_gcn
     if args.dist == "none":

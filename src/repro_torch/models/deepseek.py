@@ -209,11 +209,14 @@ class DeepSeekLM(nn.Module):
         b, s = tokens.shape
         x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        cfg = self.cfg
+
+        def body(x, blk):
+            x = x + mla_train(blk.attn, L.rmsnorm(blk.ln1, x, cfg.norm_eps),
+                              cfg, pos)
+            return blk.ffn(x, cfg, s)
         for blk, _, _ in self.blocks():
-            x = x + mla_train(blk.attn, L.rmsnorm(blk.ln1, x,
-                                                  self.cfg.norm_eps),
-                              self.cfg, pos)
-            x = blk.ffn(x, self.cfg, s)
+            x = L.maybe_remat(lambda x, b=blk: body(x, b), cfg)(x)
         return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
                          self.head)
 

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..core.config import ModelConfig, resolve_device
 from . import layers as L
-from .ssm import MambaBlock, dims
+from .ssm import MambaBlock, dims, mamba_body
 from .transformer import Block, kv_cache
 
 
@@ -83,9 +83,8 @@ class Zamba2LM(nn.Module):
             if kind == "attn":
                 x, _ = self.shared(x, cfg, pos)
             else:
-                blk = self.layers[i]
-                x = x + L.seq_apply(lambda z: blk.mamba_train(z, cfg),
-                                    L.rmsnorm(blk.ln, x, cfg.norm_eps), s)
+                x = L.maybe_remat(lambda x, b=self.layers[i]: mamba_body(
+                    b, x, cfg, s), cfg)(x)
         return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), cfg,
                          self.head)
 

@@ -34,17 +34,37 @@ A weight that holds a slice carries ``.shard`` (``Shard``): ``draw``
 draws the whole tensor from the generator and keeps the slice, so a
 rank's init is exactly its slice of the single-process init, one tensor
 at a time, and ``convert`` slices the reference's arrays the same way.
-``maybe_remat`` and training over the model axis are not ported yet
-(ROADMAP Queue 1 items 6.4 and 7.4).
+
+**Training over the model axis.**  The collectives above run under
+autograd (``core.collectives.sum_over``, ``gather_over``,
+``all_to_all_over``), each backward its forward's adjoint: the head sum
+sums the ranks' gradients, ``gather_seq``'s backward is the
+reduce-scatter, a sequence slice's is its zero padding, EP's all-to-all
+sends the gradients back.  So a rank's gradient is the derivative of
+the SUM of the ranks' objectives: ``train/fsdp.py`` seeds the
+replicated loss ``1 / M`` on each rank and sums over the ranks the
+gradient of every weight they all hold whole.  ``set_data_axis(group)``
+installs a training mesh's data axis, whose ranks each hold a slice of
+the batch: the MoE's gather path then dispatches the global batch.
+
+``maybe_remat(fn, cfg)`` (the reference's) checkpoints a layer body
+under autograd: ``cfg.remat == "full"`` recomputes all of it in the
+backward, ``"dots"`` keeps the outputs of its 2-D matrix products
+(``aten.mm``/``aten.addmm``, the counterpart of
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest, batched
+products included.  While a body is recomputed ``recomputing()`` is
+True, so that counters (``moe.tally``) count each dispatch once.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core import collectives as C
 from ..core.config import ModelConfig
 from ..kernels import ops
 
@@ -55,6 +75,9 @@ _NEG = -1e30
 
 # ------------------------------------------------------------ model axis --
 _MESH = None
+#: a training mesh's data axis, where it splits the batch (the MoE's
+#: gather path dispatches the global batch, as the reference's does)
+_DATA = None
 #: split attention heads over the model axis (the reference's variant)
 SHARD_HEADS = False
 #: shard the residual stream's sequence axis over the model axis
@@ -77,6 +100,18 @@ def set_mesh(group) -> None:
 def get_mesh():
     """The installed model-axis group, or None."""
     return _MESH
+
+
+def set_data_axis(group) -> None:
+    """Install the data axis whose ranks each hold a slice of the batch
+    (``ProcessWorkers``), or None."""
+    global _DATA
+    _DATA = group
+
+
+def get_data_axis():
+    """The installed data-axis group, or None."""
+    return _DATA
 
 
 def model_axis():
@@ -180,7 +215,7 @@ def reduce_heads(out: torch.Tensor, split: Optional[HeadSplit]
     ``all_reduce``); the identity for a whole layer."""
     if split is None:
         return out
-    return _axis(split.m, split.r).all_reduce(out[None])[0]
+    return C.sum_over(_axis(split.m, split.r), out[None])[0]
 
 
 def seq_slice(x: torch.Tensor) -> torch.Tensor:
@@ -206,8 +241,8 @@ def gather_seq(x: torch.Tensor, s: int) -> torch.Tensor:
     slice (``S' < s``), else ``x`` itself."""
     if x.shape[1] == s:
         return x
-    got = get_mesh().all_gather(x.transpose(0, 1).contiguous()[None])[0]
-    return got.transpose(0, 1)
+    got = C.gather_over(get_mesh(), x.transpose(0, 1).contiguous()[None])
+    return got[0].transpose(0, 1)
 
 
 def seq_apply(fn, x: torch.Tensor, s: int) -> torch.Tensor:
@@ -216,6 +251,56 @@ def seq_apply(fn, x: torch.Tensor, s: int) -> torch.Tensor:
     if x.shape[1] == s:
         return fn(x)
     return shard_batch(fn(gather_seq(x, s)))
+
+
+# ----------------------------------------------------------------- remat --
+_RECOMPUTING = False
+
+
+def recomputing() -> bool:
+    """True while ``maybe_remat`` recomputes a layer body in the
+    backward."""
+    return _RECOMPUTING
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``"dots"``: keep 2-D matrix products, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` (a layer body of tensors) checkpointed as ``cfg.remat``
+    says (module docstring): ``fn`` itself for ``"none"`` or without
+    autograd, else ``torch.utils.checkpoint.checkpoint`` (non-reentrant;
+    ``"dots"`` with the selective policy).  The recompute runs with
+    ``recomputing()`` True."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        calls = []
+
+        def body(*a):
+            global _RECOMPUTING
+            if not calls:
+                calls.append(1)
+                return fn(*a)
+            saved, _RECOMPUTING = _RECOMPUTING, True
+            try:
+                return fn(*a)
+            finally:
+                _RECOMPUTING = saved
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+    return run
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5

@@ -46,6 +46,18 @@ paths run it:
   sends the rows home.  Overflow past either capacity is dropped, not
   clipped.  Its combine adds a token's k contributions in top-k order,
   as the reference's ``y.at[ftok].add`` does.
+
+Both paths train (``train/fsdp.py``): EP's two float all_to_alls and the
+gather path's all_gather run under autograd, each backward its adjoint
+(the rows' gradients sent back the way they came, the outputs'
+reduce-scattered), the router's gradient reaching it through ``topv``
+on the rank's own tokens and summed over the ranks.  On a training mesh
+whose ranks each hold a slice of the batch (``layers.set_data_axis``)
+the gather path gathers the batch over the data axis first and keeps
+the rank's rows after, so that its capacity and sort see every token,
+as the reference's jit of the global batch does; EP routes each rank's
+own tokens, as the reference's ``shard_map`` does.  A dispatch
+recomputed by ``maybe_remat`` is not tallied again.
 """
 from __future__ import annotations
 
@@ -56,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import collectives as C
 from ..core.config import ModelConfig, resolve_device
 from . import layers as L
 from .transformer import MLP, Attention, kv_cache
@@ -171,8 +184,21 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
             y = y + L.mlp_forward(p.shared, xs)
         return y if sliced else L.gather_seq(y, s)
     if sliced:
-        return L.seq_slice(_moe_gather(p, L.gather_seq(x, s), cfg))
-    return _moe_gather(p, x, cfg)
+        return L.seq_slice(_moe_batch(p, L.gather_seq(x, s), cfg))
+    return _moe_batch(p, x, cfg)
+
+
+def _moe_batch(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``_moe_gather`` over the global batch: where a data axis is
+    installed (each rank holds a slice of the batch) the slices are
+    gathered first and the rank's rows kept after, so the capacity and
+    the sort see every token, as under the reference's sharded jit."""
+    data = L.get_data_axis()
+    if data is None or data.world == 1:
+        return _moe_gather(p, x, cfg)
+    n = x.shape[0]
+    y = _moe_gather(p, C.gather_over(data, x[None])[0], cfg)
+    return y[data.rank * n:(data.rank + 1) * n]
 
 
 def _moe_gather(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -194,7 +220,7 @@ def _moe_gather(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     buf[over[e0:e0 + el], cap - 1] = 0             # the reference's collision
     out = _expert_swiglu(p, buf)
     if sp is not None:
-        out = L._axis(sp.m, sp.r).all_gather(out[None])[0]
+        out = C.gather_over(L._axis(sp.m, sp.r), out[None])[0]
     # sorted -> flat: assignment i of token t sits at t k + i; its weight
     # is zero where it was dropped (the reference reads slot cap - 1 there)
     rank_c = torch.clamp(r.rank, max=cap - 1)
@@ -209,7 +235,7 @@ def _moe_gather(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     for j in range(k):
         y = y + torch.gather(contrib, 1, by_expert[:, j, None, None]
                              .expand(t, 1, d))[:, 0]
-    if _TALLY is not None:
+    if _TALLY is not None and not L.recomputing():
         _TALLY.append(torch.stack([r.keep.sum(), (~r.keep).sum(),
                                    over.sum()]))
     if p.shared is not None:
@@ -267,7 +293,7 @@ def moe_forward_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     send_e[at] = (fe[order[sel]] % el).to(torch.int32)
     send_m = xf.new_zeros((m, cap))
     send_m[at] = 1
-    rx = group.all_to_all(send_x[None])[0].reshape(m * cap, d)
+    rx = C.all_to_all_over(group, send_x[None])[0].reshape(m * cap, d)
     re = group.all_to_all(send_e[None])[0].reshape(m * cap)
     rm = group.all_to_all(send_m[None])[0].reshape(m * cap)
     c2 = max(int(m * cap / el * 2.0) + 8, 8)
@@ -280,7 +306,7 @@ def moe_forward_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     out = _expert_swiglu(p, buf)
     back = xf.new_zeros((m * cap, d))
     back[order2[sel2]] = out[sk2[sel2], slot2[sel2]]
-    home = group.all_to_all(back.reshape(1, m, cap, d))[0]
+    home = C.all_to_all_over(group, back.reshape(1, m, cap, d))[0]
     got = home[dest, torch.clamp(slot, max=cap - 1)] * ok[:, None].to(
         xf.dtype)
     contrib = torch.empty_like(got)
@@ -289,6 +315,8 @@ def moe_forward_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(k):
         y = y + prod[:, j]
+    if L.recomputing():
+        return y.reshape(bl, sl, d)
     if _TALLY is not None:
         dropped = (~ok).sum() + ((sk2 < el) & ~ok2).sum()
         _TALLY.append(torch.stack([t * k - dropped, dropped,
@@ -418,7 +446,8 @@ class Qwen3MoeLM(nn.Module):
         x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in self.layers:
-            x, _ = block(x, self.cfg, pos)
+            x = L.maybe_remat(lambda x, b=block: b(x, self.cfg, pos)[0],
+                              self.cfg)(x)
         return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
                          self.head)
 

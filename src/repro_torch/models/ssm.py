@@ -259,6 +259,16 @@ class MambaBlock(nn.Module):
         return x + h
 
 
+def mamba_body(blk: MambaBlock, x: torch.Tensor, cfg: ModelConfig,
+               s: int) -> torch.Tensor:
+    """One Mamba layer of the full-sequence forward (the reference's
+    ``body``, ``maybe_remat``'s unit): ``x + mamba_train(norm(x))``, the
+    scan over the whole ``s``-token sequence where ``x`` holds a rank's
+    slice of it."""
+    return x + L.seq_apply(lambda z: blk.mamba_train(z, cfg),
+                           L.rmsnorm(blk.ln, x, cfg.norm_eps), s)
+
+
 class Mamba2LM(nn.Module):
     """Token embedding ``tok [V_pad, D]``, ``n_layers`` mamba2 blocks, the
     final norm ``norm_f`` and, with untied embeddings (mamba2-1.3b), the
@@ -289,8 +299,8 @@ class Mamba2LM(nn.Module):
         s = tokens.shape[1]
         x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         for blk in self.layers:
-            x = x + L.seq_apply(lambda z: blk.mamba_train(z, self.cfg),
-                                L.rmsnorm(blk.ln, x, self.cfg.norm_eps), s)
+            x = L.maybe_remat(lambda x, b=blk: mamba_body(b, x, self.cfg, s),
+                              self.cfg)(x)
         return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
                          self.head)
 

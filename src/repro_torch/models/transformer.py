@@ -122,7 +122,8 @@ class DenseLM(nn.Module):
         x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in self.layers:
-            x, _ = block(x, self.cfg, pos)
+            x = L.maybe_remat(lambda x, b=block: b(x, self.cfg, pos)[0],
+                              self.cfg)(x)
         return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
                          self.head)
 

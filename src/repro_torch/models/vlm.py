@@ -95,7 +95,8 @@ class VisionLM(nn.Module):
         ce = cfg.cross_attn_every
         for site, cross in enumerate(self.cross):
             for block in self.layers[site * ce:(site + 1) * ce]:
-                x, _ = block(x, cfg, pos)
+                x = L.maybe_remat(lambda x, b=block: b(x, cfg, pos)[0],
+                                  cfg)(x)
             x = cross(x, cfg, vis, pos)
         return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), cfg,
                          self.head)

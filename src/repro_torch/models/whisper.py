@@ -97,7 +97,9 @@ class WhisperLM(nn.Module):
         pos = torch.arange(t, device=x.device)[None, :].expand(b, t)
         x = L.shard_batch(x)
         for block in self.encoder:
-            x, _ = block(x, self.cfg, pos, causal=False)
+            x = L.maybe_remat(lambda x, b=block: b(x, self.cfg, pos,
+                                                   causal=False)[0],
+                              self.cfg)(x)
         return L.gather_seq(x, t)
 
     def forward_train(self, tokens: torch.Tensor, frames: torch.Tensor
@@ -109,7 +111,8 @@ class WhisperLM(nn.Module):
         x = L.shard_batch(L.embed_tokens(self.tok, tokens))
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in self.decoder:
-            x, _ = block(x, self.cfg, enc, pos)
+            x = L.maybe_remat(lambda x, b=block: b(x, self.cfg, enc, pos)[0],
+                              self.cfg)(x)
         return L.lm_head(self.tok, self.norm_f, L.gather_seq(x, s), self.cfg,
                          self.head)
 

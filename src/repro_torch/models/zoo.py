@@ -10,7 +10,15 @@ reference's four switches for the block: every model that ``build``'s
 ``init`` makes inside it is this rank's shard (the heads under
 ``shard_heads``, the experts where M divides them), drawn tensor by
 tensor as the single process draws them, and its forward and decode run
-the model axis's collectives."""
+the model axis's collectives.
+
+``param_pspec``, ``param_pspecs`` and ``batch_pspecs`` are the
+reference's sharding rules over a ``(data, model)`` mesh, as plain
+tuples (one axis name, a tuple of names, or None per dimension): experts
+over ``model`` and their input over ``data``, a matrix's output over
+``model`` and its input over ``data`` (FSDP), vectors replicated, each
+only where the axis divides the dimension; a batch over the data axes.
+``train/fsdp.py`` stores each leaf's ``data`` dimension sliced."""
 from __future__ import annotations
 
 import contextlib
@@ -63,18 +71,20 @@ class ModelAPI(NamedTuple):
 @contextlib.contextmanager
 def settings(group=None, *, moe_impl: str = "gather",
              shard_heads: bool = False, seq_parallel: bool = False,
-             attn_impl: str = "naive"):
+             attn_impl: str = "naive", data=None):
     """The model axis ``group`` (None: one process) and the reference's
     switches (``moe.set_moe_impl``, ``layers.set_shard_heads``,
     ``set_seq_parallel``, ``set_attn_impl``) inside the block, restored on
-    exit.  Build and run a model inside the same settings."""
+    exit; ``data``, the data axis of a training mesh whose ranks each run
+    a slice of the batch (``layers.set_data_axis``).  Build and run a
+    model inside the same settings."""
     saved = (L.get_mesh(), moe.MOE_IMPL, L.SHARD_HEADS, L.SEQ_PARALLEL,
-             L.ATTN_IMPL)
+             L.ATTN_IMPL, L.get_data_axis())
     setters = (L.set_mesh, moe.set_moe_impl, L.set_shard_heads,
-               L.set_seq_parallel, L.set_attn_impl)
+               L.set_seq_parallel, L.set_attn_impl, L.set_data_axis)
     try:
         for fn, value in zip(setters, (group, moe_impl, shard_heads,
-                                       seq_parallel, attn_impl)):
+                                       seq_parallel, attn_impl, data)):
             fn(value)
         yield
     finally:
@@ -126,3 +136,73 @@ def forward_logits(cfg: ModelConfig, model, batch: dict) -> torch.Tensor:
         if cfg.family == "audio":
             return model.forward_train(batch["tokens"], batch["frames"])
         return model.forward_train(batch["tokens"])
+
+
+# ---------------------------------------------------------- the mesh rules --
+def _axis_size(mesh, name: str) -> int:
+    """The size of axis ``name`` of ``mesh`` (a ``launch.mesh.Mesh`` or a
+    ``{name: size}`` dict); 1 where it has no such axis."""
+    return getattr(mesh, "shape", mesh).get(name, 1)
+
+
+def _dp_names(mesh):
+    shape = getattr(mesh, "shape", mesh)
+    return ("pod", "data") if "pod" in shape else ("data",)
+
+
+def _dp_size(mesh) -> int:
+    n = 1
+    for a in _dp_names(mesh):
+        n *= _axis_size(mesh, a)
+    return n
+
+
+def param_pspec(path: str, shape, mesh, fsdp: bool = True) -> tuple:
+    """The reference's sharding rule for one parameter leaf (``path`` its
+    keys joined by ``/``, ``shape`` the whole, layer-stacked leaf's):
+    expert stacks ``[L?, E, D, F]`` (``wg``/``wu``/``wd`` under ``moe``,
+    3-D or more) put ``E`` over ``model`` and, with ``fsdp``, ``D`` over
+    ``data``; other matrices ``[..., in, out]`` put ``out`` over
+    ``model`` and ``in`` over ``data``; vectors stay replicated; an axis
+    only where it divides the dimension."""
+    m, d = _axis_size(mesh, "model"), _axis_size(mesh, "data")
+    dims = [None] * len(shape)
+    if len(shape) < 2:
+        return tuple(dims)
+    is_expert = (any(k in path for k in ("wg", "wu", "wd"))
+                 and "moe" in path and len(shape) >= 3)
+    if is_expert and shape[-3] % m == 0:
+        dims[-3] = "model"
+        if fsdp and shape[-2] % d == 0:
+            dims[-2] = "data"
+        return tuple(dims)
+    if shape[-1] % m == 0:
+        dims[-1] = "model"
+    if fsdp and shape[-2] % d == 0:
+        dims[-2] = "data"
+    return tuple(dims)
+
+
+def param_pspecs(cfg: ModelConfig, shapes: dict, mesh) -> dict:
+    """``param_pspec`` of every leaf: ``shapes`` maps each reference leaf's
+    path (a tuple of keys, ``convert.LeafLayout.paths``) to its whole
+    shape; ``cfg.fsdp_params`` decides the ``data`` dimensions."""
+    return {path: param_pspec("/".join(path), tuple(shape), mesh,
+                              fsdp=cfg.fsdp_params)
+            for path, shape in shapes.items()}
+
+
+def batch_pspecs(cfg: ModelConfig, shapes: dict, mesh) -> dict:
+    """Each batch input (``{name: shape}``) split over the data axes on
+    its leading (batch) dimension, unless that is 1 or the axes do not
+    divide it (then replicated)."""
+    dp, names = _dp_size(mesh), _dp_names(mesh)
+    # as a PartitionSpec holds it: one axis as its name, two as a tuple
+    axes = names[0] if len(names) == 1 else names
+
+    def one(shape):
+        dims = [None] * len(shape)
+        if shape[0] % dp == 0 and shape[0] > 1:
+            dims[0] = axes
+        return tuple(dims)
+    return {name: one(tuple(shape)) for name, shape in shapes.items()}

@@ -232,23 +232,53 @@ def _lm_like(state: TrainState, layout: LeafLayout) -> TrainState:
 
 
 def save_lm_state(ckpt_dir: str, step: int, state: TrainState,
-                  layout: LeafLayout, *, keep: int = 3) -> str:
+                  layout: LeafLayout, mesh=None, *, keep: int = 3) -> str:
     """Commit an LM ``TrainState`` as the reference's ``train_lm`` saves
     its own: ``.params/...``, ``.opt/.step``, ``.opt/.m/...``,
     ``.opt/.v/...`` and, when compressing, ``.error/...``, each layer kind
-    stacked.  Returns the committed path."""
-    return save(ckpt_dir, step, train_state_to_numpy(state, layout),
-                keep=keep)
+    stacked.  Returns the committed path.  With ``mesh`` (a
+    ``train.fsdp.ShardPlan``) every rank gathers the whole leaves and
+    rank 0 alone writes them (the others return the path it commits)."""
+    tree = train_state_to_numpy(state, layout, mesh)
+    if mesh is not None and not mesh.mesh.world.lead:
+        return os.path.join(ckpt_dir, f"step_{step:010d}")
+    return save(ckpt_dir, step, tree, keep=keep)
+
+
+def _whole_like(state: TrainState, mesh) -> TrainState:
+    """``_lm_like`` of a sharded state: the whole leaves' shapes."""
+    def like():
+        return _nest((lf.path, np.empty(lf.full, np.float32))
+                     for lf in mesh.leaves)
+    return TrainState(params=like(),
+                      opt=AdamState(step=np.zeros((), np.int32), m=like(),
+                                    v=like()),
+                      error=None if state.error is None else like())
 
 
 def restore_lm_state(ckpt_dir: str, step: int, like: TrainState,
-                     layout: LeafLayout) -> TrainState:
-    """The LM ``TrainState`` saved at ``step`` (by either package) in the
-    structure of ``like``, on ``like``'s device; a leaf whose shape
-    differs from ``like``'s raises ``ValueError``."""
+                     layout: LeafLayout, mesh=None) -> TrainState:
+    """The LM ``TrainState`` saved at ``step`` (by either package, from
+    one process or a mesh) in the structure of ``like``, on ``like``'s
+    device; a leaf whose shape differs from ``like``'s raises
+    ``ValueError``.  With ``mesh`` (a ``train.fsdp.ShardPlan``) each rank
+    reads the whole leaves and keeps its slices."""
+    dev = like.params[0].device
+    if mesh is not None:
+        tree = restore(ckpt_dir, step, _whole_like(like, mesh))
+        out = train_state_from_numpy(tree, layout, device=dev, mesh=mesh)
+        for name, a, b in zip(("params", "m", "v"),
+                              (out.params, out.opt.m, out.opt.v),
+                              (like.params, like.opt.m, like.opt.v)):
+            for lf, x, y in zip(mesh.leaves, a, b):
+                if x.shape != y.shape:
+                    raise ValueError(f"checkpoint {name} "
+                                     f"{'/'.join(lf.path)} of shape "
+                                     f"{tuple(x.shape)} does not fit "
+                                     f"{tuple(y.shape)}")
+        return out
     tree = restore(ckpt_dir, step, _lm_like(like, layout))
-    out = train_state_from_numpy(tree, layout,
-                                 device=like.params[0].device)
+    out = train_state_from_numpy(tree, layout, device=dev)
     for name, a, b in zip(("params", "m", "v"),
                           (out.params, out.opt.m, out.opt.v),
                           (like.params, like.opt.m, like.opt.v)):

@@ -17,7 +17,7 @@ differently.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence
 
 import torch
 
@@ -60,35 +60,34 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
-                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """``grads`` scaled so their global norm is at most ``max_norm``, and
-    the norm before clipping."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return [g * scale for g in grads], norm
-
-
 def adam_update(cfg: TrainConfig, params: Sequence[torch.Tensor],
-                grads: Sequence[torch.Tensor], state: AdamState):
-    """One AdamW step: ``(new_params, new_state, grad_norm)``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+                grads: Sequence[torch.Tensor], state: AdamState,
+                norm_fn: Callable = global_norm):
+    """One AdamW step: ``(new_params, new_state, grad_norm)``, the
+    gradients first scaled so that their global norm (``norm_fn``'s) is
+    at most ``cfg.grad_clip``.  Over a training mesh the tensors are the
+    rank's slices and ``norm_fn`` the whole gradient's norm
+    (``fsdp.ShardPlan.global_norm``)."""
+    gnorm = norm_fn(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
     sf = step.to(_F32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=_F32, device=sf.device), sf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=_F32, device=sf.device), sf)
-    # the reference's expressions, op for op, with each temporary reused in
-    # place (the same roundings, half the allocations of a parameter's size)
-    new_m = [(b1 * m).add_((1 - b1) * g.to(_F32))
-             for m, g in zip(state.m, grads)]
-    new_v = [(b2 * v).add_(torch.square(g.to(_F32)).mul_(1 - b2))
-             for v, g in zip(state.v, grads)]
-    new_params = []
-    for p, m, v in zip(params, new_m, new_v):
+    # the reference's expressions, op for op, a leaf at a time (its clipped
+    # gradient a temporary), each temporary reused in place: the same
+    # roundings, a fraction of the allocations of a parameter's size
+    new_params, new_m, new_v = [], [], []
+    for p, g, m, v in zip(params, grads, state.m, state.v):
+        g = (g * scale).to(_F32)
+        new_m.append((b1 * m).add_((1 - b1) * g))
+        new_v.append((b2 * v).add_(torch.square(g).mul_(1 - b2)))
+        del g
         pf = p.detach().to(_F32)
-        upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+        upd = (new_m[-1] / bc1).div_((new_v[-1] / bc2).sqrt_().add_(cfg.eps))
         upd.add_(cfg.weight_decay * pf)
         new_params.append((pf - upd.mul_(lr)).to(p.dtype))
     return new_params, AdamState(step=step, m=new_m, v=new_v), gnorm

@@ -11,8 +11,9 @@
 * The CLI: ``python -m repro_torch.launch.serve ... --dist gloo
   --workers 2`` spawns its ranks, exits 0, and rank 0 alone prints the
   tokens and tok/s.
-* ``--dist none --workers 2`` raises for an LM; ``train_lm --dist``
-  still raises.
+* ``--dist none --workers 2`` raises for an LM; ``train_lm`` refuses a
+  model axis that does not divide its workers, and one without
+  ``--dist``.
 """
 import os
 import subprocess
@@ -93,12 +94,14 @@ def test_serve_lm_dist_cli():
 
 def test_lm_refuses_what_it_cannot_run():
     """``serve_lm --dist none --workers 2`` raises (the model axis needs a
-    process per rank), and ``train_lm --dist`` still raises, naming the
-    ROADMAP items that hold training over the model axis."""
+    process per rank); ``train_lm`` refuses a model axis that does not
+    divide ``--workers`` before it spawns a rank, and ``--model-axis``
+    without ``--dist``."""
+    argv = ["--arch", "smollm-135m", "--smoke", "--device", "cpu"]
     with pytest.raises(ValueError, match="process per rank"):
-        serve.serve_lm(serve.parse_args(
-            ["--arch", "smollm-135m", "--smoke", "--device", "cpu",
-             "--workers", "2"]))
-    with pytest.raises(NotImplementedError, match="items 6 and 7.4"):
-        train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
-                    "--dist", "gloo", "--workers", "2"])
+        serve.serve_lm(serve.parse_args(argv + ["--workers", "2"]))
+    with pytest.raises(ValueError, match="must divide --workers 3"):
+        train.main(argv + ["--dist", "gloo", "--workers", "3",
+                           "--model-axis", "2"])
+    with pytest.raises(ValueError, match="one process per rank"):
+        train.main(argv + ["--workers", "2", "--model-axis", "2"])

@@ -40,8 +40,9 @@ stated:
 * ``quantize``, ``compress_grads`` and ``data/tokens.py`` bit-exact;
   ``nan_guard``; ``train_lm`` of both packages resumed from one step-0
   ``TrainState`` checkpoint that ``repro`` wrote (losses over 4 steps
-  rtol 1e-5), the port's step-4 checkpoint read by ``repro``; ``--dist``
-  refused; and the MoE layer's gradient on the slot ``cap - 1`` hand
+  rtol 1e-5), the port's step-4 checkpoint read by ``repro``; ``--dist
+  gloo --workers 2 --model-axis 2`` logging one process's losses, and
+  ``--model-axis`` without ``--dist`` refused; and the MoE layer's gradient on the slot ``cap - 1`` hand
   case (the overwritten kept row gets none, as under the reference's
   ``.at[].set``).
 """
@@ -49,6 +50,8 @@ import argparse
 import dataclasses
 import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -683,11 +686,27 @@ def test_lm_state_checkpoint_round_trip(tmp_path):
 
 
 def test_train_lm_refuses_dist():
-    """``--dist`` with an LM arch raises (one process only, as
-    ``serve_lm``)."""
-    with pytest.raises(NotImplementedError, match="items 6 and 7.4"):
-        train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
-                    "--steps", "1", "--dist", "gloo"])
+    """``train_lm --dist gloo --workers 2 --model-axis 2`` (the CLI: two
+    gloo ranks on a (1, 2) mesh, every weight whole on both) trains and
+    logs one process's losses, digit for digit; ``--model-axis 2`` with
+    ``--dist none`` is refused."""
+    argv = ["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+            "--steps", "3", "--log-every", "1"]
+    want = [f"step {t + 1}: loss={x:.4f}"
+            for t, x in enumerate(train.train_lm(train.parse_args(argv))
+                                  ["losses"])]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv, "--dist",
+         "gloo", "--workers", "2", "--model-axis", "2"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = [ln.split(" gnorm")[0] for ln in proc.stdout.splitlines()
+           if ln.startswith("step ")]
+    assert got == want
+    assert "over a (1, 2) mesh" in proc.stdout
+    with pytest.raises(ValueError, match="one process per rank"):
+        train.main(argv + ["--workers", "2", "--model-axis", "2"])
 
 
 def test_moe_overflow_hand_case_gradient(f32):
