@@ -6449,6 +6449,241 @@ def tree_leaves(state):
     return list(state)
 
 
+# ------------------------------------------------ dry-run and examples --
+#: the dry-run's memory prediction (arguments + temp) against the card's
+#: max_memory_allocated above the baseline: within this share
+DRYRUN_MEM_RTOL = 0.10
+#: production cells traced on the host: (arch, dryrun.lower_cell keywords)
+DRYRUN_CELLS = (("graphgen-gcn", {}),
+                ("qwen3-moe-30b-a3b", {"moe_impl": "ep_a2a"}))
+
+
+def dryrun_prefill(torch, cfg, kernel, per_forward):
+    """Trace ``cfg``'s prefill at the LM phase's shape with the dry-run
+    at mesh 1 x 1, then run the same forward on the card and hold the
+    prediction to it: ``kernel``'s calls (``per_forward``) against the
+    real launches, the aten FLOPs against ``FlopCounterMode`` of the real
+    forward, the argument bytes against the parameters' and inputs' real
+    bytes (exactly) and arguments + temp against the peak the caching
+    allocator saw above the baseline (within ``DRYRUN_MEM_RTOL``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, trace_analysis
+    from repro_torch.models import zoo
+    shape = ShapeConfig(f"prefill_{PREFILL_B}x{PREFILL_S}", "prefill",
+                        PREFILL_S, PREFILL_B)
+    rec = dryrun.lower_cell(cfg.name, shape.name, mesh=(1, 1), shape=shape,
+                            cfg=cfg)
+    check(rec["status"] == "ok", f"dry-run of {cfg.name}: {rec}")
+    model = zoo.build(cfg, DEVICE).init(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (PREFILL_B,
+                                                         PREFILL_S),
+                                     generator=gen, dtype=torch.int32,
+                                     device=DEVICE)}
+    # a warm forward first: cuBLAS's workspace and the first call's
+    # allocations belong to the baseline, not to the step
+    warm = zoo.forward_logits(cfg, model, batch)
+    del warm
+    torch.cuda.synchronize()
+    real_args = trace_analysis.storage_bytes(
+        (list(model.parameters()) + list(model.buffers()), batch))
+    base = torch.cuda.memory_allocated() - real_args
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits = zoo.forward_logits(cfg, model, batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    del logits
+    with FlopCounterMode(display=False) as fc:
+        zoo.forward_logits(cfg, model, batch)
+    real_flops = fc.get_total_flops()
+    mem = rec["memory"]
+    pred = mem["argument_bytes"] + mem["temp_bytes"]
+    calls = rec["kernels"].get(kernel, {}).get("calls", 0)
+    print(f"[dryrun {cfg.name} prefill {PREFILL_B}x{PREFILL_S}] traced in "
+          f"{rec['t_lower_s']:.2f} s: {kernel} {calls} calls predicted, "
+          f"{launches[kernel]} launched; aten FLOPs {rec['aten_flops']} "
+          f"predicted, {real_flops} counted on the card; argument bytes "
+          f"{mem['argument_bytes']} predicted, {real_args} real; arguments "
+          f"+ temp {pred} B predicted, peak above baseline {peak} B "
+          f"(ratio {pred / peak:.4f}); kernels {rec['kernels']}")
+    check(calls == launches[kernel] == per_forward,
+          f"dry-run {cfg.name}: {calls} {kernel} calls predicted, "
+          f"{launches[kernel]} launched, {per_forward} expected")
+    check(rec["aten_flops"] == real_flops,
+          f"dry-run {cfg.name}: aten FLOPs {rec['aten_flops']} predicted, "
+          f"{real_flops} counted")
+    check(mem["argument_bytes"] == real_args,
+          f"dry-run {cfg.name}: argument bytes {mem['argument_bytes']} "
+          f"predicted, {real_args} real")
+    check(abs(pred / peak - 1) <= DRYRUN_MEM_RTOL,
+          f"dry-run {cfg.name}: arguments + temp {pred} B against a peak of "
+          f"{peak} B")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"t_lower_s": rec["t_lower_s"], "calls": calls,
+            "launches": launches, "aten_flops": rec["aten_flops"],
+            "real_flops": real_flops, "argument_bytes": real_args,
+            "predicted_bytes": pred, "peak_bytes": peak,
+            "memory_ratio": pred / peak, "kernels": rec["kernels"]}
+
+
+def dryrun_gcn_step(torch):
+    """One pipelined step of graphgen-gcn-deep at W = 1 at the train
+    phase's sizes, traced by the dry-run at mesh 1 x 1 and run on the
+    card: the predicted calls of every kernel against the real launches."""
+    from repro_torch.core.pipeline import make_pipelined_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, train
+    from repro_torch.train.optimizer import init_adam
+    arch = "graphgen-gcn-deep"
+    run = train.build_gcn_run(train_args(arch, 1))
+    cfg, b = run["cfg"], run["b"]
+    gen_fn, dev_args, cache = run["gen_fn"], run["device_args"], run["cache"]
+    with torch.no_grad():
+        batch0, cache = gen_fn(dev_args, run["seeds_for"](0),
+                               run["draws"](0, 1, b), cache)
+    model = run["model"]
+    carry = (model, init_adam(model.leaves()), batch0, cache)
+    step = make_pipelined_step(gen_fn, run["train_fn"], cached=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    carry, loss = step(carry, dev_args, run["seeds_for"](1),
+                       run["draws"](1, 1, b))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    rec = dryrun.lower_gcn_cell(
+        {"arch": arch}, arch, False, mesh=(1, 1),
+        n_nodes=dev_args[0].shape[1] - 1, n_edges=dev_args[1].shape[1],
+        seeds=b, dims={k: getattr(cfg, k) for k in dryrun.GCN_DIMS},
+        capacity_slack=run["slack"])
+    calls = {k: r["calls"] for k, r in rec["kernels"].items()}
+    print(f"[dryrun {arch} W=1 pipelined step] traced in "
+          f"{rec['t_lower_s']:.2f} s: predicted calls {calls}, launched "
+          f"{ {k: v for k, v in launches.items() if v} }; loss "
+          f"{float(loss):.4f}")
+    for name in set(calls) | {k for k, v in launches.items() if v}:
+        check(calls.get(name, 0) == launches[name],
+              f"dry-run {arch}: {calls.get(name, 0)} {name} calls "
+              f"predicted, {launches[name]} launched")
+    for name in ("fanout_mean", "fanout_mean_bwd", "cache_probe_tiered"):
+        check(launches[name] > 0, f"dry-run {arch}: {name} never launched")
+    return {"t_lower_s": rec["t_lower_s"], "calls": calls,
+            "launches": launches}
+
+
+def phase_dryrun(torch):
+    """The dry-run (``launch/dryrun.py``) against the card: the smollm and
+    mamba2 prefills and one GCN pipelined step, each traced and then run
+    (``dryrun_prefill``, ``dryrun_gcn_step``); then two production cells
+    traced on the host with their roofline rows (gate: status ok).
+    Returns each check's figures (with its launches)."""
+    from repro_torch.launch import dryrun, roofline
+    t0 = time.perf_counter()
+    out = {"smollm_prefill": dryrun_prefill(torch, lm_config(),
+                                            "flash_attention", 30),
+           "mamba2_prefill": dryrun_prefill(torch, ssm_config(), "ssd_scan",
+                                            48),
+           "gcn_step": dryrun_gcn_step(torch)}
+    for arch, kw in DRYRUN_CELLS:
+        rec = dryrun.lower_cell(arch, "train_4k", **kw)
+        check(rec["status"] == "ok", f"dry-run {arch} train_4k: {rec}")
+        row = roofline.analyse(rec)
+        print(f"[dryrun {arch} train_4k 16x16 {kw}] traced in "
+              f"{rec['t_lower_s']:.2f} s on {rec['trace_device']}; "
+              f"collective bytes {rec['collective_bytes_per_device']}; "
+              f"kernels {rec['kernels']}")
+        print(roofline.markdown_table([row], rec["mesh"]))
+        out[f"{arch} train_4k"] = {k: rec[k] for k in (
+            "t_lower_s", "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "memory", "kernels")}
+        out[f"{arch} train_4k"]["step_bound_s"] = row["step_bound_s"]
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: sum(out[c]["launches"][k] for c in (
+        "smollm_prefill", "mamba2_prefill", "gcn_step"))
+        for k in KERNEL_META if k != "ssd_scan_f32"}
+    return out
+
+
+#: the examples' arch for the LM training example on the card: the SSD
+#: kernel takes head dim 64 only, so the default zamba2 smoke config (16)
+#: is refused there (no fallback); the dense smoke arch runs as it is
+EXAMPLE_TRAIN_ARCH = "smollm-135m"
+
+
+def phase_examples(torch):
+    """Each example's ``main(device="cuda")`` in this process, gated on
+    its own claims: the GCN losses fall, the recovery resumes at the
+    failure's checkpoint on 4 workers and ends at step 40, every served
+    sequence has its tokens, the LM trains its steps on its tokens.
+    Returns per example its figures and launches."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import distributed_pipeline_torch
+    import quickstart_torch
+    import serve_lm_torch
+    import train_lm_smoke_torch
+    from repro_torch.kernels import ops
+    out = {}
+
+    def run(name, fn):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        res["launches"] = ops.launch_counts()
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        print(f"[examples {name}] {res['seconds']:.1f} s, launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }")
+        return res
+
+    qs = run("quickstart", lambda: quickstart_torch.main(device=DEVICE))
+    losses = qs["losses"]
+    check(all(map(math.isfinite, losses)), "quickstart: a loss is not finite")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"quickstart: the loss did not fall: {losses}")
+    check(qs["launches"]["fanout_mean"] == 3 * len(losses),
+          f"quickstart: {qs['launches']['fanout_mean']} fanout_mean launches")
+    dp = run("distributed_pipeline",
+             lambda: distributed_pipeline_torch.main(device=DEVICE))
+    check(dp["resumed_at"] == distributed_pipeline_torch.FAIL_AT
+          and dp["final_workers"] == 4
+          and dp["steps"] == distributed_pipeline_torch.TOTAL,
+          f"distributed_pipeline: resumed at {dp['resumed_at']} on "
+          f"{dp['final_workers']} workers, ended at step {dp['steps']}")
+    dl = dp["losses"]
+    check(sorted(dl) == [10, 20, 30, 40] and dl[40] < dl[10],
+          f"distributed_pipeline: losses {dl}")
+    check(dp["launches"]["cache_probe_compact"] > 0,
+          "distributed_pipeline: the compact probe never launched")
+    sv = run("serve_lm", lambda: serve_lm_torch.main(device=DEVICE))
+    for arch in serve_lm_torch.ARCHS:
+        toks = sv[arch]["tokens"]
+        check(toks.shape == (serve_lm_torch.BATCH, serve_lm_torch.GEN),
+              f"serve_lm {arch}: tokens of shape {toks.shape}")
+    sv = {a: {"tok_s": sv[a]["tok_s"],
+              "sample": sv[a]["tokens"][0][:10].tolist()}
+          for a in serve_lm_torch.ARCHS} | {
+        k: sv[k] for k in ("launches", "seconds")}
+    out["serve_lm"] = sv
+    tl = run("train_lm_smoke", lambda: train_lm_smoke_torch.main(
+        device=DEVICE, arch=EXAMPLE_TRAIN_ARCH))
+    steps = train_lm_smoke_torch.STEPS
+    check(tl["steps"] == steps and tl["tokens"] == steps
+          * train_lm_smoke_torch.B * train_lm_smoke_torch.S
+          and all(map(math.isfinite, tl["losses"])),
+          f"train_lm_smoke: {tl['steps']} steps, {tl['tokens']} tokens, "
+          f"losses {tl['losses']}")
+    out["launches"] = {k: sum(out[e]["launches"][k] for e in (
+        "quickstart", "distributed_pipeline", "serve_lm", "train_lm_smoke"))
+        for k in KERNEL_META if k != "ssd_scan_f32"}
+    return out
+
+
 def phase_timing(torch, serve_res, train_res, launches, qkv, ssd_ins,
                  gather_ins):
     """Per bucket-32 request, on the servers the serve phase built and
@@ -6639,11 +6874,13 @@ def items_timed(torch, items, launches, entries):
 
 def time_kernel(torch, name, inputs, kw, plain_reps=20):
     """Times, error and bound of one kernel at ``inputs`` (``ssd_scan_f32``:
-    ``ssd_scan`` at float32 inputs).  The bound counts each input byte read
-    once and each output byte written once, at the operands' element sizes
-    and the peak rate of their type; for the probes only the rows the hits
-    need are counted (data-dependent)."""
-    from repro_torch.kernels import ops, ref
+    ``ssd_scan`` at float32 inputs).  The bound is the kernel's own
+    ``<kernel>_work`` (the dry-run's count): each input byte read once and
+    each output byte written once, at the operands' element sizes and the
+    peak rate of their type; for the probes only the rows the hits need
+    (data-dependent, counted here from the outputs)."""
+    from repro_torch.kernels import (cache_gather, flash_attention,
+                                     gather_reduce, ops, ref, ssd_scan)
     op = "ssd_scan" if name == "ssd_scan_f32" else name
     kern_fn = getattr(ops, op)
     plain_fn = getattr(ref, op + "_ref")
@@ -6662,8 +6899,8 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         wts = mask.float() / mask.float().sum(1, keepdim=True).clamp(min=1)
         wts = wts[:, None, :].contiguous()
         library = lambda: torch.bmm(wts, x)            # noqa: E731
-        n_bytes = x.numel() * x.element_size() + mask.numel() + m * d * 4
-        n_ops = 2 * m * k * d + m * d
+        n_ops, n_bytes = gather_reduce.fanout_mean_work(m, k, d,
+                                                        x.element_size())
     elif name == "cache_probe_gather":
         keys, rows, ids = inputs
         for a, b in zip(got, want):
@@ -6672,9 +6909,9 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         err = (got[1] - want[1]).abs().max().item()
         r, d = ids.shape[0], rows.shape[1]
         n_hit_rows = int(torch.unique(ids[got[0]]).numel())
-        n_bytes = (r * 4 + keys.numel() * 4 + n_hit_rows * d * 4
-                   + r + r * d * 4)
-        n_ops = r * (2 + kw["assoc"])
+        n_ops, n_bytes = cache_gather.cache_probe_gather_work(
+            r, keys.numel(), d, kw["assoc"], rows.element_size(),
+            hit_rows=n_hit_rows)
     elif name == "fanout_mean_bwd":
         g, mask = inputs
         (m, d), k = g.shape, mask.shape[1]
@@ -6689,9 +6926,8 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         library = lambda: torch.bmm(wts, g3)           # noqa: E731
         # what sets a store-bound kernel's time: a zero_() of its output
         store = torch.empty_like(got)
-        item = g.element_size()
-        n_bytes = m * d * item + m * k + m * k * d * item
-        n_ops = m * k + m * d + m * k * d
+        n_ops, n_bytes = gather_reduce.fanout_mean_bwd_work(
+            m, k, d, g.element_size())
     elif name == "cache_probe_tiered":
         k1, r1, k2, r2, ids = inputs
         for a, b in zip(got, want):
@@ -6702,9 +6938,9 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         src = got[0]
         n_hit_rows = sum(int(torch.unique(ids[src == tier]).numel())
                          for tier in (1, 2))
-        n_bytes = (r * 4 + (k1.numel() + k2.numel()) * 4
-                   + n_hit_rows * d * 4 + r * 4 + r * d * 4)
-        n_ops = r * (4 + kw["l1_assoc"] + kw["l2_assoc"])
+        n_ops, n_bytes = cache_gather.cache_probe_tiered_work(
+            r, k1.numel(), k2.numel(), d, kw["l1_assoc"], kw["l2_assoc"],
+            r2.element_size(), hit_rows=n_hit_rows)
         store = torch.empty_like(got[1])
         n_uniq = int(torch.unique(ids).numel())
         n_hit = int((src > 0).sum())
@@ -6722,11 +6958,8 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         (b, hq, lq, dh), hkv, lk = q.shape, k.shape[1], k.shape[2]
         # visible (row, column) pairs of this run's mask; 2 Dh FLOP for
         # q.k and 2 Dh for p.v on each, at the peak rate of the inputs' type
-        rows = torch.arange(lq, dtype=torch.int64)
-        pairs = (int(torch.clamp(rows + (lk - lq) + 1, 0, lk).sum())
-                 if kw["causal"] else lq * lk)
-        n_ops = 4 * b * hq * dh * pairs
-        n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        n_ops, n_bytes = flash_attention.flash_attention_work(
+            b, hq, lq, lk, dh, hkv, kw["causal"], q.element_size())
         flops = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
         sdpa = torch.nn.functional.scaled_dot_product_attention
         try:
@@ -6748,17 +6981,12 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         check(ok, f"ssd_scan ({x.dtype}) differs from its twin at the "
               f"prefill inputs: max err {err}")
         (b, l, h, p), n = x.shape, bm.shape[-1]
-        q = min(kw["chunk"], l)
-        nc, pairs = l // q, q * (q + 1) // 2
-        # what the function needs: C B^T over the causal pairs once per
-        # (batch, chunk), shared by the heads; per head the decay (exp and
-        # two products) and scores x over the pairs; the inter-chunk
-        # read-out and the state update, 2 P N each per row, after the
-        # first chunk only (the state before it is zero)
-        n_ops = (2 * b * nc * pairs * n + b * h * nc * pairs * (2 * p + 3)
-                 + 2 * b * h * (l - q) * 2 * n * p)
-        n_bytes = (x.element_size() * (2 * x.numel() + bm.numel() + cm.numel())
-                   + 4 * (dt.numel() + a.numel()))
+        # what the function needs (ssd_scan_work): C B^T over the causal
+        # pairs once per (batch, chunk), shared by the heads; per head the
+        # decay and scores x over the pairs; the inter-chunk read-out and
+        # the state update after the first chunk only
+        n_ops, n_bytes = ssd_scan.ssd_scan_work(b, l, h, p, n, kw["chunk"],
+                                                x.element_size())
     elif name == "gather_reduce":
         table, idx, mask = inputs
         ok, err = gather_close(torch, got, want)
@@ -6769,8 +6997,8 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         item = table.element_size()
         n_distinct = int(torch.unique(kept).numel())
         # the rows the kept slots need, once each; ids, mask, output
-        n_bytes = n_distinct * d * item + m * k * 4 + m * k + m * d * item
-        n_ops = kept.numel() * d + m * d
+        n_ops, n_bytes = gather_reduce.gather_reduce_work(
+            m, k, d, n_rows, item, kept=kept.numel(), distinct=n_distinct)
         # what the kernel reads: every kept slot's row, from L2 (the table
         # stays there); and the same ids over a bfloat16 table, cast once
         print(f"[timing gather_reduce] {kept.numel()} kept slots of {m * k}, "
@@ -6805,12 +7033,11 @@ def time_kernel(torch, name, inputs, kw, plain_reps=20):
         err = (got[2] - want[2]).abs().max().item()
         h, w, r = ids.shape
         d = rows.shape[2]
-        n_words, hc = got[0].shape[-1], got[2].shape[-2]
         kept = sum(bin(v & 0xFFFFFFFF).count("1")
                    for v in got[0].reshape(-1).tolist())
-        n_bytes = (ids.numel() * 4 + keys.numel() * 4 + kept * d * 4
-                   + 2 * h * w * n_words * 4 + h * w * hc * d * 4)
-        n_ops = ids.numel() * (2 + kw["assoc"])
+        n_ops, n_bytes = cache_gather.cache_probe_compact_work(
+            h, w, r, keys.shape[1], d, kw["assoc"], kw["hit_cap"],
+            rows.element_size(), kept=kept)
     ms, dev_ms = both_ms(torch, kern)
     plain_ms, plain_dev_ms = both_ms(torch, plain, reps=plain_reps)
     library_ms, library_dev_ms = (None, None) if library is None else \
@@ -6871,6 +7098,10 @@ def main():
     ap.add_argument("--mesh-only", action="store_true",
                     help="stop after the build and the lm mesh phase (a "
                          "first bring-up of the LM's model axis)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="stop after the build, the dryrun and the "
+                         "examples phases (a first bring-up of the "
+                         "dry-run on the card)")
     opts = ap.parse_args()
     # host tensors of 2 MB and more on transparent huge pages (torch's
     # CPU allocator madvises them): a fresh allocation's page faults cost
@@ -6932,6 +7163,14 @@ def main():
     if opts.mesh_only:
         print(json.dumps({"lm_mesh": phase_lm_mesh(torch, smi)}))
         print("[mesh-only] stopping after the lm mesh phase")
+        return
+    if opts.dryrun_only:
+        dry = phase_dryrun(torch)
+        stamp("dryrun")
+        ex = phase_examples(torch)
+        stamp("examples")
+        print(json.dumps({"dryrun": dry, "examples": ex}, default=str))
+        print("[dryrun-only] stopping after the dryrun and examples phases")
         return
     phase_kernels(torch, dev)
     if opts.dist_only:
@@ -6997,6 +7236,10 @@ def main():
     stamp("lm_train_mesh")
     gather = phase_gather_reduce(torch, serve_res)
     stamp("gather_reduce")
+    dry = phase_dryrun(torch)
+    stamp("dryrun")
+    examples = phase_examples(torch)
+    stamp("examples")
     runs = (list(serve_res.values()) + list(train_res.values())
             + list(host_res.values()) + [merge_res]
             + list(offline_res.values()) + [ckpt_res]
@@ -7006,7 +7249,8 @@ def main():
             + [r for arch in ZOO_DEPTH for r in (zoo_res[arch],
                                                  zoo_res[arch]["serve"])]
             + [lm_train[arch] for arch in LM_TRAIN] + [mesh_res]
-            + [train_mesh[arch] for arch in TRAIN_MESH])
+            + [train_mesh[arch] for arch in TRAIN_MESH]
+            + [dry, examples])
     launches = {name: sum(r["launches"].get(name, 0) for r in runs)
                 for name in KERNEL_META}
     # the float32 route of ssd_scan: its launches on the main path (0 in a
@@ -7096,6 +7340,7 @@ def main():
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"lm_mesh": mesh_res}))
     print(json.dumps({"lm_train_mesh": train_mesh}))
+    print(json.dumps({"dryrun": dry, "examples": examples}, default=str))
     # the kernels at the zoo's own layer-0 operands, beside their rows
     for entry in kernels:
         rows = {arch: {k: zoo_res[arch]["kernels"][entry["name"]][k] for k in (

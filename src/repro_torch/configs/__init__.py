@@ -1,7 +1,9 @@
 """Config registry of the port: ``get_config(arch_id)`` and the reduced
 ``smoke_config`` for every arch the reference registers (the GCN archs,
 the dense LMs, the two mixture-of-experts LMs, the Llama-3.2-Vision VLM,
-Whisper, the Mamba-2 SSM and the Zamba2 hybrid)."""
+Whisper, the Mamba-2 SSM and the Zamba2 hybrid); ``ASSIGNED_ARCHS``, the
+LM archs of the dry-run sweep, and ``SUBQUADRATIC``, those that run the
+``long_500k`` shape."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,6 +21,12 @@ REGISTRY: dict[str, ModelConfig] = {
               whisper_small, mamba2_1p3b, zamba2_1p2b, graphgen_gcn,
               graphgen_sage, graphgen_gcn_deep)
 }
+
+#: the LM archs of the dry-run sweep (every registered non-GCN arch)
+ASSIGNED_ARCHS = [n for n, c in REGISTRY.items() if c.family != "gcn"]
+#: archs whose sequence mixing is not quadratic: only they run
+#: ``long_500k``
+SUBQUADRATIC = {"mamba2-1.3b", "zamba2-1.2b"}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -21,6 +21,12 @@ the serving loop's request header rides:
   NCCL takes the device tensors as they are.  Booleans
   travel as their uint8 bytes.
 
+* ``FakeWorkers`` (the dry-run, ``launch/dryrun.py``): one rank of a
+  group whose other ranks do not exist.  Each collective returns an
+  empty block of the shape and dtype the rank would receive and counts
+  what it would move, so one rank's step of a 256-rank mesh traces in
+  one process on fake tensors.
+
 A ``ProcessWorkers`` may span a sub-group of the processes (``pg``: one
 axis of a ``(data, model)`` mesh, ``launch/mesh.py::make_local_mesh``),
 with its own counters.  ``sum_over``, ``gather_over`` and
@@ -46,6 +52,12 @@ from .config import resolve_device
 
 #: ``all_reduce`` operations
 REDUCE_OPS = ("sum", "max")
+#: the collective kinds of the dry-run's record, under the names of
+#: ``repro/launch/hlo_analysis.py``'s ``collective_bytes`` (and
+#: ``broadcast``, which ``lax`` has not); ``reduce-scatter`` stays 0: the
+#: port sums and slices instead (``gather_over``'s backward)
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute", "broadcast")
 #: page-locked host buffers of gloo's staged transport: one for the
 #: block a collective sends (and reduces in place), one for the blocks it
 #: receives; shared by every group of the process, whose collectives run
@@ -341,6 +353,88 @@ class ProcessWorkers(WorkerGroup):
             return self._in(t, x.dtype, x.device)[None]
         sent = x[0].nbytes * (self.world - 1) if self.rank == 0 else 0
         return self._run("broadcast", go, x, sent)
+
+
+def new_tally() -> Dict[str, int]:
+    """Zeroed output bytes per device of every ``COLLECTIVE_KINDS``."""
+    return {k: 0 for k in COLLECTIVE_KINDS}
+
+
+class FakeWorkers(WorkerGroup):
+    """Rank ``rank`` of a group of ``world`` ranks that only this process
+    traces (the dry-run: ``launch/mesh.py::make_production_mesh``).
+
+    Every collective returns an EMPTY block of the shape and dtype the
+    rank would receive (its values are undefined: the dry-run runs on
+    fake tensors, where there are none) and counts the call twice:
+
+    * ``stats``, as ``ProcessWorkers`` counts it: per collective the
+      calls and the bytes this rank's blocks send to other ranks;
+    * ``tally``, the OUTPUT bytes of the rank's block by the kind's name
+      in ``COLLECTIVE_KINDS`` (the convention of the reference's
+      ``collective_bytes``: an all-gather counts its gathered block, a
+      permute its block whether or not this rank sends).  A group of one
+      rank adds nothing there (XLA removes such a collective).
+
+    ``tally`` may be shared by the groups of one mesh (``new_tally``).
+    Nothing is staged and nothing is allocated but the outputs."""
+
+    KINDS = ProcessWorkers.KINDS
+    _HLO = {"all_gather": "all-gather", "all_to_all": "all-to-all",
+            "ppermute": "collective-permute", "all_reduce": "all-reduce",
+            "broadcast": "broadcast"}
+
+    def __init__(self, world: int, rank: int = 0, device="cuda",
+                 tally: Dict[str, int] = None):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not in a group of {world}")
+        self.world, self.rank, self.local = int(world), int(rank), 1
+        self.device = torch.device(device)
+        self.tally = new_tally() if tally is None else tally
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        """Zero ``stats`` (not the shared ``tally``)."""
+        self.stats: Dict[str, Dict[str, int]] = {
+            k: {"calls": 0, "bytes": 0} for k in self.KINDS}
+
+    def _count(self, kind: str, x: torch.Tensor, out_shape, sent: int):
+        if x.shape[0] != 1:
+            raise ValueError(f"a rank holds one worker's block: leading "
+                             f"axis 1, got shape {tuple(x.shape)}")
+        st = self.stats[kind]
+        st["calls"] += 1
+        st["bytes"] += sent
+        out = x.new_empty(out_shape)
+        if self.world > 1:
+            self.tally[self._HLO[kind]] += out[0].nbytes
+        return out
+
+    def all_gather(self, x):
+        shape = (1, self.world * x.shape[1]) + tuple(x.shape[2:])
+        return self._count("all_gather", x, shape,
+                           x[0].nbytes * (self.world - 1))
+
+    def all_to_all(self, x):
+        if x.shape[1] != self.world:
+            raise ValueError(f"all_to_all needs one chunk per worker: "
+                             f"[1, {self.world}, ...], got {tuple(x.shape)}")
+        return self._count("all_to_all", x, x.shape,
+                           x[0].nbytes * (self.world - 1) // self.world)
+
+    def ppermute(self, x, perm):
+        dst = [d for s, d in perm if s == self.rank]
+        sent = x[0].nbytes if dst and dst[0] != self.rank else 0
+        return self._count("ppermute", x, x.shape, sent)
+
+    def all_reduce(self, x, op="sum"):
+        if op not in REDUCE_OPS:
+            raise ValueError(f"op must be one of {REDUCE_OPS}, got {op!r}")
+        return self._count("all_reduce", x, x.shape, x[0].nbytes)
+
+    def broadcast(self, x):
+        sent = x[0].nbytes * (self.world - 1) if self.rank == 0 else 0
+        return self._count("broadcast", x, x.shape, sent)
 
 
 # ------------------------------------------------- differentiable forms --

@@ -13,10 +13,12 @@ vision-token stub and Whisper's encoder depth and audio-frame stub, each
 with the reference's defaults;
 the optimizer's schedule; the autotuner's ``TuneCandidate`` and
 ``ModelConfig.with_candidate``; and the roofline constants of the card
-the port runs on (an NVIDIA H100, not the reference's TPU).  The
-shape configs wait for the dry-run tooling (ROADMAP Queue 1 item
-7.6); the LM's model and data axes take their widths from the process
-groups (``launch/mesh.py::make_local_mesh``).
+the port runs on (an NVIDIA H100, not the reference's TPU); the
+analytic ``ModelConfig.param_count`` and ``active_param_count``, the
+four workload ``SHAPES`` and the production ``MeshConfig`` of the
+dry-run (``launch/dryrun.py``).  The LM's model and data axes of a real
+run take their widths from the process groups
+(``launch/mesh.py::make_local_mesh``).
 """
 from __future__ import annotations
 
@@ -50,6 +52,11 @@ PCIE_BW = 53e9                  # bytes/s host -> device: the pinned L3
 # default backend) share one card, so their all_to_all "wire" is a
 # device-memory copy, not a link between chips; it moves at the HBM rate.
 WIRE_BW = HBM_BW
+# The collective term across cards (the dry-run's production mesh): a
+# 16-rank axis of H100s spans two 8-GPU NVLink nodes, so its slowest hop
+# is the node's 400 Gb/s InfiniBand NIC, one per GPU: 50 GB/s a GPU
+# (data sheet, not measured).
+LINK_BW = 50e9
 
 
 def resolve_device(device) -> torch.device:
@@ -204,6 +211,92 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's
+        ``ModelConfig.param_count``: the 6 N D roofline's N, not an
+        allocation)."""
+        if self.family == "gcn":
+            d, h = self.gcn_in_dim, self.gcn_hidden
+            depth = max(len(self.fanouts), 1)
+            # per conv layer: self + neighbor transforms + bias
+            total = 2 * d * h + h + (depth - 1) * (2 * h * h + h)
+            return total + h * self.n_classes + self.n_classes
+        emb = self.vocab_size * self.d_model
+        out = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        if self.family == "ssm":
+            return emb + out + self.n_layers * _mamba2_layer_params(self)
+        if self.family == "hybrid":
+            # one shared attention + MLP block, whatever its sites
+            attn = _attn_params(self) + _mlp_params(self.d_model, self.d_ff)
+            return (emb + out + self.n_layers * _mamba2_layer_params(self)
+                    + attn)
+        per = _attn_params(self)
+        if self.family == "moe":
+            dense_ff = _mlp_params(
+                self.d_model, self.d_ff if self.d_ff else self.d_ff_expert)
+            moe_ff = ((self.n_experts + self.n_shared_experts)
+                      * _mlp_params(self.d_model, self.d_ff_expert)
+                      + self.d_model * self.n_experts)
+            n_moe = self.n_layers - self.first_dense_layers
+            ff_total = self.first_dense_layers * dense_ff + n_moe * moe_ff
+        else:
+            ff_total = self.n_layers * _mlp_params(self.d_model, self.d_ff)
+        total = emb + out + self.n_layers * per + ff_total
+        if self.family == "audio":
+            total += self.n_encoder_layers * (
+                _attn_params(self) + _mlp_params(self.d_model, self.d_ff))
+            total += self.n_layers * _attn_params(self)  # decoder cross-attn
+        if self.family == "vlm":
+            n_cross = self.n_layers // max(self.cross_attn_every, 1)
+            total += n_cross * _attn_params(self)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (``param_count`` but for the
+        MoE, which counts its top-k and shared experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        emb = self.vocab_size * self.d_model
+        out = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        active_ff = ((self.top_k + self.n_shared_experts)
+                     * _mlp_params(self.d_model, self.d_ff_expert)
+                     + self.d_model * self.n_experts)
+        dense_ff = _mlp_params(self.d_model,
+                               self.d_ff if self.d_ff else self.d_ff_expert)
+        n_moe = self.n_layers - self.first_dense_layers
+        return (emb + out + self.n_layers * _attn_params(self)
+                + self.first_dense_layers * dense_ff + n_moe * active_ff)
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    """One attention block's matrices (MLA's latent projections where
+    ``kv_lora_rank`` is set)."""
+    hd = cfg.resolved_head_dim
+    if cfg.kv_lora_rank:
+        q = cfg.d_model * cfg.n_heads * (cfg.qk_rope_head_dim
+                                         + cfg.qk_nope_head_dim)
+        kv = (cfg.d_model * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+              + cfg.kv_lora_rank * cfg.n_heads
+              * (cfg.qk_nope_head_dim + cfg.v_head_dim))
+        return q + kv + cfg.n_heads * cfg.v_head_dim * cfg.d_model
+    return (cfg.d_model * cfg.n_heads * hd + 2 * cfg.d_model * cfg.n_kv_heads
+            * hd + cfg.n_heads * hd * cfg.d_model)
+
+
+def _mlp_params(d_model: int, d_ff: int) -> int:
+    """A SwiGLU MLP's gate, up and down matrices."""
+    return 3 * d_model * d_ff
+
+
+def _mamba2_layer_params(cfg: ModelConfig) -> int:
+    """One Mamba-2 layer: in projection, conv, out projection, and the
+    per-head ``a_log`` and ``dt_bias``."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = cfg.ssm_heads or max(d_in // max(cfg.ssm_head_dim, 1), 1)
+    in_proj = cfg.d_model * (2 * d_in + 2 * cfg.ssm_state + nh)
+    conv = (d_in + 2 * cfg.ssm_state) * cfg.conv_width
+    return in_proj + conv + d_in * cfg.d_model + 2 * nh
+
 
 class TuneCandidate(NamedTuple):
     """One point of the autotuner's joint search space (fields and order
@@ -226,6 +319,41 @@ class ShapeConfig:
     kind: str
     seq_len: int
     global_batch: int
+
+
+#: the four workload shapes of the dry-run sweep (the reference's)
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The production mesh of the dry-run: ``(data 16, model 16)``, or
+    ``(pod 2, data 16, model 16)`` with ``multi_pod``."""
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The grid's shape."""
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The axis names, ``launch/mesh.py::make_production_mesh``'s."""
+        return ("pod", "data", "model") if self.multi_pod \
+            else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        """Ranks in the mesh (the product of ``shape``)."""
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 
 @dataclasses.dataclass(frozen=True)

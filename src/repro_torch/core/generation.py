@@ -895,14 +895,17 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         cand = local_candidates(indptr, indices, frontier, k, offs, e)
         cand = Candidates(ids=cand.ids, keys=torch.where(
             parent_mask[..., None], cand.keys, float("inf")))
+        last = level + 1 == len(fanouts)
         if merge_mode == "reduce_scatter":
             seg = tree_reduce_scatter(cand, merge_topk,
                                       group)               # [L, rows_l, k]
             m = torch.isfinite(seg.keys)
             h = torch.where(m, seg.ids, 0)
             # the next frontier is still global: every worker scans its
-            # local edges against all hop-l nodes
-            h_all, m_all = group.all_gather(h), group.all_gather(m)
+            # local edges against all hop-l nodes (the last hop has no
+            # next one: nothing to gather)
+            if not last:
+                h_all, m_all = group.all_gather(h), group.all_gather(m)
         else:
             merged = tree_allreduce(cand, merge_topk, group)   # [L, F, k]
             m_all = torch.isfinite(merged.keys)
@@ -914,8 +917,9 @@ def _worker_generate(indptr: torch.Tensor, indices: torch.Tensor,
         shape = shape + (k,)
         hops.append(h.reshape((held,) + shape))
         masks.append(m.reshape((held,) + shape))
-        frontier = h_all.reshape(held, -1)
-        parent_mask = m_all.reshape(held, -1)
+        if not last:
+            frontier = h_all.reshape(held, -1)
+            parent_mask = m_all.reshape(held, -1)
         local_rows *= k
     for level in range(1, len(masks)):
         masks[level] = masks[level] & masks[level - 1][..., None]

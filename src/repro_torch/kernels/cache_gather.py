@@ -6,7 +6,12 @@
 
 Each wrapper validates its operands, allocates the outputs, launches on
 PyTorch's current stream, raises on a launch error, and counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``.  ``<kernel>_shapes`` gives each
+kernel's outputs for its operands (the dry-run's fake call) and
+``<kernel>_work`` the work it needs, ``(ops, bytes)``: each input byte
+read once, each output byte written once, and of the cache's rows only
+those the hits need (the bound ``chip_smoke.py`` prints and the
+dry-run's count).
 """
 from __future__ import annotations
 
@@ -39,6 +44,75 @@ def _check_cache(keys: torch.Tensor, rows: torch.Tensor, assoc: int) -> int:
     if keys.dtype != torch.int32:
         raise TypeError(f"keys must be int32, got {keys.dtype}")
     return _shift_for(c // assoc)
+
+
+def cache_probe_gather_shapes(keys: torch.Tensor, rows: torch.Tensor,
+                              ids: torch.Tensor, assoc: int = 1):
+    """The gather probe's outputs: ``hit [R]`` bool, ``out [R, D]``."""
+    r, d = ids.shape[0], rows.shape[1]
+    return (((r,), torch.bool), ((r, d), rows.dtype))
+
+
+def cache_probe_gather_work(r: int, c: int, d: int, assoc: int,
+                            item: int = 4, hit_rows=None):
+    """``(ops, bytes)`` of the gather probe of ``r`` ids against ``c``
+    slots of ``d``-wide rows: a hash, a compare per way and a select per
+    id; ids and keys read, the ``hit_rows`` distinct rows the hits name
+    read once, hit flags and rows written.  ``hit_rows`` depends on the
+    data: None counts the most it can be, ``min(r, c)``."""
+    hit_rows = min(r, c) if hit_rows is None else hit_rows
+    return (r * (2 + assoc),
+            r * 4 + c * 4 + hit_rows * d * item + r + r * d * item)
+
+
+def cache_probe_compact_shapes(keys: torch.Tensor, rows: torch.Tensor,
+                               ids: torch.Tensor, assoc: int = 1,
+                               hit_cap: int = 1):
+    """The compact probe's outputs: ``words``/``raw_words [H, W,
+    ceil(R/32)]`` int32 and ``payload [H, W, min(hit_cap, R), D]``."""
+    h, w, r = ids.shape
+    n_words = -(-r // 32)
+    return (((h, w, n_words), torch.int32), ((h, w, n_words), torch.int32),
+            ((h, w, min(hit_cap, r), rows.shape[2]), rows.dtype))
+
+
+def cache_probe_compact_work(h: int, w: int, r: int, c: int, d: int,
+                             assoc: int, hit_cap: int, item: int = 4,
+                             kept=None):
+    """``(ops, bytes)`` of the compact probe of ``ids [H, W, R]`` against
+    ``H`` holders of ``c`` slots: a hash, a compare per way and a select
+    per id; ids and keys read, the ``kept`` hit rows read once, both
+    bitmaps and the payload written.  ``kept`` (the wire bitmap's set
+    bits) depends on the data: None counts the most it can be, a full
+    payload ``H W min(hit_cap, R)``."""
+    n_words, hc = -(-r // 32), min(hit_cap, r)
+    kept = h * w * hc if kept is None else kept
+    return (h * w * r * (2 + assoc),
+            h * w * r * 4 + h * c * 4 + kept * d * item
+            + 2 * h * w * n_words * 4 + h * w * hc * d * item)
+
+
+def cache_probe_tiered_shapes(l1_keys: torch.Tensor, l1_rows: torch.Tensor,
+                              l2_keys: torch.Tensor, l2_rows: torch.Tensor,
+                              ids: torch.Tensor, l1_assoc: int = 1,
+                              l2_assoc: int = 1):
+    """The tiered probe's outputs: ``src [R]`` int32, ``out [R, D]``."""
+    r, d = ids.shape[0], l2_rows.shape[1]
+    return (((r,), torch.int32), ((r, d), l2_rows.dtype))
+
+
+def cache_probe_tiered_work(r: int, c1: int, c2: int, d: int, l1_assoc: int,
+                            l2_assoc: int, item: int = 4, hit_rows=None):
+    """``(ops, bytes)`` of the tiered probe of ``r`` ids against an L1 of
+    ``c1`` and an L2 of ``c2`` slots: two hashes, a compare per way of
+    each tier and two selects per id; ids and both tiers' keys read, the
+    ``hit_rows`` distinct rows the hits name (both tiers) read once, the
+    tier per id and the rows written.  ``hit_rows`` depends on the data:
+    None counts the most it can be, ``min(r, c1 + c2)``."""
+    hit_rows = min(r, c1 + c2) if hit_rows is None else hit_rows
+    return (r * (4 + l1_assoc + l2_assoc),
+            r * 4 + (c1 + c2) * 4 + hit_rows * d * item + r * 4
+            + r * d * item)
 
 
 def _check_device(*ts: torch.Tensor) -> None:

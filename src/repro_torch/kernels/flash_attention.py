@@ -10,7 +10,9 @@ no layout copy; float32 goes to the SIMT kernel
 operands, allocates the output, launches on PyTorch's current stream,
 raises on a launch error, and counts its launches in
 ``flash_attention_cuda.launches`` and per route in
-``flash_attention_cuda.routes``.
+``flash_attention_cuda.routes``.  ``flash_attention_shapes`` gives its
+output as the route allocates it (the dry-run's fake call) and
+``flash_attention_work`` the work it needs, ``(ops, bytes)``.
 """
 from __future__ import annotations
 
@@ -49,6 +51,40 @@ def check_head_dims(q: torch.Tensor, k: torch.Tensor,
     if len(set(dims)) != 1:
         raise ValueError(f"flash_attention needs one head dim for q, k and "
                          f"v, got {dims[0]}, {dims[1]} and {dims[2]}")
+
+
+def flash_attention_shapes(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool = True):
+    """The output as the route allocates it: bfloat16 a contiguous ``[B,
+    Lq, Hq, Dh]`` seen as ``[B, Hq, Lq, Dh]`` (the permutation is the
+    third item), float32 a contiguous ``[B, Hq, Lq, Dh]``; after the
+    wrapper's shape checks (``ValueError`` where the kernel would
+    refuse)."""
+    _check_shapes(q, k, v, causal)
+    b, hq, lq, dh = q.shape
+    if q.dtype == torch.bfloat16:
+        return (((b, lq, hq, dh), q.dtype, (0, 2, 1, 3)),)
+    return (((b, hq, lq, dh), q.dtype),)
+
+
+def causal_pairs(lq: int, lk: int, causal: bool = True) -> int:
+    """The (query, key) pairs the mask lets through: all ``Lq Lk``, or
+    with ``causal`` (the last query aligned with the last key, ``Lq <=
+    Lk``: ``check_causal``) row ``i`` sees ``i + Lk - Lq + 1`` keys."""
+    if not causal:
+        return lq * lk
+    return lq * (lk - lq + 1) + lq * (lq - 1) // 2
+
+
+def flash_attention_work(b: int, hq: int, lq: int, lk: int, dh: int,
+                         hkv: int, causal: bool = True, item: int = 2):
+    """``(ops, bytes)`` of attention at ``q [B, Hq, Lq, Dh]``, ``k``/``v
+    [B, Hkv, Lk, Dh]``: ``2 Dh`` for q.k and ``2 Dh`` for p.v on each
+    visible pair (``causal_pairs``); q, k and v read and the output
+    written, in ``item``-byte elements."""
+    pairs = causal_pairs(lq, lk, causal)
+    return (4 * b * hq * dh * pairs,
+            2 * (b * hq * lq * dh + b * hkv * lk * dh) * item)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,6 +11,10 @@ kernel's launches.  Each kernel's launch plan is plain Python here
 (``fanout_mean_plan``, ``fanout_mean_bwd_plan``, ``gather_reduce_plan``),
 so the CPU tests hold it.  ``ops.FanoutMean`` ties the first two together
 for autograd; ``gather_reduce`` is forward only, as in the reference.
+``<kernel>_shapes`` gives each kernel's outputs for its operands (the
+dry-run's fake call) and ``<kernel>_work`` the work it needs, ``(ops,
+bytes)``: each input byte read once, each output byte written once
+(the bound ``chip_smoke.py`` prints and the dry-run's count).
 """
 from __future__ import annotations
 
@@ -132,6 +136,53 @@ def gather_reduce_plan(m: int, k: int, d: int, elem_size: int,
     grid = (-(-m // rows), d_blocks)
     smem = 4 * rows * ways * 32 * vec
     return GatherPlan(vec, lanes, ways, rows, grid, smem)
+
+
+def fanout_mean_shapes(x: torch.Tensor, mask: torch.Tensor):
+    """``fanout_mean``'s output for ``x [M, K, D]``: ``[M, D]`` in x's
+    dtype."""
+    return (((x.shape[0], x.shape[2]), x.dtype),)
+
+
+def fanout_mean_work(m: int, k: int, d: int, item: int = 4):
+    """``(ops, bytes)`` of ``fanout_mean`` at ``x [M, K, D]`` of ``item``-
+    byte elements: a multiply-add per element and a division per output;
+    x and the bool mask read, the output written."""
+    return 2 * m * k * d + m * d, m * k * d * item + m * k + m * d * item
+
+
+def fanout_mean_bwd_shapes(g: torch.Tensor, mask: torch.Tensor):
+    """``fanout_mean_bwd``'s output for ``g [M, D]``, ``mask [M, K]``:
+    ``dx [M, K, D]`` in g's dtype."""
+    return (((g.shape[0], mask.shape[1], g.shape[1]), g.dtype),)
+
+
+def fanout_mean_bwd_work(m: int, k: int, d: int, item: int = 4):
+    """``(ops, bytes)`` of ``fanout_mean_bwd`` at ``g [M, D]``, ``mask
+    [M, K]``: the count per mask element, a division per ``g`` element and
+    a product per output; g and the mask read, dx written."""
+    return (m * k + m * d + m * k * d,
+            m * d * item + m * k + m * k * d * item)
+
+
+def gather_reduce_shapes(table: torch.Tensor, idx: torch.Tensor,
+                         mask: torch.Tensor):
+    """``gather_reduce``'s output: ``[M, D]`` in the table's dtype."""
+    return (((idx.shape[0], table.shape[1]), table.dtype),)
+
+
+def gather_reduce_work(m: int, k: int, d: int, n_rows: int, item: int = 4,
+                       kept=None, distinct=None):
+    """``(ops, bytes)`` of ``gather_reduce`` over a table of ``n_rows``
+    rows of ``d`` ``item``-byte elements at ``idx [M, K]``: an add per
+    element of every ``kept`` slot and a division per output; the
+    ``distinct`` rows those slots name read once, ids, mask read and the
+    output written.  Both counts depend on the data: None counts the most
+    they can be (every slot kept, every kept slot its own row)."""
+    kept = m * k if kept is None else kept
+    distinct = min(m * k, n_rows) if distinct is None else distinct
+    return (kept * d + m * d,
+            distinct * d * item + m * k * 4 + m * k + m * d * item)
 
 
 def _check(x: torch.Tensor, mask: torch.Tensor, name: str) -> None:

@@ -40,6 +40,35 @@ def chunk_len(l: int, chunk: int) -> int:
     return q
 
 
+def ssd_scan_shapes(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b_mat: torch.Tensor, c_mat: torch.Tensor,
+                    chunk: int = 128):
+    """The output, a contiguous ``y [B, L, H, P]`` in x's dtype, after the
+    checks of the wrapper that need no data: the shapes, the chunk and
+    the route's dims (``ValueError`` where the kernel would refuse)."""
+    _check_shapes(x, dt, a, b_mat, c_mat)
+    _check_route_dims(x.dtype, x.shape[-1], b_mat.shape[-1],
+                      chunk_len(x.shape[1], chunk))
+    return ((tuple(x.shape), x.dtype),)
+
+
+def ssd_scan_work(b: int, l: int, h: int, p: int, n: int, chunk: int,
+                  item: int = 2):
+    """``(ops, bytes)`` of the scan at ``x [B, L, H, P]``, ``b``/``c
+    [B, L, N]`` (``item``-byte elements; dt and a float32): C B^T over
+    the causal pairs once per (batch, chunk), shared by the heads; per
+    head the decay (exp and two products) and scores x over the pairs;
+    the inter-chunk read-out and the state update, 2 P N each per row,
+    after the first chunk only (the state before it is zero).  x, b and
+    c read, y written, dt and a read."""
+    q = min(chunk, l)
+    nc, pairs = l // q, q * (q + 1) // 2
+    ops = (2 * b * nc * pairs * n + b * h * nc * pairs * (2 * p + 3)
+           + 2 * b * h * (l - q) * 2 * n * p)
+    return ops, (item * (2 * b * l * h * p + 2 * b * l * n)
+                 + 4 * (b * l * h + h))
+
+
 def check_dtypes(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b_mat: torch.Tensor, c_mat: torch.Tensor) -> None:
     """Raise ``TypeError`` unless x, b and c share one dtype, float32 or
@@ -69,6 +98,23 @@ def _check_shapes(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"{tuple(b_mat.shape)}, c {tuple(c_mat.shape)}")
 
 
+def _check_route_dims(dtype, p: int, n: int, q: int) -> None:
+    """Raise ``ValueError`` unless the route of ``dtype`` takes head dim
+    ``p``, state ``n`` and chunk ``q``: bfloat16 (the tensor cores) head
+    dim ``TC_HEAD_DIM``, state and chunk in ``TC_STATES``/``TC_CHUNKS``;
+    float32 (SIMT) chunk, head dim and state up to ``MAX_CHUNK``,
+    ``MAX_HEAD_DIM`` and ``MAX_STATE``."""
+    if dtype == torch.bfloat16:
+        if p != TC_HEAD_DIM or n not in TC_STATES or q not in TC_CHUNKS:
+            raise ValueError(f"the bfloat16 ssd_scan kernel takes head dim "
+                             f"{TC_HEAD_DIM}, state {TC_STATES} and chunk "
+                             f"{TC_CHUNKS}, got {p}, {n} and {q}")
+    elif q > MAX_CHUNK or not 0 < p <= MAX_HEAD_DIM or not 0 < n <= MAX_STATE:
+        raise ValueError(f"the float32 ssd_scan kernel takes chunk <= "
+                         f"{MAX_CHUNK}, head dim <= {MAX_HEAD_DIM} and "
+                         f"state <= {MAX_STATE}, got {q}, {p} and {n}")
+
+
 def _check_tensor_core(x: torch.Tensor, b_mat: torch.Tensor,
                        c_mat: torch.Tensor, q: int) -> None:
     """Raise ``ValueError`` unless the tensor-core kernel takes these
@@ -76,11 +122,7 @@ def _check_tensor_core(x: torch.Tensor, b_mat: torch.Tensor,
     ``TC_STATES`` and ``TC_CHUNKS``, and each of x, b and c a view the
     tensor maps can describe (last dimension contiguous, every other stride
     and the base a multiple of ``TMA_ALIGN`` bytes)."""
-    p, n = x.shape[-1], b_mat.shape[-1]
-    if p != TC_HEAD_DIM or n not in TC_STATES or q not in TC_CHUNKS:
-        raise ValueError(f"the bfloat16 ssd_scan kernel takes head dim "
-                         f"{TC_HEAD_DIM}, state {TC_STATES} and chunk "
-                         f"{TC_CHUNKS}, got {p}, {n} and {q}")
+    _check_route_dims(x.dtype, x.shape[-1], b_mat.shape[-1], q)
     for name, t in (("x", x), ("b", b_mat), ("c", c_mat)):
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan needs {name}'s last dimension to have "
@@ -131,11 +173,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 _build.stream_of(x))
         route = "tensor_core"
     else:
-        if q > MAX_CHUNK or not 0 < p <= MAX_HEAD_DIM \
-                or not 0 < n <= MAX_STATE:
-            raise ValueError(f"the float32 ssd_scan kernel takes chunk <= "
-                             f"{MAX_CHUNK}, head dim <= {MAX_HEAD_DIM} and "
-                             f"state <= {MAX_STATE}, got {q}, {p} and {n}")
+        _check_route_dims(x.dtype, p, n, q)
         x, b_mat, c_mat = x.contiguous(), b_mat.contiguous(), \
             c_mat.contiguous()
         y = torch.empty_like(x)

@@ -33,8 +33,12 @@ keeps every rank on the CPU.  Every entry point here takes the card
 unless its caller names the CPU.  The LM's model axis is such a group
 too: ``serve_lm --dist`` installs it with ``models.layers.set_mesh``,
 and ``train_lm --dist`` installs a mesh's model axis there and runs
-FSDP and the gradient sync over its data axis.  ``make_production_mesh``
-waits for the dry-run tooling (ROADMAP Queue 1 item 7.6).
+FSDP and the gradient sync over its data axis.
+* ``make_production_mesh(multi_pod)`` is the reference's production
+  mesh, ``(data 16, model 16)`` or ``(pod 2, data 16, model 16)``, as
+  one rank of it sees it: a ``Mesh`` of ``FakeWorkers`` at rank 0 for
+  the dry-run's trace (``launch/dryrun.py``); ``make_fake_mesh`` is the
+  same at any shape.
 """
 from __future__ import annotations
 
@@ -49,12 +53,13 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.collectives import ProcessWorkers, StackedGroup
-from ..core.config import resolve_device
+from ..core.collectives import (FakeWorkers, ProcessWorkers, StackedGroup,
+                                WorkerGroup, new_tally)
+from ..core.config import MeshConfig, resolve_device
 
 #: ``--dist`` choices: ``none`` is the stacked group in one process
 DIST_BACKENDS = ("none", "gloo", "nccl")
@@ -76,15 +81,30 @@ class Mesh(NamedTuple):
     """A rank's place on a ``(data, model)`` process mesh: the world
     group, the data-axis group (the ranks that share this rank's model
     coordinate) and the model-axis group (those that share its data
-    coordinate), each a ``ProcessWorkers`` with its own counters."""
-    world: ProcessWorkers
-    data: ProcessWorkers
-    model: ProcessWorkers
+    coordinate), each a ``ProcessWorkers`` with its own counters.  A
+    multi-pod mesh (the dry-run's) also has a ``pod`` axis and ``batch``,
+    the group of the ``(pod, data)`` ranks that share this rank's model
+    coordinate: the batch splits over it and the gradients sum over it,
+    while FSDP stays within ``data``, as the reference's params never
+    shard over ``pod``."""
+    world: WorkerGroup
+    data: WorkerGroup
+    model: WorkerGroup
+    pod: Optional[WorkerGroup] = None
+    batch: Optional[WorkerGroup] = None
 
     @property
     def shape(self) -> dict:
-        """``{"data": D, "model": M}``, as a jax mesh's ``shape``."""
-        return {"data": self.data.world, "model": self.model.world}
+        """``{"data": D, "model": M}`` (``pod`` first where there is one),
+        as a jax mesh's ``shape``."""
+        out = {"data": self.data.world, "model": self.model.world}
+        return out if self.pod is None else {"pod": self.pod.world, **out}
+
+    @property
+    def dp(self) -> WorkerGroup:
+        """The data-parallel group: ``batch`` on a multi-pod mesh, else
+        ``data``."""
+        return self.data if self.batch is None else self.batch
 
     @property
     def coords(self):
@@ -92,9 +112,40 @@ class Mesh(NamedTuple):
         return self.data.rank, self.model.rank
 
     def groups(self):
-        """``{"world", "data", "model"}`` -> the groups (their ``stats``
-        by axis)."""
-        return {"world": self.world, "data": self.data, "model": self.model}
+        """``{"world", "data", "model"}`` (and ``pod``, ``batch`` where
+        they are) -> the groups (their ``stats`` by axis)."""
+        out = {"world": self.world, "data": self.data, "model": self.model}
+        if self.pod is not None:
+            out.update(pod=self.pod, batch=self.batch)
+        return out
+
+
+def make_fake_mesh(n_data: int, n_model: int, n_pod: int = 1,
+                   device="cuda", tally=None) -> Mesh:
+    """Rank 0's view of a ``(pod, data, model)`` mesh of ``n_pod *
+    n_data * n_model`` ranks that only this process traces: every axis a
+    ``FakeWorkers`` adding to one collective ``tally`` (a fresh one where
+    none is given).  The pod axis is there only when ``n_pod > 1``.
+    Nothing is allocated and ``device`` is not checked: the groups'
+    collectives run on fake tensors (the dry-run)."""
+    tally = new_tally() if tally is None else tally
+
+    def fake(n):
+        return FakeWorkers(n, 0, device, tally)
+    mesh = Mesh(fake(n_pod * n_data * n_model), fake(n_data), fake(n_model))
+    if n_pod > 1:
+        mesh = mesh._replace(pod=fake(n_pod), batch=fake(n_pod * n_data))
+    return mesh
+
+
+def make_production_mesh(multi_pod: bool = False, device="cuda",
+                         tally=None) -> Mesh:
+    """The reference's production mesh (``MeshConfig``): ``(data 16,
+    model 16)``, or ``(pod 2, data 16, model 16)`` with ``multi_pod``,
+    as its rank 0 sees it (``make_fake_mesh``)."""
+    shape = MeshConfig(multi_pod).shape
+    return make_fake_mesh(*shape[-2:], n_pod=shape[0] if multi_pod else 1,
+                          device=device, tally=tally)
 
 
 def make_local_mesh(n_data: int, n_model: int, group: ProcessWorkers

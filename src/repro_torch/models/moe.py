@@ -67,6 +67,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
 from ..core import collectives as C
 from ..core.config import ModelConfig, resolve_device
@@ -146,11 +147,29 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    count = torch.bincount(flat_e, minlength=e)
+    count = _counts(flat_e, e)
     first = torch.cumsum(count, 0) - count          # each expert's start
     rank = torch.arange(t * k, device=xf.device) - first[se]
     cap = capacity(t, cfg)
     return Dispatch(topv, topi, order, se, rank, rank < cap, count, cap)
+
+
+def _counts(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(key, minlength=n)`` for keys in ``[0, n)``: int64
+    ``[n]``, as a scatter-add, whose shape (unlike ``bincount``'s) does
+    not depend on the values (the dry-run traces it on fake tensors)."""
+    return torch.zeros(n, dtype=torch.int64, device=key.device).index_add_(
+        0, key.to(torch.int64), torch.ones_like(key, dtype=torch.int64))
+
+
+def _kept(mask: torch.Tensor, bound: int) -> torch.Tensor:
+    """The indices of ``mask``'s set entries.  On a fake or meta mask
+    (the dry-run) they have no values: the dispatch is counted at its
+    static capacity, the first ``min(bound, numel)`` indices, ``bound``
+    being the slots they fill (the reference's own buffer shape)."""
+    if mask.is_meta or is_fake(mask):
+        return torch.nonzero_static(mask, size=min(bound, mask.numel()))[:, 0]
+    return torch.nonzero(mask).squeeze(1)
 
 
 def _expert_swiglu(p, buf: torch.Tensor) -> torch.Tensor:
@@ -213,7 +232,7 @@ def _moe_gather(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     tok = r.order // k                             # sorted -> token
     sp = p.split
     e0, el = (sp.e0, sp.n) if sp else (0, e)
-    kept = torch.nonzero(r.keep & (r.se >= e0) & (r.se < e0 + el)).squeeze(1)
+    kept = _kept(r.keep & (r.se >= e0) & (r.se < e0 + el), el * cap)
     buf = torch.zeros((el, cap, d), dtype=x.dtype, device=x.device)
     buf[r.se[kept] - e0, r.rank[kept]] = xf[tok[kept]]
     over = r.count > cap
@@ -249,7 +268,7 @@ def _sorted_slots(key: torch.Tensor, n_keys: int):
     the reference's ``argsort`` and ``i - searchsorted(sk, sk)``."""
     order = torch.argsort(key, stable=True)
     sk = key[order]
-    count = torch.bincount(key, minlength=n_keys)
+    count = _counts(key, n_keys)
     first = torch.cumsum(count, 0) - count
     return order, sk, torch.arange(key.numel(), device=key.device) - first[sk]
 
@@ -285,7 +304,7 @@ def moe_forward_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cap = max(int(t * k / m * 2.0) + 8, 8)
     order, dest, slot = _sorted_slots(fe // el, m)
     ok = slot < cap
-    sel = torch.nonzero(ok).squeeze(1)
+    sel = _kept(ok, m * cap)
     at = (dest[sel], slot[sel])
     send_x = xf.new_zeros((m, cap, d))
     send_x[at] = xf[order[sel] // k]
@@ -300,7 +319,7 @@ def moe_forward_ep(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     key2 = (re + (1 - rm.to(torch.int32)) * el).to(torch.int64)
     order2, sk2, slot2 = _sorted_slots(key2, el + 1)
     ok2 = (slot2 < c2) & (sk2 < el)
-    sel2 = torch.nonzero(ok2).squeeze(1)
+    sel2 = _kept(ok2, el * c2)
     buf = xf.new_zeros((el, c2, d))
     buf[sk2[sel2], slot2[sel2]] = rx[order2[sel2]]
     out = _expert_swiglu(p, buf)

@@ -12,13 +12,17 @@ reference's four switches for the block: every model that ``build``'s
 tensor as the single process draws them, and its forward and decode run
 the model axis's collectives.
 
-``param_pspec``, ``param_pspecs`` and ``batch_pspecs`` are the
-reference's sharding rules over a ``(data, model)`` mesh, as plain
-tuples (one axis name, a tuple of names, or None per dimension): experts
-over ``model`` and their input over ``data``, a matrix's output over
-``model`` and its input over ``data`` (FSDP), vectors replicated, each
-only where the axis divides the dimension; a batch over the data axes.
-``train/fsdp.py`` stores each leaf's ``data`` dimension sliced."""
+``param_pspec``, ``param_pspecs``, ``cache_pspecs`` and ``batch_pspecs``
+are the reference's sharding rules over a ``(data, model)`` mesh, as
+plain tuples (one axis name, a tuple of names, or None per dimension):
+experts over ``model`` and their input over ``data``, a matrix's output
+over ``model`` and its input over ``data`` (FSDP), vectors replicated,
+each only where the axis divides the dimension; a batch over the data
+axes; a cache's batch over the data axes, else its sequence over
+``data``, and its feature axis over ``model``.  ``train/fsdp.py``
+stores each leaf's ``data`` dimension sliced.  ``input_specs`` and
+``prefill_specs`` are the dry-run's inputs of a workload shape (the
+reference's ``ShapeDtypeStruct`` trees) as ``{name: (shape, dtype)}``."""
 from __future__ import annotations
 
 import contextlib
@@ -26,7 +30,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from ..core.config import ModelConfig, resolve_device
+from ..core.config import ModelConfig, ShapeConfig, resolve_device
 from . import deepseek, gcn, hybrid, moe, ssm, transformer, vlm, whisper
 from . import layers as L
 
@@ -138,6 +142,40 @@ def forward_logits(cfg: ModelConfig, model, batch: dict) -> torch.Tensor:
         return model.forward_train(batch["tokens"])
 
 
+# ------------------------------------------------------------ input specs --
+def _stub_specs(cfg: ModelConfig, b: int) -> dict:
+    """The VLM's ``vision`` or Whisper's ``frames`` stub of a batch of
+    ``b`` (float32), or nothing."""
+    if cfg.family == "vlm":
+        return {"vision": ((b, cfg.n_vision_tokens, cfg.d_vision),
+                           torch.float32)}
+    if cfg.family == "audio":
+        return {"frames": ((b, cfg.n_audio_frames, cfg.d_audio),
+                           torch.float32)}
+    return {}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Every model input of ``shape`` as ``{name: (shape, dtype)}``: a
+    train shape's int32 ``tokens`` and ``labels [B, S]`` (with the
+    stub's embeddings), a decode shape's one new token ``tokens [B, 1]``
+    against a ``seq_len`` cache."""
+    b = shape.global_batch
+    if shape.kind == "train":
+        return {"tokens": ((b, shape.seq_len), torch.int32),
+                "labels": ((b, shape.seq_len), torch.int32),
+                **_stub_specs(cfg, b)}
+    return {"tokens": ((b, 1), torch.int32)}
+
+
+def prefill_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A prefill's inputs (the full-sequence forward, no labels):
+    ``tokens [B, S]`` int32 with the stub's embeddings."""
+    b = shape.global_batch
+    return {"tokens": ((b, shape.seq_len), torch.int32),
+            **_stub_specs(cfg, b)}
+
+
 # ---------------------------------------------------------- the mesh rules --
 def _axis_size(mesh, name: str) -> int:
     """The size of axis ``name`` of ``mesh`` (a ``launch.mesh.Mesh`` or a
@@ -192,13 +230,45 @@ def param_pspecs(cfg: ModelConfig, shapes: dict, mesh) -> dict:
             for path, shape in shapes.items()}
 
 
+def _dp_spec(mesh):
+    """The data axes as a ``PartitionSpec`` holds them: one as its name,
+    two as a tuple."""
+    names = _dp_names(mesh)
+    return names[0] if len(names) == 1 else names
+
+
+def cache_pspec(shape, mesh, batch_axis: int) -> tuple:
+    """The reference's rule for one cache leaf: the feature (last) axis
+    over ``model`` where it divides; the batch axis over the data axes
+    where they divide it and it is more than 1, else (``long_500k``'s
+    batch of 1) the sequence axis after it over ``data`` where that
+    divides it."""
+    m, dp = _axis_size(mesh, "model"), _dp_size(mesh)
+    dims = [None] * len(shape)
+    if shape[-1] % m == 0:
+        dims[-1] = "model"
+    if (batch_axis < len(shape) and shape[batch_axis] % dp == 0
+            and shape[batch_axis] > 1):
+        dims[batch_axis] = _dp_spec(mesh)
+    elif len(shape) >= 3:
+        seq, d = batch_axis + 1, _axis_size(mesh, "data")
+        if dims[seq] is None and shape[seq] % d == 0 and shape[seq] >= d:
+            dims[seq] = "data"
+    return tuple(dims)
+
+
+def cache_pspecs(cfg: ModelConfig, shapes: dict, mesh) -> dict:
+    """``cache_pspec`` of every leaf of a cache (``{name: shape}``, the
+    reference's layout: ``[L, B, ...]``, Whisper's ``enc [B, T, D]``)."""
+    return {name: cache_pspec(tuple(shape), mesh, 0 if name == "enc" else 1)
+            for name, shape in shapes.items()}
+
+
 def batch_pspecs(cfg: ModelConfig, shapes: dict, mesh) -> dict:
     """Each batch input (``{name: shape}``) split over the data axes on
     its leading (batch) dimension, unless that is 1 or the axes do not
     divide it (then replicated)."""
-    dp, names = _dp_size(mesh), _dp_names(mesh)
-    # as a PartitionSpec holds it: one axis as its name, two as a tuple
-    axes = names[0] if len(names) == 1 else names
+    dp, axes = _dp_size(mesh), _dp_spec(mesh)
 
     def one(shape):
         dims = [None] * len(shape)

@@ -37,8 +37,9 @@ backward is its adjoint, so each rank's gradient is its share of the
 derivative of the ranks' summed objectives), and ``reduce`` makes each
 gradient whole and averaged: a leaf whole on the model axis sums its
 gradient over the whole mesh (the model ranks' shares and the data
-ranks' batches at once), a model-split leaf over ``data`` only; both
-are divided by ``D`` and cut to the rank's slice.  gloo has no
+ranks' batches at once), a model-split leaf over ``data`` only (over
+``pod`` and ``data`` on a multi-pod mesh: ``Mesh.dp``); both are divided
+by the data-parallel width and cut to the rank's slice.  gloo has no
 reduce-scatter: an ``all_reduce`` and a slice (an ``all_to_all`` of the
 slices, summed locally, moved half the bytes but took longer on the
 card's host: PERF.md).  ``global_norm`` counts
@@ -177,11 +178,11 @@ class ShardPlan:
         or the host) -> its stored slices of the averaged gradient
         (module docstring); empties ``grads`` as it goes, so one leaf's
         gradient at a time outlives its sum."""
-        mesh, d = self.mesh, self.mesh.data.world
+        mesh, d = self.mesh, self.mesh.dp.world
         out = []
         for lf in self.leaves:
             g = grads.pop(0)
-            group = mesh.world if lf.model_dim is None else mesh.data
+            group = mesh.world if lf.model_dim is None else mesh.dp
             if group.world > 1:
                 g = group.all_reduce(g[None])[0]
             if d > 1:                 # the sum is a fresh tensor
@@ -192,7 +193,7 @@ class ShardPlan:
 
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The global batch's mean loss from each data rank's."""
-        data = self.mesh.data
+        data = self.mesh.dp
         if data.world == 1:
             return loss
         return data.all_reduce(loss.reshape(1, 1))[0, 0] / data.world
